@@ -1,0 +1,95 @@
+"""Paper Table 2 — the simulation-capacity cases (§6.1), for the port.
+
+The sizing is the reference's (``benchmarks/bench_capacity.py``
+``build_case``/``CASES``), copied so the port stands alone; only the
+default mode is built here (no fabric, chaos or telemetry variants).
+
+Case structure (paper's counts; topology interpretation in brackets):
+  1: 1 service × 10³ instances, 10⁵/10⁶ requests → 1 cloudlet per request
+  2: 5×10³/5×10⁴ parallel services (fan-out at generation), 10³ requests
+     → 5×10⁶/5×10⁷ cloudlets
+  3: 10²/10³ services × 3 replicas, 10⁴ requests
+  4: 5×10³ services × 3 replicas, 10³/10⁴ requests
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core import InstanceTemplate, SimCaps, SimParams, Simulation
+from ..core.graph import build_graph
+
+# tag → (n_requests, n_services, replicas, cloudlets_per_request, fanout)
+CASES = {
+    "case1a": (10 ** 5, 1, 1000, 1, 1),
+    "case1b": (10 ** 6, 1, 1000, 1, 1),
+    "case2a": (10 ** 3, 5 * 10 ** 3, 1, 5 * 10 ** 3, 5 * 10 ** 3),
+    "case2b": (10 ** 3, 5 * 10 ** 4, 1, 5 * 10 ** 4, 5 * 10 ** 4),
+    "case3a": (10 ** 4, 10 ** 2, 3, 10 ** 2, 10 ** 2),
+    "case3b": (10 ** 4, 10 ** 3, 3, 10 ** 3, 10 ** 3),
+    "case4a": (10 ** 3, 5 * 10 ** 3, 3, 5 * 10 ** 3, 5 * 10 ** 3),
+    "case4b": (10 ** 4, 5 * 10 ** 3, 3, 5 * 10 ** 3, 5 * 10 ** 3),
+}
+
+
+def flat_services(n: int, mi: float):
+    """n independent services, one API entering all of them (fan-out
+    happens at request generation)."""
+    names = [f"s{i}" for i in range(n)]
+    return build_graph(names, {}, [("api", names[0], 1.0)],
+                       {nm: mi for nm in names}, d_max=1)
+
+
+def build_case(n_requests: int, n_services: int, replicas: int,
+               fanout: int = 1, device="cuda"):
+    """A capacity Simulation sized to the Table 2 object counts; returns
+    (sim, meta) where meta records the sizing decisions."""
+    mi = 50.0
+    graph = flat_services(n_services, mi)
+    api_entries = ([[f"s{i}" for i in range(n_services)]]
+                   if fanout > 1 else None)
+    n_inst = n_services * replicas
+    n_vms = max(n_inst // 64, 4)
+    dt = 0.5
+    fanout = max(fanout, 1)
+    avg_wait_ticks = 4.0 / dt
+
+    # Admission sizing: k_fire (requests admitted per tick) so the active
+    # pool holds ~2 ticks of arrivals with 2× head-room, and enough ticks
+    # to admit everything + drain.
+    target_ticks = 500
+    k_fire = max(int(np.ceil(n_requests / target_ticks)), 1)
+    if 5 * k_fire * fanout > 2 * (1 << 18):
+        k_fire = max(2 * (1 << 18) // (5 * fanout), 1)
+    pool = int(min(max(4 * k_fire * fanout, 1 << 12), 1 << 18))
+    nc = int(min(max(k_fire * avg_wait_ticks, 64), 1 << 16))
+    fire_rate = min(k_fire, nc / avg_wait_ticks)       # requests per tick
+    n_ticks = int(n_requests / fire_rate * 1.25) + 60
+
+    caps = SimCaps(n_clients=nc, max_requests=n_requests + nc + 8,
+                   max_cloudlets=pool, max_instances=n_inst, n_vms=n_vms,
+                   d_max=1, max_replicas=replicas, k_fire=k_fire)
+    params = SimParams(dt=dt, n_ticks=n_ticks, n_clients=nc,
+                       spawn_rate=nc / 5.0, wait_lo=2.0, wait_hi=6.0,
+                       num_limit=n_requests, seed=0)
+    # Instance speed: each tick's per-instance batch drains in ~0.4 ticks.
+    a_i = fire_rate * fanout / n_inst        # cloudlet arrivals/inst/tick
+    mips = max(a_i, 0.4) * mi / (0.4 * dt)
+    tmpl = InstanceTemplate(mips=mips, limit_mips=2 * mips, ram=1.0,
+                            limit_ram=2.0, bw=100.0, replicas=replicas)
+    vm_mips = np.full(n_vms, 2.0 * mips * n_inst / n_vms + 1e4, np.float32)
+    vm_ram = np.full(n_vms, 1e9, np.float32)
+    sim = Simulation(graph, caps=caps, params=params, default_template=tmpl,
+                     vm_mips=vm_mips, vm_ram=vm_ram,
+                     api_entries=api_entries, device=device)
+    meta = dict(n_requests=n_requests, n_services=n_services,
+                replicas=replicas, n_instances=n_inst, n_ticks=n_ticks,
+                pool=pool, k_fire=k_fire, n_clients=nc)
+    return sim, meta
+
+
+def build_tagged(tag: str, scale: float = 1.0, device="cuda"):
+    """The Table 2 case ``tag`` with its request count scaled by
+    ``scale`` (at least 100 requests), as the reference's perf records."""
+    n_requests, n_services, replicas, _, fanout = CASES[tag]
+    n_requests = max(int(n_requests * scale), 100)
+    return build_case(n_requests, n_services, replicas, fanout, device)

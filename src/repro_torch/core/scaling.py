@@ -1,0 +1,213 @@
+"""Service scaling policies (paper §5.3, Algorithms 4–5).
+
+* NS — no scaling (paper §6.4 baseline).
+* HS — horizontal (Alg 4): replicate a hot service onto a VM with
+  head-room; scale-in drains the newest replica of a cold service.
+* VS — vertical (Alg 5): raise/lower the CPU share of hot/cold instances
+  within the requests/limits band, with a per-VM fair-share clamp.
+* HYBRID — HS, then VS.
+
+The reference runs HS as a loop over services with a data-dependent
+``lax.cond`` per service.  Here the loop over services stays sequential in
+Python (each scale-out takes a slot the next one must see), and each
+branch is computed and selected with ``torch.where`` — no value ever comes
+back to the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import random as rnd
+from . import policies
+from .app import AppStatic
+from .pool import add_drop, at
+from .types import (DynParams, INST_DRAIN, INST_FREE, INST_ON, SimCaps,
+                    SimParams, SimState)
+
+i32, f32 = torch.int32, torch.float32
+
+
+def _service_util(state: SimState, n_services: int) -> torch.Tensor:
+    """Mean utilization EMA over the ON replicas of each service."""
+    inst = state.instances
+    on = inst.status == INST_ON
+    sid = torch.where(on, inst.service, -1)
+    z = torch.zeros((n_services,), dtype=f32, device=on.device)
+    tot = add_drop(z, sid, torch.where(on, inst.util_ema, 0.0), sid >= 0)
+    cnt = add_drop(z, sid, on.to(f32), sid >= 0)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ===========================================================================
+# Horizontal scaling (Algorithm 4)
+# ===========================================================================
+
+def horizontal(state: SimState, app: AppStatic, caps: SimCaps,
+               dyn: DynParams) -> SimState:
+    S = app.n_services
+    util = _service_util(state, S)
+    reps = state.sched.svc_replicas
+    want_out = ((util > float(dyn.hs_util_hi)) & (reps >= 1)
+                & (reps < caps.max_replicas))
+    want_in = (util < float(dyn.hs_util_lo)) & (reps > 1)
+    for s in range(S):
+        state = _scale_out(state, s, app, want_out[s])
+        state = _scale_in(state, s, want_in[s])
+    return state
+
+
+def _scale_out(state: SimState, s: int, app: AppStatic,
+               want: torch.Tensor) -> SimState:
+    """Alg 4: create a replica; bind on success, no-op on failure."""
+    inst, vms, sched = state.instances, state.vms, state.sched
+    I = inst.status.shape[0]
+    dev = inst.status.device
+    free_slot = inst.status == INST_FREE
+    slot = torch.argmax(free_slot.to(i32))
+    has_slot = at(free_slot, slot)
+    # VM queue sorted by descending available resources; down hosts are
+    # excluded (all up with faults off).
+    free = torch.where(state.fault.host_up > 0, vms.mips - vms.mips_used,
+                       float("-inf"))
+    vm = torch.argmax(free)
+    need_mips = app.tmpl_mips[s]
+    need_ram = app.tmpl_ram[s]
+    fits = (at(free, vm) >= need_mips) & \
+        (at(vms.ram, vm) - at(vms.ram_used, vm) >= need_ram)
+    do = want & has_slot & fits
+
+    at_slot = do & (torch.arange(I, device=dev) == slot)
+    put = lambda x, v: torch.where(at_slot, v, x)
+    vm32 = vm.to(i32)
+    instances = inst._replace(
+        status=put(inst.status, INST_ON), service=put(inst.service, s),
+        vm=put(inst.vm, vm32), host=put(inst.host, vm32),
+        mips=put(inst.mips, need_mips),
+        limit_mips=put(inst.limit_mips, app.tmpl_limit_mips[s]),
+        request_mips=put(inst.request_mips, need_mips),
+        ram=put(inst.ram, need_ram),
+        limit_ram=put(inst.limit_ram, app.tmpl_limit_ram[s]),
+        bw=put(inst.bw, app.tmpl_bw[s]),
+        util_ema=put(inst.util_ema, 0.5))
+    at_vm = do & (torch.arange(vms.mips.shape[0], device=dev) == vm)
+    vms = vms._replace(
+        mips_used=torch.where(at_vm, vms.mips_used + need_mips,
+                              vms.mips_used),
+        ram_used=torch.where(at_vm, vms.ram_used + need_ram, vms.ram_used))
+    Rm = sched.inst_of_rank.shape[1]
+    rank = sched.svc_replicas[s]
+    cell = do & (torch.arange(Rm, device=dev) == rank)
+    iof = sched.inst_of_rank.clone()
+    iof[s] = torch.where(cell, slot.to(i32), iof[s])
+    reps = sched.svc_replicas.clone()
+    reps[s] = torch.where(do, torch.clamp_max(rank + 1, Rm), rank)
+    counters = state.counters._replace(
+        scale_out=state.counters.scale_out + do.to(i32))
+    return state._replace(
+        instances=instances, vms=vms,
+        sched=sched._replace(inst_of_rank=iof, svc_replicas=reps),
+        counters=counters)
+
+
+def _scale_in(state: SimState, s: int, want: torch.Tensor) -> SimState:
+    """Drain the newest ON replica; the slot frees once its queue empties.
+    When the newest ON replica is not the newest rank, the last rank's
+    entry moves into the vacated rank.  Rank 0 is never drained."""
+    sched, inst = state.sched, state.instances
+    Rm = sched.inst_of_rank.shape[1]
+    I = inst.status.shape[0]
+    dev = inst.status.device
+    idx = torch.arange(Rm, device=dev)
+    slots = sched.inst_of_rank[s]
+    nrep = sched.svc_replicas[s]
+    on = ((idx < nrep) & (slots >= 0)
+          & (inst.status[torch.clamp_min(slots, 0)] == INST_ON))
+    any_on = on.any()
+    rank = torch.where(any_on, Rm - 1 - torch.argmax(on.flip(0).to(i32)), -1)
+    slot = at(slots, torch.clamp_min(rank, 0))
+    ok = want & any_on & (rank >= 1)
+
+    status = torch.where(ok & (torch.arange(I, device=dev) == slot),
+                         INST_DRAIN, inst.status)
+    last = torch.clamp(nrep - 1, 0, Rm - 1)
+    row = torch.where(ok & (idx == rank),
+                      torch.where(rank == last, -1, at(slots, last)), slots)
+    row = torch.where(ok & (idx == last), -1, row)
+    iof = sched.inst_of_rank.clone()
+    iof[s] = row
+    reps = sched.svc_replicas.clone()
+    reps[s] = torch.where(ok, torch.clamp_min(nrep - 1, 0), nrep)
+    counters = state.counters._replace(
+        scale_in=state.counters.scale_in + ok.to(i32))
+    return state._replace(
+        instances=inst._replace(status=status),
+        sched=sched._replace(inst_of_rank=iof, svc_replicas=reps),
+        counters=counters)
+
+
+# ===========================================================================
+# Vertical scaling (Algorithm 5) — vectorized with per-VM fair-share clamp
+# ===========================================================================
+
+def vertical(state: SimState, app: AppStatic, caps: SimCaps,
+             dyn: DynParams) -> SimState:
+    inst, vms = state.instances, state.vms
+    V = vms.mips.shape[0]
+    on = inst.status == INST_ON
+
+    want_up = on & (inst.util_ema > float(dyn.vs_util_hi)) & \
+        (inst.mips < inst.limit_mips)
+    want_down = on & (inst.util_ema < float(dyn.vs_util_lo)) & \
+        (inst.mips > inst.request_mips)
+    target = torch.where(
+        want_up, torch.minimum(inst.mips * float(dyn.vs_up_factor),
+                               inst.limit_mips),
+        torch.where(want_down,
+                    torch.maximum(inst.mips * float(dyn.vs_down_factor),
+                                  inst.request_mips),
+                    inst.mips))
+    delta = target - inst.mips
+    dec = torch.clamp_max(delta, 0.0)
+    inc = torch.clamp_min(delta, 0.0)
+
+    zv = torch.zeros((V,), dtype=f32, device=on.device)
+    vm_ok = inst.vm >= 0
+    dec_per_vm = add_drop(zv, inst.vm, dec, vm_ok)
+    inc_per_vm = add_drop(zv, inst.vm, inc, vm_ok)
+    # Alg 5: release first, then grant the new requests, scaled down per
+    # VM when the combined asks exceed head-room.
+    headroom = vms.mips - (vms.mips_used + dec_per_vm)
+    grant = torch.clamp(headroom / torch.clamp_min(inc_per_vm, 1e-9),
+                        0.0, 1.0)
+    vm_idx = torch.where(vm_ok, inst.vm, V)
+    inc_granted = inc * grant[torch.clamp_max(vm_idx, V - 1)]
+
+    new_mips = rnd.fma32(inc, grant[torch.clamp_max(vm_idx, V - 1)],
+                         inst.mips + dec)
+    applied = dec + inc_granted
+    vms = vms._replace(mips_used=vms.mips_used
+                       + add_drop(zv, inst.vm, applied, vm_ok))
+    counters = state.counters._replace(
+        scale_up=state.counters.scale_up
+        + torch.sum(want_up & (inc_granted > 0), dtype=i32),
+        scale_down=state.counters.scale_down
+        + torch.sum(want_down, dtype=i32))
+    return state._replace(
+        instances=inst._replace(mips=new_mips), vms=vms, counters=counters)
+
+
+# ===========================================================================
+
+def scaling_event(state: SimState, app: AppStatic, caps: SimCaps,
+                  params: SimParams, dyn: DynParams) -> SimState:
+    """Dispatch to the configured policy (paper §6.4: NS / HS / VS)."""
+    if params.scaling_policy == policies.SCALE_NONE:
+        return state
+    if params.scaling_policy == policies.SCALE_HORIZONTAL:
+        return horizontal(state, app, caps, dyn)
+    if params.scaling_policy == policies.SCALE_VERTICAL:
+        return vertical(state, app, caps, dyn)
+    if params.scaling_policy == policies.SCALE_HYBRID:
+        state = horizontal(state, app, caps, dyn)
+        return vertical(state, app, caps, dyn)
+    raise ValueError(f"unknown scaling policy {params.scaling_policy}")

@@ -1,0 +1,396 @@
+"""Cloudlet scheduler phases (paper §4.2) + derivative spawning (§4.1.2),
+for the default mode (uniform network, no faults).
+
+Every tick runs, in order:
+
+  ``gen_spawn``   — new requests fire root cloudlets at API entry services
+  ``dispatch``    — waiting→execution transition with load balancing
+  ``execute``     — time-shared progress + finish detection + usage history
+  ``derive``      — finished cloudlets spawn successors along the DAG
+  ``complete``    — requests whose last cloudlet finished get a response
+
+The paper's waiting/execution/finished queues are status masks on the
+active cloudlet buffer; the finished queue is folded into per-request and
+per-service aggregates.  Spawn waves write the stacked pool with two row
+scatters (``scatter_pool``); the execution phase folds progress plus every
+finish-side reduction into one op (``cloudlet_finish``: the CUDA kernel on
+the card, its plain version on the CPU).
+
+No phase synchronises with the device: no ``.item()``, no boolean-mask
+indexing, no ``nonzero``; every shape is static.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .. import random as rnd
+from ..kernels.cloudlet_step import cloudlet_finish_pool
+from . import policies
+from .app import AppStatic
+from .pool import (add_drop, assign_free_slots, scatter_pool, segment_rank,
+                   segment_sum, set_drop)
+from .types import (CL_EXEC, CL_FREE, CL_WAITING, DynParams, INST_DRAIN,
+                    INST_FREE, INST_ON, SimCaps, SimParams, SimState)
+
+i32, f32 = torch.int32, torch.float32
+
+
+def _sum_i32(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dtype=i32)
+
+
+# ===========================================================================
+# Generation: new requests + root cloudlets (paper Alg 1 + "Dispatching")
+# ===========================================================================
+
+class GenResult(NamedTuple):
+    n_new_requests: torch.Tensor
+
+
+def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
+              fired: torch.Tensor, api: torch.Tensor,
+              wait_proposal: torch.Tensor, rng: torch.Tensor,
+              dyn: DynParams) -> Tuple[SimState, GenResult]:
+    """Allocate request slots for fired clients and spawn root cloudlets."""
+    req, cl, ctr = state.requests, state.cloudlets, state.counters
+    R = req.api.shape[0]
+    dev = fired.device
+    Nc = fired.shape[0]
+    K = caps.k_fire if caps.k_fire > 0 else Nc
+    K = min(K, Nc)
+    E = app.api_entry.shape[1]
+
+    rank = torch.cumsum(fired, 0, dtype=i32) - 1
+    # Admission: per-tick budget AND the generator's numLimit (Alg 1).
+    in_budget = fired & (rank < K) & (req.count + rank < int(dyn.num_limit))
+    slot = req.count + rank
+    has_slot = in_budget & (slot < R)
+    n_accept = _sum_i32(has_slot)
+    n_pool_drop = _sum_i32(in_budget & ~has_slot)
+
+    # Accepted/pool-dropped clients rest; over-budget clients retry next
+    # tick (backpressure); others count down.
+    new_wait = torch.where(
+        in_budget, wait_proposal,
+        torch.where(fired, 0, torch.clamp_min(state.clients.wait - 1, 0)))
+
+    # ---- write accepted requests (a fresh slot still holds its initial
+    # values, so only api and arrival are written) -------------------------
+    requests = req._replace(
+        count=req.count + n_accept,
+        api=set_drop(req.api, slot, api, has_slot),
+        arrival=set_drop(req.arrival, slot, state.time.expand(Nc), has_slot),
+    )
+
+    # ---- root cloudlet descriptors [K, E] in rank order -----------------
+    client_of_rank = set_drop(
+        torch.zeros((K,), dtype=i32, device=dev), rank,
+        torch.arange(Nc, dtype=i32, device=dev), has_slot & (rank < K))
+    ranks = torch.arange(K, dtype=i32, device=dev)
+    r_live = ranks < n_accept
+    api_r = api[client_of_rank]                      # [K]
+    req_slot_r = req.count + ranks                   # [K]
+
+    svc_d = app.api_entry[api_r]                     # [K, E]
+    n_ent = app.api_n_entry[api_r]                   # [K]
+    valid = (r_live[:, None]
+             & (torch.arange(E, device=dev)[None, :] < n_ent[:, None])
+             & (svc_d >= 0)).reshape(-1)
+    svc_flat = svc_d.reshape(-1)
+    req_flat = req_slot_r[:, None].expand(K, E).reshape(-1)
+
+    asg = assign_free_slots(cl.status == CL_FREE, valid)
+    Ka = asg.dst.shape[0]
+    svc_new = svc_flat[asg.src]
+    req_new = torch.clamp_max(req_flat[asg.src], R - 1)
+    noise = rnd.normal(rng, (Ka,), device=dev)
+    length = torch.clamp_min(
+        rnd.fma32(app.len_std[svc_new], noise, app.len_mean[svc_new]), 1.0)
+
+    cloudlets = scatter_pool(
+        cl, asg, status=CL_WAITING, req=req_new, service=svc_new, inst=-1,
+        wait_ticks=0, depth=0, length=length, rem=length,
+        arrival=state.time.expand(Ka), start=-1.0)
+
+    # A request with several entry cloudlets hits its counters repeatedly.
+    requests = requests._replace(
+        outstanding=add_drop(requests.outstanding, req_new, 1, asg.live),
+        spawned=add_drop(requests.spawned, req_new, 1, asg.live))
+    counters = ctr._replace(
+        spawned=ctr.spawned + asg.n_assigned,
+        dropped_cloudlets=ctr.dropped_cloudlets + asg.n_dropped,
+        dropped_requests=ctr.dropped_requests + n_pool_drop)
+    state = state._replace(
+        clients=state.clients._replace(wait=new_wait),
+        requests=requests, cloudlets=cloudlets, counters=counters)
+    return state, GenResult(n_new_requests=n_accept)
+
+
+# ===========================================================================
+# Dispatch: waiting → execution with load balancing (paper §4.2)
+# ===========================================================================
+
+def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
+             params: SimParams, dyn: DynParams,
+             rng: torch.Tensor) -> SimState:
+    cl, inst, sched = state.cloudlets, state.instances, state.sched
+    C = cl.ints.shape[0]
+    I = inst.status.shape[0]
+    S = app.n_services
+    dev = cl.ints.device
+
+    # An RPC hop traverses the network (load-independent latency) before
+    # it may be scheduled.
+    waiting = (cl.status == CL_WAITING) & \
+        (state.time + 1e-6 >= cl.arrival + float(dyn.net_latency))
+    iof, reps = sched.inst_of_rank, sched.svc_replicas
+    svc = torch.where(waiting, cl.service, 0)
+    replicas = reps[svc]                                    # [C]
+    has_rep = waiting & (replicas > 0)
+    rep_safe = torch.clamp_min(replicas, 1)
+
+    rank = policies.lb_rank(
+        params.lb_policy, state.rr, svc, rep_safe,
+        torch.arange(C, dtype=i32, device=dev), rng,
+        iof, inst.status, inst.n_exec, inst.mips)
+
+    target = iof[svc, torch.clamp_max(rank, caps.max_replicas - 1)]
+    ok = has_rep & (target >= 0)
+    tgt_safe = torch.where(ok, target, 0)
+    ok = ok & (inst.status[tgt_safe] == INST_ON)
+
+    if params.max_concurrent > 0:
+        # Space-shared admission: FCFS rank within the target instance
+        # must fit in the remaining concurrency budget.
+        intra = segment_rank(torch.where(ok, target, I), ok, I + 1)
+        cap_left = torch.clamp_min(int(dyn.max_concurrent) - inst.n_exec, 0)
+        admit = ok & (intra < cap_left[tgt_safe])
+    else:
+        admit = ok
+
+    # Admissions per instance maintain the incremental n_exec counter and,
+    # folded over the instance table, the round-robin cursors.
+    admit_per_inst = segment_sum(admit.to(i32),
+                                 torch.where(admit, target, -1), I)
+    disp_per_svc = segment_sum(admit_per_inst, inst.service, S)
+    rr = (state.rr + disp_per_svc) % torch.clamp_min(sched.svc_replicas, 1)
+
+    cloudlets = cl.with_cols(
+        status=torch.where(admit, CL_EXEC, cl.status),
+        inst=torch.where(admit, target, cl.inst),
+        start=torch.where(admit & (cl.start < 0), state.time, cl.start),
+        wait_ticks=cl.wait_ticks + (waiting & ~admit).to(i32),
+    )
+    instances = inst._replace(n_exec=inst.n_exec + admit_per_inst)
+    return state._replace(rr=rr, cloudlets=cloudlets, instances=instances)
+
+
+# ===========================================================================
+# Execute: time-shared progress, finish detection, usage history
+# ===========================================================================
+
+class FinishInfo(NamedTuple):
+    fin: torch.Tensor       # [C] bool finished this tick
+    tfin: torch.Tensor      # [C] f32 sub-tick finish timestamp
+    pre_service: torch.Tensor  # [C] i32 service ids before slot clearing
+    pre_req: torch.Tensor
+    pre_depth: torch.Tensor
+    pre_inst: torch.Tensor
+
+
+def execute(state: SimState, app: AppStatic, caps: SimCaps,
+            params: SimParams, dyn: DynParams
+            ) -> Tuple[SimState, FinishInfo]:
+    cl, inst, vms = state.cloudlets, state.instances, state.vms
+    I = inst.status.shape[0]
+    S = app.n_services
+    dt = float(dyn.dt)
+
+    status_c, rem_c, inst_c = cl.status, cl.rem, cl.inst
+    execm = status_c == CL_EXEC
+
+    # n_exec is maintained incrementally (dispatch adds, finishes subtract).
+    n_exec = inst.n_exec
+    if params.share_policy == policies.SHARE_SRPT:
+        w = torch.where(execm, 1.0 / (rem_c + 1.0), 0.0)
+        wsum = segment_sum(w, torch.where(execm, inst_c, -1), I)
+    else:  # equal time slice: the weight sum IS the execution count
+        w = execm.to(f32)
+        wsum = n_exec.to(f32)
+    inst_safe = torch.where(execm, inst_c, 0)
+    # Instances run at their host's CPU speed (1.0 by default: exact).
+    mips_eff = inst.mips * state.hosts.cpu_scale[torch.clamp_min(inst.host,
+                                                                 0)]
+    rate = torch.where(execm, mips_eff[inst_safe] * w
+                       / torch.clamp_min(wsum[inst_safe], 1e-9), 0.0)
+
+    # --- fused finish reduction: progress + every per-finish aggregate ---
+    req = state.requests
+    out = cloudlet_finish_pool(cl, rate, state.time, dt, req.finish,
+                               req.critical_len, req.outstanding, n_inst=I)
+    fin, tfin = out.fin, out.tfin
+    used_mips = out.inst_acc[:I, 0]
+    fin_per_inst = out.inst_acc[:I, 1].to(i32)
+
+    svc_of_inst = inst.service
+    util = torch.where(inst.mips > 0,
+                       used_mips / torch.clamp_min(inst.mips, 1e-9), 0.0)
+    # Usage accounting (paper §5.2): idle floor on every ON instance plus a
+    # resize surcharge on vertically-scaled instances.
+    on = inst.status == INST_ON
+    # (a*x + b*y sums: the reference's compiled program fuses the second
+    # product into the add)
+    acct_mips = rnd.fma32(
+        torch.where(on, inst.mips, 0.0), float(dyn.idle_mips_frac),
+        used_mips * (1.0 + torch.where(inst.mips > inst.request_mips,
+                                       float(dyn.vs_overhead_frac), 0.0)))
+    a = float(dyn.util_ema)
+    keep = float(1 - dyn.util_ema)
+    util_ema = torch.where(inst.status != INST_FREE,
+                           rnd.fma32(inst.util_ema, keep, a * util), 0.0)
+    used_ram = torch.where(
+        svc_of_inst >= 0,
+        app.ram_per_cl[torch.clamp_min(svc_of_inst, 0)] * n_exec.to(f32),
+        0.0)
+
+    # --- per-service usage history / node-delay estimates: fold the
+    # per-instance statistics into services with one stacked scatter ----
+    st = state.svc_stats
+    acct_dt = acct_mips * dt
+    svc_rows = torch.cat([acct_dt[:, None], out.inst_acc[:I, 1:5]], dim=1)
+    svc_acc = add_drop(
+        torch.zeros((S, 5), dtype=f32, device=rate.device), svc_of_inst,
+        torch.where((svc_of_inst >= 0)[:, None], svc_rows, 0.0),
+        svc_of_inst >= 0)
+    svc_stats = st._replace(
+        usage_sum=st.usage_sum + svc_acc[:, 0],
+        finished=st.finished + svc_acc[:, 1].to(i32),
+        delay_sum=st.delay_sum + svc_acc[:, 2],
+        exec_sum=st.exec_sum + svc_acc[:, 3],
+        wait_sum=st.wait_sum + svc_acc[:, 4],
+    )
+
+    requests = req._replace(outstanding=out.req_out, finish=out.req_finish,
+                            critical_len=out.req_crit)
+
+    info = FinishInfo(fin=fin, tfin=tfin, pre_service=cl.service,
+                      pre_req=cl.req, pre_depth=cl.depth, pre_inst=inst_c)
+
+    # --- clear finished slots (the "finished queue" is the aggregates) --
+    cloudlets = cl.with_cols(
+        status=torch.where(fin, CL_FREE, status_c),
+        rem=out.new_rem,
+        inst=torch.where(fin, -1, inst_c),
+    )
+
+    # --- drained instances release their VM share (HS scale-in) ---------
+    n_exec_after = n_exec - fin_per_inst
+    drain_done = (inst.status == INST_DRAIN) & (n_exec_after == 0)
+    V = vms.mips.shape[0]
+    rel_mips = segment_sum(torch.where(drain_done, inst.mips, 0.0),
+                           inst.vm, V)
+    rel_ram = segment_sum(torch.where(drain_done, inst.ram, 0.0), inst.vm, V)
+    vms = vms._replace(mips_used=vms.mips_used - rel_mips,
+                       ram_used=vms.ram_used - rel_ram)
+
+    instances = inst._replace(
+        status=torch.where(drain_done, INST_FREE, inst.status),
+        service=torch.where(drain_done, -1, inst.service),
+        vm=torch.where(drain_done, -1, inst.vm),
+        host=torch.where(drain_done, -1, inst.host),
+        mips=torch.where(drain_done, 0.0, inst.mips),
+        ram=torch.where(drain_done, 0.0, inst.ram),
+        n_exec=n_exec_after,
+        used_mips=used_mips,
+        used_ram=used_ram,
+        util_ema=torch.where(drain_done, 0.0, util_ema),
+        usage_sum=rnd.fma32(acct_mips, dt, inst.usage_sum),  # fused, as ref
+        busy_ticks=inst.busy_ticks + (n_exec > 0).to(i32),
+    )
+    counters = state.counters._replace(
+        finished=state.counters.finished + _sum_i32(fin))
+    return state._replace(cloudlets=cloudlets, instances=instances, vms=vms,
+                          requests=requests, svc_stats=svc_stats,
+                          counters=counters), info
+
+
+# ===========================================================================
+# Derive: finished cloudlets spawn successors (paper §4.1.2 "Derivative")
+# ===========================================================================
+
+def derive(state: SimState, app: AppStatic, caps: SimCaps,
+           info: FinishInfo, rng: torch.Tensor) -> SimState:
+    cl, req, ctr = state.cloudlets, state.requests, state.counters
+    C = cl.ints.shape[0]
+    I = state.instances.status.shape[0]
+    D = app.succ.shape[1]
+    dev = cl.ints.device
+
+    parent_svc = torch.where(info.fin, torch.clamp_min(info.pre_service, 0),
+                             0)
+    child = app.succ[parent_svc]                      # [C, D]
+    valid = (info.fin[:, None] & (child >= 0)).reshape(-1)
+    svc_flat = child.reshape(-1)
+    req_flat = info.pre_req[:, None].expand(C, D).reshape(-1)
+    dep_flat = (info.pre_depth + 1)[:, None].expand(C, D).reshape(-1)
+    tf_flat = info.tfin[:, None].expand(C, D).reshape(-1)
+    pin_flat = info.pre_inst[:, None].expand(C, D).reshape(-1)
+
+    asg = assign_free_slots(cl.status == CL_FREE, valid, k_static=C)
+    Ka = asg.dst.shape[0]
+    svc_new = svc_flat[asg.src]
+    req_new = req_flat[asg.src]
+    # clamp is a no-op (acyclic graphs cap chains at S-1 hops)
+    dep_new = torch.clamp_max(dep_flat[asg.src], app.succ.shape[0] - 1)
+    tf_new = tf_flat[asg.src]
+    noise = rnd.normal(rng, (Ka,), device=dev)
+    length = torch.clamp_min(
+        rnd.fma32(app.len_std[svc_new], noise, app.len_mean[svc_new]), 1.0)
+
+    cloudlets = scatter_pool(
+        cl, asg, status=CL_WAITING, req=req_new, service=svc_new, inst=-1,
+        wait_ticks=0, depth=dep_new, length=length, rem=length,
+        arrival=tf_new, start=-1.0)
+
+    # several successors of one parent share a request — intended collisions
+    requests = req._replace(
+        outstanding=add_drop(req.outstanding, req_new, 1, asg.live),
+        spawned=add_drop(req.spawned, req_new, 1, asg.live))
+
+    # Outbound-RPC bandwidth (linear usage model, paper §5.2).
+    live_pinst = torch.where(asg.live, pin_flat[asg.src], -1)
+    psvc = torch.where(asg.live, torch.clamp_min(
+        state.instances.service[torch.clamp_min(live_pinst, 0)], 0), 0)
+    bw = segment_sum(app.bytes_per_rpc[psvc] * asg.live.to(f32),
+                     live_pinst, I)
+    instances = state.instances._replace(used_bw=bw)
+
+    counters = ctr._replace(
+        spawned=ctr.spawned + asg.n_assigned,
+        dropped_cloudlets=ctr.dropped_cloudlets + asg.n_dropped)
+    return state._replace(cloudlets=cloudlets, requests=requests,
+                          instances=instances, counters=counters)
+
+
+# ===========================================================================
+# Complete: close requests whose dependency tree drained (paper §4.3.2)
+# ===========================================================================
+
+def complete(state: SimState, dyn: DynParams
+             ) -> Tuple[SimState, torch.Tensor]:
+    req, ctr = state.requests, state.counters
+    done = ((req.outstanding == 0) & (req.spawned > 0) & (req.response < 0)
+            & (req.arrival >= 0))
+    resp = torch.where(done, req.finish - req.arrival, req.response)
+    n_done = _sum_i32(done)
+    viol = done & (resp * 1000.0 > float(dyn.slo_ms))
+    counters = ctr._replace(
+        completed=ctr.completed + n_done,
+        resp_sum=ctr.resp_sum + torch.sum(torch.where(done, resp, 0.0)),
+        slo_violations=ctr.slo_violations + _sum_i32(viol),
+    )
+    state = state._replace(requests=req._replace(response=resp),
+                           counters=counters)
+    return state, n_done

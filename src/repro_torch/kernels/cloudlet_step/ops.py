@@ -1,0 +1,94 @@
+"""Engine-facing wrapper of the fused cloudlet tick: the CUDA kernel
+``csrc/cloudlet_finish.cu`` on a CUDA tensor, the plain version of
+``ref.py`` on a CPU tensor, an error on anything else.
+
+On CUDA the request arrays ``req_finish``/``req_crit``/``req_out`` are
+updated in place where they lie in device memory and returned; the plain
+version returns new arrays.  Callers use the returned arrays.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build, counts
+from . import ref
+
+_ARGTYPES = (
+    [ctypes.c_void_p] + [ctypes.c_int] * 5          # ints, ni, 4 columns
+    + [ctypes.c_void_p] + [ctypes.c_int] * 4        # flts, nf, 3 columns
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int]        # request arrays, R
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _lib():
+    lib = _build.load("cloudlet_finish")
+    fn = lib.cloudlet_finish_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def cloudlet_finish_pool(cl, rate, time, dt, req_finish, req_crit, req_out,
+                         n_inst: int) -> ref.FinishOut:
+    """One-pass execution tick over the stacked cloudlet pool ``cl``
+    (``core.types.Cloudlets``); ``time`` is a 0-d float32 tensor on the
+    pool's device, ``dt`` a number."""
+    L = cl.layout
+    ints, flts = cl.ints, cl.flts
+    dev = ints.device
+    if dev.type == "cpu":
+        return ref.cloudlet_finish(
+            ints[:, L.i("status")], flts[:, L.f("rem")], ints[:, L.i("inst")],
+            ints[:, L.i("req")], flts[:, L.f("arrival")],
+            flts[:, L.f("start")], ints[:, L.i("depth")], rate, time, dt,
+            req_finish, req_crit, req_out, n_inst=n_inst)
+    if dev.type != "cuda":
+        raise ValueError(f"cloudlet_finish runs on cuda or cpu, not {dev}")
+    C, NI = ints.shape
+    NF = flts.shape[1]
+    R = req_finish.shape[0]
+    _check(ints, "ints", torch.int32, (C, NI), dev)
+    _check(flts, "flts", torch.float32, (C, NF), dev)
+    _check(rate, "rate", torch.float32, (C,), dev)
+    _check(time, "time", torch.float32, (), dev)
+    _check(req_finish, "req_finish", torch.float32, (R,), dev)
+    _check(req_crit, "req_crit", torch.int32, (R,), dev)
+    _check(req_out, "req_out", torch.int32, (R,), dev)
+    new_rem = torch.empty((C,), dtype=torch.float32, device=dev)
+    fin = torch.empty((C,), dtype=torch.bool, device=dev)
+    tfin = torch.empty((C,), dtype=torch.float32, device=dev)
+    consumed = torch.empty((C,), dtype=torch.float32, device=dev)
+    acc_fixed = torch.empty((n_inst + 1, 5), dtype=torch.int64, device=dev)
+    inst_acc = torch.empty((n_inst + 1, 5), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()(
+        ints.data_ptr(), NI, L.i("status"), L.i("inst"), L.i("req"),
+        L.i("depth"), flts.data_ptr(), NF, L.f("rem"), L.f("arrival"),
+        L.f("start"), rate.data_ptr(), time.data_ptr(), float(dt), C,
+        req_finish.data_ptr(), req_crit.data_ptr(), req_out.data_ptr(), R,
+        new_rem.data_ptr(), fin.data_ptr(), tfin.data_ptr(),
+        consumed.data_ptr(), acc_fixed.data_ptr(), inst_acc.data_ptr(),
+        n_inst, stream)
+    if err != 0:
+        raise RuntimeError(f"cloudlet_finish launch failed: CUDA error {err}")
+    counts["cloudlet_finish"] += 1
+    return ref.FinishOut(new_rem=new_rem, fin=fin, tfin=tfin,
+                         consumed=consumed, inst_acc=inst_acc,
+                         req_finish=req_finish, req_crit=req_crit,
+                         req_out=req_out)

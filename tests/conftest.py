@@ -24,3 +24,9 @@ if os.environ.get("REPRO_STRICT_PROMOTION"):
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit (skips "
+        "without one; chip_smoke.py runs the same checks on the card)")
