@@ -52,7 +52,7 @@ def client_phase(wait: torch.Tensor, time: torch.Tensor,
     span = float(dyn.wait_hi - dyn.wait_lo)
     wait_s = rnd.fma32(rnd.uniform(k_wait, (Nc,), device=dev), span,
                        float(dyn.wait_lo))
-    wait_ticks = torch.clamp_min(torch.round(wait_s / float(dyn.dt)),
+    wait_ticks = torch.clamp_min(torch.round(rnd.div32(wait_s, dyn.dt)),
                                  1).to(torch.int32)
     return GenOut(fired=fired, api=api, n_active=n_active,
                   wait_proposal=wait_ticks)

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...random import fma32
+from ...random import div32, fma32
 
 CL_EXEC = 2
 
@@ -61,8 +61,8 @@ def lane_math(status, rem, inst, arrival, start, rate, time, dt):
     sojourn = torch.where(fin, tfin - arrival, 0.0)
     exec_t = torch.where(fin, tfin - started, 0.0)
     wait_t = torch.where(fin, started - arrival, 0.0)
-    rows = torch.stack([consumed / dt, fin.float(), sojourn, exec_t, wait_t],
-                       dim=1)
+    rows = torch.stack([div32(consumed, dt), fin.float(), sojourn, exec_t,
+                        wait_t], dim=1)
     return new_rem, fin, tfin, consumed, rows
 
 

@@ -126,6 +126,15 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * f32(b) + f32(c)).float()
 
 
+def div32(x: torch.Tensor, s) -> torch.Tensor:
+    """``x / s`` for a Python-number ``s``, rounded as one IEEE division on
+    every device.  (PyTorch's CUDA path turns division by a host scalar
+    into multiplication by its reciprocal, which can differ in the last
+    bit; a 0-d tensor on the device keeps it a true division.)"""
+    return x / torch.full((), float(np.float32(s)), dtype=x.dtype,
+                          device=x.device)
+
+
 def _f32(h: str) -> float:
     """A float32 constant from the hex of its float64 widening (as the
     constants appear in XLA's lowered LLVM IR)."""

@@ -12,9 +12,8 @@ product ``rate·dt``.
 ``tropical_matmul`` / ``tropical_closure`` — exact (each term one add,
 max is order-free).
 
-Tests marked ``cuda`` need an NVIDIA GPU and the CUDA toolkit and skip
-without one; ``python3 chip_smoke.py`` runs the same comparisons at the
-main path's shapes on the card.
+The CUDA kernels against their plain versions on the card are in
+``test_torch_cuda.py`` (no JAX there, so it runs where the card is).
 """
 import jax
 import jax.numpy as jnp
@@ -197,47 +196,3 @@ def test_wrappers_refuse_other_devices():
     x = torch.zeros((2, 2), device="meta")
     with pytest.raises(ValueError):
         ttrop.tropical_matmul(x, x)
-
-
-# ---------------------------------------------------------------------------
-# on the card (skipped without one)
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (run python3 chip_smoke.py there)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("C,I,R,bc", FINISH_SHAPES)
-def test_cloudlet_finish_kernel_matches_plain_on_card(C, I, R, bc,
-                                                      cuda_device):
-    args = _finish_args(C, I, R, C)
-    L, ints, flts = _pool(args)
-    dev = cuda_device
-    cl = Cloudlets(torch.from_numpy(ints).to(dev),
-                   torch.from_numpy(flts).to(dev), L)
-    t = [torch.from_numpy(np.array(a)).to(dev) for a in args]
-    time = torch.tensor(np.float32(12.5), device=dev)
-    got = cloudlet_finish_pool(cl, t[7], time, 0.1,
-                               *[x.clone() for x in t[8:]], n_inst=I)
-    want = tfinish.cloudlet_finish(*t[:8], time, 0.1, *t[8:], n_inst=I)
-    for name, g, w in zip(NAMES, got, want):
-        if name == "inst_acc":
-            # exact fixed-point sum vs serial float32 sum: within the
-            # serial sum's error (C terms at most, relative 2^-24 each)
-            bound = C * 2.0 ** -24 * w.abs().sum(0, keepdim=True) + 1e-6
-            assert ((g - w).abs() <= bound).all()
-        else:
-            assert torch.equal(g, w), name
-
-
-@pytest.mark.cuda
-def test_tropical_kernel_matches_plain_on_card(cuda_device):
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(_trop_rand(rng, (4, 130, 70))).to(cuda_device)
-    a = torch.from_numpy(_trop_rand(rng, (4, 70, 257))).to(cuda_device)
-    assert torch.equal(ttrop.tropical_matmul(x, a),
-                       ttrop_ref.tropical_matmul(x, a))
