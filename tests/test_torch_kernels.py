@@ -196,3 +196,38 @@ def test_wrappers_refuse_other_devices():
     x = torch.zeros((2, 2), device="meta")
     with pytest.raises(ValueError):
         ttrop.tropical_matmul(x, x)
+
+
+@pytest.mark.parametrize("n,seed", [(2, 0), (8, 1), (13, 2), (30, 3)])
+def test_critical_path_analysis_matches_reference(n, seed):
+    """Alg 2 through the tropical op (plain version on the CPU) against
+    the reference's ``response_times``/``response_times_batched``, and
+    the DP ``critical_path``/``path_delay`` against the reference's."""
+    from repro.core import build_graph as jbuild
+    from repro.core import critical_path as jcp
+    from repro.core import path_delay as jpd
+    from repro.core import response_times as jrt
+    from repro.core.critical_path import response_times_batched as jrtb
+    from repro_torch.core import build_graph as tbuild
+    from repro_torch.core import critical_path as tcp
+    from repro_torch.core import path_delay as tpd
+    from repro_torch.core import response_times as trt
+    from repro_torch.core.critical_path import response_times_batched as trtb
+    rng = np.random.default_rng(seed)
+    names = [f"s{i}" for i in range(n)]
+    calls = {names[i]: [names[j] for j in range(i + 1, n)
+                        if rng.random() < 0.35] for i in range(n)}
+    calls = {k: v for k, v in calls.items() if v}
+    args = (names, calls, [("a", names[0], 1.0), ("b", names[-1], 1.0)],
+            {nm: 100.0 for nm in names})
+    jg, tg = jbuild(*args), tbuild(*args)
+    delays = rng.uniform(0.5, 5.0, size=n)
+    np.testing.assert_array_equal(trt(tg, delays, device="cpu"),
+                                  jrt(jg, delays))
+    batch = rng.uniform(0.1, 3.0, size=(5, n)).astype(np.float32)
+    np.testing.assert_array_equal(trtb(tg, batch, device="cpu"),
+                                  jrtb(jg, batch))
+    for api in range(2):
+        rt, path = tcp(tg, delays, api)
+        assert (rt, path) == jcp(jg, delays, api)
+        assert tpd(path, delays) == jpd(path, delays)
