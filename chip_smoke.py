@@ -23,10 +23,14 @@ Phases, in order (any failure exits non-zero):
    final states bit-identical), with per-phase CUDA-event times over 100
    ticks, the synchronising calls per tick and the device busy share;
 4. Table 2 case2b at full size, once, with the same checks;
-5. SockShop (paper §6.3) at 100 clients (HS) and 300 clients (NS) over
-   600 s, average response against the testbed, then Alg 2 over
+5. SockShop (paper §6.3), three runs in three processes side by side on
+   the one card: 100 clients (HS) and 300 clients (NS) over 600 s,
+   average response against the testbed, and 300 clients with HS over
+   180 s, which must scale out; each run launches
+   ``cloudlet_finish`` once per tick and is followed by Alg 2 over its
    per-window node delays through the tropical kernel, held against the
-   DP critical path;
+   DP critical path; the synchronising calls per tick over a window that
+   holds a scaling tick;
 6. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
@@ -159,24 +163,11 @@ def check_cloudlet_finish(tag, C, I, R, torch, dev):
             check(torch.equal(a, getattr(p, f)),
                   f"cloudlet_finish {tag}: {f} differs from the plain "
                   "version")
-    # inst_acc: the kernel's sum is the exact (fixed-point, 2^-32) sum
-    # rounded once to float32; the plain version sums in float32 one term
-    # at a time.  They may differ by the serial sum's error,
-    # (n_i - 1)·2^-24·Σ|x|, plus the kernel's one rounding, 2^-24·|Σx|,
-    # plus the fixed-point quantisation n_i·2^-33: n_i·2^-24·Σ|x| + n_i·2^-33.
+    # inst_acc: within the serial float32 sum's own error (ref.py's
+    # inst_acc_bound states it)
     status, rem, inst, _, arrival, start, _ = cols()
-    _, _, _, _, rows = ref.lane_math(status, rem, inst, arrival, start,
-                                     rate, t0, dt)
-    execm = status == 2
-    irow = torch.where(execm & (inst >= 0), inst, I).long()
-    irow = torch.where(irow <= I, irow, I + 1)
-    absum = torch.zeros((I + 2, 5), dtype=torch.float64, device=dev)
-    absum.index_add_(0, irow, rows.double().abs()
-                     * execm[:, None].double())
-    cnt = torch.zeros((I + 2,), dtype=torch.float64, device=dev)
-    cnt.index_add_(0, irow, execm.double())
-    absum, cnt = absum[:I + 1], cnt[:I + 1, None]
-    bound = cnt * 2.0 ** -24 * absum + cnt * 2.0 ** -33
+    bound = ref.inst_acc_bound(status, rem, inst, arrival, start, rate, t0,
+                               dt, n_inst=I)
     err = (k1.inst_acc.double() - p.inst_acc.double()).abs()
     check(bool((err <= bound).all()),
           f"cloudlet_finish {tag}: inst_acc outside the serial-sum bound "
@@ -328,10 +319,13 @@ class PhaseTimer:
         return tot
 
 
-def sync_calls_per_tick(sim, torch, n_ticks=10):
-    """Synchronising CUDA calls per tick under sync debug mode "warn",
-    with the port's call sites that made them."""
+def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0):
+    """Synchronising CUDA calls per tick under sync debug mode "warn" over
+    ticks ``first_tick`` .. ``first_tick + n_ticks - 1`` (the ticks before
+    run unwatched), with the port's call sites that made them."""
     state = sim.init_state()
+    if first_tick:
+        state, _ = sim.run_state(state, n_ticks=first_tick)
     torch.cuda.synchronize()
     sites = []
 
@@ -350,7 +344,7 @@ def sync_calls_per_tick(sim, torch, n_ticks=10):
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            sim.run_state(state, n_ticks=n_ticks)
+            sim.run_state(state, n_ticks=n_ticks, first_tick=first_tick)
         finally:
             torch.cuda.set_sync_debug_mode(0)
             warnings.showwarning = saved
@@ -430,73 +424,127 @@ def run_capacity(tag, repeats, torch, dev, launches):
         f"profiled ticks ({ms_tick:.2f} ms/tick under the profiler)")
 
 
-def run_sockshop(torch, dev, launches):
+SOCKSHOP_CASES = ((100, 600.0, 1), (300, 600.0, 0), (300, 180.0, 1))
+
+
+def run_sockshop(launches):
+    """Paper §6.3: the testbed comparisons at 100 and 300 clients over
+    600 s, and a 300-client run with HS over 180 s that must scale out.
+    The tick loop is bound by the host's launch rate, so the three runs go
+    to three processes on the one card, side by side."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    with cf.ProcessPoolExecutor(len(SOCKSHOP_CASES),
+                                mp_context=mp.get_context("spawn")) as pool:
+        futures = [pool.submit(sockshop_process, *case)
+                   for case in SOCKSHOP_CASES]
+        for fut in futures:
+            lines, n_trop = fut.result()
+            for line in lines:
+                log(line)
+            launches.setdefault("tropical_matmul", n_trop)
+
+
+def sockshop_process(n_clients, duration, policy):
+    """One SockShop run in a process of its own; returns its log lines and
+    the tropical launches of its Alg 2 call.  The HS run ends with the
+    synchronising calls per tick over a window that holds a scaling
+    tick."""
+    import torch
+    from repro_torch.configs import sockshop
+    torch.set_num_threads(2)
+    dev = torch.device("cuda")
+    lines = []
+    sim = sockshop.make_sim(n_clients, duration, scaling_policy=policy,
+                            device=dev)
+    rep, n_trop = run_sockshop_case(sim, n_clients, torch, dev,
+                                    testbed=duration == 600.0,
+                                    say=lines.append)
+    if policy and n_clients == 300:
+        check(rep.scale_out > 0, f"sockshop {n_clients} HS over "
+              f"{duration:.0f} s never scaled out")
+        si = int(sim.params.scale_interval)
+        per_tick, sites = sync_calls_per_tick(sim, torch, n_ticks=20,
+                                              first_tick=si - 10)
+        lines.append(f"sockshop {n_clients} HS: synchronising calls per "
+                     f"tick {per_tick:.2f} (ticks {si - 10}-{si + 9}, "
+                     f"scaling tick {si - 1}) {sites}")
+    return lines, n_trop
+
+
+def run_sockshop_case(sim, n_clients, torch, dev, testbed, say=log):
+    """Run ``sim`` in 10 s windows, check it, and hold Alg 2 through the
+    tropical kernel over its per-window node delays against the DP
+    critical path.  Returns the QoS report and the tropical launches."""
     from repro_torch.configs import sockshop
     from repro_torch.core import qos
     from repro_torch.core.critical_path import (critical_path,
                                                 response_times_batched)
+    from repro_torch.core.engine import SimResult
+    from repro_torch.core.types import TickTrace
     from repro_torch.kernels import counts, reset_counts
     window_ticks = 100                   # 10 s windows at dt = 0.1 s
-    for n_clients, policy in ((100, 1), (300, 0)):
-        sim = sockshop.make_sim(n_clients, 600.0, scaling_policy=policy,
-                                device=dev)
-        state = sim.init_state()
-        T = sim.params.n_ticks
-        snaps, traces = [], []
-        prev_d = torch.zeros_like(state.svc_stats.delay_sum)
-        prev_n = torch.zeros_like(state.svc_stats.finished)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for w0 in range(0, T, window_ticks):
-            state, tr = sim.run_state(state, min(window_ticks, T - w0),
-                                      first_tick=w0)
-            traces.append(tr)
-            d, n = state.svc_stats.delay_sum, state.svc_stats.finished
-            snaps.append((d - prev_d) / torch.clamp_min(
-                (n - prev_n).float(), 1.0))
-            prev_d, prev_n = d, n
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        from repro_torch.core.engine import SimResult
-        from repro_torch.core.types import TickTrace
-        trace = TickTrace(*[torch.cat(f) for f in zip(*traces)])
-        res = SimResult(state=state, trace=trace, wall_time_s=wall,
-                        compile_time_s=0.0)
-        laws = conservation(state)
-        rep = qos.summarize(sim, res)
+    tag = (f"sockshop {n_clients} clients "
+           f"{'HS' if sim.params.scaling_policy else 'NS'}")
+    state = sim.init_state()
+    T = sim.params.n_ticks
+    snaps, traces = [], []
+    prev_d = torch.zeros_like(state.svc_stats.delay_sum)
+    prev_n = torch.zeros_like(state.svc_stats.finished)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for w0 in range(0, T, window_ticks):
+        state, tr = sim.run_state(state, min(window_ticks, T - w0),
+                                  first_tick=w0)
+        traces.append(tr)
+        d, n = state.svc_stats.delay_sum, state.svc_stats.finished
+        snaps.append((d - prev_d) / torch.clamp_min(
+            (n - prev_n).float(), 1.0))
+        prev_d, prev_n = d, n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_fin = counts["cloudlet_finish"]
+    check(n_fin == T, f"{tag}: cloudlet_finish launched {n_fin} times in "
+          f"{T} ticks")
+    trace = TickTrace(*[torch.cat(f) for f in zip(*traces)])
+    res = SimResult(state=state, trace=trace, wall_time_s=wall,
+                    compile_time_s=0.0)
+    laws = conservation(state)
+    rep = qos.summarize(sim, res)
+    check(math.isfinite(rep.avg_response_ms) and rep.avg_response_ms > 0
+          and rep.completed_requests > 0, f"{tag}: no finite responses")
+    resp = state.requests.response.cpu().numpy()
+    digest = int(resp.view(np.uint32).astype(np.uint64).sum())
+    vs = ""
+    if testbed:
         ref_ms = sockshop.TESTBED_MS[n_clients]
-        check(math.isfinite(rep.avg_response_ms) and rep.avg_response_ms > 0
-              and rep.completed_requests > 0,
-              f"sockshop {n_clients}: no finite responses")
-        resp = state.requests.response.cpu().numpy()
-        digest = int(resp.view(np.uint32).astype(np.uint64).sum())
-        log(f"sockshop {n_clients} clients {'HS' if policy else 'NS'}: wall "
-            f"{wall:.2f} s  {T / wall:.1f} ticks/s  avg response "
-            f"{rep.avg_response_ms:.1f} ms vs testbed {ref_ms:.0f} ms "
-            f"({100 * (rep.avg_response_ms / ref_ms - 1):+.1f}%)  p95 "
-            f"{rep.p95_response_ms:.1f} ms  scale_out {rep.scale_out}  "
-            f"scale_in {rep.scale_in}  response digest {digest}  {laws}")
-        # Alg 2 over the per-window node delays, through the tropical kernel
-        delays = torch.stack(snaps).cpu().numpy().astype(np.float32)
-        reset_counts()
-        rt = response_times_batched(sim.graph, delays, device=dev)
-        n_trop = counts["tropical_matmul"]
-        launches.setdefault("tropical_matmul", n_trop)
-        check(n_trop > 0, "Alg 2 did not launch the tropical kernel")
-        check(rt.shape == (delays.shape[0], sim.graph.n_apis)
-              and np.isfinite(rt).all(), "Alg 2 output malformed")
-        for b in range(delays.shape[0]):
-            for api in range(sim.graph.n_apis):
-                want, _ = critical_path(sim.graph, delays[b], api)
-                check(np.isclose(rt[b, api], want, rtol=1e-5),
-                      f"Alg 2 window {b} api {api}: {rt[b, api]} != DP "
-                      f"{want}")
-        mean_rt = rt.mean(axis=0) * 1000.0
-        log(f"sockshop {n_clients}: Alg 2 over {delays.shape[0]} windows "
-            f"({n_trop} tropical launches) agrees with the DP critical "
-            "path; mean critical-path ms per API: "
-            + ", ".join(f"{a} {v:.1f}" for a, v in
-                        zip(sim.graph.api_names, mean_rt)))
+        vs = (f" vs testbed {ref_ms:.0f} ms "
+              f"({100 * (rep.avg_response_ms / ref_ms - 1):+.1f}%)")
+    say(f"{tag}: {T} ticks  wall {wall:.2f} s  {T / wall:.1f} ticks/s  "
+        f"cloudlet_finish launches {n_fin}  avg response "
+        f"{rep.avg_response_ms:.1f} ms{vs}  p95 {rep.p95_response_ms:.1f} "
+        f"ms  scale_out {rep.scale_out}  scale_in {rep.scale_in}  "
+        f"response digest {digest}  {laws}")
+    # Alg 2 over the per-window node delays, through the tropical kernel
+    delays = torch.stack(snaps).cpu().numpy().astype(np.float32)
+    reset_counts()
+    rt = response_times_batched(sim.graph, delays, device=dev)
+    n_trop = counts["tropical_matmul"]
+    check(n_trop > 0, "Alg 2 did not launch the tropical kernel")
+    check(rt.shape == (delays.shape[0], sim.graph.n_apis)
+          and np.isfinite(rt).all(), "Alg 2 output malformed")
+    for b in range(delays.shape[0]):
+        for api in range(sim.graph.n_apis):
+            want, _ = critical_path(sim.graph, delays[b], api)
+            check(np.isclose(rt[b, api], want, rtol=1e-5),
+                  f"Alg 2 window {b} api {api}: {rt[b, api]} != DP {want}")
+    mean_rt = rt.mean(axis=0) * 1000.0
+    say(f"{tag}: Alg 2 over {delays.shape[0]} windows ({n_trop} tropical "
+        "launches) agrees with the DP critical path; mean critical-path ms "
+        "per API: " + ", ".join(f"{a} {v:.1f}" for a, v in
+                                zip(sim.graph.api_names, mean_rt)))
+    return rep, n_trop
 
 
 def main() -> int:
@@ -530,7 +578,7 @@ def main() -> int:
 
         run_capacity("case1b", 2, torch, dev, launches)
         run_capacity("case2b", 1, torch, dev, launches)
-        run_sockshop(torch, dev, launches)
+        run_sockshop(launches)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

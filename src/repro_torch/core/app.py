@@ -16,6 +16,7 @@ import torch
 
 from .generator import api_weight_cdf
 from .graph import ServiceGraph
+from .types import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +187,7 @@ def build_app(graph: ServiceGraph,
               host_zone: Sequence[int] | None = None,
               slo_target_ms: Sequence[float] | None = None,
               slo_budget: Sequence[float] | None = None,
-              device="cpu") -> AppStatic:
+              device="cuda") -> AppStatic:
     """Assemble :class:`AppStatic` from a graph + instance templates, on
     ``device``.
 
@@ -253,6 +254,8 @@ def build_app(graph: ServiceGraph,
             ids = [index[n] for n in names]
             entry[a, : len(ids)] = ids
             n_entry[a] = len(ids)
+
+    device = resolve_device(device)
 
     def t(x, dtype=None):
         return torch.as_tensor(np.asarray(x, dtype=dtype), device=device)

@@ -19,7 +19,7 @@ from .app import AppStatic
 from .types import (AlertState, Clients, Cloudlets, Counters, FaultState,
                     FaultStats, Hosts, Instances, NetStats, PoolLayout,
                     Requests, SchedState, SimState, SvcStats, TelemetryState,
-                    VMs)
+                    VMs, resolve_device)
 
 _NESTED = {
     "clients": Clients, "requests": Requests, "instances": Instances,
@@ -37,15 +37,17 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
-def app_from_numpy(d: Dict[str, Any], device="cpu") -> AppStatic:
+def app_from_numpy(d: Dict[str, Any], device="cuda") -> AppStatic:
     """``AppStatic`` on ``device`` from numpy arrays keyed by field name."""
+    device = resolve_device(device)
     return AppStatic(**{f: _tensor(d[f], device) for f in AppStatic._fields})
 
 
 def state_from_numpy(d: Dict[str, Any], layout: PoolLayout,
-                     device="cpu") -> SimState:
+                     device="cuda") -> SimState:
     """``SimState`` on ``device`` from numpy arrays keyed by field name.
     The key stays on the CPU (as int64 words)."""
+    device = resolve_device(device)
     out = {}
     for f in SimState._fields:
         v = d[f]

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels.tropical import NEG_INF, tropical_closure
-from .engine import resolve_device
+from .types import resolve_device
 from .graph import ServiceGraph
 
 

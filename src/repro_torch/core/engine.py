@@ -26,22 +26,11 @@ from .placement import initial_allocation, migrate
 from .scaling import scaling_event
 from .types import (CL_EXEC, CL_TRANSIT, CL_WAITING, DynParams, INST_ON,
                     SimCaps, SimParams, SimState, TickTrace,
-                    check_main_path, zeros_state)
+                    check_main_path, resolve_device, zeros_state)
 
 # Stream names of the tick's single wide split; positions are the
 # contract (split is not prefix-stable), names are the audit labels.
 KEY_NAMES = ("carry", "gen", "spawn", "lb", "derive")
-
-
-def resolve_device(device) -> torch.device:
-    """The simulation's device.  ``"cuda"`` (the default everywhere) with
-    no usable GPU raises: the port never falls back to the CPU unasked."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on the GPU by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def make_tick(caps: SimCaps, params: SimParams,

@@ -727,9 +727,20 @@ def check_main_path(params: SimParams) -> None:
                 f"to repro_torch yet (only {knob}={want!r})")
 
 
+def resolve_device(device) -> torch.device:
+    """The simulation's device.  ``"cuda"`` (the default everywhere) with
+    no usable GPU raises: the port never falls back to the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on the GPU by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
                 n_services: int = 1, app=None,
-                device="cpu") -> SimState:
+                device="cuda") -> SimState:
     """The initial (empty) simulation state on ``device`` — the reference's
     ``zeros_state`` for the default mode, leaf for leaf."""
     caps.validate()
@@ -741,7 +752,7 @@ def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
         n_services = int(app.n_services)
     S = n_services
     layout = resolve_layout(params)
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)

@@ -86,12 +86,9 @@ __global__ void lane_kernel(
     tfin = fminf(fmaxf(t, time), __fadd_rn(time, dt));
   }
   const float consumed = execm ? fminf(prog, rem) : 0.0f;
-  // rem - rate*dt with one rounding: the product is exact in double, so
-  // this is the fused multiply-add of the reference's compiled program,
-  // computed as the plain version emulates it
-  const float left = static_cast<float>(
-      __dadd_rn(__dmul_rn(-static_cast<double>(r), static_cast<double>(dt)),
-                static_cast<double>(rem)));
+  // rem - rate*dt with one rounding: the fused multiply-add of the
+  // reference's compiled program
+  const float left = __fmaf_rn(-r, dt, rem);
   new_rem[c] = execm ? fmaxf(left, 0.0f) : rem;
   fin_out[c] = fin;
   tfin_out[c] = tfin;

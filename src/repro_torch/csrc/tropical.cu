@@ -100,8 +100,18 @@ extern "C" int tropical_matmul_launch(const float* x, const float* a,
                                       float* out, int B, int M, int K, int N,
                                       void* stream) {
   if (B <= 0 || M <= 0 || N <= 0) return 0;
-  dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, B);
-  tropical_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, a, out, M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  // the batch rides on grid.z, which holds at most 65535 blocks: larger
+  // batches go in chunks of that many items, one launch each
+  constexpr int kMaxZ = 65535;
+  for (int b0 = 0; b0 < B; b0 += kMaxZ) {
+    const int nb = B - b0 < kMaxZ ? B - b0 : kMaxZ;
+    dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, nb);
+    tropical_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        x + static_cast<long long>(b0) * M * K,
+        a + static_cast<long long>(b0) * K * N,
+        out + static_cast<long long>(b0) * M * N, M, K, N);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

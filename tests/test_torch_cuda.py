@@ -84,23 +84,32 @@ def test_cloudlet_finish_kernel_matches_plain(C, I, R, dt, dev):
         assert torch.equal(g, a), f"{name}: two launches differ"
         if name != "inst_acc":
             assert torch.equal(g, w), name
-    _, _, _, _, rows = tfinish.lane_math(
+    bound = tfinish.inst_acc_bound(
         col("status"), col("rem"), col("inst"), col("arrival"),
-        col("start"), rate, time, dt)
-    execm = col("status") == 2
-    irow = torch.where(execm & (col("inst") >= 0), col("inst"), I).long()
-    irow = torch.where(irow <= I, irow, I + 1)
-    absum = torch.zeros((I + 2, 5), dtype=torch.float64, device=dev)
-    absum.index_add_(0, irow, rows.double().abs() * execm[:, None])
-    cnt = torch.zeros((I + 2, 1), dtype=torch.float64, device=dev)
-    cnt.index_add_(0, irow, execm.double()[:, None])
-    bound = cnt[:I + 1] * (2.0 ** -24 * absum[:I + 1] + 2.0 ** -33)
+        col("start"), rate, time, dt, n_inst=I)
     err = (got.inst_acc.double() - want.inst_acc.double()).abs()
     assert bool((err <= bound).all()), float(err.max())
 
 
+def test_cloudlet_finish_progress_rounds_once(dev):
+    # rem - rate*dt = 2 - (2^-24 + 2^-61): just below the float32 midpoint
+    # 2 - 2^-24, so it rounds down to 2 - 2^-23; a sum rounded to float64
+    # first lands on the midpoint and ties up to 2
+    C, I, R = 64, 4, 8
+    cl, rate, req = _pool_inputs(C, I, R, 3, dev)
+    L = cl.layout
+    cl.ints[:, L.i("status")] = 2
+    cl.flts[:, L.f("rem")] = 2.0
+    rate.fill_(float(np.float32(11860630 * 2.0 ** -23)))
+    dt = float(np.float32(11865937 * 2.0 ** -48))
+    time = torch.tensor(np.float32(1.0), device=dev)
+    got = cloudlet_finish_pool(cl, rate, time, dt, *req, n_inst=I)
+    assert bool((got.new_rem == float(np.float32(2.0 - 2.0 ** -23))).all())
+
+
 @pytest.mark.parametrize("B,M,K,N", [(4, 130, 70, 257), (60, 13, 13, 13),
-                                     (2, 1, 1, 1), (1, 64, 0, 64)])
+                                     (2, 1, 1, 1), (1, 64, 0, 64),
+                                     (70_000, 2, 3, 2)])
 def test_tropical_kernel_matches_plain(B, M, K, N, dev):
     r = np.random.default_rng(B + M + K + N)
     mk = lambda shape: torch.from_numpy(np.where(

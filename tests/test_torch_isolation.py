@@ -90,6 +90,24 @@ def test_default_device_is_the_gpu():
         Simulation(diamond(), caps=caps, params=SimParams(n_ticks=1))
     with pytest.raises(RuntimeError):
         response_times(diamond(), [1.0, 1.0, 1.0, 1.0])
+    # the public builders default to the GPU too, so a state built with
+    # them and driven through make_tick never lands on the CPU unasked
+    from repro_torch import random as trnd
+    from repro_torch.core import build_app, convert, resolve_layout
+    from repro_torch.core.types import zeros_state
+    params = SimParams(n_ticks=1)
+    sim = Simulation(diamond(), caps=caps, params=params, device="cpu")
+    st = sim.init_state()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_app(diamond())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zeros_state(caps, params, trnd.PRNGKey(0), app=sim.app)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.app_from_numpy({k: v.numpy()
+                                for k, v in sim.app._asdict().items()})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.state_from_numpy(convert.state_to_numpy(st),
+                                 resolve_layout(params))
 
 
 def test_unported_modes_raise():

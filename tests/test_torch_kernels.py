@@ -106,6 +106,33 @@ def test_cloudlet_finish_matches_pallas_interpret(C, I, R, bc, dt):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+@pytest.mark.parametrize("dt", [0.25, 0.1])
+@pytest.mark.parametrize("C,I,R,bc", FINISH_SHAPES)
+def test_inst_acc_bound_covers_the_kernels_exact_sum(C, I, R, bc, dt):
+    # the card's kernel sums the terms exactly in int64 fixed point
+    # (value·2^32, rounded) and rounds the sum once to float32; emulated
+    # here, it must lie within inst_acc_bound of the serial float32 sum
+    args = _finish_args(C, I, R, C + I)
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    status, rem, inst, _, arrival, start, _, rate = t[:8]
+    time = torch.tensor(np.float32(12.5))
+    dt = float(np.float32(dt))
+    *_, rows = tfinish.lane_math(status, rem, inst, arrival, start, rate,
+                                 time, dt)
+    execm = status == 2
+    irow = torch.where(execm & (inst >= 0), inst, I).long()
+    fixed = torch.zeros((I + 1, 5), dtype=torch.int64)
+    fixed.index_add_(0, irow, torch.round(rows.double() * 2.0 ** 32).long()
+                     * execm[:, None])
+    kernel_sum = (fixed.double() / 2.0 ** 32).float()
+    plain = _port_finish(args, 12.5, dt, I).inst_acc
+    bound = tfinish.inst_acc_bound(status, rem, inst, arrival, start, rate,
+                                   time, dt, n_inst=I)
+    err = (kernel_sum.double() - plain.double()).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    assert bool((bound > 0).any())
+
+
 def _pool(args):
     """The same inputs as a stacked default-layout pool."""
     L = resolve_layout(SimParams())

@@ -129,7 +129,7 @@ def assert_trees_match(got: dict, want: dict, float_ulps: int = FLOAT_ULPS,
 
 def torch_app(app) -> "convert.AppStatic":
     return convert.app_from_numpy(
-        {k: np.asarray(v) for k, v in app._asdict().items()})
+        {k: np.asarray(v) for k, v in app._asdict().items()}, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +151,8 @@ def mid():
 def _both(sim, jst):
     """(reference state, the port's copy of it, layout)."""
     layout = resolve_layout(sim.params)
-    return jst, convert.state_from_numpy(jax_tree_np(jst), layout), layout
+    return jst, convert.state_from_numpy(jax_tree_np(jst), layout,
+                                         device="cpu"), layout
 
 
 def test_key_schedule_matches(mid):
@@ -191,7 +192,7 @@ def _run_phase_chain(sim, jst, keys, upto):
     tapp = torch_app(app)
     layout = resolve_layout(params)
     tkeys = trnd.split(convert.state_from_numpy(
-        jax_tree_np(jst), layout).rng, 5)
+        jax_tree_np(jst), layout, device="cpu").rng, 5)
     with jax_reference():
         gen = jax.jit(lambda st, d, a, k: jgen.client_phase(
             st.clients.wait, st.time, st.requests.count, a.api_cdf, d,
@@ -208,7 +209,8 @@ def _run_phase_chain(sim, jst, keys, upto):
         st = jst
         info = None
         for ph in PHASES:
-            src = convert.state_from_numpy(jax_tree_np(st), layout)
+            src = convert.state_from_numpy(jax_tree_np(st), layout,
+                                           device="cpu")
             if ph == "gen_spawn":
                 out_j, _ = j_gen(st, dyn, app, keys[2], gen)
                 if ph == upto:
@@ -279,7 +281,7 @@ def test_scaling_event_matches_reference(mid, case):
     free = {"service": -1, "vm": -1, "host": -1}
     d["instances"] = {k: np.concatenate([v, np.full(
         (4,), free.get(k, 0), v.dtype)]) for k, v in d["instances"].items()}
-    src = convert.state_from_numpy(d, layout)
+    src = convert.state_from_numpy(d, layout, device="cpu")
     jnp_ = jax.numpy
     jst2 = jst._replace(
         sched=type(jst.sched)(**{k: jnp_.asarray(v)
@@ -311,7 +313,7 @@ def test_migrate_matches_reference(mid):
     d = jax_tree_np(jst)
     d["vms"]["mips"] = d["vms"]["mips"].copy()
     d["vms"]["mips"][0] = 20000.0
-    src = convert.state_from_numpy(d, layout)
+    src = convert.state_from_numpy(d, layout, device="cpu")
     jst2 = jst._replace(vms=jst.vms._replace(
         mips=jax.numpy.asarray(d["vms"]["mips"])))
     with jax_reference():

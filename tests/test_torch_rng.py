@@ -107,3 +107,37 @@ def test_erf_inv_and_log1p_over_the_whole_normal_domain():
 def test_keys_stay_on_the_host():
     with pytest.raises(ValueError):
         tr.split(torch.zeros((3,), dtype=torch.int64))
+
+
+def _fma_exact(a, b, c):
+    """``a*b + c`` rounded once to float32 (ties to even), from the exact
+    rational value."""
+    from fractions import Fraction
+    e = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(e))
+    near = (f, np.nextafter(f, np.float32(np.inf)),
+            np.nextafter(f, np.float32(-np.inf)))
+    return min(near, key=lambda v: (abs(Fraction(float(v)) - e),
+                                    int(np.float32(v).view(np.uint32)) & 1))
+
+
+def test_fma32_rounds_once():
+    # a*b = 2^-24 + 2^-61 on c = 1: the exact sum lies just above the
+    # float32 midpoint 1 + 2^-24, so it rounds up; rounding it to float64
+    # first would land on the midpoint and tie back down to 1
+    a = np.float32(11860630 * 2.0 ** -23)
+    b = np.float32(11865937 * 2.0 ** -48)
+    one = torch.ones(1)
+    got = tr.fma32(torch.tensor([a]), torch.tensor([b]), one)
+    assert got.item() == np.float32(1.0 + 2.0 ** -23) == _fma_exact(a, b, 1)
+    # rem - rate*dt (the cloudlet progress) with rem up to 1e11 times the
+    # step, and the signs mixed
+    g = np.random.default_rng(0)
+    n = 3000
+    x = g.uniform(-300.0, 300.0, n).astype(np.float32)
+    c = (g.uniform(-1.0, 1.0, n) * 10.0 ** g.integers(0, 12, n)) \
+        .astype(np.float32)
+    got = tr.fma32(torch.from_numpy(x), 0.1, torch.from_numpy(c)).numpy()
+    want = np.array([_fma_exact(x[i], np.float32(0.1), c[i])
+                     for i in range(n)], np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
