@@ -8,22 +8,27 @@ NVIDIA GPU and the CUDA toolkit:
 
 Phases, in order (any failure exits non-zero):
 
-1. device and build: the card's name and power limit, then both CUDA
+1. device and build: the card's name and power limit, then the three CUDA
    kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: ``cloudlet_finish`` at the Table 2 case1b and case2b pool
+   paths' shapes: ``cloudlet_finish`` at the Table 2 case1b and case2b pool
    shapes (per-lane outputs and request aggregates bit-equal, the instance
    sums within the serial float32 sum's own error bound, two launches
    bit-identical); ``tropical_matmul`` at the SockShop window-batch shape
-   and a fleet shape (bit-equal).  Then the golden small scenario, whose
-   integer counters and response digest are pinned;
+   and a fleet shape (bit-equal); ``link_share`` at the SockShop fabric,
+   case1b+net and case2b+net shapes (rates bit-equal, two launches
+   bit-identical).  Then the golden small scenarios of both network modes,
+   whose integer counters and response digests are pinned;
 3. Table 2 case1b at full size, run twice (conservation laws, 10^6
    requests admitted, one ``cloudlet_finish`` launch per tick, the two
    final states bit-identical), with per-phase CUDA-event times over 100
    ticks, the synchronising calls per tick and the device busy share;
-4. Table 2 case2b at full size, once, with the same checks;
-5. SockShop (paper §6.3), three runs in three processes side by side on
+4. Table 2 case1b+net (the network fabric on 10,000 Mbit/s NICs) at full
+   size, once, with the same checks and one ``link_share`` launch per
+   tick; its per-phase times name the Transit phase;
+5. Table 2 case2b at full size, once, with the same checks;
+6. SockShop (paper §6.3), three runs in three processes side by side on
    the one card: 100 clients (HS) and 300 clients (NS) over 600 s,
    average response against the testbed, and 300 clients with HS over
    180 s, which must scale out; each run launches
@@ -31,7 +36,12 @@ Phases, in order (any failure exits non-zero):
    per-window node delays through the tropical kernel, held against the
    DP critical path; the synchronising calls per tick over a window that
    holds a scaling tick;
-6. one JSON line with each kernel's launches, times and bound; then the
+7. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
+   ``examples/network_saturation.py``'s sweep) at 10, 50 and 100 clients
+   over 120 s, three processes side by side: one ``link_share`` and one
+   ``cloudlet_finish`` launch per tick, and the transit p95 rising with
+   the load;
+8. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
@@ -58,6 +68,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 GOLDEN = dict(completed=157, spawned=794, finished=789,
               resp_digest=1306795296637)
+GOLDEN_FABRIC = dict(completed=163, spawned=830, finished=822,
+                     resp_digest=1292572014442, transits=606)
 
 
 class SmokeError(RuntimeError):
@@ -233,27 +245,92 @@ def check_tropical(tag, B, S, torch, dev):
                 max_abs_err=float((k - p).abs().nan_to_num(0.0).max()))
 
 
-def check_golden(torch, dev):
-    """The reference's golden scenario (uniform network, no faults): its
-    integer counters and response digest are pinned."""
+def link_inputs(C, H, seed, torch, dev):
+    """Transfers over random ports: a tenth client uploads, a twentieth
+    with no destination, a quarter inactive, capacities 0.5-100 MB/s."""
+    g = np.random.default_rng(seed)
+    src = g.integers(0, H, C).astype(np.int32)
+    src[g.random(C) < 0.1] = -1
+    dst = g.integers(0, H, C).astype(np.int32)
+    dst[g.random(C) < 0.05] = -1
+    active = g.random(C) < 0.75
+    cap_e = g.uniform(0.5, 100.0, H).astype(np.float32)
+    cap_i = g.uniform(0.5, 100.0, H).astype(np.float32)
+    return [torch.tensor(a, device=dev)
+            for a in (src, dst, active, cap_e, cap_i)]
+
+
+def check_link_share(tag, C, H, torch, dev, iters=2):
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.link_share import ops, ref
+    args = link_inputs(C, H, 13, torch, dev)
+    saved = dict(counts)
+    k1 = ops.link_share(*args, iters=iters)
+    k2 = ops.link_share(*args, iters=iters)
+    p = ref.waterfill(*args, iters)
+    torch.cuda.synchronize()
+    check(torch.equal(k1, k2), f"link_share {tag}: two launches differ")
+    check(torch.equal(k1, p), f"link_share {tag}: differs from the plain "
+          "version")
+    check(bool((k1 > 0).any()), f"link_share {tag}: no transfer moved")
+    k_ev, k_dev = cuda_ms(lambda: ops.link_share(*args, iters=iters), 200,
+                          torch)
+    p_ev, p_dev = cuda_ms(lambda: ref.waterfill(*args, iters), 20, torch)
+    counts.update(saved)
+    # bytes: src, dst (4 B) and active (1 B) per lane and both capacity
+    # tables read once, one float rate per lane written
+    nbytes = C * (4 + 4 + 1 + 4) + 2 * H * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    max_err = float((k1 - p).abs().max())
+    log(f"link_share {tag}: C={C} H={H} iters={iters}  kernel "
+        f"{_ms(k_dev)} ms device / {k_ev:.4f} ms per call  plain "
+        f"{_ms(p_dev)} ms device / {p_ev:.4f} ms per call  bound "
+        f"{bound_ms:.6f} ms (bytes)  max|err| {max_err}")
+    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+                bound_ms=bound_ms, max_abs_err=max_err)
+
+
+def golden_sim(network, dev):
+    """The reference's golden scenario (``tests/test_layouts.py``
+    ``matrix_sim``) in either network mode, no faults."""
     from repro_torch.core import (InstanceTemplate, SimCaps, SimParams,
                                   Simulation, diamond)
     caps = SimCaps(n_clients=16, max_requests=512, max_cloudlets=512,
                    max_instances=8, n_vms=4, d_max=2, max_replicas=2)
+    net = (dict(network="fabric", nic_egress_mbps=50.0,
+                nic_ingress_mbps=50.0) if network == "fabric"
+           else dict(net_latency_s=0.05))
     params = SimParams(dt=0.05, n_ticks=300, n_clients=12, spawn_rate=5.0,
-                       wait_lo=0.5, wait_hi=1.5, seed=3, net_latency_s=0.05)
-    sim = Simulation(diamond(mi=400.0), caps=caps, params=params,
-                     default_template=InstanceTemplate(
-                         mips=8000.0, limit_mips=16000.0, replicas=2),
-                     vm_mips=np.full(4, 64000.0, np.float32), device=dev)
-    st = sim.run().state
-    resp = st.requests.response.cpu().numpy()
-    got = dict(completed=int(st.counters.completed),
-               spawned=int(st.counters.spawned),
-               finished=int(st.counters.finished),
-               resp_digest=int(resp.view(np.uint32).astype(np.uint64).sum()))
-    log(f"golden scenario on the card: {got}")
-    check(got == GOLDEN, f"golden scenario differs from its pins {GOLDEN}")
+                       wait_lo=0.5, wait_hi=1.5, seed=3, **net)
+    return Simulation(diamond(mi=400.0), caps=caps, params=params,
+                      default_template=InstanceTemplate(
+                          mips=8000.0, limit_mips=16000.0, replicas=2),
+                      vm_mips=np.full(4, 64000.0, np.float32), device=dev)
+
+
+def check_golden(torch, dev):
+    """The reference's golden scenarios (uniform network and the fabric,
+    no faults): their integer counters and response digests are
+    pinned."""
+    from repro_torch.kernels import counts
+    for network, pins in (("uniform", GOLDEN), ("fabric", GOLDEN_FABRIC)):
+        saved = dict(counts)
+        st = golden_sim(network, dev).run().state
+        n_link = counts["link_share"] - saved["link_share"]
+        counts.update(saved)
+        resp = st.requests.response.cpu().numpy()
+        got = dict(completed=int(st.counters.completed),
+                   spawned=int(st.counters.spawned),
+                   finished=int(st.counters.finished),
+                   resp_digest=int(resp.view(np.uint32).astype(np.uint64)
+                                   .sum()))
+        if network == "fabric":
+            got["transits"] = int(st.net.transits)
+            check(n_link == 300, f"fabric golden scenario: link_share "
+                  f"launched {n_link} times in 300 ticks")
+        log(f"golden scenario ({network}) on the card: {got}")
+        check(got == pins, f"golden scenario ({network}) differs from its "
+              f"pins {pins}")
 
 
 # ---------------------------------------------------------------------------
@@ -388,19 +465,25 @@ def run_capacity(tag, repeats, torch, dev, launches):
     t_build = time.perf_counter()
     sim, meta = capacity.build_tagged(tag, device=dev)
     log(f"{tag}: built in {time.perf_counter() - t_build:.1f} s  {meta}")
+    path = ["cloudlet_finish"] + (["link_share"]
+                                  if sim.params.network == "fabric" else [])
     digests = []
     for rep in range(repeats):
         reset_counts()
         res = sim.run()
-        n_fin = counts["cloudlet_finish"]
-        launches.setdefault("cloudlet_finish", n_fin)
-        check(n_fin == meta["n_ticks"], f"{tag}: cloudlet_finish launched "
-              f"{n_fin} times in {meta['n_ticks']} ticks")
+        n = {k: counts[k] for k in path}
+        for k in path:
+            launches.setdefault(k, n[k])
+            check(n[k] == meta["n_ticks"], f"{tag}: {k} launched {n[k]} "
+                  f"times in {meta['n_ticks']} ticks")
         laws = conservation(res.state, meta["n_requests"])
+        if sim.params.network == "fabric":
+            laws["transits"] = int(res.state.net.transits)
+            check(laws["transits"] > 0, f"{tag}: no transfer arrived")
         digests.append(state_digest(res.state, torch))
         log(f"{tag} run {rep + 1}: wall {res.wall_time_s:.3f} s  "
             f"{meta['n_ticks'] / res.wall_time_s:.2f} ticks/s  "
-            f"cloudlet_finish launches {n_fin}  {laws}")
+            f"launches {n}  {laws}")
     if repeats > 1:
         bad = [k for k in digests[0] if digests[0][k] != digests[1][k]]
         check(not bad, f"{tag}: the two runs differ in {bad[:5]}")
@@ -418,6 +501,7 @@ def run_capacity(tag, repeats, torch, dev, launches):
     per_tick, sites = sync_calls_per_tick(sim, torch)
     log(f"{tag}: synchronising calls per tick {per_tick:.2f} (first 10 "
         f"ticks) {sites}")
+    check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
     share, ms_tick = device_busy(sim, torch)
     log(f"{tag}: device busy share "
         f"{'not measured' if share is None else f'{share:.3f}'} over 20 "
@@ -470,6 +554,73 @@ def sockshop_process(n_clients, duration, policy):
                      f"tick {per_tick:.2f} (ticks {si - 10}-{si + 9}, "
                      f"scaling tick {si - 1}) {sites}")
     return lines, n_trop
+
+
+FABRIC_LOADS = (10, 50, 100)
+
+
+def run_sockshop_fabric(launches):
+    """``examples/network_saturation.py``'s sweep: SockShop's 10 nodes at
+    8 Mbit/s NICs with spread placement, 10, 50 and 100 clients over
+    120 s, one process each side by side.  The transit p95 must rise with
+    the load."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    with cf.ProcessPoolExecutor(len(FABRIC_LOADS),
+                                mp_context=mp.get_context("spawn")) as pool:
+        results = list(pool.map(sockshop_fabric_process, FABRIC_LOADS))
+    p95 = []
+    for lines, n_link, rep_p95 in results:
+        for line in lines:
+            log(line)
+        p95.append(rep_p95)
+    log("sockshop fabric: transit p95 ms by load "
+        f"{dict(zip(FABRIC_LOADS, p95))}")
+    check(all(b >= a for a, b in zip(p95, p95[1:])) and p95[-1] > p95[0],
+          f"sockshop fabric: transit p95 {p95} does not rise with the load")
+
+
+def sockshop_fabric_process(n_clients):
+    """One fabric SockShop run in a process of its own; returns its log
+    lines, its ``link_share`` launches and its transit p95."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import sockshop
+    from repro_torch.core import policies, qos
+    from repro_torch.kernels import counts, reset_counts
+    torch.set_num_threads(2)
+    dev = torch.device("cuda")
+    # one client pool sized for the largest load, as the example's sweep
+    sim = sockshop.make_sim(max(FABRIC_LOADS), 120.0, network="fabric",
+                            nic_egress_mbps=8.0, nic_ingress_mbps=8.0,
+                            placement_policy=policies.PLACE_SPREAD,
+                            device=dev)
+    sim.params = dataclasses.replace(sim.params, n_clients=n_clients,
+                                     spawn_rate=n_clients / 10.0)
+    T = sim.params.n_ticks
+    torch.cuda.synchronize()
+    reset_counts()
+    res = sim.run()
+    n = dict(counts)
+    tag = f"sockshop fabric {n_clients} clients"
+    for k in ("cloudlet_finish", "link_share"):
+        check(n[k] == T, f"{tag}: {k} launched {n[k]} times in {T} ticks")
+    laws = conservation(res.state)
+    rep = qos.summarize(sim, res)
+    check(rep.net_transits > 0 and math.isfinite(rep.transit_p95_ms)
+          and rep.completed_requests > 0, f"{tag}: no transits/responses")
+    check(float(res.state.net.bytes_out.sum()) > 0,
+          f"{tag}: no cross-host hop")
+    resp = res.state.requests.response.cpu().numpy()
+    digest = int(resp.view(np.uint32).astype(np.uint64).sum())
+    line = (f"{tag}: {T} ticks  wall {res.wall_time_s:.2f} s  "
+            f"{T / res.wall_time_s:.1f} ticks/s  launches "
+            f"{dict((k, n[k]) for k in ('cloudlet_finish', 'link_share'))}"
+            f"  transits {rep.net_transits}  transit p50 "
+            f"{rep.transit_p50_ms:.1f} ms p95 {rep.transit_p95_ms:.1f} ms  "
+            f"ingress util {rep.avg_ingress_util:.4f}  avg response "
+            f"{rep.avg_response_ms:.1f} ms  response digest {digest}  {laws}")
+    return [line], n["link_share"], rep.transit_p95_ms
 
 
 def run_sockshop_case(sim, n_clients, torch, dev, testbed, say=log):
@@ -574,11 +725,17 @@ def main() -> int:
         results["tropical_matmul"] = check_tropical("sockshop", 60, 13,
                                                     torch, dev)
         check_tropical("fleet", 8, 1024, torch, dev)
+        check_link_share("sockshop", 8192, 10, torch, dev)
+        results["link_share"] = check_link_share("case1b+net", 8000, 15,
+                                                 torch, dev)
+        check_link_share("case2b+net", 262144, 781, torch, dev)
         check_golden(torch, dev)
 
         run_capacity("case1b", 2, torch, dev, launches)
+        run_capacity("case1b+net", 1, torch, dev, launches)
         run_capacity("case2b", 1, torch, dev, launches)
         run_sockshop(launches)
+        run_sockshop_fabric(launches)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -587,7 +744,9 @@ def main() -> int:
         "cloudlet_finish": ("src/repro_torch/csrc/cloudlet_finish.cu",
                             "src/repro/kernels/cloudlet_step/kernel.py:102"),
         "tropical_matmul": ("src/repro_torch/csrc/tropical.cu",
-                            "src/repro/kernels/tropical/kernel.py:43")}
+                            "src/repro/kernels/tropical/kernel.py:43"),
+        "link_share": ("src/repro_torch/csrc/link_share.cu",
+                       "src/repro/kernels/link_share/kernel.py:42")}
     kernels = []
     for name, (path, replaces) in src.items():
         r = results[name]

@@ -1,8 +1,9 @@
 """Paper Table 2 — the simulation-capacity cases (§6.1), for the port.
 
 The sizing is the reference's (``benchmarks/bench_capacity.py``
-``build_case``/``CASES``), copied so the port stands alone; only the
-default mode is built here (no fabric, chaos or telemetry variants).
+``build_case``/``CASES``), copied so the port stands alone.  The default
+mode and the fabric variant (``network=True``, tagged ``<case>+net``) are
+built here; the chaos and telemetry variants are not ported.
 
 Case structure (paper's counts; topology interpretation in brackets):
   1: 1 service × 10³ instances, 10⁵/10⁶ requests → 1 cloudlet per request
@@ -40,9 +41,12 @@ def flat_services(n: int, mi: float):
 
 
 def build_case(n_requests: int, n_services: int, replicas: int,
-               fanout: int = 1, device="cuda"):
+               fanout: int = 1, device="cuda", network: bool = False):
     """A capacity Simulation sized to the Table 2 object counts; returns
-    (sim, meta) where meta records the sizing decisions."""
+    (sim, meta) where meta records the sizing decisions.  ``network=True``
+    runs the fabric's Transit phase on ample 10,000 Mbit/s host NICs (the
+    phase runs, the workload does not starve), as the reference's
+    ``case1b+net`` record does."""
     mi = 50.0
     graph = flat_services(n_services, mi)
     api_entries = ([[f"s{i}" for i in range(n_services)]]
@@ -70,7 +74,9 @@ def build_case(n_requests: int, n_services: int, replicas: int,
                    d_max=1, max_replicas=replicas, k_fire=k_fire)
     params = SimParams(dt=dt, n_ticks=n_ticks, n_clients=nc,
                        spawn_rate=nc / 5.0, wait_lo=2.0, wait_hi=6.0,
-                       num_limit=n_requests, seed=0)
+                       num_limit=n_requests, seed=0,
+                       network="fabric" if network else "uniform",
+                       nic_egress_mbps=10_000.0, nic_ingress_mbps=10_000.0)
     # Instance speed: each tick's per-instance batch drains in ~0.4 ticks.
     a_i = fire_rate * fanout / n_inst        # cloudlet arrivals/inst/tick
     mips = max(a_i, 0.4) * mi / (0.4 * dt)
@@ -88,8 +94,14 @@ def build_case(n_requests: int, n_services: int, replicas: int,
 
 
 def build_tagged(tag: str, scale: float = 1.0, device="cuda"):
-    """The Table 2 case ``tag`` with its request count scaled by
-    ``scale`` (at least 100 requests), as the reference's perf records."""
-    n_requests, n_services, replicas, _, fanout = CASES[tag]
+    """The Table 2 case ``tag`` (``"case1b"``, or ``"case1b+net"`` for the
+    fabric variant) with its request count scaled by ``scale`` (at least
+    100 requests), as the reference's perf records."""
+    case, _, variant = tag.partition("+")
+    if variant not in ("", "net"):
+        raise ValueError(f"unknown capacity variant {tag!r} (the port "
+                         "builds <case> and <case>+net)")
+    n_requests, n_services, replicas, _, fanout = CASES[case]
     n_requests = max(int(n_requests * scale), 100)
-    return build_case(n_requests, n_services, replicas, fanout, device)
+    return build_case(n_requests, n_services, replicas, fanout, device,
+                      network=variant == "net")

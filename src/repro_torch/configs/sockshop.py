@@ -137,10 +137,14 @@ def make_sim(n_clients: int = 100, duration_s: float = 600.0,
              device="cuda", **param_overrides) -> Simulation:
     """Build the paper's §6.3 experiment: Locust wait U[5,15] s, 600 s.
 
-    ``replicas`` sets the initial replica count per service; ``host_zone``
-    maps the 10 nodes onto failure domains.  The fabric and chaos modes of
-    the reference (``network="fabric"``, ``faults="chaos"``) are not
-    ported yet and raise.
+    Pass ``network="fabric"`` (plus ``nic_egress_mbps``/``nic_ingress_mbps``)
+    to replace the calibrated uniform hop latency with payload transit over
+    the 10-node cluster's NICs (DESIGN.md §6); ``placement_policy=
+    policies.PLACE_SPREAD`` puts the services on different nodes so their
+    calls cross NICs.  ``replicas`` sets the initial replica count per
+    service; ``host_zone`` maps the 10 nodes onto failure domains.  The
+    chaos mode of the reference (``faults="chaos"``) is not ported yet and
+    raises.
     """
     param_overrides.setdefault("net_latency_s", net_latency_s)
     max_replicas = max(max_replicas, replicas)

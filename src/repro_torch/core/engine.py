@@ -1,11 +1,12 @@
 """Simulation engine: one tick per paper event cycle, looped over time.
 
 ``make_tick`` assembles the event phases of paper §3.2 —
-Generation → Dispatching → Scheduling → Derivative → Response → Scaling &
-Migration — into one state transition, and ``Simulation`` runs it in a
-Python loop with static shapes, collecting per-tick QoS traces.  The loop
-never synchronises with the device: the scaling cadence is a test on the
-host-side loop index, and every data-dependent choice is a tensor select.
+Generation → (Transit, fabric mode) → Dispatching → Scheduling →
+Derivative → Response → Scaling & Migration — into one state transition,
+and ``Simulation`` runs it in a Python loop with static shapes,
+collecting per-tick QoS traces.  The loop never synchronises with the
+device: the scaling cadence is a test on the host-side loop index, and
+every data-dependent choice is a tensor select.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from .. import random as rnd
 from ..analysis import streams
+from . import network as netmod
 from . import policies, scheduler
 from .app import AppStatic, InstanceTemplate, build_app, validate_app
 from .generator import client_phase
@@ -29,17 +31,21 @@ from .types import (CL_EXEC, CL_TRANSIT, CL_WAITING, DynParams, INST_ON,
                     check_main_path, resolve_device, zeros_state)
 
 # Stream names of the tick's single wide split; positions are the
-# contract (split is not prefix-stable), names are the audit labels.
+# contract (split is not prefix-stable, so the fabric's two extra streams
+# change every key), names are the audit labels.
 KEY_NAMES = ("carry", "gen", "spawn", "lb", "derive")
+FABRIC_KEY_NAMES = KEY_NAMES + ("net_gen", "net_derive")
 
 
 def make_tick(caps: SimCaps, params: SimParams,
               has_edges: bool = True) -> Callable:
     """Build the tick function ``tick(state, dyn, app, scale_due, probe)``.
 
-    ``params`` supplies the knobs that choose program structure.  Modes
-    the port does not have yet (``network``, ``faults``, ``telemetry``,
-    ``alerting`` other than their defaults) raise ``NotImplementedError``.
+    ``params`` supplies the knobs that choose program structure.
+    ``network="fabric"`` adds the Transit phase (core/network.py) between
+    Generation and Dispatch.  Modes the port does not have yet
+    (``faults``, ``telemetry``, ``alerting`` other than their defaults)
+    raise ``NotImplementedError``.
     ``scale_due`` (a host bool) says whether this tick ends a scaling
     interval.  ``probe``, when given, is called with each phase name just
     before the phase runs and with ``"end"`` after the last one — the
@@ -47,14 +53,17 @@ def make_tick(caps: SimCaps, params: SimParams,
     """
     check_main_path(params)
     scales = bool(params.scaling_policy or params.migration_enabled)
+    network = params.network == "fabric"
+    key_names = FABRIC_KEY_NAMES if network else KEY_NAMES
 
     def tick(state: SimState, dyn: DynParams, app: AppStatic,
              scale_due: bool = False,
              probe: Optional[Callable[[str], None]] = None
              ) -> Tuple[SimState, TickTrace]:
         mark = probe or (lambda name: None)
-        keys = streams.split(state.rng, len(KEY_NAMES), names=KEY_NAMES)
-        k_carry, k_gen, k_gen2, k_lb, k_der = keys
+        keys = streams.split(state.rng, len(key_names), names=key_names)
+        k_carry, k_gen, k_gen2, k_lb, k_der = keys[:5]
+        k_net_g, k_net_d = (keys[5], keys[6]) if network else (None, None)
         state = state._replace(rng=k_carry)
 
         mark("Generation")
@@ -62,17 +71,23 @@ def make_tick(caps: SimCaps, params: SimParams,
                            state.requests.count, app.api_cdf, dyn, k_gen)
         state, gen_res = scheduler.gen_spawn(
             state, app, caps, gen.fired, gen.api, gen.wait_proposal,
-            k_gen2, dyn)
+            k_gen2, dyn, params=params, net_rng=k_net_g)
+
+        if network:
+            mark("Transit")
+            state = netmod.transit(state, caps, params, dyn, app)
 
         mark("Dispatch")
-        state = scheduler.dispatch(state, app, caps, params, dyn, k_lb)
+        state = scheduler.dispatch(state, app, caps, params, dyn, k_lb,
+                                   network=network)
 
         mark("Execute")
         state, fin_info = scheduler.execute(state, app, caps, params, dyn)
 
         if has_edges:  # edge-free graphs skip the spawn machinery
             mark("Derive")
-            state = scheduler.derive(state, app, caps, fin_info, k_der)
+            state = scheduler.derive(state, app, caps, fin_info, k_der,
+                                     params=params, net_rng=k_net_d)
 
         mark("Response")
         state, n_done = scheduler.complete(state, dyn)

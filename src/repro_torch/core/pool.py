@@ -79,6 +79,31 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int,
                     torch.where(valid, data, torch.zeros_like(data)), valid)
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 in the order of the reference's compiled CPU
+    reductions (XLA's tree-reduction rewrite): while more than 32 rows
+    remain, pad with zero rows split evenly before and after (one more
+    after) to a multiple of 32, and sum each window of 32 rows in order
+    from 0; then sum the last at most 32 rows in order from 0.  Gives the
+    same bits on every device (elementwise adds only, no atomics)."""
+    while x.shape[0] > 32:
+        n, rest = x.shape[0], tuple(x.shape[1:])
+        m = -(-n // 32)
+        pad = 32 * m - n
+        if pad:
+            x = torch.cat([x.new_zeros((pad // 2,) + rest), x,
+                           x.new_zeros((pad - pad // 2,) + rest)])
+        w = x.reshape((m, 32) + rest)
+        acc = x.new_zeros((m,) + rest)
+        for j in range(32):
+            acc = acc + w[:, j]
+        x = acc
+    acc = x.new_zeros(tuple(x.shape[1:]))
+    for j in range(x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
 class SlotAssignment(NamedTuple):
     dst: torch.Tensor        # [K] i32 destination pool slot for rank r
     src: torch.Tensor        # [K] i32 source descriptor index for rank r

@@ -1,9 +1,11 @@
 """Cloudlet scheduler phases (paper §4.2) + derivative spawning (§4.1.2),
-for the default mode (uniform network, no faults).
+for both network modes (uniform latency and the fabric) without faults.
 
 Every tick runs, in order:
 
   ``gen_spawn``   — new requests fire root cloudlets at API entry services
+  ``transit``     — (fabric mode, core/network.py) in-flight payloads share
+                    host NICs max-min fairly; arrivals join the waiting queue
   ``dispatch``    — waiting→execution transition with load balancing
   ``execute``     — time-shared progress + finish detection + usage history
   ``derive``      — finished cloudlets spawn successors along the DAG
@@ -26,13 +28,16 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import random as rnd
+from ..analysis import streams
 from ..kernels.cloudlet_step import cloudlet_finish_pool
+from . import network as netmod
 from . import policies
 from .app import AppStatic
 from .pool import (add_drop, assign_free_slots, scatter_pool, segment_rank,
                    segment_sum, set_drop)
-from .types import (CL_EXEC, CL_FREE, CL_WAITING, DynParams, INST_DRAIN,
-                    INST_FREE, INST_ON, SimCaps, SimParams, SimState)
+from .types import (CL_EXEC, CL_FREE, CL_TRANSIT, CL_WAITING, DynParams,
+                    INST_DRAIN, INST_FREE, INST_ON, SimCaps, SimParams,
+                    SimState)
 
 i32, f32 = torch.int32, torch.float32
 
@@ -52,8 +57,15 @@ class GenResult(NamedTuple):
 def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
               fired: torch.Tensor, api: torch.Tensor,
               wait_proposal: torch.Tensor, rng: torch.Tensor,
-              dyn: DynParams) -> Tuple[SimState, GenResult]:
-    """Allocate request slots for fired clients and spawn root cloudlets."""
+              dyn: DynParams, params: SimParams | None = None,
+              net_rng: torch.Tensor | None = None
+              ) -> Tuple[SimState, GenResult]:
+    """Allocate request slots for fired clients and spawn root cloudlets.
+
+    With ``net_rng`` (fabric mode) each root cloudlet is addressed to a
+    replica and enters TRANSIT carrying the API's request payload; the
+    client is external, so only the destination's ingress port carries
+    it (``src_host = -1``)."""
     req, cl, ctr = state.requests, state.cloudlets, state.counters
     R = req.api.shape[0]
     dev = fired.device
@@ -109,10 +121,27 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
     length = torch.clamp_min(
         rnd.fma32(app.len_std[svc_new], noise, app.len_mean[svc_new]), 1.0)
 
+    rr = state.rr
+    if net_rng is None:                  # uniform mode
+        status_new, inst_new, bytes_new = CL_WAITING, -1, 0.0
+    else:                                # fabric mode: address + payload
+        api_new = api_r[:, None].expand(K, E).reshape(-1)[asg.src]
+        k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
+        tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
+                                       params, k_lb)
+        payload = netmod.sample_payload(app.api_payload_mean[api_new],
+                                        app.api_payload_std[api_new], k_pay)
+        # no live replica yet: park in the waiting queue (dispatch
+        # re-balances); clients are external, so no loopback fast path
+        status_new = torch.where(tgt >= 0, CL_TRANSIT, CL_WAITING)
+        inst_new = tgt
+        bytes_new = torch.where(tgt >= 0, payload, 0.0)
+
     cloudlets = scatter_pool(
-        cl, asg, status=CL_WAITING, req=req_new, service=svc_new, inst=-1,
-        wait_ticks=0, depth=0, length=length, rem=length,
-        arrival=state.time.expand(Ka), start=-1.0)
+        cl, asg, status=status_new, req=req_new, service=svc_new,
+        inst=inst_new, wait_ticks=0, depth=0, src_host=-1, src_inst=-1,
+        length=length, rem=length, arrival=state.time.expand(Ka),
+        start=-1.0, rem_bytes=bytes_new)
 
     # A request with several entry cloudlets hits its counters repeatedly.
     requests = requests._replace(
@@ -123,7 +152,7 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
         dropped_cloudlets=ctr.dropped_cloudlets + asg.n_dropped,
         dropped_requests=ctr.dropped_requests + n_pool_drop)
     state = state._replace(
-        clients=state.clients._replace(wait=new_wait),
+        rr=rr, clients=state.clients._replace(wait=new_wait),
         requests=requests, cloudlets=cloudlets, counters=counters)
     return state, GenResult(n_new_requests=n_accept)
 
@@ -134,17 +163,22 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
 
 def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
              params: SimParams, dyn: DynParams,
-             rng: torch.Tensor) -> SimState:
+             rng: torch.Tensor, network: bool = False) -> SimState:
     cl, inst, sched = state.cloudlets, state.instances, state.sched
     C = cl.ints.shape[0]
     I = inst.status.shape[0]
     S = app.n_services
     dev = cl.ints.device
 
-    # An RPC hop traverses the network (load-independent latency) before
-    # it may be scheduled.
-    waiting = (cl.status == CL_WAITING) & \
-        (state.time + 1e-6 >= cl.arrival + float(dyn.net_latency))
+    if network:
+        # fabric mode: a waiting cloudlet has already crossed the network
+        # (Transit, or the loopback fast path)
+        waiting = cl.status == CL_WAITING
+    else:
+        # an RPC hop traverses the network (load-independent latency)
+        # before it may be scheduled
+        waiting = (cl.status == CL_WAITING) & \
+            (state.time + 1e-6 >= cl.arrival + float(dyn.net_latency))
     iof, reps = sched.inst_of_rank, sched.svc_replicas
     svc = torch.where(waiting, cl.service, 0)
     replicas = reps[svc]                                    # [C]
@@ -161,6 +195,19 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
     tgt_safe = torch.where(ok, target, 0)
     ok = ok & (inst.status[tgt_safe] == INST_ON)
 
+    if network:
+        # honour the spawn-time address while that replica is still ON
+        # and still serves this service (scale-in/out may have re-bound
+        # the slot in flight); else take the fresh decision above
+        pre = cl.inst
+        pre_safe = torch.clamp_min(pre, 0)
+        use_pre = (waiting & (pre >= 0)
+                   & (inst.status[pre_safe] == INST_ON)
+                   & (inst.service[pre_safe] == cl.service))
+        target = torch.where(use_pre, pre, target)
+        ok = ok | use_pre
+        tgt_safe = torch.where(ok, target, 0)
+
     if params.max_concurrent > 0:
         # Space-shared admission: FCFS rank within the target instance
         # must fit in the remaining concurrency budget.
@@ -174,7 +221,14 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
     # folded over the instance table, the round-robin cursors.
     admit_per_inst = segment_sum(admit.to(i32),
                                  torch.where(admit, target, -1), I)
-    disp_per_svc = segment_sum(admit_per_inst, inst.service, S)
+    if network:
+        # pre-addressed cloudlets stepped the cursor at spawn already
+        lb_admit = admit & ~use_pre
+        disp_per_svc = segment_sum(
+            segment_sum(lb_admit.to(i32), torch.where(lb_admit, target, -1),
+                        I), inst.service, S)
+    else:
+        disp_per_svc = segment_sum(admit_per_inst, inst.service, S)
     rr = (state.rr + disp_per_svc) % torch.clamp_min(sched.svc_replicas, 1)
 
     cloudlets = cl.with_cols(
@@ -321,7 +375,9 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
 # ===========================================================================
 
 def derive(state: SimState, app: AppStatic, caps: SimCaps,
-           info: FinishInfo, rng: torch.Tensor) -> SimState:
+           info: FinishInfo, rng: torch.Tensor,
+           params: SimParams | None = None,
+           net_rng: torch.Tensor | None = None) -> SimState:
     cl, req, ctr = state.cloudlets, state.requests, state.counters
     C = cl.ints.shape[0]
     I = state.instances.status.shape[0]
@@ -345,14 +401,42 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
     # clamp is a no-op (acyclic graphs cap chains at S-1 hops)
     dep_new = torch.clamp_max(dep_flat[asg.src], app.succ.shape[0] - 1)
     tf_new = tf_flat[asg.src]
+    pin_new = pin_flat[asg.src]
     noise = rnd.normal(rng, (Ka,), device=dev)
     length = torch.clamp_min(
         rnd.fma32(app.len_std[svc_new], noise, app.len_mean[svc_new]), 1.0)
 
+    rr = state.rr
+    if net_rng is None:                  # uniform mode
+        status_new, inst_new = CL_WAITING, -1
+        src_host_new, bytes_new = -1, 0.0
+    else:                                # fabric mode: address + payload
+        # edge (row = parent service, column = successor slot)
+        psvc_new = parent_svc[:, None].expand(C, D).reshape(-1)[asg.src]
+        slot_new = asg.src % D
+        k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
+        tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
+                                       params, k_lb)
+        payload = netmod.sample_payload(app.payload_mean[psvc_new, slot_new],
+                                        app.payload_std[psvc_new, slot_new],
+                                        k_pay)
+        host = state.instances.host
+        src_host = torch.where(pin_new >= 0,
+                               host[torch.clamp_min(pin_new, 0)], -1)
+        dst_host = torch.where(tgt >= 0, host[torch.clamp_min(tgt, 0)], -1)
+        # loopback fast path: co-located hops never touch a NIC
+        loop = (tgt >= 0) & (src_host >= 0) & (src_host == dst_host)
+        in_transit = (tgt >= 0) & ~loop
+        status_new = torch.where(in_transit, CL_TRANSIT, CL_WAITING)
+        inst_new = tgt
+        src_host_new = torch.where(in_transit, src_host, -1)
+        bytes_new = torch.where(in_transit, payload, 0.0)
+
     cloudlets = scatter_pool(
-        cl, asg, status=CL_WAITING, req=req_new, service=svc_new, inst=-1,
-        wait_ticks=0, depth=dep_new, length=length, rem=length,
-        arrival=tf_new, start=-1.0)
+        cl, asg, status=status_new, req=req_new, service=svc_new,
+        inst=inst_new, wait_ticks=0, depth=dep_new, src_host=src_host_new,
+        src_inst=pin_new, length=length, rem=length, arrival=tf_new,
+        start=-1.0, rem_bytes=bytes_new)
 
     # several successors of one parent share a request — intended collisions
     requests = req._replace(
@@ -370,7 +454,7 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
     counters = ctr._replace(
         spawned=ctr.spawned + asg.n_assigned,
         dropped_cloudlets=ctr.dropped_cloudlets + asg.n_dropped)
-    return state._replace(cloudlets=cloudlets, requests=requests,
+    return state._replace(rr=rr, cloudlets=cloudlets, requests=requests,
                           instances=instances, counters=counters)
 
 

@@ -10,9 +10,9 @@ the reference's field names, so a state carries across leaf for leaf
 Conventions: int32 / float32 everywhere (the reference runs with x64 off);
 ``-1`` is the null id; pools have fixed capacity.  The PRNG key
 (``SimState.rng``) is the one leaf that always lives on the CPU — see
-``repro_torch.random``.  Only the default mode (``network="uniform"``,
-``faults="none"``, ``telemetry="none"``, ``alerting="none"``) is ported:
-the other modes' tables exist with zero width.
+``repro_torch.random``.  Both network modes (``"uniform"`` and
+``"fabric"``) are ported, with ``faults="none"``, ``telemetry="none"`` and
+``alerting="none"``: the other modes' tables exist with zero width.
 """
 from __future__ import annotations
 
@@ -238,7 +238,8 @@ _F32_FIELDS = (
     "dt", "spawn_rate", "wait_lo", "wait_hi", "hs_util_hi", "hs_util_lo",
     "vs_util_hi", "vs_util_lo", "vs_up_factor", "vs_down_factor",
     "util_ema", "mig_vm_util_hi", "slo_ms", "net_latency",
-    "idle_mips_frac", "vs_overhead_frac")
+    "idle_mips_frac", "vs_overhead_frac", "nic_egress_mbps",
+    "nic_ingress_mbps")
 _I32_FIELDS = ("n_clients", "num_limit", "max_concurrent", "scale_interval",
                "hs_mode")
 
@@ -269,6 +270,8 @@ class DynParams(NamedTuple):
     net_latency: np.float32
     idle_mips_frac: np.float32
     vs_overhead_frac: np.float32
+    nic_egress_mbps: np.float32
+    nic_ingress_mbps: np.float32
     hs_mode: np.int32
 
     @staticmethod
@@ -501,6 +504,9 @@ class Cloudlets:
     rem = property(lambda self: self.col("rem"))
     arrival = property(lambda self: self.col("arrival"))
     start = property(lambda self: self.col("start"))
+    src_host = property(lambda self: self.col("src_host"))
+    src_inst = property(lambda self: self.col("src_inst"))
+    rem_bytes = property(lambda self: self.col("rem_bytes"))
 
     def with_cols(self, **cols) -> "Cloudlets":
         """Replace whole [C] columns by name (new blocks; the old ones are
@@ -717,10 +723,15 @@ def edge_table_size(n_services: int, d_max: int, n_apis: int) -> int:
 
 
 def check_main_path(params: SimParams) -> None:
-    """Raise for every mode knob whose phase the port does not have yet."""
-    for knob, want in (("network", "uniform"), ("faults", "none"),
-                       ("telemetry", "none"), ("alerting", "none"),
-                       ("hs_mode", "util")):
+    """Raise for every mode knob whose phase the port does not have yet
+    (and, as the reference does, for a network mode that does not
+    exist)."""
+    if params.network not in ("uniform", "fabric"):
+        raise ValueError(
+            f"SimParams.network must be 'uniform' or 'fabric', "
+            f"got {params.network!r}")
+    for knob, want in (("faults", "none"), ("telemetry", "none"),
+                       ("alerting", "none"), ("hs_mode", "util")):
         if getattr(params, knob) != want:
             raise NotImplementedError(
                 f"SimParams.{knob}={getattr(params, knob)!r} is not ported "

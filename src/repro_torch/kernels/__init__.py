@@ -4,8 +4,8 @@
 where it launches its CUDA kernel and nowhere else (the plain versions
 the CPU path runs are not counted).  ``reset_counts()`` zeroes them.
 """
-KERNELS = ("cloudlet_finish", "tropical")
-counts = {"cloudlet_finish": 0, "tropical_matmul": 0}
+KERNELS = ("cloudlet_finish", "tropical", "link_share")
+counts = {"cloudlet_finish": 0, "tropical_matmul": 0, "link_share": 0}
 
 
 def reset_counts() -> None:

@@ -7,11 +7,20 @@ JAX package, so on a machine with the card it runs with:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: per-lane outputs, request aggregates and the max-plus
-product bit-equal; the kernel's instance sums (exact fixed point,
-rounded once) against the plain serial float32 sums within
+Tolerances: per-lane outputs, request aggregates, the max-plus product
+and the water-fill rates bit-equal; the kernel's instance sums (exact
+fixed point, rounded once) against the plain serial float32 sums within
 ``n_i·2^-24·Σ|x| + n_i·2^-33`` per row (the serial sum's error plus one
-rounding plus the fixed-point quantisation).
+rounding plus the fixed-point quantisation).  The fabric scenario on
+the GPU against the CPU path: the trajectory (every per-lane column,
+request, counter and integer leaf) exact; the float statistics the
+instance sums feed (``STAT_LEAVES``) within ``STAT_RTOL`` relative, since
+the kernel's instance sums are exact sums rounded once where the plain
+version adds serially in float32 (a difference of up to that sum's own
+rounding error each tick, about 2^-20 relative at this scenario's few
+lanes per instance, accumulated over the run); the ``NetStats`` float
+sums within ``NET_ULPS`` (the same sums in the same order on both
+devices; they feed no later phase).
 """
 import numpy as np
 import pytest
@@ -23,10 +32,19 @@ from repro_torch.core.types import Cloudlets, resolve_layout
 from repro_torch.kernels import counts, reset_counts
 from repro_torch.kernels.cloudlet_step import cloudlet_finish_pool
 from repro_torch.kernels.cloudlet_step import ref as tfinish
+from repro_torch.kernels.link_share import link_share
+from repro_torch.kernels.link_share import ref as tlink
 from repro_torch.kernels.tropical import ops as ttrop
 from repro_torch.kernels.tropical import ref as ttrop_ref
 
 pytestmark = pytest.mark.cuda
+
+NET_ULPS = 2
+STAT_RTOL = 2.0 ** -17
+STAT_LEAVES = ("instances.used_mips", "instances.util_ema",
+               "instances.usage_sum", "svc_stats.usage_sum",
+               "svc_stats.delay_sum", "svc_stats.exec_sum",
+               "svc_stats.wait_sum")
 
 NAMES = ("new_rem", "fin", "tfin", "consumed", "inst_acc", "req_finish",
          "req_crit", "req_out")
@@ -161,3 +179,109 @@ def test_golden_scenario_on_card_matches_cpu_and_pins(dev):
     resp = st.requests.response.cpu().numpy()
     assert int(resp.view(np.uint32).astype(np.uint64).sum()) \
         == 1306795296637
+
+
+def _link_inputs(C, H, seed, dev):
+    """Transfers over random ports (a tenth client uploads, a twentieth
+    with no destination, a quarter inactive), capacities 0.5-100 MB/s
+    with port 0 at zero when there are others."""
+    r = np.random.default_rng(seed)
+    src = r.integers(0, H, C).astype(np.int32)
+    src[r.random(C) < 0.1] = -1
+    dst = r.integers(0, H, C).astype(np.int32)
+    dst[r.random(C) < 0.05] = -1
+    active = r.random(C) < 0.75
+    cap_e = r.uniform(0.5, 100.0, H).astype(np.float32)
+    cap_i = r.uniform(0.5, 100.0, H).astype(np.float32)
+    if H > 1:
+        cap_e[0] = cap_i[0] = 0.0
+    return [torch.from_numpy(a).to(dev)
+            for a in (src, dst, active, cap_e, cap_i)]
+
+
+# SockShop, case1b+net, case2b+net, then ragged: C not a multiple of
+# 1024, one host, fewer lanes than a warp
+@pytest.mark.parametrize("C,H", [(8192, 10), (8000, 15), (262_144, 781),
+                                 (3001, 37), (1000, 1), (5, 3)])
+@pytest.mark.parametrize("iters", [1, 2, 4])
+def test_link_share_kernel_matches_plain(C, H, iters, dev):
+    args = _link_inputs(C, H, C + H + iters, dev)
+    before = counts["link_share"]
+    got = link_share(*args, iters=iters)
+    again = link_share(*args, iters=iters)
+    assert counts["link_share"] == before + 2
+    want = tlink.waterfill(*args, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two launches differ"
+    assert torch.equal(got, want)
+    if C >= 1000:
+        assert bool((got > 0).any())
+
+
+def test_link_share_wrapper_checks_its_inputs(dev):
+    args = _link_inputs(64, 4, 0, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        link_share(args[0].long(), *args[1:], iters=2)
+    with pytest.raises(ValueError, match="hosts"):
+        big = [torch.ones(20_000, device=dev)] * 2
+        link_share(*args[:3], *big, iters=2)
+
+
+def _fabric(device):
+    """The reference's golden fabric scenario (test_layouts.matrix_sim
+    ("fabric", "none"))."""
+    caps = SimCaps(n_clients=16, max_requests=512, max_cloudlets=512,
+                   max_instances=8, n_vms=4, d_max=2, max_replicas=2)
+    params = SimParams(dt=0.05, n_ticks=300, n_clients=12, spawn_rate=5.0,
+                       wait_lo=0.5, wait_hi=1.5, seed=3, network="fabric",
+                       nic_egress_mbps=50.0, nic_ingress_mbps=50.0)
+    return Simulation(diamond(mi=400.0), caps=caps, params=params,
+                      default_template=InstanceTemplate(
+                          mips=8000.0, limit_mips=16000.0, replicas=2),
+                      vm_mips=np.full(4, 64000.0, np.float32),
+                      device=device)
+
+
+def _ulps(a, b):
+    key = lambda x: np.where(x.view(np.int32) < 0,
+                             -(x.view(np.int32) & 0x7FFFFFFF),
+                             x.view(np.int32)).astype(np.int64)
+    return int(np.abs(key(a) - key(b)).max(initial=0))
+
+
+def test_fabric_scenario_on_card_matches_cpu_and_pins(dev):
+    reset_counts()
+    gpu = _fabric(dev).run()
+    assert counts["link_share"] == 300
+    assert counts["cloudlet_finish"] == 300
+    cpu = _fabric("cpu").run()
+    g = convert.state_to_numpy(gpu.state)
+    c = convert.state_to_numpy(cpu.state)
+    net_g, net_c = g.pop("net"), c.pop("net")
+
+    def flat(d, pre=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, pre + k + ".")
+            else:
+                yield pre + k, v
+    cd = dict(flat(c))
+    for k, v in flat(g):
+        if k in STAT_LEAVES:
+            np.testing.assert_allclose(v, cd[k], rtol=STAT_RTOL, atol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, cd[k], err_msg=k)
+    for k, v in net_g.items():
+        if v.dtype.kind == "f":
+            assert _ulps(v, net_c[k]) <= NET_ULPS, k
+        else:
+            np.testing.assert_array_equal(v, net_c[k], err_msg=k)
+    st = gpu.state
+    assert int(st.counters.completed) == 163
+    assert int(st.counters.spawned) == 830
+    assert int(st.counters.finished) == 822
+    assert int(st.net.transits) == 606
+    resp = st.requests.response.cpu().numpy()
+    assert int(resp.view(np.uint32).astype(np.uint64).sum()) \
+        == 1292572014442

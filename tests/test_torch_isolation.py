@@ -79,6 +79,34 @@ def test_runs_with_jax_and_reference_unimportable():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_fabric_runs_with_jax_and_reference_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        from repro_torch.configs import capacity, sockshop
+        from repro_torch.core import policies, summarize
+        sim = sockshop.make_sim(10, 2.0, network="fabric",
+                                nic_egress_mbps=8.0, nic_ingress_mbps=8.0,
+                                placement_policy=policies.PLACE_SPREAD,
+                                device="cpu")
+        res = sim.run()
+        assert int(res.state.tick) == 20
+        summarize(sim, res)
+        sim, meta = capacity.build_tagged("case1b+net", 0.0001,
+                                          device="cpu")
+        state, _ = sim.run_state(sim.init_state(), n_ticks=5)
+        assert int(state.net.transits) > 0
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_default_device_is_the_gpu():
     from repro_torch.core import (SimCaps, SimParams, Simulation, diamond,
                                   response_times)
@@ -114,11 +142,16 @@ def test_unported_modes_raise():
     from repro_torch.core import SimCaps, SimParams, Simulation, diamond
     caps = SimCaps(n_clients=4, max_requests=16, max_cloudlets=16,
                    max_instances=8, n_vms=2, d_max=2)
-    for knob in (dict(network="fabric"), dict(faults="chaos"),
-                 dict(telemetry="stream")):
+    for knob in (dict(faults="chaos"), dict(network="fabric",
+                                            faults="chaos"),
+                 dict(telemetry="stream"),
+                 dict(telemetry="stream", alerting="burn")):
         with pytest.raises(NotImplementedError):
             Simulation(diamond(), caps=caps,
                        params=SimParams(n_ticks=1, **knob), device="cpu")
+    with pytest.raises(ValueError, match="uniform.*fabric"):
+        Simulation(diamond(), caps=caps,
+                   params=SimParams(n_ticks=1, network="mesh"), device="cpu")
 
 
 def test_registry_reads_dicts_json_strings_and_json_files(tmp_path):
