@@ -8,7 +8,7 @@ NVIDIA GPU and the CUDA toolkit:
 
 Phases, in order (any failure exits non-zero):
 
-1. device and build: the card's name and power limit, then the three CUDA
+1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. each kernel against its plain PyTorch version on the card, at the main
@@ -18,8 +18,16 @@ Phases, in order (any failure exits non-zero):
    bit-identical); ``tropical_matmul`` at the SockShop window-batch shape
    and a fleet shape (bit-equal); ``link_share`` at the SockShop fabric,
    case1b+net and case2b+net shapes (rates bit-equal, two launches
-   bit-identical).  Then the golden small scenarios of both network modes,
-   whose integer counters and response digests are pinned;
+   bit-identical); ``flash_attention`` at qwen3-0.6b's prefill heads
+   (B=1, Hq=16, Hkv=8, D=128, bfloat16) at T=4096 and at the prefill's
+   own T=32,768, each element within one bfloat16 rounding of the plain
+   version (run in query blocks at 32,768), and ``ssd_chunk`` at
+   mamba2-130m's (M=24, L=128, P=64, N=128) at K=32 and at the
+   prefill's K=256 chunks, within its stated tolerance; two launches
+   bit-identical, with PyTorch's ``scaled_dot_product_attention`` timed
+   beside flash as its yardstick (never on the port's path).  Then the
+   golden small scenarios of both network modes, whose integer counters
+   and response digests are pinned;
 3. Table 2 case1b at full size, run twice (conservation laws, 10^6
    requests admitted, one ``cloudlet_finish`` launch per tick, the two
    final states bit-identical), with per-phase CUDA-event times over 100
@@ -41,7 +49,17 @@ Phases, in order (any failure exits non-zero):
    over 120 s, three processes side by side: one ``link_share`` and one
    ``cloudlet_finish`` launch per tick, and the transit p95 rising with
    the load;
-8. one JSON line with each kernel's launches, times and bound; then the
+8. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
+   and mamba2-130m at full width and depth on seeded random weights, at
+   ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
+   last-position logits, 28 ``flash_attention`` and 24 ``ssd_chunk``
+   launches per prefill, the device busy share (device time over the
+   unprofiled prefill's wall); and a 2-layer full-width model of each,
+   whose card logits are held against its CPU logits;
+9. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
+   16 + 24 tokens), its tok/s, and the synchronising calls per decode
+   step;
+10. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
@@ -66,6 +84,13 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+FLASH_RTOL = 2.0 ** -7         # bf16 output: one bf16 rounding of |plain|
+FLASH_ATOL = 1e-4              # ... plus the float32 sums' own error
+FLASH_PLAIN_ROWS = 1024        # query rows per block of the plain version
+SSD_TOL = 2e-5                 # float32, sums in another order
+MODEL_TOL = 5e-2               # 2-layer bf16 logits, card against CPU
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
 GOLDEN = dict(completed=157, spawned=794, finished=789,
               resp_digest=1306795296637)
 GOLDEN_FABRIC = dict(completed=163, spawned=830, finished=822,
@@ -290,6 +315,128 @@ def check_link_share(tag, C, H, torch, dev, iters=2):
                 bound_ms=bound_ms, max_abs_err=max_err)
 
 
+def flash_inputs(B, Hq, Hkv, T, D, torch, dev, seed=17):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda H: torch.randn((B, H, T, D), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    return mk(Hq), mk(Hkv), mk(Hkv)
+
+
+def flash_plain(q, k, v, rows):
+    """The plain version over query blocks of ``rows`` rows: block
+    [q0, q1) against keys [0, q1) is ``ref.attention``'s end-aligned
+    causal rule for those rows, so the result is the plain version's,
+    with one block's float32 logits (not T x T of them) alive at a
+    time."""
+    from repro_torch.kernels.flash_attention import ref
+    T = q.shape[2]
+    if rows >= T:
+        return ref.attention(q, k, v, causal=True)
+    out = q.new_empty(q.shape)
+    for q0 in range(0, T, rows):
+        q1 = min(q0 + rows, T)
+        out[:, :, q0:q1] = ref.attention(q[:, :, q0:q1], k[:, :, :q1],
+                                         v[:, :, :q1], causal=True)
+    return out
+
+
+def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
+    """The flash kernel at qwen3-0.6b's prefill heads against its plain
+    version (and SDPA timed beside it as the yardstick).  Each output
+    element must lie within one bfloat16 rounding of the plain version's
+    (``FLASH_RTOL`` of its magnitude) plus ``FLASH_ATOL``."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = flash_inputs(B, Hq, Hkv, T, D, torch, dev)
+    rows = FLASH_PLAIN_ROWS
+    saved = dict(counts)
+    k1 = ops.attention(q, k, v, causal=True)
+    k2 = ops.attention(q, k, v, causal=True)
+    p = flash_plain(q, k, v, rows)
+    torch.cuda.synchronize()
+    check(torch.equal(k1, k2), f"flash_attention {tag}: two launches differ")
+    diff = (k1.float() - p.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - FLASH_RTOL * p.float().abs()).max())
+    check(bool(torch.isfinite(k1).all()) and excess <= FLASH_ATOL,
+          f"flash_attention {tag}: max|err| {err}, an element off by "
+          f"{excess} beyond {FLASH_RTOL}·|plain| (tolerance {FLASH_ATOL})")
+    del diff
+    k_ev, k_dev = cuda_ms(lambda: ops.attention(q, k, v), n_time, torch)
+    p_ev, p_dev = cuda_ms(lambda: flash_plain(q, k, v, rows), 1, torch)
+    counts.update(saved)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    torch.cuda.synchronize()
+    lib_err = float((lib.float() - p.float()).abs().max())
+    del lib
+    l_ev, l_dev = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       enable_gqa=True), 5, torch)
+    lib_ms = l_dev or l_ev
+    # operations: QK and PV over the visible (causal) pairs, 2 per
+    # multiply-add, at the bf16 tensor-core peak of the inputs' type;
+    # bytes: q, k, v read once and the output written once (bf16)
+    pairs = T * (T + 1) // 2
+    ops_n = 4.0 * B * Hq * pairs * D
+    nbytes = 2.0 * B * D * T * (2 * Hq + 2 * Hkv)
+    bound_ms, by = max((ops_n / BF16_OPS_PER_S * 1e3, "operations"),
+                       (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"flash_attention {tag}: B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} bf16  "
+        f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  plain "
+        f"({min(rows, T)}-row query blocks) {_ms(p_dev)} ms device / "
+        f"{p_ev:.4f} ms per call  SDPA {_ms(lib_ms)} ms (max|err| "
+        f"{lib_err:.3g})  bound {bound_ms:.6f} ms ({by})  max|err| "
+        f"{err:.3g} (worst excess over {FLASH_RTOL}·|plain|: {excess:.3g})"
+        f"  {ops_n / ((k_dev or k_ev) * 1e-3) / 1e12:.2f} TFLOP/s")
+    del q, k, v, k1, k2, p
+    torch.cuda.empty_cache()
+    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+                bound_ms=bound_ms, bound_by=by, max_abs_err=err,
+                library_ms=lib_ms)
+
+
+def check_ssd(tag, M, K, L, P, N, torch, dev):
+    """The SSD-chunk kernel at mamba2-130m's prefill heads (one B/C group
+    for all M heads) against its plain version."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.ssd_scan import ops, ref
+    g = torch.Generator(device=dev).manual_seed(19)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    dt = r(M, K, L, 1) * 0.25 + 0.05
+    args = (n(M, K, L, P), dt, dt * -(r(M, 1, 1, 1) * 15.0 + 1.0),
+            n(1, K, L, N) / N ** 0.5, n(1, K, L, N) / N ** 0.5)
+    saved = dict(counts)
+    k1 = ops.ssd_chunk(*args, group=M)
+    k2 = ops.ssd_chunk(*args, group=M)
+    p = ref.ssd_chunk(*args, group=M)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"ssd_chunk {tag}: two launches differ")
+    err = max(float((a - b).abs().max()) for a, b in zip(k1, p))
+    check(err <= SSD_TOL, f"ssd_chunk {tag}: max|err| {err} against the "
+          f"plain version (tolerance {SSD_TOL})")
+    k_ev, k_dev = cuda_ms(lambda: ops.ssd_chunk(*args, group=M), 50, torch)
+    p_ev, p_dev = cuda_ms(lambda: ref.ssd_chunk(*args, group=M), 5, torch)
+    counts.update(saved)
+    # operations per (m, k): the causal half of C·Bᵀ and of S·(Δ⊙X), and
+    # the state product, 2 per multiply-add, at the float32 peak; bytes:
+    # x, Δ, log a, the one group's B and C read, y, state, in_decay and
+    # total written (float32)
+    tri = L * (L + 1) // 2
+    ops_n = 2.0 * M * K * (tri * (N + P) + N * P * L)
+    nbytes = 4.0 * (M * K * L * (P + 2) + 2 * K * L * N
+                    + M * K * (L * P + N * P + L + 1))
+    bound_ms, by = max((ops_n / FP32_OPS_PER_S * 1e3, "operations"),
+                       (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    log(f"ssd_chunk {tag}: M={M} K={K} L={L} P={P} N={N}  kernel {_ms(k_dev)} "
+        f"ms device / {k_ev:.4f} ms per call  plain {_ms(p_dev)} ms device "
+        f"/ {p_ev:.4f} ms per call  bound {bound_ms:.6f} ms ({by})  "
+        f"max|err| {err:.3g}")
+    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+                bound_ms=bound_ms, bound_by=by, max_abs_err=err)
+
+
 def golden_sim(network, dev):
     """The reference's golden scenario (``tests/test_layouts.py``
     ``matrix_sim``) in either network mode, no faults."""
@@ -404,6 +551,15 @@ def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0):
     if first_tick:
         state, _ = sim.run_state(state, n_ticks=first_tick)
     torch.cuda.synchronize()
+    n, counts = sync_sites(lambda: sim.run_state(
+        state, n_ticks=n_ticks, first_tick=first_tick), torch)
+    return n / n_ticks, counts
+
+
+def sync_sites(fn, torch):
+    """Run ``fn()`` under sync debug mode "warn": the number of
+    synchronising CUDA calls it made, and the port's call sites that made
+    them."""
     sites = []
 
     def show(message, category, filename, lineno, file=None, line=None):
@@ -421,14 +577,14 @@ def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0):
         warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            sim.run_state(state, n_ticks=n_ticks, first_tick=first_tick)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
             warnings.showwarning = saved
     counts = {}
     for site in sites:
         counts[site] = counts.get(site, 0) + 1
-    return len(sites) / n_ticks, counts
+    return len(sites), counts
 
 
 def device_busy(sim, torch, n_ticks=20):
@@ -449,14 +605,29 @@ def device_busy(sim, torch, n_ticks=20):
     return (busy / wall if busy > 0 else None), wall / n_ticks * 1e3
 
 
-def _device_us(prof) -> float:
-    total = 0.0
+def _device_us_by_name(prof) -> dict:
+    """Microseconds of device time in a profile, by kernel name: the self
+    time of the device-side events (kernels, copies) only; a CPU
+    operator's own ``self_device_time_total`` repeats the time of the
+    kernels it launched, so summing over every event counts those
+    twice."""
+    from torch.autograd import DeviceType
+    by_name = {}
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
         v = getattr(e, "self_device_time_total", None)
         if v is None:
             v = getattr(e, "self_cuda_time_total", 0.0)
-        total += v
-    return total
+        if v > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + v
+    return by_name
+
+
+def _device_us(prof) -> float:
+    """Microseconds of device time in a profile (``_device_us_by_name``
+    summed)."""
+    return sum(_device_us_by_name(prof).values())
 
 
 def run_capacity(tag, repeats, torch, dev, launches):
@@ -698,6 +869,146 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, say=log):
     return rep, n_trop
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: the model zoo's serving path
+# ---------------------------------------------------------------------------
+
+def prefill_len() -> int:
+    """``prefill_32k``'s sequence length."""
+    from repro_torch.configs import SHAPES
+    return next(s.seq_len for s in SHAPES if s.name == "prefill_32k")
+
+
+def run_prefill(arch, torch, dev, launches):
+    """``serve.prefill_step`` at full width and depth, at ``prefill_32k``'s
+    sequence length with its batch of 32 cut to 1, on seeded random
+    weights: finite logits, one launch of the mixer's kernel per layer,
+    the time of one prefill, and where its device time goes
+    (torch.profiler over a second one)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.launch.serve import prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import n_params as n_params_of
+    T = prefill_len()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    kern, symbol = (("ssd_chunk", "ssd_chunk_kernel") if cfg.family == "ssm"
+                    else ("flash_attention", "flash_fwd"))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    n_params = n_params_of(model.schema())
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, T),
+                                     generator=g, device=dev)}
+    prefill_step(model, params, batch)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = prefill_step(model, params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts[kern]
+    launches.setdefault(kern, n)
+    check(n == cfg.n_layers, f"{arch} prefill: {kern} launched {n} times "
+          f"for {cfg.n_layers} layers")
+    check(tuple(out.shape) == (1, 1, cfg.vocab) and out.dtype ==
+          torch.float32 and bool(torch.isfinite(out).all()),
+          f"{arch} prefill: logits {tuple(out.shape)} {out.dtype} not "
+          "finite or malformed")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        prefill_step(model, params, batch)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t1
+    by_name = _device_us_by_name(prof)
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"{arch} prefill_step: {n_params / 1e6:.1f} M parameters, "
+        f"{cfg.n_layers} layers, T={T} B=1  wall {wall:.3f} s "
+        f"({T / wall:.0f} tok/s)  {kern} launches {n}  peak "
+        f"memory {peak:.2f} GiB  logits |max| "
+        f"{float(out.abs().max()):.4f}")
+    # the busy share divides by the unprofiled prefill's wall: the
+    # profiler's own host cost stretches the profiled run's wall
+    log(f"{arch} prefill device time {busy:.3f} s (profiled run, "
+        f"{wall_p:.3f} s wall); busy share {busy / wall:.3f} of the "
+        f"unprofiled {wall:.3f} s wall; {kern} "
+        f"{sum(v for k, v in by_name.items() if symbol in k) / 1e6:.3f} s; "
+        "top kernels: "
+        + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
+    del params, out, batch
+    torch.cuda.empty_cache()
+
+
+def check_two_layer(arch, torch, dev):
+    """A 2-layer model at the architecture's full width: the card's
+    prefill logits (through the kernels) against the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_to
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(2), "cpu")
+    tok = torch.randint(0, cfg.vocab, (1, 300),
+                        generator=torch.Generator().manual_seed(3))
+    want = prefill_step(model, params, {"tokens": tok})
+    got = prefill_step(model, tree_to(params, dev), {"tokens": tok.to(dev)})
+    err = float((got.cpu() - want).abs().max())
+    log(f"{arch} 2-layer full width, T=300: card logits against CPU "
+        f"logits max|err| {err:.4g} (|logits| max "
+        f"{float(want.abs().max()):.3f}, tolerance {MODEL_TOL})")
+    check(err <= MODEL_TOL, f"{arch} 2-layer: card logits differ from the "
+          f"CPU's by {err}")
+
+
+def run_serve(arch, torch, dev):
+    """``serve.main`` with its defaults (8 requests, 4 slots, 16 + 24
+    tokens) on the card; then the synchronising calls per decode step."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        outputs = serve.main(["--arch", arch])
+    for line in buf.getvalue().splitlines():
+        log(f"{arch} serve: {line}")
+    check(len(outputs) == 8 and all(len(o) == 24 for o in outputs)
+          and all(0 <= t < cfg.vocab for o in outputs for t in o),
+          f"{arch} serve: malformed outputs")
+    # synchronising calls per decode step (greedy, tokens on the device)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    state = model.init_decode_state(4, 64, device=dev)
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    box = [tok, state]
+
+    def steps(n):
+        for _ in range(n):
+            logits, box[1] = model.decode_step(params, box[0], box[1])
+            box[0] = torch.argmax(logits[:, 0], dim=-1)[:, None]
+    steps(2)
+    torch.cuda.synchronize()
+    n_steps = 8
+    n, sites = sync_sites(lambda: steps(n_steps), torch)
+    log(f"{arch} decode: synchronising calls per step {n / n_steps:.2f} "
+        f"({n_steps} steps) {sites}")
+    check(n == 0, f"{arch} decode: {n} synchronising calls in {n_steps} "
+          "steps")
+    del params, state, box
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -729,6 +1040,12 @@ def main() -> int:
         results["link_share"] = check_link_share("case1b+net", 8000, 15,
                                                  torch, dev)
         check_link_share("case2b+net", 262144, 781, torch, dev)
+        check_flash("T=4096", 1, 16, 8, 4096, 128, torch, dev, 20)
+        results["flash_attention"] = check_flash(
+            "prefill_32k", 1, 16, 8, prefill_len(), 128, torch, dev, 3)
+        check_ssd("K=32", 24, 32, 128, 64, 128, torch, dev)
+        results["ssd_chunk"] = check_ssd(
+            "prefill_32k", 24, prefill_len() // 128, 128, 64, 128, torch, dev)
         check_golden(torch, dev)
 
         run_capacity("case1b", 2, torch, dev, launches)
@@ -736,6 +1053,11 @@ def main() -> int:
         run_capacity("case2b", 1, torch, dev, launches)
         run_sockshop(launches)
         run_sockshop_fabric(launches)
+        for arch in SERVE_ARCHS:
+            run_prefill(arch, torch, dev, launches)
+            check_two_layer(arch, torch, dev)
+        for arch in SERVE_ARCHS:
+            run_serve(arch, torch, dev)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -746,7 +1068,11 @@ def main() -> int:
         "tropical_matmul": ("src/repro_torch/csrc/tropical.cu",
                             "src/repro/kernels/tropical/kernel.py:43"),
         "link_share": ("src/repro_torch/csrc/link_share.cu",
-                       "src/repro/kernels/link_share/kernel.py:42")}
+                       "src/repro/kernels/link_share/kernel.py:42"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:78"),
+        "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                      "src/repro/kernels/ssd_scan/kernel.py:60")}
     kernels = []
     for name, (path, replaces) in src.items():
         r = results[name]
@@ -759,7 +1085,8 @@ def main() -> int:
             name=name, route="cuda", source=path, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r.get("bound_by", "bytes"), library_ms=None))
+            bound_by=r.get("bound_by", "bytes"),
+            library_ms=r.get("library_ms")))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

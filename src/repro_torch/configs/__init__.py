@@ -1,1 +1,28 @@
-"""Application configurations of the port (SockShop, paper §6.3)."""
+"""Configurations of the port: the SockShop application (paper §6.3) and
+the Table 2 capacity cases (``capacity``, ``sockshop``), and the model-zoo
+architectures that are ported (``get_config``)."""
+from __future__ import annotations
+
+from .base import SHAPES, ArchConfig, ShapeCfg  # noqa: F401
+
+ARCH_IDS = (
+    "qwen3-0.6b", "granite-20b", "phi3-medium-14b", "internlm2-1.8b",
+    "whisper-base", "mamba2-130m", "jamba-1.5-large-398b", "qwen2-vl-7b",
+    "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+)
+PORTED = ("qwen3-0.6b", "mamba2-130m")
+
+
+def get_config(name: str) -> ArchConfig:
+    """The ``ArchConfig`` of a ported architecture; the others raise."""
+    if name == "qwen3-0.6b":
+        from .qwen3_0_6b import CONFIG
+        return CONFIG
+    if name == "mamba2-130m":
+        from .mamba2_130m import CONFIG
+        return CONFIG
+    if name in ARCH_IDS:
+        raise NotImplementedError(
+            f"{name} is not ported to repro_torch yet (ported: "
+            f"{', '.join(PORTED)})")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")

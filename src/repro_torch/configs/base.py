@@ -1,0 +1,76 @@
+"""Architecture config schema and the shape grid, as the reference's
+``repro.configs.base`` declares them (the port keeps its own copies of
+``MambaDims`` and ``MoECfg``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from ..models.mamba2 import MambaDims
+from ..models.moe import MoECfg
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    moe: Optional[MoECfg] = None
+    mamba: Optional[MambaDims] = None
+    attn_period: int = 0     # hybrid: layers per period (1 attn + rest mamba)
+    ssd_chunk: int = 128
+    n_enc_layers: int = 0        # enc-dec only
+    n_frames: int = 0            # audio/vision stub frontend length
+    tie_embeddings: bool = False
+    sub_quadratic: bool = False  # True → long_500k cell applies
+    # attention formulation; the port runs "grouped" (the GQA kernel reads
+    # KV head h // group), the sharding variants raise
+    attn_impl: str = "grouped"
+    # decode KV cache precision; the port holds "bf16" ("int8" raises)
+    kv_dtype: str = "bf16"
+
+    def reduced(self, **kw) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests (the ported dense
+        and ssm families; the others raise)."""
+        if self.family not in ("dense", "ssm"):
+            raise NotImplementedError(
+                f"reduced() of the {self.family} family is not yet ported")
+        base = dict(
+            name=self.name + "-smoke", family=self.family,
+            n_layers=min(self.n_layers, 2), d_model=64,
+            n_heads=4, n_kv=max(1, min(self.n_kv, 2)), head_dim=16,
+            d_ff=128, vocab=256, qk_norm=self.qk_norm,
+            rope_theta=self.rope_theta, ssd_chunk=16,
+            tie_embeddings=self.tie_embeddings,
+            sub_quadratic=self.sub_quadratic,
+        )
+        if self.mamba is not None:
+            base["mamba"] = MambaDims.make(64, headdim=16, d_state=16,
+                                           n_groups=1, d_conv=4)
+        base.update(kw)
+        return ArchConfig(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES = (
+    ShapeCfg("train_4k", 4_096, 256, "train"),
+    ShapeCfg("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCfg("decode_32k", 32_768, 128, "decode"),
+    ShapeCfg("long_500k", 524_288, 1, "decode"),
+)

@@ -20,7 +20,7 @@ import torch
 from .. import random as rnd
 from ..analysis import streams
 from . import network as netmod
-from . import policies, scheduler
+from . import policies, pool, scheduler
 from .app import AppStatic, InstanceTemplate, build_app, validate_app
 from .generator import client_phase
 from .graph import ServiceGraph
@@ -106,7 +106,7 @@ def make_tick(caps: SimCaps, params: SimParams,
             n_waiting=torch.sum(cs == CL_WAITING, dtype=torch.int32),
             n_exec=torch.sum(cs == CL_EXEC, dtype=torch.int32),
             n_transit=torch.sum(cs == CL_TRANSIT, dtype=torch.int32),
-            used_mips=torch.sum(state.instances.used_mips),
+            used_mips=pool.tree_sum(state.instances.used_mips),
             active_instances=torch.sum(state.instances.status == INST_ON,
                                        dtype=torch.int32),
             active_clients=gen.n_active,

@@ -7,9 +7,10 @@ The build happens at first use, into ``repro_torch/_build/`` (listed in
 a hash of the source and flags, so an edited source is rebuilt.
 ``build(names)`` compiles several sources in parallel, one ``nvcc`` each.
 
-Every kernel is compiled with ``--fmad=false``: the kernels are held bit
-for bit against their plain PyTorch versions, which round each multiply
-and add separately.
+The simulator's kernels are compiled with ``--fmad=false``: they are held
+bit for bit against their plain PyTorch versions, which round each
+multiply and add separately.  The model-zoo kernels (``SOURCE_FLAGS``) are
+held within a stated tolerance and keep nvcc's fused multiply-adds.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# per-source flags, in place of NVCC_FLAGS for the sources named here
+FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+SOURCE_FLAGS = {"flash_attention": FMAD_FLAGS, "ssd_chunk": FMAD_FLAGS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,9 +46,13 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return SOURCE_FLAGS.get(name, NVCC_FLAGS)
+
+
 def _lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:12]}.so"
 
 
@@ -54,7 +62,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, out
 

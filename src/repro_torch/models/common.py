@@ -1,0 +1,145 @@
+"""Model-zoo foundations: declarative parameter schemas and shared layers.
+
+Every parameter is declared once as a :class:`P` (shape, logical axes,
+init, dtype) inside a nested-dict schema; ``initialize(schema, gen)``
+materialises it on the generator's device.  The layers are pure functions
+over parameter dicts with float32 math and bfloat16 storage, as the
+reference's ``repro.models.common`` computes them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """One parameter declaration."""
+
+    shape: tuple
+    axes: tuple              # logical axis name (or None) per dim
+    init: str = "normal"     # normal | zeros | ones | small_normal | alog
+    scale: float | None = None
+    dtype: Any = torch.bfloat16
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def map_schema(f: Callable[[P], Any], schema) -> Any:
+    """``f`` over every :class:`P` leaf of a nested-dict schema."""
+    if isinstance(schema, P):
+        return f(schema)
+    return {k: map_schema(f, v) for k, v in schema.items()}
+
+
+def tree_to(tree, device) -> Any:
+    """A nested dict of tensors moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: tree_to(v, device) for k, v in tree.items()}
+
+
+def n_params(schema) -> int:
+    total = 0
+
+    def count(p):
+        nonlocal total
+        total += math.prod(p.shape)
+    map_schema(count, schema)
+    return total
+
+
+def initialize(schema, generator: torch.Generator, device) -> Any:
+    """Materialise ``schema`` on ``device``, drawn from ``generator`` on the
+    generator's own device.  Leaves are drawn in the schema's order:
+    normal leaves ~ N(0, scale²) with scale ``shape[-1] ** -0.5`` unless
+    given (0.02 for ``small_normal``), ``alog`` = log U[1, 16]."""
+    device = torch.device(device)
+
+    def one(p: P):
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=p.dtype, device=device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=p.dtype, device=device)
+        if p.init == "alog":       # mamba A_log: log of uniform [1, 16]
+            u = torch.rand(p.shape, generator=generator,
+                           device=generator.device) * 15.0 + 1.0
+            return torch.log(u).to(device=device, dtype=p.dtype)
+        scale = p.scale if p.scale is not None else p.shape[-1] ** -0.5
+        if p.init == "small_normal":
+            scale = 0.02
+        x = torch.randn(p.shape, generator=generator,
+                        device=generator.device) * scale
+        return x.to(device=device, dtype=p.dtype)
+
+    return map_schema(one, schema)
+
+
+# ===========================================================================
+# Shared layers (pure functions over param dicts; f32 math, bf16 storage)
+# ===========================================================================
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def mlp_schema(d: int, f: int, dtype=torch.bfloat16):
+    return {
+        "gate": P((d, f), ("embed", "mlp"), dtype=dtype),
+        "up": P((d, f), ("embed", "mlp"), dtype=dtype),
+        "down": P((f, d), ("mlp", "embed"), dtype=dtype),
+    }
+
+
+def apply_mlp(p, x):
+    return swiglu(x, p["gate"], p["up"], p["down"])
+
+
+def rope_freqs(head_dim: int, theta: float = 1e6) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+_ROPE_INV: dict = {}
+
+
+def _rope_inv(head_dim: int, theta: float, device) -> torch.Tensor:
+    """The float32 inverse frequencies on ``device``, copied there once
+    (a host-to-device copy per decode step would synchronise)."""
+    key = (head_dim, float(theta), device)
+    inv = _ROPE_INV.get(key)
+    if inv is None:
+        inv = torch.tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+        _ROPE_INV[key] = inv
+    return inv
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e6) -> torch.Tensor:
+    """x [B, T, H, Dh]; positions [B, T] int."""
+    Dh = x.shape[-1]
+    inv = _rope_inv(Dh, theta, x.device)
+    ang = positions.float()[..., None] * inv                 # [B,T,Dh/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def unembed(x: torch.Tensor, emb_or_head: torch.Tensor) -> torch.Tensor:
+    """Logits in f32."""
+    return x.float() @ emb_or_head.float()

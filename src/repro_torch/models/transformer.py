@@ -1,0 +1,171 @@
+"""Decoder-only LM of the ``dense`` and ``ssm`` families (the reference's
+``repro.models.transformer.LM``).
+
+Layer structure: pre-norm mixer (attention or Mamba-2) + for attention
+a pre-norm SwiGLU FFN.  Parameters are stacked over a leading
+``[n_layers, ...]`` axis as in the reference, and a Python loop over the
+layers takes the place of its ``lax.scan``; serving runs no remat.  In
+decode the cache position is the host loop's integer, so no layer reads
+anything back from the device.  ``moe`` and ``vlm`` raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.types import resolve_device
+from .attention import KVCache, attn_apply, attn_decode, attn_schema
+from .common import (P, apply_mlp, initialize, map_schema, mlp_schema,
+                     rmsnorm, unembed)
+from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
+                     mamba_state_zeros)
+
+
+def _stack_schema(schema, n: int):
+    """Prepend a layer axis to every parameter of a per-layer schema."""
+    return map_schema(lambda p: P((n,) + p.shape, ("layers",) + p.axes,
+                                  p.init, p.scale, p.dtype), schema)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _layer(v, i) for k, v in tree.items()}
+
+
+class DecodeState(NamedTuple):
+    layers: List[Any]        # per-layer KVCache or MambaState
+    pos: int                 # tokens already decoded (host integer)
+
+
+class LM:
+    """Decoder-only language model (family chosen by ArchConfig)."""
+
+    def __init__(self, cfg: ArchConfig):
+        if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
+            raise NotImplementedError(
+                f"the {cfg.family} family ({cfg.name}) is not ported to "
+                "repro_torch yet (dense and ssm only)")
+        if cfg.kv_dtype != "bf16":
+            raise NotImplementedError("the int8 KV cache is not ported to "
+                                      "repro_torch yet")
+        self.cfg = cfg
+        self.is_mamba = cfg.family == "ssm"
+
+    # ---------------- schema -------------------------------------------
+    def layer_schema(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        f32 = torch.float32
+        s: Dict[str, Any] = {"mixer_norm": P((cfg.d_model,), ("embed",),
+                                             init="ones", dtype=f32)}
+        if self.is_mamba:
+            s["mamba"] = mamba_schema(cfg.mamba)
+        else:
+            s["attn"] = attn_schema(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                    cfg.head_dim, cfg.qk_norm)
+            s["mlp_norm"] = P((cfg.d_model,), ("embed",), init="ones",
+                              dtype=f32)
+            s["mlp"] = mlp_schema(cfg.d_model, cfg.d_ff)
+        return s
+
+    def schema(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        s = {
+            "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                       init="small_normal"),
+            "layers": _stack_schema(self.layer_schema(), cfg.n_layers),
+            "final_norm": P((cfg.d_model,), ("embed",), init="ones",
+                            dtype=torch.float32),
+        }
+        if not cfg.tie_embeddings:
+            s["head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+        return s
+
+    def init_params(self, generator: torch.Generator, device="cuda"):
+        """Random parameters from ``generator``, on ``device`` (the card
+        unless the caller asks for the CPU)."""
+        return initialize(self.schema(), generator, resolve_device(device))
+
+    # ---------------- forward ------------------------------------------
+    def _block(self, lp, x, positions):
+        cfg = self.cfg
+        h = rmsnorm(x, lp["mixer_norm"])
+        if self.is_mamba:
+            return x + mamba_apply(lp["mamba"], h, cfg.mamba,
+                                   chunk=cfg.ssd_chunk)
+        x = x + attn_apply(
+            lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, positions=positions,
+            mrope_sections=cfg.mrope_sections, rope_theta=cfg.rope_theta,
+            attn_impl=cfg.attn_impl)
+        return x + apply_mlp(lp["mlp"], rmsnorm(x, lp["mlp_norm"]))
+
+    def hidden_states(self, params, tokens=None, embeds=None,
+                      positions=None, remat=False):
+        """Full-sequence forward: tokens [B, T] → final-norm hidden
+        states [B, T, d]."""
+        if remat:
+            raise NotImplementedError("repro_torch serves without remat")
+        if embeds is not None:
+            raise NotImplementedError("embedding inputs (vlm) are not "
+                                      "ported to repro_torch yet")
+        x = params["embed"][tokens]
+        B, T = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(T, dtype=torch.int32,
+                                     device=x.device).expand(B, T)
+        for i in range(self.cfg.n_layers):
+            x = self._block(_layer(params["layers"], i), x, positions)
+        return rmsnorm(x, params["final_norm"])
+
+    def logits(self, params, hidden):
+        head = params.get("head")
+        if head is None:
+            return unembed(hidden, params["embed"].T)
+        return unembed(hidden, head)
+
+    # ---------------- decode -------------------------------------------
+    def init_decode_state(self, batch: int, seq: int,
+                          device="cuda") -> DecodeState:
+        cfg = self.cfg
+        device = resolve_device(device)
+        layers = []
+        for _ in range(cfg.n_layers):
+            if self.is_mamba:
+                layers.append(mamba_state_zeros(batch, cfg.mamba, device))
+            else:
+                shape = (batch, cfg.n_kv, seq, cfg.head_dim)
+                layers.append(KVCache(
+                    k=torch.zeros(shape, dtype=torch.bfloat16,
+                                  device=device),
+                    v=torch.zeros(shape, dtype=torch.bfloat16,
+                                  device=device)))
+        return DecodeState(layers=layers, pos=0)
+
+    def decode_step(self, params, tokens, state: DecodeState):
+        """tokens [B, 1] → (logits [B, 1, V], new state).  KV caches are
+        updated in place."""
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        new_layers = []
+        for i, ls in enumerate(state.layers):
+            lp = _layer(params["layers"], i)
+            hn = rmsnorm(x, lp["mixer_norm"])
+            if self.is_mamba:
+                out, ls = mamba_decode(lp["mamba"], hn, ls, cfg.mamba)
+                x = x + out
+            else:
+                out, ls = attn_decode(
+                    lp["attn"], hn, ls, state.pos, n_heads=cfg.n_heads,
+                    n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+                    qk_norm=cfg.qk_norm, mrope_sections=cfg.mrope_sections,
+                    rope_theta=cfg.rope_theta)
+                x = x + out
+                x = x + apply_mlp(lp["mlp"], rmsnorm(x, lp["mlp_norm"]))
+            new_layers.append(ls)
+        h = rmsnorm(x, params["final_norm"])
+        return self.logits(params, h), DecodeState(layers=new_layers,
+                                                   pos=state.pos + 1)

@@ -21,6 +21,16 @@ rounding error each tick, about 2^-20 relative at this scenario's few
 lanes per instance, accumulated over the run); the ``NetStats`` float
 sums within ``NET_ULPS`` (the same sums in the same order on both
 devices; they feed no later phase).
+
+The model-zoo kernels against their plain versions: ``flash_attention``
+within ``FLASH_TOL`` (relative, absolute) (float32 inputs: the sums in
+another order; bfloat16 inputs: one bf16 rounding of the output, at most
+2^-7 of its magnitude, plus the float32 sums' own error), ``ssd_chunk``
+within ``SSD_TOL`` (float32, the sums in another order and the chunk
+decay exp(cum_i - cum_j) of a cumsum that rounds differently); two
+launches bit-identical.  A 2-layer full-width model's card logits against
+its CPU logits within ``MODEL_TOL`` (bf16 weights and activations: a few
+bf16 rounding steps of logits of magnitude ~1).
 """
 import numpy as np
 import pytest
@@ -36,10 +46,17 @@ from repro_torch.kernels.link_share import link_share
 from repro_torch.kernels.link_share import ref as tlink
 from repro_torch.kernels.tropical import ops as ttrop
 from repro_torch.kernels.tropical import ref as ttrop_ref
+from repro_torch.kernels.flash_attention import ops as tflash
+from repro_torch.kernels.flash_attention import ref as tflash_ref
+from repro_torch.kernels.ssd_scan import ops as tssd
+from repro_torch.kernels.ssd_scan import ref as tssd_ref
 
 pytestmark = pytest.mark.cuda
 
 NET_ULPS = 2
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+SSD_TOL = 2e-5
+MODEL_TOL = 5e-2
 STAT_RTOL = 2.0 ** -17
 STAT_LEAVES = ("instances.used_mips", "instances.util_ema",
                "instances.usage_sum", "svc_stats.usage_sum",
@@ -285,3 +302,147 @@ def test_fabric_scenario_on_card_matches_cpu_and_pins(dev):
     resp = st.requests.response.cpu().numpy()
     assert int(resp.view(np.uint32).astype(np.uint64).sum()) \
         == 1292572014442
+
+
+# ---------------------------------------------------------------------------
+# model-zoo kernels
+# ---------------------------------------------------------------------------
+
+def _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda H, T: torch.randn((B, H, T, D), generator=g,
+                                  device=dev).to(dtype)
+    return mk(Hq, Tq), mk(Hkv, Tk), mk(Hkv, Tk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (1, 16, 8, 1024, 1024, 128, True),     # qwen3-0.6b heads
+    (2, 4, 4, 100, 100, 64, True),         # MHA, ragged
+    (1, 8, 1, 77, 333, 32, True),          # MQA, Tq < Tk, ragged
+    (1, 4, 2, 200, 70, 16, True),          # Tq > Tk: fully masked rows
+    (2, 4, 2, 90, 150, 64, False),         # non-causal
+])
+def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
+                                              dtype, dev):
+    q, k, v = _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev)
+    before = counts["flash_attention"]
+    a = tflash.attention(q, k, v, causal=causal)
+    b = tflash.attention(q, k, v, causal=causal)
+    assert counts["flash_attention"] == before + 2
+    p = tflash_ref.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert a.dtype == dtype and torch.equal(a, b)
+    assert bool(torch.isfinite(a).all())
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(a.float(), p.float(), rtol=rtol, atol=atol)
+    if causal and Tq > Tk:
+        dead = v.float().sum(2)[:, :, None] / (-(-Tk // 128) * 128)
+        dead = dead.repeat_interleave(Hq // Hkv, dim=1)
+        torch.testing.assert_close(a[:, :, :Tq - Tk].float(),
+                                   dead.expand(-1, -1, Tq - Tk, -1),
+                                   rtol=rtol, atol=atol)
+
+
+def test_flash_attention_wrapper_checks_its_inputs(dev):
+    q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.float32, dev)
+    with pytest.raises(TypeError):
+        tflash.attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        tflash.attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        tflash.attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                         v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="heads"):
+        q3, _, _ = _qkv(1, 3, 2, 64, 64, 64, torch.float32, dev)
+        tflash.attention(q3, k, v)
+
+
+def _ssd_inputs(M, K, L, P, N, group, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    dt = r(M, K, L, 1) * 0.25 + 0.05
+    la = dt * -(r(M, 1, 1, 1) * 1.5 + 0.5)
+    return (n(M, K, L, P), dt, la, n(M // group, K, L, N) / N ** 0.5,
+            n(M // group, K, L, N) / N ** 0.5)
+
+
+@pytest.mark.parametrize("M,K,L,P,N,group", [
+    (24, 8, 128, 64, 128, 24),             # mamba2-130m, one group
+    (6, 3, 16, 8, 16, 3),                  # small chunks, G = 2
+    (4, 5, 100, 32, 64, 1),                # ragged chunk, per-head B/C
+])
+def test_ssd_chunk_kernel_matches_plain(M, K, L, P, N, group, dev):
+    args = _ssd_inputs(M, K, L, P, N, group, dev)
+    before = counts["ssd_chunk"]
+    a = tssd.ssd_chunk(*args, group=group)
+    b = tssd.ssd_chunk(*args, group=group)
+    assert counts["ssd_chunk"] == before + 2
+    p = tssd_ref.ssd_chunk(*args, group=group)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, p):
+        assert torch.equal(x, y) and x.shape == z.shape
+        torch.testing.assert_close(x, z, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_layer_on_card_matches_cpu(dev):
+    """The whole SSD layer (pad, kernel, carry) on the card against the
+    CPU path, ragged T and two groups."""
+    g = np.random.default_rng(0)
+    B, T, H, P, G, N = 2, 300, 4, 16, 2, 32
+    x = g.normal(size=(B, T, H, P)).astype(np.float32)
+    dt = g.uniform(0.05, 0.3, size=(B, T, H)).astype(np.float32)
+    A = -g.uniform(0.5, 2.0, size=(H,)).astype(np.float32)
+    Bm = (g.normal(size=(B, T, G, N)) / np.sqrt(N)).astype(np.float32)
+    Cm = (g.normal(size=(B, T, G, N)) / np.sqrt(N)).astype(np.float32)
+    D = g.normal(size=(H,)).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, D)]
+    want = tssd.ssd(*cpu, chunk=128)
+    got = tssd.ssd(*[a.to(dev) for a in cpu], chunk=128)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_chunk_wrapper_checks_its_inputs(dev):
+    x, dt, la, b, c = _ssd_inputs(4, 2, 16, 8, 16, 2, dev)
+    with pytest.raises(TypeError):
+        tssd.ssd_chunk(x.double(), dt, la, b, c, group=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_chunk(x.transpose(0, 1).contiguous().transpose(0, 1), dt,
+                       la, b, c, group=2)
+    with pytest.raises(ValueError, match="shape"):
+        tssd.ssd_chunk(x, dt, la, b, c, group=1)
+    with pytest.raises(ValueError):
+        tssd.ssd_chunk(x, dt.cpu(), la, b, c, group=2)
+    with pytest.raises(ValueError, match="chunks"):
+        big = _ssd_inputs(1, 1, 256, 8, 8, 1, dev)
+        tssd.ssd_chunk(*big)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+def test_two_layer_full_width_model_on_card_matches_cpu(arch, dev):
+    """prefill_step of a 2-layer model at the architecture's full width:
+    the card (through both kernels) against the CPU path, same weights."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_to
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 300)))
+    want = prefill_step(model, params, {"tokens": tok})
+    on_card = tree_to(params, dev)
+    name = "ssd_chunk" if cfg.family == "ssm" else "flash_attention"
+    before = counts[name]
+    got = prefill_step(model, on_card, {"tokens": tok.to(dev)})
+    assert counts[name] == before + 2
+    torch.testing.assert_close(got.cpu(), want, rtol=MODEL_TOL,
+                               atol=MODEL_TOL)
