@@ -10,7 +10,9 @@ Phases, in order (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel);
+   parallel); the flash build's ``ptxas`` register and spill report, and
+   its SASS (``cuobjdump --dump-sass``), which must hold ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA loads): the tensor-core kernel is what runs;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: ``cloudlet_finish`` at the Table 2 case1b and case2b pool
    shapes (per-lane outputs and request aggregates bit-equal, the instance
@@ -19,9 +21,12 @@ Phases, in order (any failure exits non-zero):
    and a fleet shape (bit-equal); ``link_share`` at the SockShop fabric,
    case1b+net and case2b+net shapes (rates bit-equal, two launches
    bit-identical); ``flash_attention`` at qwen3-0.6b's prefill heads
-   (B=1, Hq=16, Hkv=8, D=128, bfloat16) at T=4096 and at the prefill's
-   own T=32,768, each element within one bfloat16 rounding of the plain
-   version (run in query blocks at 32,768), and ``ssd_chunk`` at
+   (B=1, Hq=16, Hkv=8, D=128, bfloat16: the tensor-core kernel) at
+   T=4096 and at the prefill's own T=32,768, each element within one
+   bfloat16 rounding of the plain version (run in query blocks at
+   32,768), with its TFLOP/s, share of the bound and ratio to SDPA, and
+   the worst excess of the one-bf16-P variant beside it (measured, not
+   gated), and ``ssd_chunk`` at
    mamba2-130m's (M=24, L=128, P=64, N=128) at K=32 and at the
    prefill's K=256 chunks, within its stated tolerance; two launches
    bit-identical, with PyTorch's ``scaled_dot_product_attention`` timed
@@ -71,6 +76,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -362,6 +368,15 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
           f"flash_attention {tag}: max|err| {err}, an element off by "
           f"{excess} beyond {FLASH_RTOL}·|plain| (tolerance {FLASH_ATOL})")
     del diff
+    # one bf16 P (the variant the kernel does not use): its worst excess
+    one = ops.launch(q, k, v, True, None, ops.TENSOR_CORES_P1)
+    torch.cuda.synchronize()
+    excess_p1 = float(((one.float() - p.float()).abs()
+                       - FLASH_RTOL * p.float().abs()).max())
+    del one
+    p1_ev, p1_dev = cuda_ms(
+        lambda: ops.launch(q, k, v, True, None, ops.TENSOR_CORES_P1),
+        n_time, torch)
     k_ev, k_dev = cuda_ms(lambda: ops.attention(q, k, v), n_time, torch)
     p_ev, p_dev = cuda_ms(lambda: flash_plain(q, k, v, rows), 1, torch)
     counts.update(saved)
@@ -381,18 +396,46 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
     nbytes = 2.0 * B * D * T * (2 * Hq + 2 * Hkv)
     bound_ms, by = max((ops_n / BF16_OPS_PER_S * 1e3, "operations"),
                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    k_ms = k_dev or k_ev
     log(f"flash_attention {tag}: B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} bf16  "
-        f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  plain "
-        f"({min(rows, T)}-row query blocks) {_ms(p_dev)} ms device / "
+        f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  "
+        f"{ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
+        f"{bound_ms / k_ms:.3f} of the bound  {k_ms / lib_ms:.3f}x SDPA  "
+        f"plain ({min(rows, T)}-row query blocks) {_ms(p_dev)} ms device / "
         f"{p_ev:.4f} ms per call  SDPA {_ms(lib_ms)} ms (max|err| "
         f"{lib_err:.3g})  bound {bound_ms:.6f} ms ({by})  max|err| "
-        f"{err:.3g} (worst excess over {FLASH_RTOL}·|plain|: {excess:.3g})"
-        f"  {ops_n / ((k_dev or k_ev) * 1e-3) / 1e12:.2f} TFLOP/s")
+        f"{err:.3g} (worst excess over {FLASH_RTOL}·|plain|: {excess:.3g})")
+    log(f"flash_attention {tag}: P as one bf16 (not used) "
+        f"{_ms(p1_dev)} ms device / {p1_ev:.4f} ms per call, worst excess "
+        f"over {FLASH_RTOL}·|plain|: {excess_p1:.3g} (tolerance "
+        f"{FLASH_ATOL}); P as bf16 hi + lo (used): {excess:.3g}")
     del q, k, v, k1, k2, p
     torch.cuda.empty_cache()
-    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+    return dict(ms=k_ms, plain_ms=p_dev or p_ev,
                 bound_ms=bound_ms, bound_by=by, max_abs_err=err,
                 library_ms=lib_ms)
+
+
+def check_flash_build():
+    """The flash build's ptxas report (registers, spills per kernel) and
+    its SASS: the tensor-core kernel must hold wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``)."""
+    from repro_torch.kernels import _build
+    report = [ln.replace("ptxas info    : ", "").strip()
+              for ln in _build.log("flash_attention").splitlines()
+              if "Compiling entry" in ln or "registers" in ln
+              or "spill" in ln]
+    log("flash_attention ptxas: " + (" | ".join(report) or "no report"))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(_build.library("flash_attention"))],
+        capture_output=True, text=True, timeout=300).stdout
+    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    log("flash_attention SASS: " + "  ".join(f"{k} {v}" for k, v in
+                                             n.items()))
+    check(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
+          "flash_attention: the built library holds no wgmma (HGMMA) or no "
+          "TMA load (UTMALDG)")
 
 
 def check_ssd(tag, M, K, L, P, N, torch, dev):
@@ -895,7 +938,7 @@ def run_prefill(arch, torch, dev, launches):
     cfg = get_config(arch)
     model = build_model(cfg)
     kern, symbol = (("ssd_chunk", "ssd_chunk_kernel") if cfg.family == "ssm"
-                    else ("flash_attention", "flash_fwd"))
+                    else ("flash_attention", "flash_fwd_sm90"))
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dev)
     n_params = n_params_of(model.schema())
@@ -927,6 +970,8 @@ def run_prefill(arch, torch, dev, launches):
         wall_p = time.perf_counter() - t1
     by_name = _device_us_by_name(prof)
     busy = sum(by_name.values()) / 1e6
+    check(busy == 0 or any(symbol in k for k in by_name),
+          f"{arch} prefill: no {symbol} kernel in the device trace")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"{arch} prefill_step: {n_params / 1e6:.1f} M parameters, "
         f"{cfg.n_layers} layers, T={T} B=1  wall {wall:.3f} s "
@@ -1029,6 +1074,7 @@ def main() -> int:
         _build.build(_build_names())
         log(f"kernels built in {time.perf_counter() - t0:.1f} s "
             f"({', '.join(_build_names())})")
+        check_flash_build()
 
         results["cloudlet_finish"] = check_cloudlet_finish(
             "case1b", 8000, 1000, 1016008, torch, dev)

@@ -98,12 +98,14 @@ def pick_replicas(svc: torch.Tensor, live: torch.Tensor, state: SimState,
 
 
 def sample_payload(mean: torch.Tensor, std: torch.Tensor,
-                   rng: torch.Tensor) -> torch.Tensor:
+                   rng: torch.Tensor, lone: bool = False) -> torch.Tensor:
     """Gaussian per-RPC payload (MB), floored at MIN_PAYLOAD_MB; ``mean +
     std·noise`` is one fused multiply-add, as in the reference's compiled
-    program."""
-    noise = rnd.normal(rng, tuple(mean.shape), device=mean.device)
-    return torch.clamp_min(rnd.fma32(std, noise, mean), MIN_PAYLOAD_MB)
+    program (``lone``: std comes from a one-entry table, see
+    ``random.normal_fma``)."""
+    return torch.clamp_min(
+        rnd.normal_fma(rng, tuple(mean.shape), std, mean, lone,
+                       device=mean.device), MIN_PAYLOAD_MB)
 
 
 def inflight_mb(cl) -> torch.Tensor:

@@ -117,9 +117,9 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
     Ka = asg.dst.shape[0]
     svc_new = svc_flat[asg.src]
     req_new = torch.clamp_max(req_flat[asg.src], R - 1)
-    noise = rnd.normal(rng, (Ka,), device=dev)
-    length = torch.clamp_min(
-        rnd.fma32(app.len_std[svc_new], noise, app.len_mean[svc_new]), 1.0)
+    length = torch.clamp_min(rnd.normal_fma(
+        rng, (Ka,), app.len_std[svc_new], app.len_mean[svc_new],
+        lone=app.len_std.numel() == 1, device=dev), 1.0)
 
     rr = state.rr
     if net_rng is None:                  # uniform mode
@@ -129,8 +129,9 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
         k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
         tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
                                        params, k_lb)
-        payload = netmod.sample_payload(app.api_payload_mean[api_new],
-                                        app.api_payload_std[api_new], k_pay)
+        payload = netmod.sample_payload(
+            app.api_payload_mean[api_new], app.api_payload_std[api_new],
+            k_pay, lone=app.api_payload_std.numel() == 1)
         # no live replica yet: park in the waiting queue (dispatch
         # re-balances); clients are external, so no loopback fast path
         status_new = torch.where(tgt >= 0, CL_TRANSIT, CL_WAITING)
@@ -402,9 +403,9 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
     dep_new = torch.clamp_max(dep_flat[asg.src], app.succ.shape[0] - 1)
     tf_new = tf_flat[asg.src]
     pin_new = pin_flat[asg.src]
-    noise = rnd.normal(rng, (Ka,), device=dev)
-    length = torch.clamp_min(
-        rnd.fma32(app.len_std[svc_new], noise, app.len_mean[svc_new]), 1.0)
+    length = torch.clamp_min(rnd.normal_fma(
+        rng, (Ka,), app.len_std[svc_new], app.len_mean[svc_new],
+        lone=app.len_std.numel() == 1, device=dev), 1.0)
 
     rr = state.rr
     if net_rng is None:                  # uniform mode
@@ -417,9 +418,10 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
         k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
         tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
                                        params, k_lb)
-        payload = netmod.sample_payload(app.payload_mean[psvc_new, slot_new],
-                                        app.payload_std[psvc_new, slot_new],
-                                        k_pay)
+        payload = netmod.sample_payload(
+            app.payload_mean[psvc_new, slot_new],
+            app.payload_std[psvc_new, slot_new], k_pay,
+            lone=app.payload_std.numel() == 1)
         host = state.instances.host
         src_host = torch.where(pin_new >= 0,
                                host[torch.clamp_min(pin_new, 0)], -1)

@@ -5,36 +5,66 @@
 // (src/repro/kernels/flash_attention/kernel.py, body `_flash_kernel`):
 //   out[b, h, i] = softmax_j(scale · q[b, h, i] · k[b, h / group, j]) v[...]
 // over the keys j <= i + Tk - Tq (causal, sequence ends aligned), with
-// float32 math for float32 or bfloat16 inputs and the output in the
-// input's type.
+// float32 softmax statistics for float32 or bfloat16 inputs and the output
+// in the input's type.
 //
 // Bound: operations at prefill lengths (4·Tq·Tk·D multiply-adds per head,
 // half of it under the causal mask, against 2·(Tq + 2·Tk)·D bytes), so
-// the [Tq, Tk] logits never go to device memory.  This first version runs
-// on the float32 pipes (CUDA cores), not the tensor cores: wgmma, TMA and
-// pipelining are left for a later version.
+// the [Tq, Tk] logits never go to device memory.  Two kernels, chosen by
+// the `kernel` argument of the entry point (the wrapper's `route`):
 //
-// Design: one block of 256 threads per (query tile of 64 rows, query
-// head, batch item).  The block stages its 64 queries in shared memory
-// once, then sweeps the key tiles of 32 keys: it stages K and V (as
-// float32), each thread computes a 4x2 micro-tile of scores (rows
-// ty*4..ty*4+3, keys tx and tx+16), masks them, and folds them into the
-// running max and denominator of its rows (the 16 threads of a row
-// reduce the max with warp shuffles; the denominator stays a per-thread
-// partial until the end).  The probabilities go through shared memory to
-// the P·V product, where each thread owns 4 rows and D/16 output columns.
-// The KV head is h / group, read in place (no replication).  Key tiles
-// wholly above the causal horizon are skipped: they add exactly 0 once a
-// row has a finite maximum.  Ragged Tq and Tk are masked here, not padded.
+// `flash_fwd_sm90` (bfloat16, D 64 or 128) runs both products on the
+// tensor cores.  One block of three warpgroups per (128 query rows, query
+// head, batch item); blocks are launched heaviest first (the last causal
+// query tiles first) so the tail wave is short.  Warpgroup 0 is the
+// producer: one thread loads the Q tile once and the K/V tiles of 128 keys
+// by TMA into a ring of two stages, each with a full/empty mbarrier pair,
+// and the warpgroup gives its registers up (setmaxnreg).  Warpgroups 1 and
+// 2 each own 64 query rows: S = Q·Kᵀ by wgmma with both operands in shared
+// memory (128-byte swizzle, two 64-column boxes for a 128-wide head), the
+// online softmax in registers on the float32 accumulator (row max and sum
+// over the four threads of a row, exp2 of pre-scaled logits, the mask
+// applied only on tiles that cross the causal horizon or the ragged end),
+// then O += P·V by wgmma with P as the register operand and V read
+// transposed from shared memory.  The tensor maps are 3-D ([B·H, T, D]),
+// so a tile that runs past T is zero-filled instead of reading the next
+// head; those keys are masked.  The output goes out through shared memory
+// by a TMA store, which clips the rows past Tq.
 //
+// Precision: P is split into two bfloat16 terms, hi = bf16(P) and
+// lo = bf16(P - hi), and both go through the tensor cores into the same
+// float32 accumulator (1.5x the tensor work of one bf16 P; P's own
+// relative error drops from 2^-8 to 2^-16).  One bf16 P
+// (`kernel` 2, kept for measurement) moves an output on the first causal
+// rows, where a few keys carry large weights, by more than one bfloat16
+// rounding of the output.  The row sums are the float32 sums of P.
+//
+// `flash_fwd` (float32 at any supported D, bfloat16 at D 16 or 32) runs on
+// the float32 pipes (CUDA cores): TF32 would break the float32 tolerance.
+// One block of 256 threads per (query tile of 64 rows, query head, batch
+// item).  The block stages its 64 queries in shared memory once, then
+// sweeps the key tiles of 32 keys: it stages K and V (as float32), each
+// thread computes a 4x2 micro-tile of scores (rows ty*4..ty*4+3, keys tx
+// and tx+16), masks them, and folds them into the running max and
+// denominator of its rows (the 16 threads of a row reduce the max with
+// warp shuffles; the denominator stays a per-thread partial until the
+// end).  The probabilities go through shared memory to the P·V product,
+// where each thread owns 4 rows and D/16 output columns.
+//
+// Both kernels read the KV head h / group in place (no replication), mask
+// ragged Tq and Tk themselves (no padding) and skip key tiles wholly above
+// the causal horizon: they add exactly 0 once a row has a finite maximum.
 // Rows with no visible key (causal, i + Tk - Tq < 0) are computed as the
 // reference's Pallas kernel does through its 128-key blocks: every real
 // key has weight 1 (score 0 here) and the sum of V is divided by
-// `masked_den` (Tk rounded up to a multiple of 128) instead of the
-// weight sum.  A block that holds such rows sweeps every key tile.
+// `masked_den` (Tk rounded up to a multiple of 128) instead of the weight
+// sum.  A block that holds such rows sweeps every key tile.
+#include <cuda.h>         // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -244,14 +274,526 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success).
+namespace sm90 {
+
+constexpr int BQ = 128;        // query rows per block: 2 warpgroups x 64
+constexpr int BK = 128;        // keys per K/V tile
+constexpr int STAGES = 2;      // K/V tiles in flight
+constexpr int NT = 384;        // producer warpgroup + 2 consumer warpgroups
+constexpr int ROW = 128;       // bytes of one swizzled row: 64 bf16 columns
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// waits for the phase of `parity` to complete; a wait that outlasts 10 s
+// (a broken ring) traps, which fails the launch, instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!mbar_try(bar, parity))
+    if (now_ns() - t0 > 10000000000ull) __trap();
+}
+
+// one box of the 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// d[0:64] (+)= A·B for one k16 step: A (64 x 16) and B (16 x 128) from
+// shared memory, both K-major with the 128-byte swizzle; acc = 0 drops d.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[0:64] += A·B for one k16 step: A (64 x 16, bf16 pairs) from
+// registers, B (16 x 128) from shared memory, MN-major (transposed) with the
+// 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0:32] += A·B for one k16 step: A (64 x 16, bf16 pairs) from
+// registers, B (16 x 64) from shared memory, MN-major (transposed) with the
+// 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// BQ query rows x D of head h, batch b (grid: Hq, query tiles, B).
+// SPLIT: P goes in as bf16 hi + lo (true) or rounded once to bf16.
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_o, int Hq, int group,
+               int Tq, int Tk, int causal, int masked_den,
+               float scale_log2) {
+  constexpr int HALVES = D / 64;           // 64-column boxes per row
+  constexpr int Q_BYTES = BQ * D * 2;
+  constexpr int KV_BYTES = BK * D * 2;     // one of K or V
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = sq + Q_BYTES + STAGES * 2 * KV_BYTES;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8u + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u + 8u * (STAGES + s); };
+  auto k_tile = [&](int s) { return sq + Q_BYTES + s * 2u * KV_BYTES; };
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int off = Tk - Tq;
+  const int bh = b * Hq + h;
+  const int bkv = b * (Hq / group) + h / group;
+  // key tiles: all of them, or up to the causal horizon of the last row
+  int k_end = Tk;
+  if (causal && q0 + off >= 0) k_end = min(Tk, min(q0 + BQ, Tq) + off);
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);              // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int hf = 0; hf < HALVES; ++hf)
+        tma_load(sq + hf * BQ * ROW, &tm_q, hf * 64, q0, bh, q_full);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty(s), ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * KV_BYTES);
+        const uint32_t sk = k_tile(s), sv = sk + KV_BYTES;
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load(sk + hf * BK * ROW, &tm_k, hf * 64, t * BK, bkv,
+                   full(s));
+          tma_load(sv + hf * BK * ROW, &tm_v, hf * 64, t * BK, bkv,
+                   full(s));
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - 1;                  // this warpgroup's 64 rows
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int rr = 64 * c + 16 * warp + lane / 4;   // tile rows rr, rr + 8
+    const int qi0 = q0 + rr, qi1 = qi0 + 8;
+    const bool dead0 = causal && qi0 + off < 0;
+    const bool dead1 = causal && qi1 + off < 0;
+    const int first = q0 + 64 * c;         // the smallest causal horizon
+    const int col = 2 * (lane % 4);        // first of this thread's columns
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+    const uint32_t qa = sq + 64 * c * ROW;
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES, k0 = t * BK;
+      const uint32_t sk = k_tile(s), sv = sk + KV_BYTES;
+      mbar_wait(full(s), (t / STAGES) & 1);
+
+      // S = Q·Kᵀ: D/16 steps of k16, a 64-column box every 4 steps
+      float sc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk % 4) * 32;
+        wgmma_ss_n128(
+            sc, sw128_desc(qa + (kk / 4) * BQ * ROW + step, 16, 1024),
+            sw128_desc(sk + (kk / 4) * BK * ROW + step, 16, 1024), kk > 0);
+      }
+      wgmma_commit_wait();
+      pin<BK / 2>(sc);
+
+      // logits in the log2 domain; sc[4j + e] is row rr (e < 2) or
+      // rr + 8, key k0 + 8j + col + (e & 1)
+      const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > first + off);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * j + col + (e & 1);
+            const bool dead = e < 2 ? dead0 : dead1;
+            const int qi = e < 2 ? qi0 : qi1;
+            float x = sc[4 * j + e] * scale_log2;
+            if (kj >= Tk) x = -INFINITY;
+            else if (dead) x = 0.0f;        // weight 1 for every real key
+            else if (causal && kj > qi + off) x = -INFINITY;
+            sc[4 * j + e] = x;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+      }
+      // every row sees a real key in tile 0, so the max is finite from
+      // there on; the guard keeps a row past Tq free of NaN
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      const float u0 = n0 == -INFINITY ? 0.0f : n0;
+      const float u1 = n1 == -INFINITY ? 0.0f : n1;
+      const float a0 = ex2(m0 - u0), a1 = ex2(m1 - u1);
+      m0 = n0;
+      m1 = n1;
+
+      // P as the register operand: ph[4kk..4kk+3] is k16 step kk's A
+      uint32_t ph[BK / 4], pl[SPLIT ? BK / 4 : 1];
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = ex2(sc[4 * j] - u0), p1 = ex2(sc[4 * j + 1] - u0);
+        const float p2 = ex2(sc[4 * j + 2] - u1);
+        const float p3 = ex2(sc[4 * j + 3] - u1);
+        s0 += p0 + p1;
+        s1 += p2 + p3;
+        const __nv_bfloat162 h01 = __floats2bfloat162_rn(p0, p1);
+        const __nv_bfloat162 h23 = __floats2bfloat162_rn(p2, p3);
+        ph[2 * j] = bits(h01);
+        ph[2 * j + 1] = bits(h23);
+        if constexpr (SPLIT) {
+          pl[2 * j] = bits(__floats2bfloat162_rn(p0 - __low2float(h01),
+                                                 p1 - __high2float(h01)));
+          pl[2 * j + 1] = bits(__floats2bfloat162_rn(
+              p2 - __low2float(h23), p3 - __high2float(h23)));
+        }
+      }
+      l0 = l0 * a0 + s0;
+      l1 = l1 * a1 + s1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
+      }
+
+      // O += P·V: BK/16 steps; V [keys, D] is the MN-major B operand,
+      // 8 keys apart by 1024 bytes, the second 64 columns BK rows on
+      pin<D / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = sw128_desc(sv + kk * 16 * ROW, BK * ROW, 1024);
+        if constexpr (D == 128) {
+          wgmma_rs_n128(o, &ph[4 * kk], dv);
+          if constexpr (SPLIT) wgmma_rs_n128(o, &pl[4 * kk], dv);
+        } else {
+          wgmma_rs_n64(o, &ph[4 * kk], dv);
+          if constexpr (SPLIT) wgmma_rs_n64(o, &pl[4 * kk], dv);
+        }
+      }
+      wgmma_commit_wait();
+      pin<D / 2>(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // epilogue: row sums over the quad, divide, bf16 into this
+    // warpgroup's rows of the Q tile (same swizzle), one TMA store a box
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+    }
+    const float r0 = 1.0f / (dead0 ? (float)masked_den : l0);
+    const float r1 = 1.0f / (dead1 ? (float)masked_den : l1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const uint32_t at = sq + (j / 8) * BQ * ROW + rr * ROW +
+                          (((j % 8) ^ (rr % 8)) * 16) + col * 2;
+      const uint32_t x0 = bits(__floats2bfloat162_rn(o[4 * j] * r0,
+                                                     o[4 * j + 1] * r0));
+      const uint32_t x1 = bits(__floats2bfloat162_rn(o[4 * j + 2] * r1,
+                                                     o[4 * j + 3] * r1));
+      asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at), "r"(x0)
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at + 8 * ROW),
+                   "r"(x1) : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + c) : "memory");
+    if (tid == 0 && first < Tq) {
+      for (int hf = 0; hf < HALVES; ++hf)
+        tma_store(&tm_o, qa + hf * BQ * ROW, hf * 64, first, bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda, which the CUDA runtime
+// has loaded (no link against it)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [BH, T, D] bfloat16, boxes of 64 columns x `rows` rows, 128-byte swizzle;
+// a box past T is zero-filled on load and clipped on store
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
+                int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool SPLIT>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int Tq, int Tk, int causal, int masked_den,
+           float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  if (!tensor_map(&mq, q, B * Hq, Tq, D, BQ) ||
+      !tensor_map(&mk, k, B * Hkv, Tk, D, BK) ||
+      !tensor_map(&mv, v, B * Hkv, Tk, D, BK) ||
+      !tensor_map(&mo, out, B * Hq, Tq, D, 64))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = 1024 + BQ * D * 2 + STAGES * 2 * BK * D * 2 +
+                    8 * (1 + 2 * STAGES);
+  auto kern = flash_fwd_sm90<D, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq, (Tq + BQ - 1) / BQ, B);
+  kern<<<grid, NT, bytes, stream>>>(
+      mq, mk, mv, mo, Hq, Hq / Hkv, Tq, Tk, causal, masked_den,
+      (float)(scale * 1.4426950408889634));
+  return (int)cudaGetLastError();
+}
+
+template <bool SPLIT>
+int launch_d(int D, const void* q, const void* k, const void* v, void* out,
+             int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+             int masked_den, float scale, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch<64, SPLIT>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                      causal, masked_den, scale, s);
+    case 128: return launch<128, SPLIT>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                        causal, masked_den, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace sm90
+
+// dtype: 0 float32, 1 bfloat16.  kernel: 0 `flash_fwd` (CUDA cores),
+// 1 `flash_fwd_sm90` (tensor cores, P split into bf16 hi + lo), 2 the
+// same with P rounded once to bf16; 1 and 2 take bfloat16 at D 64 or 128
+// only.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Hq, int Hkv, int Tq, int Tk, int D,
                                       int causal, int masked_den, float scale,
-                                      int dtype, void* stream) {
+                                      int dtype, int kernel, void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 1 || kernel == 2) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return kernel == 1
+               ? sm90::launch_d<true>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                      causal, masked_den, scale, s)
+               : sm90::launch_d<false>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                       causal, masked_den, scale, s);
+  }
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_d<float>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
                            masked_den, scale, s);

@@ -10,7 +10,9 @@ a hash of the source and flags, so an edited source is rebuilt.
 The simulator's kernels are compiled with ``--fmad=false``: they are held
 bit for bit against their plain PyTorch versions, which round each
 multiply and add separately.  The model-zoo kernels (``SOURCE_FLAGS``) are
-held within a stated tolerance and keep nvcc's fused multiply-adds.
+held within a stated tolerance and keep nvcc's fused multiply-adds; the
+flash source also asks ``ptxas`` for its register and spill report.
+Each build's compiler output is kept beside its library (``log(name)``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 # per-source flags, in place of NVCC_FLAGS for the sources named here
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
-SOURCE_FLAGS = {"flash_attention": FMAD_FLAGS, "ssd_chunk": FMAD_FLAGS}
+SOURCE_FLAGS = {"flash_attention": FMAD_FLAGS + ("-Xptxas=-v",),
+                "ssd_chunk": FMAD_FLAGS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -50,14 +53,15 @@ def _flags(name: str) -> tuple:
     return SOURCE_FLAGS.get(name, NVCC_FLAGS)
 
 
-def _lib_path(name: str) -> Path:
+def library(name: str) -> Path:
+    """The path of ``csrc/<name>.cu``'s library (built or not)."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:12]}.so"
 
 
 def _start(name: str):
-    out = _lib_path(name)
+    out = library(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,13 +80,21 @@ def build(names: Iterable[str]) -> None:
             if job is None:
                 continue
             proc, tmp, out = job
-            log, _ = proc.communicate()
+            text, _ = proc.communicate()
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu:\n{log}")
+                errors.append(f"nvcc failed for {name}.cu:\n{text}")
                 continue
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def log(name: str) -> str:
+    """The compiler's output of the build of ``csrc/<name>.cu`` ("" before
+    it is built)."""
+    path = library(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -90,6 +102,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(library(name)))
         _LIBS[name] = lib
     return lib

@@ -259,6 +259,27 @@ def normal(key: torch.Tensor, shape: Sequence[int],
     return erf_inv(u) * _SQRT2
 
 
+def normal_fma(key: torch.Tensor, shape: Sequence[int], std: torch.Tensor,
+               mean: torch.Tensor, lone: bool = False,
+               device=None) -> torch.Tensor:
+    """``mean + std·normal(key, shape)`` rounded once (one fused
+    multiply-add), as the reference's compiled tick evaluates its spawn
+    lengths and payloads.
+
+    ``lone`` says ``std`` was gathered from a one-entry table (one
+    service, one API).  For a draw of more than one element XLA turns such
+    a gather into a broadcast of the scalar and folds ``normal``'s sqrt(2)
+    into it, hoisting the product out of the tick loop: the tick computes
+    ``mean + erf_inv(u)·r`` with ``r = round(std·sqrt(2))``, not ``mean +
+    std·round(erf_inv(u)·sqrt(2))``.  A one-element draw needs no
+    broadcast, and a larger table keeps its gather: both keep the order
+    of ``normal``."""
+    e = erf_inv(uniform(key, shape, _NORMAL_LO, 1.0, device))
+    if lone and math.prod(shape) > 1:
+        return fma32(e, std * _SQRT2, mean)
+    return fma32(std, e * _SQRT2, mean)
+
+
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
             maxval: int, device=None) -> torch.Tensor:
     """``jax.random.randint`` (int32, ``minval < maxval`` ≤ 2**31 - 1)."""

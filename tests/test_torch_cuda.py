@@ -25,7 +25,9 @@ devices; they feed no later phase).
 The model-zoo kernels against their plain versions: ``flash_attention``
 within ``FLASH_TOL`` (relative, absolute) (float32 inputs: the sums in
 another order; bfloat16 inputs: one bf16 rounding of the output, at most
-2^-7 of its magnitude, plus the float32 sums' own error), ``ssd_chunk``
+2^-7 of its magnitude, plus the float32 sums' own error; bf16 at head
+width 64 and 128 runs the tensor-core kernel, the rest the CUDA-core
+one), ``ssd_chunk``
 within ``SSD_TOL`` (float32, the sums in another order and the chunk
 decay exp(cum_i - cum_j) of a cumsum that rounds differently); two
 launches bit-identical.  A 2-layer full-width model's card logits against
@@ -323,6 +325,13 @@ def _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev, seed=0):
     (1, 8, 1, 77, 333, 32, True),          # MQA, Tq < Tk, ragged
     (1, 4, 2, 200, 70, 16, True),          # Tq > Tk: fully masked rows
     (2, 4, 2, 90, 150, 64, False),         # non-causal
+    # the edges of the tensor-core kernel (bf16 at D 64 and 128)
+    (1, 16, 2, 300, 300, 64, True),        # GQA group 8, ragged
+    (1, 8, 4, 77, 333, 128, True),         # Tq < Tk (chunked prefill)
+    (1, 4, 2, 200, 70, 128, True),         # Tq > Tk: fully masked rows
+    (2, 8, 4, 333, 333, 128, True),        # B = 2, ragged
+    (2, 8, 8, 257, 150, 128, False),       # non-causal, MHA
+    (1, 8, 8, 129, 129, 128, True),        # one row past a query tile
 ])
 def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
                                               dtype, dev):
@@ -345,6 +354,18 @@ def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
                                    rtol=rtol, atol=atol)
 
 
+def test_flash_attention_takes_unaligned_inputs(dev):
+    """TMA reads from 16-byte aligned addresses: the wrapper copies a
+    contiguous view that starts off them."""
+    q, k, v = _qkv(1, 8, 4, 200, 200, 128, torch.bfloat16, dev)
+    want = tflash.attention(q, k, v)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(tflash.attention(shifted, k, v), want)
+
+
 def test_flash_attention_wrapper_checks_its_inputs(dev):
     q, k, v = _qkv(1, 4, 2, 64, 64, 64, torch.float32, dev)
     with pytest.raises(TypeError):
@@ -361,6 +382,8 @@ def test_flash_attention_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError, match="heads"):
         q3, _, _ = _qkv(1, 3, 2, 64, 64, 64, torch.float32, dev)
         tflash.attention(q3, k, v)
+    with pytest.raises(ValueError, match="tensor-core"):
+        tflash.launch(q, k, v, True, None, tflash.TENSOR_CORES)
 
 
 def _ssd_inputs(M, K, L, P, N, group, dev, seed=0):

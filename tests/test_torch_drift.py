@@ -14,9 +14,11 @@ program takes that the port does not.
         python tests/test_torch_drift.py --case case1b --scale 0.001 \\
         --ticks 200 --net --locate
 
-As a test, it holds one case whose whole run stays on the reference:
-case3a+net (100 services × 3 replicas on a four-host fabric) over 100
-ticks, every leaf identical.
+As a test, it holds whole runs that stay on the reference, every leaf
+identical: case3a+net (100 services × 3 replicas on a four-host fabric)
+over 100 ticks, and runs with one service or one API (case1b at 1000
+requests with and without the fabric, case2a+net) past the ticks where
+they used to leave it.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 
 from benchmarks import bench_capacity
 from repro.core.types import DynParams as JDyn
@@ -67,6 +70,19 @@ def test_case3a_net_run_stays_on_the_reference():
     got, want = _run("case3a+net", 0.01, 100)
     assert diff(got, want) == []
     assert int(got["net"]["transits"]) > 0
+
+
+@pytest.mark.parametrize("tag,scale,ticks", [("case1b+net", 0.001, 30),
+                                             ("case1b", 0.001, 200),
+                                             ("case2a+net", 0.1, 60)])
+def test_one_entry_table_run_stays_on_the_reference(tag, scale, ticks):
+    """case1b+net first left the reference in ticks 24-25 and case1b's
+    ``usage_sum`` by one ULP after 200 ticks, through a spawn length;
+    case2a+net's per-host ingress sum by one ULP after 60 ticks, through
+    a payload.  The reference folds ``normal``'s sqrt(2) into a std drawn
+    from a one-entry table (one service, one API: ``random.normal_fma``)."""
+    got, want = _run(tag, scale, ticks)
+    assert diff(got, want) == []
 
 
 def main() -> None:

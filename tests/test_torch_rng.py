@@ -141,3 +141,42 @@ def test_fma32_rounds_once():
     want = np.array([_fma_exact(x[i], np.float32(0.1), c[i])
                      for i in range(n)], np.float32)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_table,n,steps", [(1, 4096, 1), (3, 4096, 1),
+                                             (1, 1, 512)])
+def test_normal_fma_follows_the_compiled_tick(n_table, n, steps):
+    """``max(mean[i] + std[i]·normal, 1)`` drawn ``n`` at a time inside a
+    compiled loop, as the tick draws spawn lengths and payloads.  From a
+    one-entry table XLA folds ``normal``'s sqrt(2) into the broadcast std
+    (``lone``); from a larger table, or in a one-element draw, it keeps
+    ``normal``'s order.  The other order gives other bits on some
+    draws."""
+    r = np.random.default_rng(n_table + n)
+    mean = r.uniform(10.0, 100.0, n_table).astype(np.float32)
+    std = r.uniform(1.0, 30.0, n_table).astype(np.float32)
+    idx = r.integers(0, n_table, n).astype(np.int32)
+
+    def body(key, m, s, i):
+        key, sub = jax.random.split(key)
+        x = m[i] + s[i] * jax.random.normal(sub, (n,), jnp.float32)
+        return key, jnp.maximum(x, 1.0)
+    draw = jax.jit(lambda k, m, s, i: jax.lax.scan(
+        lambda c, _: body(c, m, s, i), k, None, length=steps)[1])
+    want = np.asarray(draw(jax.random.PRNGKey(7), mean, std, idx))
+    ti = torch.from_numpy(idx).long()
+    m, s = torch.from_numpy(mean)[ti], torch.from_numpy(std)[ti]
+    lone = n_table == 1
+    folded = lone and n > 1
+    key, got, other = tr.PRNGKey(7), [], []
+    for _ in range(steps):
+        key, sub = tr.split(key, 2)
+        got.append(torch.clamp_min(
+            tr.normal_fma(sub, (n,), s, m, lone=lone), 1.0).numpy())
+        e = tr.erf_inv(tr.uniform(sub, (n,), tr._NORMAL_LO, 1.0))
+        alt = (tr.fma32(s, e * tr._SQRT2, m) if folded
+               else tr.fma32(e, s * tr._SQRT2, m))
+        other.append(torch.clamp_min(alt, 1.0).numpy())
+    np.testing.assert_array_equal(np.stack(got).view(np.uint32),
+                                  want.view(np.uint32))
+    assert not np.array_equal(np.stack(other), want)
