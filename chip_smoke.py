@@ -368,15 +368,6 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
           f"flash_attention {tag}: max|err| {err}, an element off by "
           f"{excess} beyond {FLASH_RTOL}·|plain| (tolerance {FLASH_ATOL})")
     del diff
-    # one bf16 P (the variant the kernel does not use): its worst excess
-    one = ops.launch(q, k, v, True, None, ops.TENSOR_CORES_P1)
-    torch.cuda.synchronize()
-    excess_p1 = float(((one.float() - p.float()).abs()
-                       - FLASH_RTOL * p.float().abs()).max())
-    del one
-    p1_ev, p1_dev = cuda_ms(
-        lambda: ops.launch(q, k, v, True, None, ops.TENSOR_CORES_P1),
-        n_time, torch)
     k_ev, k_dev = cuda_ms(lambda: ops.attention(q, k, v), n_time, torch)
     p_ev, p_dev = cuda_ms(lambda: flash_plain(q, k, v, rows), 1, torch)
     counts.update(saved)
@@ -405,10 +396,6 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
         f"{p_ev:.4f} ms per call  SDPA {_ms(lib_ms)} ms (max|err| "
         f"{lib_err:.3g})  bound {bound_ms:.6f} ms ({by})  max|err| "
         f"{err:.3g} (worst excess over {FLASH_RTOL}·|plain|: {excess:.3g})")
-    log(f"flash_attention {tag}: P as one bf16 (not used) "
-        f"{_ms(p1_dev)} ms device / {p1_ev:.4f} ms per call, worst excess "
-        f"over {FLASH_RTOL}·|plain|: {excess_p1:.3g} (tolerance "
-        f"{FLASH_ATOL}); P as bf16 hi + lo (used): {excess:.3g}")
     del q, k, v, k1, k2, p
     torch.cuda.empty_cache()
     return dict(ms=k_ms, plain_ms=p_dev or p_ev,
@@ -970,7 +957,8 @@ def run_prefill(arch, torch, dev, launches):
         wall_p = time.perf_counter() - t1
     by_name = _device_us_by_name(prof)
     busy = sum(by_name.values()) / 1e6
-    check(busy == 0 or any(symbol in k for k in by_name),
+    check(busy > 0, f"{arch} prefill: the profiler recorded no device time")
+    check(any(symbol in k for k in by_name),
           f"{arch} prefill: no {symbol} kernel in the device trace")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"{arch} prefill_step: {n_params / 1e6:.1f} M parameters, "

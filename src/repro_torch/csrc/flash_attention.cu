@@ -10,8 +10,9 @@
 //
 // Bound: operations at prefill lengths (4·Tq·Tk·D multiply-adds per head,
 // half of it under the causal mask, against 2·(Tq + 2·Tk)·D bytes), so
-// the [Tq, Tk] logits never go to device memory.  Two kernels, chosen by
-// the `kernel` argument of the entry point (the wrapper's `route`):
+// the [Tq, Tk] logits never go to device memory.  Two kernels; the entry
+// point picks one from the input type and head width (the wrapper's
+// `route` states the same rule):
 //
 // `flash_fwd_sm90` (bfloat16, D 64 or 128) runs both products on the
 // tensor cores.  One block of three warpgroups per (128 query rows, query
@@ -34,10 +35,10 @@
 // Precision: P is split into two bfloat16 terms, hi = bf16(P) and
 // lo = bf16(P - hi), and both go through the tensor cores into the same
 // float32 accumulator (1.5x the tensor work of one bf16 P; P's own
-// relative error drops from 2^-8 to 2^-16).  One bf16 P
-// (`kernel` 2, kept for measurement) moves an output on the first causal
-// rows, where a few keys carry large weights, by more than one bfloat16
-// rounding of the output.  The row sums are the float32 sums of P.
+// relative error drops from 2^-8 to 2^-16).  One bf16 P moves an output
+// on the first causal rows, where a few keys carry large weights, by more
+// than one bfloat16 rounding of the output.  The row sums are the float32
+// sums of P.
 //
 // `flash_fwd` (float32 at any supported D, bfloat16 at D 16 or 32) runs on
 // the float32 pipes (CUDA cores): TF32 would break the float32 tolerance.
@@ -255,19 +256,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Hq, int Hkv, int Tq, int Tk, int causal,
-             int masked_den, float scale, cudaStream_t s) {
+// float32 at every head width
+int launch_f32(int D, const void* q, const void* k, const void* v, void* out,
+               int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+               int masked_den, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16, T>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
-                                  masked_den, scale, s);
-    case 32: return launch<32, T>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
-                                  masked_den, scale, s);
-    case 64: return launch<64, T>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
-                                  masked_den, scale, s);
-    case 128: return launch<128, T>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                    causal, masked_den, scale, s);
+    case 16: return launch<16, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                      causal, masked_den, scale, s);
+    case 32: return launch<32, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                      causal, masked_den, scale, s);
+    case 64: return launch<64, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                      causal, masked_den, scale, s);
+    case 128: return launch<128, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
+                                        causal, masked_den, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bfloat16 at 16 or 32 (wider bfloat16 heads take `flash_fwd_sm90`)
+int launch_bf16_narrow(int D, const void* q, const void* k, const void* v,
+                       void* out, int B, int Hq, int Hkv, int Tq, int Tk,
+                       int causal, int masked_den, float scale,
+                       cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<16, __nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Tq,
+                                              Tk, causal, masked_den, scale,
+                                              s);
+    case 32: return launch<32, __nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Tq,
+                                              Tk, causal, masked_den, scale,
+                                              s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -475,8 +492,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 
 
 // BQ query rows x D of head h, batch b (grid: Hq, query tiles, B).
-// SPLIT: P goes in as bf16 hi + lo (true) or rounded once to bf16.
-template <int D, bool SPLIT>
+template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -616,7 +632,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       m1 = n1;
 
       // P as the register operand: ph[4kk..4kk+3] is k16 step kk's A
-      uint32_t ph[BK / 4], pl[SPLIT ? BK / 4 : 1];
+      uint32_t ph[BK / 4], pl[BK / 4];
       float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
@@ -629,12 +645,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
         const __nv_bfloat162 h23 = __floats2bfloat162_rn(p2, p3);
         ph[2 * j] = bits(h01);
         ph[2 * j + 1] = bits(h23);
-        if constexpr (SPLIT) {
-          pl[2 * j] = bits(__floats2bfloat162_rn(p0 - __low2float(h01),
-                                                 p1 - __high2float(h01)));
-          pl[2 * j + 1] = bits(__floats2bfloat162_rn(
-              p2 - __low2float(h23), p3 - __high2float(h23)));
-        }
+        pl[2 * j] = bits(__floats2bfloat162_rn(p0 - __low2float(h01),
+                                               p1 - __high2float(h01)));
+        pl[2 * j + 1] = bits(__floats2bfloat162_rn(p2 - __low2float(h23),
+                                                   p3 - __high2float(h23)));
       }
       l0 = l0 * a0 + s0;
       l1 = l1 * a1 + s1;
@@ -655,10 +669,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
         const uint64_t dv = sw128_desc(sv + kk * 16 * ROW, BK * ROW, 1024);
         if constexpr (D == 128) {
           wgmma_rs_n128(o, &ph[4 * kk], dv);
-          if constexpr (SPLIT) wgmma_rs_n128(o, &pl[4 * kk], dv);
+          wgmma_rs_n128(o, &pl[4 * kk], dv);
         } else {
           wgmma_rs_n64(o, &ph[4 * kk], dv);
-          if constexpr (SPLIT) wgmma_rs_n64(o, &pl[4 * kk], dv);
+          wgmma_rs_n64(o, &pl[4 * kk], dv);
         }
       }
       wgmma_commit_wait();
@@ -736,7 +750,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool SPLIT>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int Tq, int Tk, int causal, int masked_den,
            float scale, cudaStream_t stream) {
@@ -748,7 +762,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     return (int)cudaErrorInvalidValue;
   const int bytes = 1024 + BQ * D * 2 + STAGES * 2 * BK * D * 2 +
                     8 * (1 + 2 * STAGES);
-  auto kern = flash_fwd_sm90<D, SPLIT>;
+  auto kern = flash_fwd_sm90<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -759,46 +773,37 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-template <bool SPLIT>
 int launch_d(int D, const void* q, const void* k, const void* v, void* out,
              int B, int Hq, int Hkv, int Tq, int Tk, int causal,
              int masked_den, float scale, cudaStream_t s) {
   switch (D) {
-    case 64: return launch<64, SPLIT>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                      causal, masked_den, scale, s);
-    case 128: return launch<128, SPLIT>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                        causal, masked_den, scale, s);
+    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+                               masked_den, scale, s);
+    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+                                 masked_den, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace sm90
 
-// dtype: 0 float32, 1 bfloat16.  kernel: 0 `flash_fwd` (CUDA cores),
-// 1 `flash_fwd_sm90` (tensor cores, P split into bf16 hi + lo), 2 the
-// same with P rounded once to bf16; 1 and 2 take bfloat16 at D 64 or 128
-// only.  Returns a cudaError_t (0 on success).
+// dtype: 0 float32, 1 bfloat16.  bfloat16 at D 64 or 128 runs
+// `flash_fwd_sm90`, everything else `flash_fwd`.  Returns a cudaError_t
+// (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Hq, int Hkv, int Tq, int Tk, int D,
                                       int causal, int masked_den, float scale,
-                                      int dtype, int kernel, void* stream) {
+                                      int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kernel == 1 || kernel == 2) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return kernel == 1
-               ? sm90::launch_d<true>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                      causal, masked_den, scale, s)
-               : sm90::launch_d<false>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                       causal, masked_den, scale, s);
-  }
-  if (kernel != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_d<float>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
-                           masked_den, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                   causal, masked_den, scale, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_f32(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+                      masked_den, scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D == 64 || D == 128)
+    return sm90::launch_d(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+                          masked_den, scale, s);
+  return launch_bf16_narrow(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+                            masked_den, scale, s);
 }

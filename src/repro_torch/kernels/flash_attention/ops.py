@@ -2,11 +2,12 @@
 a CUDA tensor, the plain version of ``ref.py`` on a CPU tensor, an error
 on anything else.
 
-``route`` picks the kernel: bfloat16 at head width 64 or 128 goes to the
+The C entry point picks the kernel from the input type and head width,
+by the rule ``route`` states: bfloat16 at head width 64 or 128 goes to the
 tensor-core kernel ``flash_fwd_sm90`` (wgmma, TMA, P split into two bf16
 terms); float32, and bfloat16 at 16 or 32, to the CUDA-core kernel
 ``flash_fwd``, whose float32 math keeps the float32 tolerance (TF32 would
-not).  The C entry point checks the choice against the same rule.
+not).
 
 The reference pads ragged lengths to its (128, 128) blocks and masks with
 the original lengths; the kernel masks the ragged edges itself, so no
@@ -26,12 +27,12 @@ HEAD_DIMS = (16, 32, 64, 128)      # the kernels' compiled head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CUDA_CORES = 0        # ``flash_fwd``
 TENSOR_CORES = 1      # ``flash_fwd_sm90``, P = bf16 hi + bf16 lo
-TENSOR_CORES_P1 = 2   # ``flash_fwd_sm90``, P rounded once (measurement)
 SM90_HEAD_DIMS = (64, 128)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> int:
-    """The kernel that takes inputs of this type and head width."""
+    """The kernel that the C entry point runs for inputs of this type
+    and head width."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return TENSOR_CORES
     return CUDA_CORES
@@ -41,7 +42,7 @@ def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -69,14 +70,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"q, k, v on {q.device}, {k.device}, "
                              f"{v.device}")
         return ref.attention(q, k, v, causal=causal, scale=scale)
-    return launch(q, k, v, causal, scale,
-                  route(q.dtype, q.shape[-1] if q.dim() == 4 else 0))
+    return launch(q, k, v, causal, scale)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           scale: float | None, kernel: int) -> torch.Tensor:
-    """``attention`` on the card through the named kernel (``route``'s
-    choice, or ``TENSOR_CORES_P1`` to measure one-bf16 P)."""
+           scale: float | None) -> torch.Tensor:
+    """``attention`` on the card: one launch of ``route``'s kernel."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu, not {dev}")
@@ -97,11 +96,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                          f"got {D}")
     if Tq < 1 or Tk < 1 or B > 65535 or Hq > 65535:
         raise ValueError(f"empty or oversized attention {tuple(q.shape)}")
-    if kernel != CUDA_CORES:
-        if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
-            raise ValueError(f"the tensor-core kernel takes bfloat16 at "
-                             f"head_dim {SM90_HEAD_DIMS}, not {q.dtype} "
-                             f"at {D}")
+    if route(q.dtype, D) == TENSOR_CORES:
         if Tq > 65535 * 128:
             raise ValueError(f"{Tq} query rows exceed the grid")
         # TMA reads from 16-byte aligned addresses
@@ -112,7 +107,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, Hkv, Tq, Tk, D, int(bool(causal)),
                  ref.masked_row_denominator(Tk), scale, _DTYPES[q.dtype],
-                 kernel, torch.cuda.current_stream(dev).cuda_stream)
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err}")

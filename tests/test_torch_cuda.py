@@ -382,8 +382,6 @@ def test_flash_attention_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError, match="heads"):
         q3, _, _ = _qkv(1, 3, 2, 64, 64, 64, torch.float32, dev)
         tflash.attention(q3, k, v)
-    with pytest.raises(ValueError, match="tensor-core"):
-        tflash.launch(q, k, v, True, None, tflash.TENSOR_CORES)
 
 
 def _ssd_inputs(M, K, L, P, N, group, dev, seed=0):

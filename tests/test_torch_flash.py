@@ -118,8 +118,7 @@ def test_wrapper_refuses_other_devices():
 def test_route_sends_bf16_at_64_and_128_to_the_tensor_cores(dtype, D):
     """bfloat16 at head width 64 or 128 takes ``flash_fwd_sm90``; float32
     (whose 2e-5 tolerance TF32 would break) and bf16 at 16 or 32 take the
-    CUDA-core ``flash_fwd``.  The C entry point refuses any other pair
-    for the tensor-core kernel."""
+    CUDA-core ``flash_fwd``.  The C entry point applies the same rule."""
     want = (tflash.TENSOR_CORES if dtype == torch.bfloat16 and D >= 64
             else tflash.CUDA_CORES)
     assert tflash.route(dtype, D) == want
@@ -128,4 +127,4 @@ def test_route_sends_bf16_at_64_and_128_to_the_tensor_cores(dtype, D):
 def test_launch_runs_only_on_the_card():
     q, k, v = (_t(a, torch.bfloat16) for a in _mk(0, 1, 2, 1, 8, 8, 64))
     with pytest.raises(ValueError, match="cuda"):
-        tflash.launch(q, k, v, True, None, tflash.route(q.dtype, 64))
+        tflash.launch(q, k, v, True, None)
