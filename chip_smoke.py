@@ -10,9 +10,11 @@ Phases, in order (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel); the flash build's ``ptxas`` register and spill report, and
-   its SASS (``cuobjdump --dump-sass``), which must hold ``HGMMA`` (wgmma)
-   and ``UTMALDG`` (TMA loads): the tensor-core kernel is what runs;
+   parallel); for each model-zoo build (flash attention, the SSD chunk)
+   its ``ptxas`` registers and spills per kernel, where the tensor-core
+   kernels (``flash_fwd_sm90``, ``ssd_chunk_sm90``) must spill nothing,
+   and its SASS (``cuobjdump --dump-sass``), which must hold ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA loads);
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: ``cloudlet_finish`` at the Table 2 case1b and case2b pool
    shapes (per-lane outputs and request aggregates bit-equal, the instance
@@ -25,14 +27,15 @@ Phases, in order (any failure exits non-zero):
    T=4096 and at the prefill's own T=32,768, each element within one
    bfloat16 rounding of the plain version (run in query blocks at
    32,768), with its TFLOP/s, share of the bound and ratio to SDPA, and
-   the worst excess of the one-bf16-P variant beside it (measured, not
-   gated), and ``ssd_chunk`` at
-   mamba2-130m's (M=24, L=128, P=64, N=128) at K=32 and at the
-   prefill's K=256 chunks, within its stated tolerance; two launches
-   bit-identical, with PyTorch's ``scaled_dot_product_attention`` timed
-   beside flash as its yardstick (never on the port's path).  Then the
-   golden small scenarios of both network modes, whose integer counters
-   and response digests are pinned;
+   PyTorch's ``scaled_dot_product_attention`` timed beside it as its
+   yardstick (never on the port's path); and ``ssd_chunk`` at
+   mamba2-130m's heads (M=24, P=64, N=128) in chunks of 16 (the reduced
+   configs' chunk: the CUDA-core kernel) at K=8, and of 128 (the
+   tensor-core kernel) at K=32 and at the prefill's K=256, within its
+   stated tolerance, with its TFLOP/s, share of the bound and the
+   float32-pipe figure beside the bound; two launches bit-identical.
+   Then the golden small scenarios of both network modes, whose integer
+   counters and response digests are pinned;
 3. Table 2 case1b at full size, run twice (conservation laws, 10^6
    requests admitted, one ``cloudlet_finish`` launch per tick, the two
    final states bit-identical), with per-phase CUDA-event times over 100
@@ -58,7 +61,8 @@ Phases, in order (any failure exits non-zero):
    and mamba2-130m at full width and depth on seeded random weights, at
    ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
    last-position logits, 28 ``flash_attention`` and 24 ``ssd_chunk``
-   launches per prefill, the device busy share (device time over the
+   launches per prefill, ``flash_fwd_sm90`` and ``ssd_chunk_sm90`` in the
+   device traces, the device busy share (device time over the
    unprofiled prefill's wall); and a 2-layer full-width model of each,
    whose card logits are held against its CPU logits;
 9. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
@@ -76,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -90,6 +95,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 FLASH_RTOL = 2.0 ** -7         # bf16 output: one bf16 rounding of |plain|
 FLASH_ATOL = 1e-4              # ... plus the float32 sums' own error
@@ -403,31 +409,60 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
                 library_ms=lib_ms)
 
 
-def check_flash_build():
-    """The flash build's ptxas report (registers, spills per kernel) and
-    its SASS: the tensor-core kernel must hold wgmma (``HGMMA``) and TMA
-    loads (``UTMALDG``)."""
+def ptxas_report(name):
+    """Each kernel of the build of ``csrc/<name>.cu`` (mangled name) with
+    its registers and spill bytes, from the ``ptxas -v`` report the build
+    keeps."""
     from repro_torch.kernels import _build
-    report = [ln.replace("ptxas info    : ", "").strip()
-              for ln in _build.log("flash_attention").splitlines()
-              if "Compiling entry" in ln or "registers" in ln
-              or "spill" in ln]
-    log("flash_attention ptxas: " + (" | ".join(report) or "no report"))
+    out, fn = {}, None
+    for ln in _build.log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            out[fn]["spills"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def check_builds():
+    """The model-zoo builds (``flash_attention``, ``ssd_chunk``): each
+    one's ``ptxas`` registers and spills per kernel, and its SASS, which
+    must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``); the
+    tensor-core kernels (``*_sm90``) must spill nothing."""
+    from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run(
-        [tool, "--dump-sass", str(_build.library("flash_attention"))],
-        capture_output=True, text=True, timeout=300).stdout
-    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-    log("flash_attention SASS: " + "  ".join(f"{k} {v}" for k, v in
-                                             n.items()))
-    check(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
-          "flash_attention: the built library holds no wgmma (HGMMA) or no "
-          "TMA load (UTMALDG)")
+    for name in ("flash_attention", "ssd_chunk"):
+        report = ptxas_report(name)
+        log(f"{name} ptxas: " + (" | ".join(
+            f"{k}: {v.get('registers', '?')} registers, "
+            f"{v.get('spills', '?')} bytes spilled"
+            for k, v in report.items()) or "no report"))
+        sm90 = {k: v for k, v in report.items() if "_sm90" in k}
+        check(sm90 and all(v.get("spills") == 0 for v in sm90.values()),
+              f"{name}: no tensor-core kernel in the ptxas report, or one "
+              "that spills")
+        sass = subprocess.run(
+            [tool, "--dump-sass", str(_build.library(name))],
+            capture_output=True, text=True, timeout=300).stdout
+        n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        log(f"{name} SASS: " + "  ".join(f"{k} {v}" for k, v in n.items()))
+        check(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
+              f"{name}: the built library holds no wgmma (HGMMA) or no "
+              "TMA load (UTMALDG)")
 
 
 def check_ssd(tag, M, K, L, P, N, torch, dev):
     """The SSD-chunk kernel at mamba2-130m's prefill heads (one B/C group
-    for all M heads) against its plain version."""
+    for all M heads) against its plain version; ``ops.route`` names the
+    kernel the shape takes."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.ssd_scan import ops, ref
     g = torch.Generator(device=dev).manual_seed(19)
@@ -449,21 +484,31 @@ def check_ssd(tag, M, K, L, P, N, torch, dev):
     k_ev, k_dev = cuda_ms(lambda: ops.ssd_chunk(*args, group=M), 50, torch)
     p_ev, p_dev = cuda_ms(lambda: ref.ssd_chunk(*args, group=M), 5, torch)
     counts.update(saved)
-    # operations per (m, k): the causal half of C·Bᵀ and of S·(Δ⊙X), and
-    # the state product, 2 per multiply-add, at the float32 peak; bytes:
-    # x, Δ, log a, the one group's B and C read, y, state, in_decay and
-    # total written (float32)
+    # the function's least operations: C·Bᵀ once per chunk and B/C group
+    # (here one group) over its causal half, S·(Δ⊙X) over the causal half
+    # and the state product per head, 2 per multiply-add, at the TF32
+    # tensor-core peak; bytes: x, Δ, log a, the group's B and C read, y,
+    # state, in_decay and total written (float32).  The float32-pipe
+    # figure (C·Bᵀ per head at the float32 peak) was this row's bound
+    # before the tensor-core kernel and is printed beside it.
     tri = L * (L + 1) // 2
-    ops_n = 2.0 * M * K * (tri * (N + P) + N * P * L)
+    ops_n = 2.0 * (K * tri * N + M * K * (tri * P + N * P * L))
     nbytes = 4.0 * (M * K * L * (P + 2) + 2 * K * L * N
                     + M * K * (L * P + N * P + L + 1))
-    bound_ms, by = max((ops_n / FP32_OPS_PER_S * 1e3, "operations"),
+    bound_ms, by = max((ops_n / TF32_OPS_PER_S * 1e3, "operations"),
                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
-    log(f"ssd_chunk {tag}: M={M} K={K} L={L} P={P} N={N}  kernel {_ms(k_dev)} "
-        f"ms device / {k_ev:.4f} ms per call  plain {_ms(p_dev)} ms device "
-        f"/ {p_ev:.4f} ms per call  bound {bound_ms:.6f} ms ({by})  "
-        f"max|err| {err:.3g}")
-    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+    f32_ms = max(2.0 * M * K * (tri * (N + P) + N * P * L)
+                 / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    k_ms = k_dev or k_ev
+    kernel = ("ssd_chunk_sm90" if ops.route(L, N, P) == ops.TENSOR_CORES
+              else "ssd_chunk_kernel")
+    log(f"ssd_chunk {tag}: M={M} K={K} L={L} P={P} N={N} ({kernel})  "
+        f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  "
+        f"{ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
+        f"{bound_ms / k_ms:.3f} of the bound  plain {_ms(p_dev)} ms device "
+        f"/ {p_ev:.4f} ms per call  bound {bound_ms:.6f} ms ({by}; "
+        f"float32-pipe figure {f32_ms:.6f} ms)  max|err| {err:.3g}")
+    return dict(ms=k_ms, plain_ms=p_dev or p_ev,
                 bound_ms=bound_ms, bound_by=by, max_abs_err=err)
 
 
@@ -924,7 +969,7 @@ def run_prefill(arch, torch, dev, launches):
     T = prefill_len()
     cfg = get_config(arch)
     model = build_model(cfg)
-    kern, symbol = (("ssd_chunk", "ssd_chunk_kernel") if cfg.family == "ssm"
+    kern, symbol = (("ssd_chunk", "ssd_chunk_sm90") if cfg.family == "ssm"
                     else ("flash_attention", "flash_fwd_sm90"))
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dev)
@@ -1062,7 +1107,7 @@ def main() -> int:
         _build.build(_build_names())
         log(f"kernels built in {time.perf_counter() - t0:.1f} s "
             f"({', '.join(_build_names())})")
-        check_flash_build()
+        check_builds()
 
         results["cloudlet_finish"] = check_cloudlet_finish(
             "case1b", 8000, 1000, 1016008, torch, dev)
@@ -1077,6 +1122,7 @@ def main() -> int:
         check_flash("T=4096", 1, 16, 8, 4096, 128, torch, dev, 20)
         results["flash_attention"] = check_flash(
             "prefill_32k", 1, 16, 8, prefill_len(), 128, torch, dev, 3)
+        check_ssd("CUDA cores, L=16", 24, 8, 16, 64, 128, torch, dev)
         check_ssd("K=32", 24, 32, 128, 64, 128, torch, dev)
         results["ssd_chunk"] = check_ssd(
             "prefill_32k", 24, prefill_len() // 128, 128, 64, 128, torch, dev)

@@ -60,12 +60,12 @@
 // key has weight 1 (score 0 here) and the sum of V is divided by
 // `masked_den` (Tk rounded up to a multiple of 128) instead of the weight
 // sum.  A block that holds such rows sweeps every key tile.
-#include <cuda.h>         // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -298,97 +298,6 @@ constexpr int BK = 128;        // keys per K/V tile
 constexpr int STAGES = 2;      // K/V tiles in flight
 constexpr int NT = 384;        // producer warpgroup + 2 consumer warpgroups
 constexpr int ROW = 128;       // bytes of one swizzled row: 64 bf16 columns
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n.reg .pred p;\n"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-               "selp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// waits for the phase of `parity` to complete; a wait that outlasts 10 s
-// (a broken ring) traps, which fails the launch, instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = now_ns();
-  while (!mbar_try(bar, parity))
-    if (now_ns() - t0 > 10000000000ull) __trap();
-}
-
-// one box of the 3-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products
-template <int N>
-__device__ __forceinline__ void pin(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -703,7 +612,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(at + 8 * ROW),
                    "r"(x1) : "memory");
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     asm volatile("bar.sync %0, 128;\n" :: "r"(1 + c) : "memory");
     if (tid == 0 && first < Tq) {
       for (int hf = 0; hf < HALVES; ++hf)
@@ -714,40 +623,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda, which the CUDA runtime
-// has loaded (no link against it)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
 // [BH, T, D] bfloat16, boxes of 64 columns x `rows` rows, 128-byte swizzle;
 // a box past T is zero-filled on load and clipped on store
 bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
                 int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
-  cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D, T,
+                       BH, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D>

@@ -4,14 +4,15 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, into ``repro_torch/_build/`` (listed in
 ``.gitignore``), from the checkout's sources only; the library name carries
-a hash of the source and flags, so an edited source is rebuilt.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt.
 ``build(names)`` compiles several sources in parallel, one ``nvcc`` each.
 
 The simulator's kernels are compiled with ``--fmad=false``: they are held
 bit for bit against their plain PyTorch versions, which round each
 multiply and add separately.  The model-zoo kernels (``SOURCE_FLAGS``) are
-held within a stated tolerance and keep nvcc's fused multiply-adds; the
-flash source also asks ``ptxas`` for its register and spill report.
+held within a stated tolerance and keep nvcc's fused multiply-adds; their
+builds also ask ``ptxas`` for its register and spill report.
 Each build's compiler output is kept beside its library (``log(name)``).
 """
 from __future__ import annotations
@@ -33,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source flags, in place of NVCC_FLAGS for the sources named here
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 SOURCE_FLAGS = {"flash_attention": FMAD_FLAGS + ("-Xptxas=-v",),
-                "ssd_chunk": FMAD_FLAGS}
+                "ssd_chunk": FMAD_FLAGS + ("-Xptxas=-v",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -55,7 +56,8 @@ def _flags(name: str) -> tuple:
 
 def library(name: str) -> Path:
     """The path of ``csrc/<name>.cu``'s library (built or not)."""
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src = (SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:12]}.so"
 

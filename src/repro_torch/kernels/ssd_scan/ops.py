@@ -1,8 +1,17 @@
-"""Mamba-2 SSD layer: the intra-chunk part in the CUDA kernel
+"""Mamba-2 SSD layer: the intra-chunk part in the CUDA kernels of
 ``csrc/ssd_chunk.cu`` on a CUDA tensor (the plain ``ref.ssd_chunk`` on a
 CPU tensor, an error on anything else); the zero-Δ pad to the chunk, the
 inter-chunk recurrence and the carried-state term in PyTorch around it,
 as the reference keeps them outside its Pallas kernel.
+
+The C entry point picks the kernel from the chunk length L, the state
+width N and the head width P, by the rule ``route`` states: L 64 or 128,
+N 64 or 128 and P 64 (Mamba-2's head width; mamba2-130m's prefill is
+L = N = 128) go to the tensor-core kernel ``ssd_chunk_sm90`` (3xTF32
+wgmma, C·Bᵀ once per chunk and B/C group), every other shape (ragged or
+short chunks, other widths) to the CUDA-core ``ssd_chunk_kernel``.  One
+launch a call; a failed build or launch raises, and nothing retries the
+other kernel.
 """
 from __future__ import annotations
 
@@ -14,17 +23,50 @@ from .. import _build, counts
 from . import ref
 
 _SMEM_BYTES = 232_448          # what one Hopper block may hold
+CUDA_CORES = 0      # ``ssd_chunk_kernel``
+TENSOR_CORES = 1    # ``ssd_chunk_sm90``
+SM90_CHUNKS = (64, 128)
+SM90_STATES = (64, 128)
+SM90_HEAD_DIMS = (64,)
+
+
+def route(L: int, N: int, P: int) -> int:
+    """The kernel that the C entry point runs for chunks of L, state width
+    N and head width P."""
+    if L in SM90_CHUNKS and N in SM90_STATES and P in SM90_HEAD_DIMS:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def heads_per_block(K: int, groups: int, heads: int, sms: int) -> int:
+    """The heads of one B/C group that one block of ``ssd_chunk_sm90``
+    takes, for K chunks, ``groups`` groups of ``heads`` heads and a card
+    of ``sms`` SMs (one block per SM).  A block pays about one head's
+    time for its B/C load and C·Bᵀ, then one per head, and the grid runs
+    in waves of ``sms`` blocks: the rule takes the slice with the fewest
+    waves × (heads + 1), the larger slice on a tie.  mamba2-130m's
+    prefill (K = 256, one group of 24) keeps 24 heads a block (256
+    blocks, two waves); K = 32 takes 6 (128 blocks, one wave)."""
+    best, pick = None, heads
+    for hpb in range(heads, 0, -1):
+        blocks = K * groups * -(-heads // hpb)
+        cost = -(-blocks // sms) * (hpb + 1)
+        if best is None or cost < best:
+            best, pick = cost, hpb
+    return pick
 
 
 def _lib():
     lib = _build.load("ssd_chunk")
     fn = lib.ssd_chunk_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ssd_chunk_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.ssd_chunk_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_chunk_route.argtypes = [ctypes.c_int] * 3
+        lib.ssd_chunk_route.restype = ctypes.c_int
     return lib
 
 
@@ -68,6 +110,10 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
     if lib.ssd_chunk_smem_bytes(L, N, P) > _SMEM_BYTES:
         raise ValueError(f"ssd_chunk holds L={L}, N={N}, P={P} in more "
                          f"than {_SMEM_BYTES} bytes of shared memory")
+    hpb = 1
+    if route(L, N, P) == TENSOR_CORES:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        hpb = heads_per_block(K, M // group, group, sms)
     f32 = dict(dtype=torch.float32, device=dev)
     y = torch.empty((M, K, L, P), **f32)
     st = torch.empty((M, K, N, P), **f32)
@@ -76,7 +122,7 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
     err = lib.ssd_chunk_launch(
         x.data_ptr(), dt.data_ptr(), la.data_ptr(), b.data_ptr(),
         c.data_ptr(), y.data_ptr(), st.data_ptr(), dec.data_ptr(),
-        tot.data_ptr(), M, K, L, P, N, group,
+        tot.data_ptr(), M, K, L, P, N, group, hpb,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err}")

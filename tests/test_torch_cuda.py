@@ -29,8 +29,10 @@ another order; bfloat16 inputs: one bf16 rounding of the output, at most
 width 64 and 128 runs the tensor-core kernel, the rest the CUDA-core
 one), ``ssd_chunk``
 within ``SSD_TOL`` (float32, the sums in another order and the chunk
-decay exp(cum_i - cum_j) of a cumsum that rounds differently); two
-launches bit-identical.  A 2-layer full-width model's card logits against
+decay exp(cum_i - cum_j) of a cumsum that rounds differently; chunks of
+64 or 128 at state width 64 or 128 and head width 64 run the tensor-core
+kernel in three TF32 passes, about 2^-21 of each product, the rest the
+CUDA-core one); two launches bit-identical.  A 2-layer full-width model's card logits against
 its CPU logits within ``MODEL_TOL`` (bf16 weights and activations: a few
 bf16 rounding steps of logits of magnitude ~1).
 """
@@ -398,6 +400,10 @@ def _ssd_inputs(M, K, L, P, N, group, dev, seed=0):
     (24, 8, 128, 64, 128, 24),             # mamba2-130m, one group
     (6, 3, 16, 8, 16, 3),                  # small chunks, G = 2
     (4, 5, 100, 32, 64, 1),                # ragged chunk, per-head B/C
+    (48, 8, 128, 64, 128, 24),             # tensor cores, two B/C groups
+    (24, 4, 64, 64, 128, 24),              # tensor cores, L = 64
+    (8, 3, 128, 64, 64, 4),                # tensor cores, N = 64
+    (24, 256, 128, 64, 128, 24),           # mamba2-130m's prefill_32k
 ])
 def test_ssd_chunk_kernel_matches_plain(M, K, L, P, N, group, dev):
     args = _ssd_inputs(M, K, L, P, N, group, dev)
@@ -443,6 +449,27 @@ def test_ssd_chunk_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError, match="chunks"):
         big = _ssd_inputs(1, 1, 256, 8, 8, 1, dev)
         tssd.ssd_chunk(*big)
+    # N = 256 is no tensor-core shape, and the CUDA-core kernel would
+    # hold it in more shared memory than a block has
+    assert tssd.route(128, 256, 64) == tssd.CUDA_CORES
+    with pytest.raises(ValueError, match="shared memory"):
+        tssd.ssd_chunk(*_ssd_inputs(1, 1, 128, 64, 256, 1, dev))
+    # the tensor-core kernel's TMA loads need 16-byte aligned rows
+    x, dt, la, b, c = _ssd_inputs(2, 1, 64, 64, 64, 2, dev)
+    off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    off.copy_(x)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tssd.ssd_chunk(off, dt, la, b, c, group=2)
+
+
+def test_ssd_route_is_the_c_entry_points_rule(dev):
+    """``ops.route`` states the rule by which ``ssd_chunk_launch`` picks
+    its kernel; the library's own ``ssd_chunk_route`` must agree."""
+    lib = tssd._lib()
+    for L in (16, 32, 64, 100, 128):
+        for N in (16, 32, 64, 128, 256):
+            for P in (16, 32, 64, 128):
+                assert lib.ssd_chunk_route(L, N, P) == tssd.route(L, N, P)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])

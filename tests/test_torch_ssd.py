@@ -142,3 +142,46 @@ def test_wrapper_refuses_other_devices():
     x = torch.zeros((1, 1, 4, 2), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.ssd_chunk(x, x, x, x, x)
+
+
+@pytest.mark.parametrize("L,N,P,want", [
+    (128, 128, 64, ops.TENSOR_CORES),     # mamba2-130m's prefill chunk
+    (64, 128, 64, ops.TENSOR_CORES),      # ssd()'s default chunk of 64
+    (128, 64, 64, ops.TENSOR_CORES),
+    (64, 64, 64, ops.TENSOR_CORES),
+    (16, 128, 64, ops.CUDA_CORES),        # reduced configs' chunk of 16
+    (100, 64, 32, ops.CUDA_CORES),        # a ragged chunk
+    (128, 128, 32, ops.CUDA_CORES),       # another head width
+    (128, 16, 64, ops.CUDA_CORES),        # a small state
+    (128, 256, 64, ops.CUDA_CORES),       # a state past 128
+])
+def test_route_sends_mamba2_chunks_to_the_tensor_cores(L, N, P, want):
+    """Chunks of 64 or 128 at state width 64 or 128 and head width 64
+    take ``ssd_chunk_sm90``; every other shape the CUDA-core
+    ``ssd_chunk_kernel``.  The C entry point applies the same rule."""
+    assert ops.route(L, N, P) == want
+
+
+def test_route_takes_mamba2_130m_but_not_its_reduced_chunk():
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m")
+    dims = cfg.mamba
+    assert ops.route(cfg.ssd_chunk, dims.d_state, dims.headdim) \
+        == ops.TENSOR_CORES
+    red = cfg.reduced()
+    assert ops.route(red.ssd_chunk, red.mamba.d_state,
+                     red.mamba.headdim) == ops.CUDA_CORES
+
+
+@pytest.mark.parametrize("K,groups,heads,sms,want", [
+    (256, 1, 24, 132, 24),     # mamba2-130m prefill_32k: 256 blocks
+    (32, 1, 24, 132, 6),       # T = 4096: 128 blocks in one wave
+    (8, 2, 24, 132, 3),        # two groups: 128 blocks
+    (1, 4, 24, 132, 1),        # a batch of four, one chunk each
+    (1024, 1, 24, 132, 24),
+    (3, 1, 1, 132, 1),
+])
+def test_heads_per_block_fills_the_card(K, groups, heads, sms, want):
+    """The slice of a group's heads one block of ``ssd_chunk_sm90``
+    takes: fewest waves × (heads + 1), the larger slice on a tie."""
+    assert ops.heads_per_block(K, groups, heads, sms) == want
