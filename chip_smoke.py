@@ -10,16 +10,21 @@ Phases, in order (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, then the five CUDA
    kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel); for each model-zoo build (flash attention, the SSD chunk)
-   its ``ptxas`` registers and spills per kernel, where the tensor-core
+   parallel); the ``ptxas`` registers and spills per kernel of the
+   simulator's ``cloudlet_finish`` and ``link_share`` builds and of each
+   model-zoo build (flash attention, the SSD chunk), where the tensor-core
    kernels (``flash_fwd_sm90``, ``ssd_chunk_sm90``) must spill nothing,
-   and its SASS (``cuobjdump --dump-sass``), which must hold ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA loads);
-2. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes: ``cloudlet_finish`` at the Table 2 case1b and case2b pool
-   shapes (per-lane outputs and request aggregates bit-equal, the instance
-   sums within the serial float32 sum's own error bound, two launches
-   bit-identical); ``tropical_matmul`` at the SockShop window-batch shape
+   and the model-zoo builds' SASS (``cuobjdump --dump-sass``), which must
+   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads);
+2. an empty kernel's launch (device and per call), the floor of the
+   launch-bound simulator kernels; then each kernel against its plain
+   PyTorch version on the card, at the main paths' shapes, with the route
+   it takes: ``cloudlet_finish`` at the Table 2 case1b and case2b pool
+   shapes and a pool with most lanes on one instance (every output, the
+   instance sums included, bit-equal to the plain version run on a CPU
+   copy of the inputs, two launches bit-identical, one device operation a
+   call; whether the plain version's CUDA branch agrees is printed);
+   ``tropical_matmul`` at the SockShop window-batch shape
    and a fleet shape (bit-equal); ``link_share`` at the SockShop fabric,
    case1b+net and case2b+net shapes (rates bit-equal, two launches
    bit-identical); ``flash_attention`` at qwen3-0.6b's prefill heads
@@ -38,7 +43,8 @@ Phases, in order (any failure exits non-zero):
    counters and response digests are pinned;
 3. Table 2 case1b at full size, run twice (conservation laws, 10^6
    requests admitted, one ``cloudlet_finish`` launch per tick, the two
-   final states bit-identical), with per-phase CUDA-event times over 100
+   final states bit-identical and every leaf equal to the JAX reference's
+   pin, ``CAPACITY_PINS``), with per-phase CUDA-event times over 100
    ticks, the synchronising calls per tick and the device busy share;
 4. Table 2 case1b+net (the network fabric on 10,000 Mbit/s NICs) at full
    size, once, with the same checks and one ``link_share`` launch per
@@ -47,7 +53,9 @@ Phases, in order (any failure exits non-zero):
 6. SockShop (paper §6.3), three runs in three processes side by side on
    the one card: 100 clients (HS) and 300 clients (NS) over 600 s,
    average response against the testbed, and 300 clients with HS over
-   180 s, which must scale out; each run launches
+   180 s, which must scale out; each run's response digest and integer
+   counters must equal the JAX reference's (``SOCKSHOP_PINS``); each run
+   launches
    ``cloudlet_finish`` once per tick and is followed by Alg 2 over its
    per-window node delays through the tropical kernel, held against the
    DP critical path; the synchronising calls per tick over a window that
@@ -77,9 +85,21 @@ or time a kernel are not counted in the reported launches.
 """
 from __future__ import annotations
 
-import json
-import math
 import os
+
+# numpy on its baseline code paths, before anything imports it.  The Table
+# 2 cases place instances on VMs of equal free capacity, and the
+# reference's placement (like the port's) orders them by numpy's default
+# argsort, whose order among ties depends on the SIMD sort numpy dispatches
+# to and on its version (case2b's 781 tied VMs: three orders on one host);
+# the baseline quicksort gives one order on every host.  The pins
+# (``tools/chip_smoke_pins.py``) are taken with the same setting.
+NUMPY_BASELINE = ("AVX2 FMA3 AVX512F AVX512CD AVX512_SKX AVX512_CLX "
+                  "AVX512_CNL AVX512_ICL AVX512_SPR")
+os.environ["NPY_DISABLE_CPU_FEATURES"] = NUMPY_BASELINE
+
+import json  # noqa: E402
+import math
 import re
 import shutil
 import subprocess
@@ -107,6 +127,142 @@ GOLDEN = dict(completed=157, spawned=794, finished=789,
               resp_digest=1306795296637)
 GOLDEN_FABRIC = dict(completed=163, spawned=830, finished=822,
                      resp_digest=1292572014442, transits=606)
+# The JAX reference's results at this script's full-size configurations,
+# on the CPU (``tools/chip_smoke_pins.py`` prints them): every leaf of the
+# Table 2 final states (``leaf_digests``), and each SockShop run's response
+# digest and integer counters (``sockshop_summary``), keyed by clients/
+# seconds/policy.
+PIN_LEAVES = (
+    "alerts.astate", "alerts.ev_drops", "alerts.ev_n", "alerts.ev_rule",
+    "alerts.ev_service", "alerts.ev_state", "alerts.ev_time",
+    "alerts.fires", "alerts.firing_ticks", "alerts.hold_until",
+    "alerts.pending", "alerts.resolves", "alerts.sli_acc", "alerts.sli_win",
+    "alerts.win", "clients.wait", "cloudlets.flts", "cloudlets.ints",
+    "counters.completed", "counters.dropped_cloudlets",
+    "counters.dropped_requests", "counters.finished", "counters.migrations",
+    "counters.resp_sum", "counters.scale_down", "counters.scale_in",
+    "counters.scale_out", "counters.scale_up", "counters.slo_violations",
+    "counters.spawned", "fault.edge_err_ema", "fault.edge_open_until",
+    "fault.edge_succ", "fault.host_slow", "fault.host_up",
+    "fault.inst_eject_until", "fault.inst_err_ema", "fault.inst_lat_ema",
+    "fault.inst_lat_sum", "fault.inst_succ", "fault.nic_factor",
+    "fault.nic_ok", "fault.zone_cut", "fstats.breaker_trips",
+    "fstats.down_time_s", "fstats.ejections", "fstats.failed_attempts",
+    "fstats.failed_requests", "fstats.failfast", "fstats.host_crashes",
+    "fstats.host_recoveries", "fstats.inst_kills", "fstats.partitions",
+    "fstats.readmissions", "fstats.retries", "fstats.slow_episodes",
+    "fstats.slow_time_s", "fstats.zone_faults", "hosts.cpu_scale",
+    "hosts.egress_scale", "hosts.ingress_scale", "instances.busy_ticks",
+    "instances.bw", "instances.host", "instances.limit_mips",
+    "instances.limit_ram", "instances.mips", "instances.n_exec",
+    "instances.ram", "instances.request_mips", "instances.service",
+    "instances.status", "instances.usage_sum", "instances.used_bw",
+    "instances.used_mips", "instances.used_ram", "instances.util_ema",
+    "instances.vm", "net.bytes_in", "net.bytes_out", "net.egress_busy",
+    "net.hist", "net.ingress_busy", "net.transit_sum", "net.transits",
+    "requests.api", "requests.arrival", "requests.count",
+    "requests.critical_len", "requests.failed", "requests.finish",
+    "requests.outstanding", "requests.response", "requests.spawned", "rng",
+    "rr", "sched.inst_of_rank", "sched.svc_replicas", "svc_stats.delay_sum",
+    "svc_stats.exec_sum", "svc_stats.finished", "svc_stats.usage_sum",
+    "svc_stats.wait_sum", "telemetry.acc", "telemetry.ring",
+    "telemetry.sample", "telemetry.span_drops", "telemetry.span_f",
+    "telemetry.span_i", "telemetry.span_n", "telemetry.win", "tick", "time",
+    "vms.mips", "vms.mips_used", "vms.ram", "vms.ram_used",)
+CAPACITY_PINS = {
+    "case1b": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "4f7988030a00 990ffda621f2 ab45da00286d cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 dd40a7748e48 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 cee19cda5a70 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc a3e902d34859 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc a3e902d34859 e3b0c44298fc df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 08149ef58087 08149ef58087 "
+        "08149ef58087 d6e3119544f0 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 ef2d9ea73cb0 0a0bff3f3525 fc19b1997119 fc19b1997119 "
+        "fc19b1997119 aea32e5e36ba 53267cbb8711 5dcc1b5872dd 5dcc1b5872dd "
+        "5dcc1b5872dd 5341e6b26469 5dcc1b5872dd df3f619804a9 df3f619804a9 "
+        "28303a108841 7a47de4cc34f cee19cda5a70 9e94cbbf1036 e3b0c44298fc "
+        "f6d5b935a899 560db0b0dacf 2a671ff829f2 9e94cbbf1036 8c988d7c3481 "
+        "df3f619804a9 550625f47dc1 79ff7fbc96a0 dd40a7748e48 dd40a7748e48 "
+        "cee19cda5a70 d7971c8f6c95 df3f619804a9 e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
+    "case1b+net": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "4f7988030a00 cf615e67d083 67dddaf9e18e cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 0084088dbb16 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 cee19cda5a70 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc a3e902d34859 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc a3e902d34859 e3b0c44298fc df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 08149ef58087 08149ef58087 "
+        "08149ef58087 d6e3119544f0 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 ef2d9ea73cb0 5ec51e99902c fc19b1997119 fc19b1997119 "
+        "fc19b1997119 c8c253811ebb 53267cbb8711 4016ab693632 5dcc1b5872dd "
+        "5dcc1b5872dd eca41531b26c 70a71bb57120 11592b124773 cee19cda5a70 "
+        "28303a108841 f8e092186c81 cee19cda5a70 9e94cbbf1036 e3b0c44298fc "
+        "4885bebab95b 560db0b0dacf 0f29f9eb72f9 9e94cbbf1036 75782de5e267 "
+        "df3f619804a9 550625f47dc1 79ff7fbc96a0 ffb41dac2857 ffb41dac2857 "
+        "cee19cda5a70 2ee8846ff4b9 df3f619804a9 e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
+    "case2b": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "5341e6b26469 6b9aafdfa476 d4e96950ee82 79ff7fbc96a0 df3f619804a9 "
+        "df3f619804a9 63bf4fc52738 df3f619804a9 895abba97fcf df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 63bf4fc52738 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc b192a9874ac4 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc b192a9874ac4 e3b0c44298fc df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 ab5cfde9bc1a ab5cfde9bc1a "
+        "ab5cfde9bc1a 9b3ad50ee6bb 0a138936b85b 320800c47922 bdc36ecb22f6 "
+        "8963bac332fd 446f06b3a5d5 4cbbd9be0cba 7cb5e31f1e96 446f06b3a5d5 "
+        "7c843739479f c71f32cf6ff6 3bbb692b9605 4cbbd9be0cba 4cbbd9be0cba "
+        "4cbbd9be0cba 6f9145ba7386 320800c47922 6e53624cb481 6e53624cb481 "
+        "6e53624cb481 5341e6b26469 6e53624cb481 df3f619804a9 df3f619804a9 "
+        "ab2ed4c7a6dc 4a8be206d6b8 79ff7fbc96a0 fef789449a3c e3b0c44298fc "
+        "fcabcb5ccb3c 1e86afc67a97 1b2120bb506d bbc6ce5bca12 8c988d7c3481 "
+        "4cbbd9be0cba 7c843739479f c71f32cf6ff6 41f1c9cb0c15 41f1c9cb0c15 "
+        "7b73c94b48af 3bbb692b9605 4cbbd9be0cba e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 933dccc013e6 f48fa41d00cd "
+        "368e9aabca1a 01a9ff9ad4a6"),
+}
+SOCKSHOP_PINS = {
+    "100/600/1": dict(
+        completed=5825, dropped_cloudlets=0, dropped_requests=0,
+        finished=25050, migrations=0, requests=5833,
+        resp_digest=12384649975803, scale_down=0, scale_in=0, scale_out=0,
+        scale_up=0, slo_violations=1070, spawned=25064),
+    "300/180/1": dict(
+        completed=5041, dropped_cloudlets=0, dropped_requests=0,
+        finished=22141, migrations=0, requests=5059,
+        resp_digest=11671955311784, scale_down=0, scale_in=5, scale_out=7,
+        scale_up=0, slo_violations=1951, spawned=22181),
+    "300/600/0": dict(
+        completed=17387, dropped_cloudlets=0, dropped_requests=0,
+        finished=74563, migrations=0, requests=17489,
+        resp_digest=35894184715680, scale_down=0, scale_in=0, scale_out=0,
+        scale_up=0, slo_violations=14536, spawned=74690),
+}
 
 
 class SmokeError(RuntimeError):
@@ -163,7 +319,9 @@ def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def finish_inputs(C, I, R, seed, torch, dev):
+def finish_inputs(C, I, R, seed, torch, dev, skew=None):
+    """Pool-shaped inputs; ``skew`` puts 85 % of the lanes on that
+    instance."""
     from repro_torch.core.types import Cloudlets, SimParams, resolve_layout
     L = resolve_layout(SimParams())
     g = np.random.default_rng(seed)
@@ -171,6 +329,8 @@ def finish_inputs(C, I, R, seed, torch, dev):
     flts = np.zeros((C, len(L.f_fields)), np.float32)
     ints[:, L.i("status")] = g.choice([0, 1, 2], C, p=[.2, .2, .6])
     ints[:, L.i("inst")] = g.integers(-1, I, C)
+    if skew is not None:
+        ints[g.random(C) < 0.85, L.i("inst")] = skew
     ints[:, L.i("req")] = g.integers(-1, R, C)
     ints[:, L.i("depth")] = g.integers(0, 5, C)
     flts[:, L.f("rem")] = g.uniform(0.0, 60.0, C)
@@ -186,59 +346,97 @@ def finish_inputs(C, I, R, seed, torch, dev):
     return cl, rate, t(np.float32(10.0)), 0.5, req
 
 
-def check_cloudlet_finish(tag, C, I, R, torch, dev):
+def route_text(mode, n_blocks) -> str:
+    return "one block" if n_blocks == 1 else f"{mode} of {n_blocks} blocks"
+
+
+def check_cloudlet_finish(tag, C, I, R, torch, dev, skew=None):
+    """The kernel against its plain version run on a CPU copy of the same
+    inputs (the serial lane-order path the CPU parity tests hold to the
+    reference): every output bit-equal, the instance sums included; two
+    launches bit-identical; one device operation a call.  Whether the
+    plain version's CUDA branch agrees is printed."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.cloudlet_step import ops, ref
-    cl, rate, t0, dt, req = finish_inputs(C, I, R, 11, torch, dev)
+    from torch.profiler import ProfilerActivity, profile
+    cl, rate, t0, dt, req = finish_inputs(C, I, R, 11, torch, dev, skew)
     L = cl.layout
-    cols = lambda: (cl.ints[:, L.i("status")], cl.flts[:, L.f("rem")],
-                    cl.ints[:, L.i("inst")], cl.ints[:, L.i("req")],
-                    cl.flts[:, L.f("arrival")], cl.flts[:, L.f("start")],
-                    cl.ints[:, L.i("depth")])
-    fresh = lambda: tuple(x.clone() for x in req)
+    cols = lambda d: (
+        cl.ints[:, L.i("status")].to(d), cl.flts[:, L.f("rem")].to(d),
+        cl.ints[:, L.i("inst")].to(d), cl.ints[:, L.i("req")].to(d),
+        cl.flts[:, L.f("arrival")].to(d), cl.flts[:, L.f("start")].to(d),
+        cl.ints[:, L.i("depth")].to(d))
+    fresh = lambda d=dev: tuple(x.clone().to(d) for x in req)
     kern = lambda: ops.cloudlet_finish_pool(cl, rate, t0, dt, *fresh(), I)
     work = fresh()      # timing only: the kernel updates these in place
     kern_t = lambda: ops.cloudlet_finish_pool(cl, rate, t0, dt, *work, I)
-    plain = lambda: ref.cloudlet_finish(*cols(), rate, t0, dt, *fresh(),
-                                        n_inst=I)
+    plain = lambda d: ref.cloudlet_finish(*cols(d), rate.to(d), t0.to(d),
+                                          dt, *fresh(d), n_inst=I)
     saved = dict(counts)
-    k1, k2, p = kern(), kern(), plain()
+    k1, k2 = kern(), kern()
+    p_cpu, p_cuda = plain("cpu"), plain(dev)
     torch.cuda.synchronize()
-    for f in p._fields:
+    for f in p_cpu._fields:
         a, b = getattr(k1, f), getattr(k2, f)
         check(torch.equal(a, b), f"cloudlet_finish {tag}: two launches "
               f"differ in {f}")
-        if f != "inst_acc":
-            check(torch.equal(a, getattr(p, f)),
-                  f"cloudlet_finish {tag}: {f} differs from the plain "
-                  "version")
-    # inst_acc: within the serial float32 sum's own error (ref.py's
-    # inst_acc_bound states it)
-    status, rem, inst, _, arrival, start, _ = cols()
-    bound = ref.inst_acc_bound(status, rem, inst, arrival, start, rate, t0,
-                               dt, n_inst=I)
-    err = (k1.inst_acc.double() - p.inst_acc.double()).abs()
-    check(bool((err <= bound).all()),
-          f"cloudlet_finish {tag}: inst_acc outside the serial-sum bound "
-          f"(max err {err.max().item():.3g})")
-    max_err = float(err.max())
+        check(torch.equal(a.cpu(), getattr(p_cpu, f)),
+              f"cloudlet_finish {tag}: {f} differs from the plain version")
+    cuda_plain = [f for f in p_cpu._fields
+                  if not torch.equal(getattr(p_cuda, f).cpu(),
+                                     getattr(p_cpu, f))]
+    check(bool((k1.inst_acc[:, 1] > 0).any()),
+          f"cloudlet_finish {tag}: no lane finished")
+    max_err = max(float((getattr(k1, f).cpu() - getattr(p_cpu, f))
+                        .abs().max()) for f in ("new_rem", "tfin",
+                                                 "consumed", "inst_acc",
+                                                 "req_finish"))
+    # 20 calls: the profiler can miss the events of a single short call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            kern_t()
+        torch.cuda.synchronize()
+    ops_seen = sorted(_device_us_by_name(prof))
+    check(len(ops_seen) == 1 and "finish_kernel" in ops_seen[0],
+          f"cloudlet_finish {tag}: its calls ran {ops_seen} on the device, "
+          "not one kernel")
     k_ev, k_dev = cuda_ms(kern_t, 200, torch)
     p_ev, p_dev = cuda_ms(lambda: ref.cloudlet_finish(
-        *cols(), rate, t0, dt, *req, n_inst=I), 50, torch)
+        *cols(dev), rate, t0, dt, *req, n_inst=I), 50, torch)
     counts.update(saved)
     # bytes: 7 pool words + the rate per lane read; new_rem, tfin,
     # consumed (4 B) and fin (1 B) written; the [I+1,5] sums written; each
     # request row a finishing lane touches read and written in 3 arrays.
-    fin = p.fin & (cl.ints[:, L.i("req")] >= 0)
-    n_req = int(torch.unique(cl.ints[:, L.i("req")][fin]).numel())
+    fin = p_cpu.fin & (cl.ints[:, L.i("req")].cpu() >= 0)
+    n_req = int(torch.unique(cl.ints[:, L.i("req")].cpu()[fin]).numel())
     nbytes = C * (8 * 4 + 3 * 4 + 1) + (I + 1) * 5 * 4 + n_req * 3 * 4 * 2
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"cloudlet_finish {tag}: C={C} I={I} R={R}  kernel {_ms(k_dev)} "
-        f"ms device / {k_ev:.4f} ms per call  plain {_ms(p_dev)} ms device "
-        f"/ {p_ev:.4f} ms per call  bound {bound_ms:.6f} ms (bytes)  "
-        f"inst_acc max|err| {max_err:.3g}")
+    mode, tiles = ops.route(ops._lib(), C)
+    log(f"cloudlet_finish {tag}: C={C} I={I} R={R} "
+        f"({route_text(mode, tiles)})  "
+        f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  plain "
+        f"{_ms(p_dev)} ms device / {p_ev:.4f} ms per call  bound "
+        f"{bound_ms:.6f} ms (bytes)  every output bit-equal to the plain "
+        f"version on the CPU (max|err| {max_err}); device operations a "
+        f"call: {ops_seen}; the plain version's CUDA branch "
+        + ("agrees" if not cuda_plain else f"differs in {cuda_plain}"))
     return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
                 bound_ms=bound_ms, max_abs_err=max_err)
+
+
+def check_launch_floor(torch, dev):
+    """An empty kernel launched through the same ctypes path as the
+    simulator's kernels: the floor their launch-bound times are read
+    against."""
+    from repro_torch.kernels.cloudlet_step import ops
+    lib = ops._lib()
+    lib.cloudlet_finish_empty_launch.argtypes = [ops.ctypes.c_void_p]
+    launch = lambda: lib.cloudlet_finish_empty_launch(
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(launch() == 0, "the empty kernel did not launch")
+    ev, dev_ms = cuda_ms(launch, 500, torch)
+    log(f"empty kernel (1 block of 32 threads, through ctypes): "
+        f"{_ms(dev_ms)} ms device / {ev:.4f} ms per call")
 
 
 def tropical_inputs(B, S, seed, torch, dev):
@@ -319,7 +517,10 @@ def check_link_share(tag, C, H, torch, dev, iters=2):
     nbytes = C * (4 + 4 + 1 + 4) + 2 * H * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     max_err = float((k1 - p).abs().max())
-    log(f"link_share {tag}: C={C} H={H} iters={iters}  kernel "
+    # one block of 1024 threads per 16,384 transfers, a cooperative grid
+    # when there are more
+    route = route_text("cooperative grid", -(-C // 16384))
+    log(f"link_share {tag}: C={C} H={H} iters={iters} ({route})  kernel "
         f"{_ms(k_dev)} ms device / {k_ev:.4f} ms per call  plain "
         f"{_ms(p_dev)} ms device / {p_ev:.4f} ms per call  bound "
         f"{bound_ms:.6f} ms (bytes)  max|err| {max_err}")
@@ -433,12 +634,18 @@ def ptxas_report(name):
 
 
 def check_builds():
-    """The model-zoo builds (``flash_attention``, ``ssd_chunk``): each
-    one's ``ptxas`` registers and spills per kernel, and its SASS, which
-    must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``); the
+    """The ``ptxas`` registers and spills per kernel of the simulator's
+    redesigned builds (``cloudlet_finish``, ``link_share``) and of the
+    model-zoo builds (``flash_attention``, ``ssd_chunk``); the latter's
+    SASS must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``) and their
     tensor-core kernels (``*_sm90``) must spill nothing."""
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("cloudlet_finish", "link_share"):
+        log(f"{name} ptxas: " + " | ".join(
+            f"{k}: {v.get('registers', '?')} registers, "
+            f"{v.get('spills', '?')} bytes spilled"
+            for k, v in ptxas_report(name).items()))
     for name in ("flash_attention", "ssd_chunk"):
         report = ptxas_report(name)
         log(f"{name} ptxas: " + (" | ".join(
@@ -572,6 +779,44 @@ def state_digest(state, torch) -> dict:
                 out[pre + k] = np.ascontiguousarray(v).tobytes()
     walk(state_to_numpy(state), "")
     return out
+
+
+def leaf_digests(state) -> dict:
+    """``state_digest`` with each leaf's bytes cut to the first 12 hex
+    digits of their SHA-256: what ``CAPACITY_PINS`` holds."""
+    import hashlib
+    return {k: hashlib.sha256(v).hexdigest()[:12]
+            for k, v in state_digest(state, None).items()}
+
+
+def _host(x):
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+SOCKSHOP_COUNTERS = ("spawned", "finished", "dropped_cloudlets",
+                     "dropped_requests", "completed", "slo_violations",
+                     "migrations", "scale_out", "scale_in", "scale_up",
+                     "scale_down")
+
+
+def sockshop_summary(state) -> dict:
+    """A SockShop run's response digest (the sum of the response words)
+    and integer counters, of the port's state or the reference's: what
+    ``SOCKSHOP_PINS`` holds."""
+    resp = _host(state.requests.response).astype(np.float32)
+    out = {"resp_digest": int(resp.view(np.uint32).astype(np.uint64).sum()),
+           "requests": int(_host(state.requests.count))}
+    for k in SOCKSHOP_COUNTERS:
+        out[k] = int(_host(getattr(state.counters, k)))
+    return out
+
+
+def check_pins(what, got, pins, say=log):
+    """Fail on the first key of ``pins`` where ``got`` differs."""
+    bad = [k for k in pins if got.get(k) != pins[k]]
+    check(not bad, f"{what}: differs from the JAX reference in {bad[:5]} "
+          f"({len(bad)} of {len(pins)} pinned values differ)")
+    say(f"{what}: all {len(pins)} pinned values equal the JAX reference's")
 
 
 def conservation(state, n_requests=None):
@@ -735,6 +980,8 @@ def run_capacity(tag, repeats, torch, dev, launches):
         check(not bad, f"{tag}: the two runs differ in {bad[:5]}")
         log(f"{tag}: the two runs are bit-identical "
             f"({len(digests[0])} leaves)")
+    check_pins(f"{tag} final state", leaf_digests(res.state),
+               dict(zip(PIN_LEAVES, CAPACITY_PINS[tag].split())))
     # per-phase times over the first 100 ticks of a third run
     n = 100
     timer = PhaseTimer(torch)
@@ -787,9 +1034,10 @@ def sockshop_process(n_clients, duration, policy):
     lines = []
     sim = sockshop.make_sim(n_clients, duration, scaling_policy=policy,
                             device=dev)
-    rep, n_trop = run_sockshop_case(sim, n_clients, torch, dev,
-                                    testbed=duration == 600.0,
-                                    say=lines.append)
+    rep, n_trop = run_sockshop_case(
+        sim, n_clients, torch, dev, testbed=duration == 600.0,
+        pins=SOCKSHOP_PINS[f"{n_clients}/{duration:.0f}/{policy}"],
+        say=lines.append)
     if policy and n_clients == 300:
         check(rep.scale_out > 0, f"sockshop {n_clients} HS over "
               f"{duration:.0f} s never scaled out")
@@ -869,10 +1117,12 @@ def sockshop_fabric_process(n_clients):
     return [line], n["link_share"], rep.transit_p95_ms
 
 
-def run_sockshop_case(sim, n_clients, torch, dev, testbed, say=log):
-    """Run ``sim`` in 10 s windows, check it, and hold Alg 2 through the
-    tropical kernel over its per-window node delays against the DP
-    critical path.  Returns the QoS report and the tropical launches."""
+def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
+    """Run ``sim`` in 10 s windows, check it (its response digest and
+    integer counters against the reference's ``pins``), and hold Alg 2
+    through the tropical kernel over its per-window node delays against
+    the DP critical path.  Returns the QoS report and the tropical
+    launches."""
     from repro_torch.configs import sockshop
     from repro_torch.core import qos
     from repro_torch.core.critical_path import (critical_path,
@@ -911,8 +1161,7 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, say=log):
     rep = qos.summarize(sim, res)
     check(math.isfinite(rep.avg_response_ms) and rep.avg_response_ms > 0
           and rep.completed_requests > 0, f"{tag}: no finite responses")
-    resp = state.requests.response.cpu().numpy()
-    digest = int(resp.view(np.uint32).astype(np.uint64).sum())
+    digest = sockshop_summary(state)["resp_digest"]
     vs = ""
     if testbed:
         ref_ms = sockshop.TESTBED_MS[n_clients]
@@ -923,6 +1172,8 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, say=log):
         f"{rep.avg_response_ms:.1f} ms{vs}  p95 {rep.p95_response_ms:.1f} "
         f"ms  scale_out {rep.scale_out}  scale_in {rep.scale_in}  "
         f"response digest {digest}  {laws}")
+    check_pins(f"{tag} response digest and counters",
+               sockshop_summary(state), pins, say)
     # Alg 2 over the per-window node delays, through the tropical kernel
     delays = torch.stack(snaps).cpu().numpy().astype(np.float32)
     reset_counts()
@@ -1109,9 +1360,11 @@ def main() -> int:
             f"({', '.join(_build_names())})")
         check_builds()
 
+        check_launch_floor(torch, dev)
         results["cloudlet_finish"] = check_cloudlet_finish(
             "case1b", 8000, 1000, 1016008, torch, dev)
         check_cloudlet_finish("case2b", 262144, 50000, 1072, torch, dev)
+        check_cloudlet_finish("skewed", 8192, 60, 3000, torch, dev, skew=3)
         results["tropical_matmul"] = check_tropical("sockshop", 60, 13,
                                                     torch, dev)
         check_tropical("fleet", 8, 1024, torch, dev)

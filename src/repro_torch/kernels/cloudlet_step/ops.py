@@ -5,6 +5,12 @@
 On CUDA the request arrays ``req_finish``/``req_crit``/``req_out`` are
 updated in place where they lie in device memory and returned; the plain
 version returns new arrays.  Callers use the returned arrays.
+
+A CUDA call is one launch with no host sync: the five per-lane and
+instance outputs are allocated, the kernel's scratch (each lane's terms,
+the terms in sorted order, the run table, the row masks) is kept per
+device and shape and rewritten by every launch, so one stream at a time
+may use it.
 """
 from __future__ import annotations
 
@@ -20,7 +26,11 @@ _ARGTYPES = (
     + [ctypes.c_void_p] + [ctypes.c_int] * 4        # flts, nf, 3 columns
     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]        # request arrays, R
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
+    + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p])
+
+# (device, lanes, instances) -> (terms, sorted terms, run table, row masks)
+_SCRATCH: dict = {}
+_MAX_LANES: dict = {}     # device -> lanes one launch takes
 
 
 def _lib():
@@ -29,7 +39,43 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
+        lib.cloudlet_finish_route.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.cloudlet_finish_route.restype = ctypes.c_int
+        lib.cloudlet_finish_max_lanes.restype = ctypes.c_longlong
+    return lib
+
+
+ROUTES = ("one block", "cluster", "cooperative grid")
+
+
+def route(lib, C: int):
+    """(how the tiles of a launch over ``C`` lanes on the current device
+    meet, an entry of ``ROUTES``; their number)."""
+    tiles = ctypes.c_int(0)
+    mode = lib.cloudlet_finish_route(C, ctypes.byref(tiles))
+    if mode < 0:
+        raise RuntimeError("cloudlet_finish_route failed")
+    return ROUTES[mode], tiles.value
+
+
+def _scratch(lib, dev, C: int, n_inst: int):
+    key = (dev, C, n_inst)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        with torch.cuda.device(dev):
+            if dev not in _MAX_LANES:
+                _MAX_LANES[dev] = int(lib.cloudlet_finish_max_lanes())
+            tiles = route(lib, C)[1]
+        if C > _MAX_LANES[dev]:
+            raise ValueError(f"cloudlet_finish takes at most "
+                             f"{_MAX_LANES[dev]} lanes on {dev}, got {C}")
+        rows, i32, f32 = n_inst + 1, torch.int32, torch.float32
+        buf = (torch.empty((C, 8), dtype=f32, device=dev),
+               torch.empty((C, 8), dtype=f32, device=dev),
+               torch.empty((tiles, rows), dtype=i32, device=dev),
+               torch.empty((rows, -(-tiles // 32)), dtype=i32, device=dev))
+        _SCRATCH[key] = buf
+    return buf
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -70,21 +116,23 @@ def cloudlet_finish_pool(cl, rate, time, dt, req_finish, req_crit, req_out,
     _check(req_finish, "req_finish", torch.float32, (R,), dev)
     _check(req_crit, "req_crit", torch.int32, (R,), dev)
     _check(req_out, "req_out", torch.int32, (R,), dev)
+    lib = _lib()
+    terms, sterms, table, mask = _scratch(lib, dev, C, n_inst)
     new_rem = torch.empty((C,), dtype=torch.float32, device=dev)
     fin = torch.empty((C,), dtype=torch.bool, device=dev)
     tfin = torch.empty((C,), dtype=torch.float32, device=dev)
     consumed = torch.empty((C,), dtype=torch.float32, device=dev)
-    acc_fixed = torch.empty((n_inst + 1, 5), dtype=torch.int64, device=dev)
     inst_acc = torch.empty((n_inst + 1, 5), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(
+    err = lib.cloudlet_finish_launch(
         ints.data_ptr(), NI, L.i("status"), L.i("inst"), L.i("req"),
         L.i("depth"), flts.data_ptr(), NF, L.f("rem"), L.f("arrival"),
         L.f("start"), rate.data_ptr(), time.data_ptr(), float(dt), C,
         req_finish.data_ptr(), req_crit.data_ptr(), req_out.data_ptr(), R,
         new_rem.data_ptr(), fin.data_ptr(), tfin.data_ptr(),
-        consumed.data_ptr(), acc_fixed.data_ptr(), inst_acc.data_ptr(),
-        n_inst, stream)
+        consumed.data_ptr(), terms.data_ptr(), sterms.data_ptr(),
+        table.data_ptr(), mask.data_ptr(), inst_acc.data_ptr(), n_inst,
+        stream)
     if err != 0:
         raise RuntimeError(f"cloudlet_finish launch failed: CUDA error {err}")
     counts["cloudlet_finish"] += 1

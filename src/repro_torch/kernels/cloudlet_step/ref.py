@@ -66,26 +66,6 @@ def lane_math(status, rem, inst, arrival, start, rate, time, dt):
     return new_rem, fin, tfin, consumed, rows
 
 
-def inst_acc_bound(status, rem, inst, arrival, start, rate, time, dt,
-                   n_inst: int) -> torch.Tensor:
-    """[I+1, 5] float64: how far the kernel's ``inst_acc`` may lie from this
-    version's.  The kernel sums exactly (fixed point, 2^-32) and rounds
-    once to float32; this version sums in float32 one term at a time.
-    Per row of ``n_i`` terms: the serial sum's error (n_i - 1)·2^-24·Σ|x|,
-    plus the kernel's one rounding 2^-24·|Σx|, plus the fixed-point
-    quantisation n_i·2^-33, within n_i·(2^-24·Σ|x| + 2^-33)."""
-    *_, rows = lane_math(status, rem, inst, arrival, start, rate, time, dt)
-    execm = status == CL_EXEC
-    irow = torch.where(execm & (inst >= 0), inst, n_inst).long()
-    irow = torch.where(irow <= n_inst, irow, n_inst + 1)
-    f64 = torch.float64
-    absum = torch.zeros((n_inst + 2, 5), dtype=f64, device=rem.device)
-    absum.index_add_(0, irow, rows.to(f64).abs() * execm[:, None])
-    cnt = torch.zeros((n_inst + 2, 1), dtype=f64, device=rem.device)
-    cnt.index_add_(0, irow, execm.to(f64)[:, None])
-    return cnt[:n_inst + 1] * (2.0 ** -24 * absum[:n_inst + 1] + 2.0 ** -33)
-
-
 def cloudlet_finish(status, rem, inst, req, arrival, start, depth, rate,
                     time, dt, req_finish, req_crit, req_out,
                     n_inst: int) -> FinishOut:

@@ -5,7 +5,10 @@ error on anything else.
 The reference sends pools over 32,768 lanes to its jnp path and takes
 ``use_pallas``/``interpret`` knobs that choose the route; here the kernel
 takes every size the shared-memory port tables hold, and nothing routes a
-CUDA run around it.
+CUDA run around it.  A call is one launch with no host sync: one block up
+to 16,384 transfers, a cooperative grid above, whose occupancy table (kept
+per device and host count, rewritten by every launch) lies in device
+memory, so one stream at a time may use it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ from . import ref
 # occupancy counts must stay exact in float32.
 _SMEM_BYTES = 232_448 - 1024
 _MAX_LANES = 1 << 24
+_BLOCK_LANES = 16 * 1024  # one block takes this many, a grid more
+_OCCUPANCY: dict = {}     # (device, hosts) -> [2, H] int32 scratch
+_GRID_LANES: dict = {}    # (device, hosts) -> transfers one launch takes
 
 
 def _lib():
@@ -30,9 +36,27 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
-        lib.link_share_table_bytes.argtypes = [ctypes.c_int]
+        lib.link_share_table_bytes.argtypes = [ctypes.c_int] * 2
         lib.link_share_table_bytes.restype = ctypes.c_int
+        lib.link_share_max_lanes.argtypes = [ctypes.c_int]
+        lib.link_share_max_lanes.restype = ctypes.c_longlong
     return lib
+
+
+def _occupancy(lib, dev, H: int, C: int) -> torch.Tensor:
+    key = (dev, H)
+    if C > _BLOCK_LANES:
+        if key not in _GRID_LANES:
+            with torch.cuda.device(dev):
+                _GRID_LANES[key] = int(lib.link_share_max_lanes(H))
+        if C > _GRID_LANES[key]:
+            raise ValueError(f"link_share takes at most {_GRID_LANES[key]}"
+                             f" transfers at {H} hosts on {dev}, got {C}")
+    occ = _OCCUPANCY.get(key)
+    if occ is None:
+        occ = _OCCUPANCY[key] = torch.empty((2, H), dtype=torch.int32,
+                                            device=dev)
+    return occ
 
 
 def _check(t: torch.Tensor, name: str, dtype, n: int, device) -> None:
@@ -68,17 +92,17 @@ def link_share(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
         raise ValueError(f"link_share takes fewer than {_MAX_LANES} "
                          f"transfers, got {C}")
     lib = _lib()
-    if H < 1 or lib.link_share_table_bytes(H) > _SMEM_BYTES:
+    if H < 1 or lib.link_share_table_bytes(H, C) > _SMEM_BYTES:
         raise ValueError(f"link_share holds 1 to "
-                         f"{_SMEM_BYTES // lib.link_share_table_bytes(1)} "
-                         f"hosts in shared memory, got {H}")
+                         f"{_SMEM_BYTES // lib.link_share_table_bytes(1, C)}"
+                         f" hosts in shared memory, got {H}")
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
+    occ = _occupancy(lib, dev, H, C)
     rate = torch.empty((C,), dtype=torch.float32, device=dev)
-    live = torch.empty((C,), dtype=torch.uint8, device=dev)
     err = lib.link_share_launch(
         src.data_ptr(), dst.data_ptr(), active.data_ptr(), cap_e.data_ptr(),
-        cap_i.data_ptr(), C, H, int(iters), rate.data_ptr(), live.data_ptr(),
+        cap_i.data_ptr(), C, H, int(iters), rate.data_ptr(), occ.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"link_share launch failed: CUDA error {err}")

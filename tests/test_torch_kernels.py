@@ -9,6 +9,12 @@ kernel rounds the product before subtracting, the compiled tick (and the
 port) fuse ``rem - rate·dt`` — so there the bound is half an ULP of the
 product ``rate·dt``.
 
+The card kernel's order for the instance sums, emulated in numpy (a
+stable sort of each tile's lanes by instance, then each instance's runs
+folded tile after tile): every ``inst_acc`` bit of the jitted reference,
+with tiles small enough that every shape spans several, on a pool with
+most lanes on one instance and with terms of -0.0 and 0.
+
 ``tropical_matmul`` / ``tropical_closure`` — exact (each term one add,
 max is order-free).
 
@@ -106,31 +112,104 @@ def test_cloudlet_finish_matches_pallas_interpret(C, I, R, bc, dt):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("dt", [0.25, 0.1])
-@pytest.mark.parametrize("C,I,R,bc", FINISH_SHAPES)
-def test_inst_acc_bound_covers_the_kernels_exact_sum(C, I, R, bc, dt):
-    # the card's kernel sums the terms exactly in int64 fixed point
-    # (value·2^32, rounded) and rounds the sum once to float32; emulated
-    # here, it must lie within inst_acc_bound of the serial float32 sum
-    args = _finish_args(C, I, R, C + I)
+def _kernel_inst_acc(status, inst, rows, n_inst, tile):
+    """numpy emulation of ``csrc/cloudlet_finish.cu``'s instance sums.
+    Per tile of ``tile`` lanes: a stable sort of the lanes by instance row
+    (``n_inst + 1`` for a lane that adds nothing, past the end), the terms
+    copied into sorted order and each row's run [start, end) written to
+    the tile's table where a key starts and ends, the tile marked in the
+    row's mask.  Then, per row, the runs of its marked tiles folded tile
+    after tile, one float32 add at a time; unmarked table entries hold
+    garbage, as the kernel's table is never cleared."""
+    C, none = status.shape[0], n_inst + 1
+    irow = np.where(inst >= 0, inst, n_inst)
+    key = np.where((status == 2) & (irow <= n_inst), irow, none)
+    tiles = max(1, -(-C // tile))
+    runs = np.full((tiles, n_inst + 1, 2), 12345, np.int64)
+    marked = np.zeros((tiles, n_inst + 1), bool)
+    sterms = np.zeros((tiles, tile, 5), np.float32)
+    for t in range(tiles):
+        k = np.full(tile, none)
+        part = key[t * tile:(t + 1) * tile]
+        k[:part.shape[0]] = part
+        order = np.argsort(k, kind="stable")
+        sk = k[order]
+        p = np.nonzero(sk < none)[0]
+        sterms[t, p] = rows[t * tile + order[p]]
+        prev = np.concatenate([[-1], sk[:-1]])
+        nxt = np.concatenate([sk[1:], [-1]])
+        head, tail = p[prev[p] != sk[p]], p[nxt[p] != sk[p]]
+        runs[t, sk[head], 0] = head
+        marked[t, sk[head]] = True
+        runs[t, sk[tail], 1] = tail + 1
+    acc = np.zeros((n_inst + 1, 5), np.float32)
+    for t in range(tiles):
+        start = np.where(marked[t], runs[t, :, 0], 0)
+        n = np.where(marked[t], runs[t, :, 1] - runs[t, :, 0], 0)
+        for q in range(int(n.max(initial=0))):
+            m = n > q
+            acc[m] = acc[m] + sterms[t, start[m] + q]
+    return acc
+
+
+def _jitted_reference(args, time, dt, I):
+    return jax.jit(lambda t, d, *a: jref_finish(*a[:8], t, d, *a[8:],
+                                                n_inst=I))(
+        jnp.float32(time), jnp.float32(dt), *args)
+
+
+def _emulated_inst_acc(args, time, dt, I, tile):
     t = [torch.from_numpy(np.array(a)) for a in args]
     status, rem, inst, _, arrival, start, _, rate = t[:8]
-    time = torch.tensor(np.float32(12.5))
-    dt = float(np.float32(dt))
     *_, rows = tfinish.lane_math(status, rem, inst, arrival, start, rate,
-                                 time, dt)
-    execm = status == 2
-    irow = torch.where(execm & (inst >= 0), inst, I).long()
-    fixed = torch.zeros((I + 1, 5), dtype=torch.int64)
-    fixed.index_add_(0, irow, torch.round(rows.double() * 2.0 ** 32).long()
-                     * execm[:, None])
-    kernel_sum = (fixed.double() / 2.0 ** 32).float()
-    plain = _port_finish(args, 12.5, dt, I).inst_acc
-    bound = tfinish.inst_acc_bound(status, rem, inst, arrival, start, rate,
-                                   time, dt, n_inst=I)
-    err = (kernel_sum.double() - plain.double()).abs()
-    assert bool((err <= bound).all()), float((err - bound).max())
-    assert bool((bound > 0).any())
+                                 torch.tensor(np.float32(time)),
+                                 float(np.float32(dt)))
+    return _kernel_inst_acc(args[0], args[2], rows.numpy(), I, tile)
+
+
+@pytest.mark.parametrize("tile", [64, 4096])
+@pytest.mark.parametrize("dt", [0.25, 0.1])
+@pytest.mark.parametrize("C,I,R,bc", FINISH_SHAPES)
+def test_kernel_order_gives_the_references_instance_sums(C, I, R, bc, dt,
+                                                         tile):
+    # the card's tile-sort-and-fold order, emulated, against the reference
+    # jitted as inside its compiled tick: every inst_acc bit; at a tile of
+    # 64 lanes every shape spans several tiles
+    args = _finish_args(C, I, R, C + I)
+    want = np.asarray(_jitted_reference(args, 12.5, dt, I).inst_acc)
+    got = _emulated_inst_acc(args, 12.5, dt, I, tile)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if tile == 64:
+        assert -(-C // tile) > 1
+
+
+@pytest.mark.parametrize("tile", [64, 1024, 4096])
+def test_kernel_order_on_a_skewed_pool_with_signed_zeros(tile):
+    """Most lanes on one instance (a run that spans every tile), and terms
+    that are -0.0 or zero: lanes with rate -0.0 or 0 consume -0.0 or 0.0
+    MI, lanes with rem -0.0 finish at once."""
+    C, I, R = 3000, 20, 400
+    args = list(_finish_args(C, I, R, 5))
+    r = np.random.default_rng(6)
+    args[2] = np.where(r.random(C) < 0.85, 7, args[2]).astype(np.int32)
+    rate, rem = args[7].copy(), args[1].copy()
+    rate[r.random(C) < 0.1] = -0.0
+    rate[r.random(C) < 0.1] = 0.0
+    rem[r.random(C) < 0.1] = -0.0
+    args[7], args[1] = rate, rem
+    want = _jitted_reference(args, 12.5, 0.1, I)
+    acc = np.asarray(want.inst_acc)
+    got = _emulated_inst_acc(args, 12.5, 0.1, I, tile)
+    np.testing.assert_array_equal(got.view(np.int32), acc.view(np.int32))
+    # the case is what it says: one long run, signed zeros in the terms
+    execm = args[0] == 2
+    assert (execm & (args[2] == 7)).sum() > 0.8 * execm.sum()
+    *_, rows = tfinish.lane_math(*(torch.from_numpy(np.array(args[i]))
+                                   for i in (0, 1, 2, 4, 5, 7)),
+                                 torch.tensor(np.float32(12.5)), 0.1)
+    rows = rows.numpy()[execm]
+    assert (np.signbit(rows) & (rows == 0)).any() and (rows == 0).any()
+    assert acc[7, 0] > 0 and acc[7, 1] > 0
 
 
 def _pool(args):

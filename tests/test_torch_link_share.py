@@ -11,6 +11,11 @@ reference drains the ports with one fused multiply-add, here and inside
 its compiled simulation tick (``tests/test_torch_network.py`` holds the
 latter).
 
+The card kernel's occupancy, emulated: counted once over lane slices
+(the blocks of a grid launch) and decremented by the transfers that
+freeze, it gives the reference's rates bit for bit at every shape and
+round count above.
+
 The wrapper takes the plain version for CPU tensors only and counts no
 launch there; the kernel on the card is held against the plain version in
 ``tests/test_torch_cuda.py``.
@@ -77,6 +82,62 @@ def test_waterfill_matches_pallas_interpret(C, H, iters):
     args = _inputs(C, H, 7 * C + H + iters)
     want = np.asarray(link_share_pallas(*args, iters=iters, interpret=True))
     np.testing.assert_array_equal(_bits(_port(args, iters)), _bits(want))
+
+
+def _sliced_waterfill(src, dst, active, cap_e, cap_i, iters, k):
+    """Emulation of ``csrc/link_share.cu``'s occupancy over ``k`` lane
+    slices (the blocks of a grid launch): each slice counts its live
+    transfers' ports once; after each round it subtracts only its
+    transfers that froze; the global table is the slices' sum.  The water
+    level, the drain and the fill are the plain version's."""
+    f32 = torch.float32
+    H, C = cap_e.shape[0], src.shape[0]
+    live = active & (dst >= 0)
+    has_src = src >= 0
+    bounds = np.linspace(0, C, k + 1).astype(int)
+
+    def count(mask):      # per slice, then summed: exact integers
+        e = sum(tref._count(src[a:b], mask[a:b] & has_src[a:b], H)
+                for a, b in zip(bounds, bounds[1:]))
+        i = sum(tref._count(dst[a:b], mask[a:b], H)
+                for a, b in zip(bounds, bounds[1:]))
+        return e, i
+    n_e, n_i = count(live)
+    rate = torch.zeros(C, dtype=f32)
+    rem_e, rem_i = cap_e.clone(), cap_i.clone()
+    inf, zero = torch.tensor(float("inf")), torch.tensor(0.0)
+    for _ in range(iters):
+        lam = torch.minimum(
+            torch.where(n_e > 0, rem_e / n_e.clamp_min(1.0), inf).min(),
+            torch.where(n_i > 0, rem_i / n_i.clamp_min(1.0), inf).min())
+        lam = torch.where(torch.isfinite(lam), lam.clamp_min(0.0), zero)
+        rate = rate + torch.where(live, lam, zero)
+        rem_e, rem_i = tref.fma32(n_e, -lam, rem_e), tref.fma32(n_i, -lam,
+                                                                 rem_i)
+        sat_e = (n_e > 0) & (rem_e <= tref.SAT_REL * cap_e)
+        sat_i = (n_i > 0) & (rem_i <= tref.SAT_REL * cap_i)
+        frozen = live & ((has_src & tref._gather(sat_e, src))
+                         | tref._gather(sat_i, dst))
+        d_e, d_i = count(frozen)
+        n_e, n_i = n_e - d_e, n_i - d_i
+        live = live & ~frozen
+    fill = torch.minimum(
+        torch.where(has_src, tref._gather(rem_e / n_e.clamp_min(1.0), src),
+                    inf), tref._gather(rem_i / n_i.clamp_min(1.0), dst))
+    return rate + torch.where(live, fill.clamp_min(0.0), zero)
+
+
+@pytest.mark.parametrize("iters", [1, 2, 4])
+@pytest.mark.parametrize("C,H", SHAPES)
+def test_decrement_only_occupancy_gives_the_references_rates(C, H, iters):
+    """The card's design, emulated: occupancy counted once over 7 lane
+    slices and decremented by the transfers that freeze, against the
+    reference's jitted water-fill (which recounts every round)."""
+    args = _inputs(C, H, 3 * C + H + iters)
+    want = np.asarray(jref.link_share(*args, iters))
+    got = _sliced_waterfill(*(torch.from_numpy(a) for a in args), iters,
+                            k=7).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def test_rounds_and_the_fused_drain_matter(monkeypatch):

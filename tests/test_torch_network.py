@@ -66,12 +66,11 @@ torch.set_num_threads(1)
 N_KEYS = len(FABRIC_KEY_NAMES)
 
 # NetStats float sums of the Table 2 fabric cases, held within NET_ULPS.
-# The bound was set when case2a+net's per-host ingress sum differed from
-# the reference's compiled tick by one ULP after 60 ticks (two after 200);
-# that came from its payload draws (one API: ``random.normal_fma``) and
-# the sums now match exactly, but the bound stays.  These sums feed no
-# later phase: every other leaf, the trajectory, is held exactly.
-NET_ULPS = 2
+# The bound was 2 when case2a+net's per-host ingress sum differed from the
+# reference's compiled tick by one ULP after 60 ticks (two after 200);
+# that came from its payload draws (one API: ``random.normal_fma``).  The
+# sums now match exactly, and the bound is what the runs show.
+NET_ULPS = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""Pins for ``chip_smoke.py``'s full-size runs, taken from the JAX
+reference on the CPU.
+
+chip_smoke imports neither JAX nor the JAX package, so the reference's
+results at chip_smoke's own configurations are computed here and written
+into it as constants (``PIN_LEAVES``, ``CAPACITY_PINS``,
+``SOCKSHOP_PINS``; this script prints them):
+
+* Table 2 case1b, case1b+net and case2b (``benchmarks/bench_capacity.py``
+  sizing): a digest of every leaf of the final state, the reference's
+  state carried into the port's containers (``repro_torch.core.convert``)
+  and digested as chip_smoke digests the card's (``chip_smoke.
+  leaf_digests``);
+* SockShop (paper §6.3): 100 clients HS and 300 NS over 600 s, 300 HS
+  over 180 s: the response digest and the integer counters.
+
+The reference runs as its goldens were pinned: non-partitionable threefry,
+compile cache cleared; numpy runs on its baseline code paths, as in
+chip_smoke (its ``NUMPY_BASELINE``: the instance placement's order among
+VMs of equal free capacity is numpy's argsort's, which depends on the SIMD
+sort numpy dispatches to).  Run from the repository root (the reference
+takes about 40 s for case2b and under two minutes in all on the CPU):
+
+    PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tools/chip_smoke_pins.py
+
+``--port`` also runs the port on the CPU at the same configurations and
+names the first leaf that differs from the reference (about eight
+minutes more in all).  ``--only`` restricts the runs to the named cases.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+for p in (os.path.join(ROOT, "src"), os.path.join(ROOT, "tests"), ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+# chip_smoke puts numpy on its baseline code paths (its NUMPY_BASELINE) as
+# it is imported: first, so that the reference and the port place
+# instances as chip_smoke's runs will
+assert "numpy" not in sys.modules
+import chip_smoke  # noqa: E402
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import time  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+CAPACITY = ("case1b", "case1b+net", "case2b")
+
+
+def _reference():
+    from test_torch_phases import jax_reference
+    return jax_reference()
+
+
+def capacity_pins(tag, port):
+    from benchmarks import bench_capacity
+    from repro_torch.configs import capacity
+    from repro_torch.core import convert
+    from repro_torch.core.types import resolve_layout
+    from test_torch_phases import jax_tree_np
+    case, _, variant = tag.partition("+")
+    n_req, S, reps, _, fanout = capacity.CASES[case]
+    t0 = time.perf_counter()
+    with _reference():
+        jsim, _ = bench_capacity.build_case(n_req, S, reps, fanout,
+                                            network=variant == "net")
+        jst = jsim.run().state
+    tree = jax_tree_np(jst)
+    layout = resolve_layout(capacity.build_tagged(tag, device="cpu")[0]
+                            .params)
+    state = convert.state_from_numpy(tree, layout, device="cpu")
+    pins = chip_smoke.leaf_digests(state)
+    print(f"# {tag}: reference {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if port:
+        t0 = time.perf_counter()
+        tsim, _ = capacity.build_tagged(tag, device="cpu")
+        got = chip_smoke.leaf_digests(tsim.run().state)
+        bad = [k for k in pins if got.get(k) != pins[k]]
+        print(f"# {tag}: port on the CPU {time.perf_counter() - t0:.1f} s, "
+              f"{'matches' if not bad else f'differs first in {bad[0]}'}"
+              f" ({len(bad)} of {len(pins)} leaves differ)", file=sys.stderr)
+    return pins
+
+
+def sockshop_pins(n_clients, duration, policy, port):
+    from repro.configs import sockshop as jsock
+    t0 = time.perf_counter()
+    with _reference():
+        jst = jsock.make_sim(n_clients, duration,
+                             scaling_policy=policy).run().state
+    pins = chip_smoke.sockshop_summary(jst)
+    print(f"# sockshop {n_clients} {duration:.0f} s policy {policy}: "
+          f"reference {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    if port:
+        from repro_torch.configs import sockshop as tsock
+        t0 = time.perf_counter()
+        got = chip_smoke.sockshop_summary(tsock.make_sim(
+            n_clients, duration, scaling_policy=policy,
+            device="cpu").run().state)
+        print(f"# ... port on the CPU {time.perf_counter() - t0:.1f} s, "
+              f"{'matches' if got == pins else f'differs: {got}'}",
+              file=sys.stderr)
+    return pins
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--port", action="store_true",
+                    help="also run the port on the CPU and compare")
+    ap.add_argument("--only", default="",
+                    help="comma-separated subset of case1b, case1b+net, "
+                    "case2b, sockshop")
+    args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
+    cap = {tag: capacity_pins(tag, args.port) for tag in CAPACITY
+           if not only or tag in only}
+    sock = {}
+    if not only or "sockshop" in only:
+        for case in chip_smoke.SOCKSHOP_CASES:
+            sock["%d/%d/%d" % (case[0], case[1], case[2])] = sockshop_pins(
+                *case, args.port)
+    print(_source(cap, sock))
+    return 0
+
+
+def _source(cap, sock) -> str:
+    """The pins as chip_smoke's constants: the leaf names once
+    (``PIN_LEAVES``, sorted), each capacity case's leaf digests in that
+    order as one string, the SockShop summaries as dictionaries; lines of
+    at most 79 characters."""
+    def packed(words, indent, sep):
+        rows, row = [], ""
+        for w in words:
+            if row and len(indent) + len(row) + len(w) + len(sep) > 77:
+                rows.append(row)
+                row = ""
+            row += w + sep
+        return rows + [row] if row else rows
+    leaves = sorted(next(iter(cap.values()))) if cap else []
+    assert all(sorted(v) == leaves for v in cap.values())
+    out = ["PIN_LEAVES = ("]
+    out += ["    " + r.rstrip() for r in
+            packed([f'"{k}",' for k in leaves], "    ", " ")]
+    out[-1] += ")"
+    out.append("CAPACITY_PINS = {")
+    for case in sorted(cap):
+        out.append(f'    "{case}": (')
+        rows = packed([cap[case][k] for k in leaves], "        ", " ")
+        out += [f'        "{r}"' for r in rows]
+        out[-1] = out[-1][:-2] + '"),'
+    out.append("}")
+    out.append("SOCKSHOP_PINS = {")
+    for case in sorted(sock):
+        out.append(f'    "{case}": dict(')
+        out += ["        " + r.rstrip() for r in packed(
+            [f"{k}={v}," for k, v in sorted(sock[case].items())],
+            "        ", " ")]
+        out[-1] = out[-1][:-1] + "),"
+    out.append("}")
+    return "\n".join(out)
+
+
+if __name__ == "__main__":
+    np.seterr(all="ignore")
+    sys.exit(main())
