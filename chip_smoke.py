@@ -9,13 +9,15 @@ NVIDIA GPU and the CUDA toolkit:
 Phases, in order (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, then the five CUDA
-   kernels built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
+   sources built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel); the ``ptxas`` registers and spills per kernel of the
-   simulator's ``cloudlet_finish`` and ``link_share`` builds and of each
-   model-zoo build (flash attention, the SSD chunk), where the tensor-core
-   kernels (``flash_fwd_sm90``, ``ssd_chunk_sm90``) must spill nothing,
-   and the model-zoo builds' SASS (``cuobjdump --dump-sass``), which must
-   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads);
+   simulator's ``tropical``, ``cloudlet_finish`` and ``link_share`` builds
+   and of each model-zoo build (flash attention, the SSD chunk), where the
+   two tropical kernels and the tensor-core kernels (``flash_fwd_sm90``,
+   ``ssd_chunk_sm90``) must spill nothing; the tropical kernels' SASS
+   (``cuobjdump --dump-sass``) counts of FADD and FMNMX, which must be
+   equal (one max instruction a term), and the model-zoo builds' SASS,
+   which must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads);
 2. an empty kernel's launch (device and per call), the floor of the
    launch-bound simulator kernels; then each kernel against its plain
    PyTorch version on the card, at the main paths' shapes, with the route
@@ -24,8 +26,12 @@ Phases, in order (any failure exits non-zero):
    instance sums included, bit-equal to the plain version run on a CPU
    copy of the inputs, two launches bit-identical, one device operation a
    call; whether the plain version's CUDA branch agrees is printed);
-   ``tropical_matmul`` at the SockShop window-batch shape
-   and a fleet shape (bit-equal); ``link_share`` at the SockShop fabric,
+   ``tropical_matmul`` at the SockShop window-batch shape and the fleet
+   shape (8 x 1024^3), and ``tropical_closure`` (the closure kernel: the
+   identity and every squaring in one launch) at SockShop's Alg 2 shape
+   (60 windows x 13 services, 2 squarings), each bit-equal to its plain
+   version and timed beside its bound and the issue floor of an FADD and
+   an FMNMX a term; ``link_share`` at the SockShop fabric,
    case1b+net and case2b+net shapes (rates bit-equal, two launches
    bit-identical); ``flash_attention`` at qwen3-0.6b's prefill heads
    (B=1, Hq=16, Hkv=8, D=128, bfloat16: the tensor-core kernel) at
@@ -57,15 +63,19 @@ Phases, in order (any failure exits non-zero):
    counters must equal the JAX reference's (``SOCKSHOP_PINS``); each run
    launches
    ``cloudlet_finish`` once per tick and is followed by Alg 2 over its
-   per-window node delays through the tropical kernel, held against the
-   DP critical path; the synchronising calls per tick over a window that
-   holds a scaling tick;
+   per-window node delays through one ``tropical_closure`` launch (and no
+   ``tropical_matmul``), held against the DP critical path; the
+   synchronising calls per tick over a window that holds a scaling tick;
 7. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
    ``examples/network_saturation.py``'s sweep) at 10, 50 and 100 clients
    over 120 s, three processes side by side: one ``link_share`` and one
    ``cloudlet_finish`` launch per tick, and the transit p95 rising with
    the load;
-8. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
+8. Alg 2 at fleet scale: ``response_times_batched`` over a seeded
+   1024-service DAG (each service calls up to 4 higher-numbered ones, 4
+   APIs) in 8 windows, through ⌈log₂ depth⌉ ``tropical_matmul`` launches,
+   every (window, API) held against the DP critical path;
+9. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
    and mamba2-130m at full width and depth on seeded random weights, at
    ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
    last-position logits, 28 ``flash_attention`` and 24 ``ssd_chunk``
@@ -73,10 +83,10 @@ Phases, in order (any failure exits non-zero):
    device traces, the device busy share (device time over the
    unprofiled prefill's wall); and a 2-layer full-width model of each,
    whose card logits are held against its CPU logits;
-9. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
+10. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
    16 + 24 tokens), its tok/s, and the synchronising calls per decode
    step;
-10. one JSON line with each kernel's launches, times and bound; then the
+11. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
@@ -117,6 +127,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+SM_COUNT = 132                 # H100 SXM
+FP32_LANES = 128               # float32 lanes issued per SM and clock
+SM_CLOCK_HZ = 1.98e9           # H100 SXM maximum SM clock
+SOCKSHOP_DEPTH = 4             # SockShop's service graph: 2 squarings
 FLASH_RTOL = 2.0 ** -7         # bf16 output: one bf16 rounding of |plain|
 FLASH_ATOL = 1e-4              # ... plus the float32 sums' own error
 FLASH_PLAIN_ROWS = 1024        # query rows per block of the plain version
@@ -448,7 +462,24 @@ def tropical_inputs(B, S, seed, torch, dev):
     return torch.tensor(a.astype(np.float32), device=dev)
 
 
-def check_tropical(tag, B, S, torch, dev):
+def tropical_floor_ms(terms):
+    """The issue floor of ``terms`` (max, +) terms: an FADD and an FMNMX
+    each, at 128 lanes a clock on each SM."""
+    return 2.0 * terms / (SM_COUNT * FP32_LANES * SM_CLOCK_HZ) * 1e3
+
+
+def tropical_bound(terms, nbytes):
+    """(bound ms, what bounds it): 2 operations a term at the float32 peak,
+    or the bytes at the memory rate."""
+    return max((2.0 * terms / FP32_OPS_PER_S * 1e3, "operations"),
+               (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
+def check_tropical_product(tag, B, S, torch, dev):
+    """The product kernel against its plain version (bit for bit, through
+    the int32 view; the inputs hold no -0), and the closure at the same
+    shape (its route: the closure kernel up to ``ops.CLOSURE_MAX_S``, the
+    repeated products above) against the plain squarings."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.tropical import ops, ref
     x = tropical_inputs(B, S, 5, torch, dev)
@@ -456,28 +487,66 @@ def check_tropical(tag, B, S, torch, dev):
     k = ops.tropical_matmul(x, x)
     p = ref.tropical_matmul(x, x)
     torch.cuda.synchronize()
-    check(torch.equal(k, p), f"tropical_matmul {tag}: differs from the "
-          "plain version")
+    check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+          f"tropical_matmul {tag}: differs from the plain version")
     kc = ops.tropical_closure(x, depth=S)
-    pc = x
-    for _ in range(int(np.ceil(np.log2(max(S, 2))))):
-        pc = ref.tropical_matmul(pc, pc)
-    check(torch.equal(kc, pc), f"tropical_closure {tag}: differs from the "
-          "plain squarings")
+    pc = ref.tropical_closure(x, S)
+    check(torch.equal(kc.view(torch.int32), pc.view(torch.int32)),
+          f"tropical_closure {tag} ({ops.closure_route(S)}): differs from "
+          "the plain squarings")
+    del kc, pc
     k_ev, k_dev = cuda_ms(lambda: ops.tropical_matmul(x, x), 50, torch)
     p_ev, p_dev = cuda_ms(lambda: ref.tropical_matmul(x, x), 3, torch)
     counts.update(saved)
-    ops_n = 2.0 * B * S * S * S
-    nbytes = 4.0 * 3 * B * S * S
-    t_ops = ops_n / FP32_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    terms = float(B) * S * S * S
+    bound_ms, by = tropical_bound(terms, 4.0 * 3 * B * S * S)
+    floor_ms = tropical_floor_ms(terms)
+    k_ms = k_dev or k_ev
     log(f"tropical_matmul {tag}: B={B} S={S}  kernel {_ms(k_dev)} ms "
         f"device / {k_ev:.4f} ms per call  plain {_ms(p_dev)} ms device / "
-        f"{p_ev:.4f} ms per call  bound {bound_ms:.6f} ms ({by})")
-    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
-                bound_ms=bound_ms, bound_by=by,
-                max_abs_err=float((k - p).abs().nan_to_num(0.0).max()))
+        f"{p_ev:.4f} ms per call  bound {bound_ms:.6f} ms ({by}), "
+        f"{bound_ms / k_ms:.3f} of it  issue floor {floor_ms:.6f} ms, "
+        f"{floor_ms / k_ms:.3f} of it  bit-equal; the closure "
+        f"({ops.closure_route(S)}) bit-equal to the plain squarings")
+    return dict(ms=k_ms, plain_ms=p_dev or p_ev, bound_ms=bound_ms,
+                bound_by=by, max_abs_err=float(
+                    (k - p).abs().nan_to_num(0.0).max()))
+
+
+def check_tropical_closure(tag, B, S, depth, torch, dev):
+    """The closure kernel (one launch: max(A, I) and every squaring)
+    against the plain squarings, bit for bit; ``depth`` is the service
+    graph's."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.tropical import ops, ref
+    check(ops.closure_route(S) == ops.CLOSURE,
+          f"tropical_closure {tag}: S={S} is not on the closure kernel")
+    x = tropical_inputs(B, S, 6, torch, dev)
+    saved = dict(counts)
+    k = ops.tropical_closure(x, depth=depth)
+    n = {name: counts[name] - saved[name] for name in counts}
+    p = ref.tropical_closure(x, depth)
+    torch.cuda.synchronize()
+    check(n["tropical_closure"] == 1 and n["tropical_matmul"] == 0,
+          f"tropical_closure {tag}: launched {n}")
+    check(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+          f"tropical_closure {tag}: differs from the plain squarings")
+    k_ev, k_dev = cuda_ms(lambda: ops.tropical_closure(x, depth=depth), 200,
+                          torch)
+    p_ev, p_dev = cuda_ms(lambda: ref.tropical_closure(x, depth), 50, torch)
+    counts.update(saved)
+    n_sq = ops.squarings(S, depth)
+    terms = float(n_sq) * B * S * S * S
+    bound_ms, by = tropical_bound(terms, 4.0 * 2 * B * S * S)
+    floor_ms = tropical_floor_ms(terms)
+    log(f"tropical_closure {tag}: B={B} S={S} depth={depth} ({n_sq} "
+        f"squarings, one launch)  kernel {_ms(k_dev)} ms device / "
+        f"{k_ev:.4f} ms per call  plain {_ms(p_dev)} ms device / "
+        f"{p_ev:.4f} ms per call  bound {bound_ms:.6f} ms ({by})  issue "
+        f"floor {floor_ms:.6f} ms  bit-equal")
+    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev, bound_ms=bound_ms,
+                bound_by=by, max_abs_err=float(
+                    (k - p).abs().nan_to_num(0.0).max()))
 
 
 def link_inputs(C, H, seed, torch, dev):
@@ -633,14 +702,59 @@ def ptxas_report(name):
     return out
 
 
+def sass_ops(path, tool):
+    """Each kernel of a built library (mangled name) with the count of
+    each SASS opcode (modifiers kept: ``FMNMX.NAN``)."""
+    sass = subprocess.run([tool, "--dump-sass", str(path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", ln)
+        if m and fn:
+            out[fn][m.group(1)] = out[fn].get(m.group(1), 0) + 1
+    return out
+
+
+def check_tropical_build(tool):
+    """The tropical kernels spill nothing, and each term of their unrolled
+    inner loops is one FADD and one FMNMX (``max.NaN.f32``): as many FMNMX
+    as FADD in each kernel's SASS."""
+    from repro_torch.kernels import _build
+    report = ptxas_report("tropical")
+    log("tropical ptxas: " + (" | ".join(
+        f"{k}: {v.get('registers', '?')} registers, "
+        f"{v.get('spills', '?')} bytes spilled"
+        for k, v in report.items()) or "no report"))
+    check(len(report) == 2 and all(v.get("spills") == 0
+                                   for v in report.values()),
+          "tropical: the ptxas report lacks a kernel, or one spills")
+    for fn, ops in sass_ops(_build.library("tropical"), tool).items():
+        n = {k: sum(v for op, v in ops.items() if op.split(".")[0] == k)
+             for k in ("FADD", "FMNMX", "FSETP", "FSEL", "LDS", "LDGSTS")}
+        log(f"tropical SASS {fn}: " + "  ".join(f"{k} {v}"
+                                                for k, v in n.items())
+            + f"  (FMNMX forms: {sorted(op for op in ops if 'FMNMX' in op)})")
+        check(n["FADD"] > 0 and n["FMNMX"] == n["FADD"],
+              f"tropical {fn}: {n['FMNMX']} FMNMX for {n['FADD']} FADD, not "
+              "one max instruction a term")
+
+
 def check_builds():
     """The ``ptxas`` registers and spills per kernel of the simulator's
-    redesigned builds (``cloudlet_finish``, ``link_share``) and of the
+    redesigned builds (``tropical``, ``cloudlet_finish``, ``link_share``)
+    and of the
     model-zoo builds (``flash_attention``, ``ssd_chunk``); the latter's
     SASS must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``) and their
     tensor-core kernels (``*_sm90``) must spill nothing."""
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check_tropical_build(tool)
     for name in ("cloudlet_finish", "link_share"):
         log(f"{name} ptxas: " + " | ".join(
             f"{k}: {v.get('registers', '?')} registers, "
@@ -1019,12 +1133,12 @@ def run_sockshop(launches):
             lines, n_trop = fut.result()
             for line in lines:
                 log(line)
-            launches.setdefault("tropical_matmul", n_trop)
+            launches.setdefault("tropical_closure", n_trop)
 
 
 def sockshop_process(n_clients, duration, policy):
     """One SockShop run in a process of its own; returns its log lines and
-    the tropical launches of its Alg 2 call.  The HS run ends with the
+    the ``tropical_closure`` launches of its Alg 2 call.  The HS run ends with the
     synchronising calls per tick over a window that holds a scaling
     tick."""
     import torch
@@ -1120,9 +1234,9 @@ def sockshop_fabric_process(n_clients):
 def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
     """Run ``sim`` in 10 s windows, check it (its response digest and
     integer counters against the reference's ``pins``), and hold Alg 2
-    through the tropical kernel over its per-window node delays against
-    the DP critical path.  Returns the QoS report and the tropical
-    launches."""
+    through the closure kernel (one launch, no product) over its
+    per-window node delays against the DP critical path.  Returns the QoS
+    report and the ``tropical_closure`` launches."""
     from repro_torch.configs import sockshop
     from repro_torch.core import qos
     from repro_torch.core.critical_path import (critical_path,
@@ -1174,12 +1288,14 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
         f"response digest {digest}  {laws}")
     check_pins(f"{tag} response digest and counters",
                sockshop_summary(state), pins, say)
-    # Alg 2 over the per-window node delays, through the tropical kernel
+    # Alg 2 over the per-window node delays, through the closure kernel
     delays = torch.stack(snaps).cpu().numpy().astype(np.float32)
     reset_counts()
     rt = response_times_batched(sim.graph, delays, device=dev)
-    n_trop = counts["tropical_matmul"]
-    check(n_trop > 0, "Alg 2 did not launch the tropical kernel")
+    n_trop = counts["tropical_closure"]
+    check(n_trop == 1 and counts["tropical_matmul"] == 0,
+          f"{tag}: Alg 2 launched tropical_closure {n_trop} times and "
+          f"tropical_matmul {counts['tropical_matmul']} times, not 1 and 0")
     check(rt.shape == (delays.shape[0], sim.graph.n_apis)
           and np.isfinite(rt).all(), "Alg 2 output malformed")
     for b in range(delays.shape[0]):
@@ -1188,15 +1304,81 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
             check(np.isclose(rt[b, api], want, rtol=1e-5),
                   f"Alg 2 window {b} api {api}: {rt[b, api]} != DP {want}")
     mean_rt = rt.mean(axis=0) * 1000.0
-    say(f"{tag}: Alg 2 over {delays.shape[0]} windows ({n_trop} tropical "
-        "launches) agrees with the DP critical path; mean critical-path ms "
+    say(f"{tag}: Alg 2 over {delays.shape[0]} windows ({n_trop} "
+        "tropical_closure launch) agrees with the DP critical path; mean critical-path ms "
         "per API: " + ", ".join(f"{a} {v:.1f}" for a, v in
                                 zip(sim.graph.api_names, mean_rt)))
     return rep, n_trop
 
 
+FLEET = dict(services=1024, max_calls=4, apis=4, windows=8, seed=23)
+
+
+def fleet_graph(services, max_calls, apis, seed):
+    """A seeded service DAG at fleet scale: each service calls up to
+    ``max_calls`` higher-numbered services, and ``apis`` APIs enter at
+    services drawn from the first 64."""
+    from repro_torch.core import build_graph
+    g = np.random.default_rng(seed)
+    names = [f"s{i}" for i in range(services)]
+    calls = {}
+    for i in range(services - 1):
+        n = min(int(g.integers(0, max_calls + 1)), services - 1 - i)
+        if n:
+            calls[names[i]] = [names[j] for j in sorted(
+                g.choice(np.arange(i + 1, services), n, replace=False))]
+    entries = sorted(g.choice(min(64, services), apis, replace=False))
+    return build_graph(names, calls,
+                       [(f"api{k}", names[e], 1.0)
+                        for k, e in enumerate(entries)],
+                       {nm: 100.0 for nm in names}), g
+
+
+def run_fleet_alg2(torch, dev, launches):
+    """Alg 2 at fleet scale: ``response_times_batched`` over a seeded
+    1024-service DAG's delays in 8 windows, through the product kernel
+    (⌈log₂ depth⌉ launches), held against the DP critical path for every
+    window and API."""
+    from repro_torch.core.critical_path import (critical_path,
+                                                response_times_batched)
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.tropical import ops
+    graph, g = fleet_graph(FLEET["services"], FLEET["max_calls"],
+                           FLEET["apis"], FLEET["seed"])
+    S, B = graph.n_services, FLEET["windows"]
+    delays = g.uniform(0.5, 5.0, (B, S)).astype(np.float32)
+    check(ops.closure_route(S) == ops.PRODUCTS,
+          f"fleet Alg 2: S={S} is not on the product route")
+    response_times_batched(graph, delays[:1], device=dev)       # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rt = response_times_batched(graph, delays, device=dev)
+    wall = time.perf_counter() - t0
+    n = dict(counts)
+    n_sq = ops.squarings(S, graph.depth)
+    launches.setdefault("tropical_matmul", n["tropical_matmul"])
+    check(n["tropical_matmul"] == n_sq and n["tropical_closure"] == 0,
+          f"fleet Alg 2: tropical_matmul launched {n['tropical_matmul']} "
+          f"times (depth {graph.depth}: {n_sq}), tropical_closure "
+          f"{n['tropical_closure']}")
+    check(rt.shape == (B, graph.n_apis) and np.isfinite(rt).all(),
+          "fleet Alg 2: output malformed")
+    for b in range(B):
+        for api in range(graph.n_apis):
+            want, _ = critical_path(graph, delays[b], api)
+            check(np.isclose(rt[b, api], want, rtol=1e-5),
+                  f"fleet Alg 2 window {b} api {api}: {rt[b, api]} != DP "
+                  f"{want}")
+    log(f"fleet Alg 2: {S} services, depth {graph.depth}, {graph.n_apis} "
+        f"APIs, {B} windows  {n['tropical_matmul']} tropical_matmul "
+        f"launches  wall {wall:.4f} s (the host's adjacency and copies "
+        f"included)  every (window, API) equal to the DP critical path; "
+        f"mean critical path {rt.mean():.3f}")
+
+
 # ---------------------------------------------------------------------------
-# phases 8-9: the model zoo's serving path
+# phases 9-10: the model zoo's serving path
 # ---------------------------------------------------------------------------
 
 def prefill_len() -> int:
@@ -1365,9 +1547,11 @@ def main() -> int:
             "case1b", 8000, 1000, 1016008, torch, dev)
         check_cloudlet_finish("case2b", 262144, 50000, 1072, torch, dev)
         check_cloudlet_finish("skewed", 8192, 60, 3000, torch, dev, skew=3)
-        results["tropical_matmul"] = check_tropical("sockshop", 60, 13,
-                                                    torch, dev)
-        check_tropical("fleet", 8, 1024, torch, dev)
+        check_tropical_product("sockshop", 60, 13, torch, dev)
+        results["tropical_matmul"] = check_tropical_product(
+            "fleet", 8, 1024, torch, dev)
+        results["tropical_closure"] = check_tropical_closure(
+            "sockshop", 60, 13, SOCKSHOP_DEPTH, torch, dev)
         check_link_share("sockshop", 8192, 10, torch, dev)
         results["link_share"] = check_link_share("case1b+net", 8000, 15,
                                                  torch, dev)
@@ -1386,6 +1570,7 @@ def main() -> int:
         run_capacity("case2b", 1, torch, dev, launches)
         run_sockshop(launches)
         run_sockshop_fabric(launches)
+        run_fleet_alg2(torch, dev, launches)
         for arch in SERVE_ARCHS:
             run_prefill(arch, torch, dev, launches)
             check_two_layer(arch, torch, dev)
@@ -1400,6 +1585,8 @@ def main() -> int:
                             "src/repro/kernels/cloudlet_step/kernel.py:102"),
         "tropical_matmul": ("src/repro_torch/csrc/tropical.cu",
                             "src/repro/kernels/tropical/kernel.py:43"),
+        "tropical_closure": ("src/repro_torch/csrc/tropical.cu",
+                             "src/repro/kernels/tropical/kernel.py:43"),
         "link_share": ("src/repro_torch/csrc/link_share.cu",
                        "src/repro/kernels/link_share/kernel.py:42"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

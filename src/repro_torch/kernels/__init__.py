@@ -7,8 +7,8 @@ the CPU path runs are not counted).  ``reset_counts()`` zeroes them.
 """
 KERNELS = ("cloudlet_finish", "tropical", "link_share", "flash_attention",
            "ssd_chunk")
-counts = {"cloudlet_finish": 0, "tropical_matmul": 0, "link_share": 0,
-          "flash_attention": 0, "ssd_chunk": 0}
+counts = {"cloudlet_finish": 0, "tropical_matmul": 0, "tropical_closure": 0,
+          "link_share": 0, "flash_attention": 0, "ssd_chunk": 0}
 
 
 def reset_counts() -> None:

@@ -10,10 +10,9 @@ so an edited source or header is rebuilt.
 
 The simulator's kernels are compiled with ``--fmad=false``: they are held
 bit for bit against their plain PyTorch versions, which round each
-multiply and add separately.  The model-zoo kernels (``SOURCE_FLAGS``) are
-held within a stated tolerance and keep nvcc's fused multiply-adds.  The
-builds of both (all but ``tropical``) also ask ``ptxas`` for its register
-and spill report.
+multiply and add separately.  The model-zoo kernels (``FMAD_FLAGS``) are
+held within a stated tolerance and keep nvcc's fused multiply-adds.  Every
+build also asks ``ptxas`` for its register and spill report.
 Each build's compiler output is kept beside its library (``log(name)``).
 """
 from __future__ import annotations
@@ -35,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source flags, in place of NVCC_FLAGS for the sources named here
 FMAD_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 SOURCE_FLAGS = {"cloudlet_finish": NVCC_FLAGS + ("-Xptxas=-v",),
+                "tropical": NVCC_FLAGS + ("-Xptxas=-v",),
                 "link_share": NVCC_FLAGS + ("-Xptxas=-v",),
                 "flash_attention": FMAD_FLAGS + ("-Xptxas=-v",),
                 "ssd_chunk": FMAD_FLAGS + ("-Xptxas=-v",)}

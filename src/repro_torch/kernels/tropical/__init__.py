@@ -1,2 +1,3 @@
-from .ops import tropical_closure, tropical_matmul  # noqa: F401
+from .ops import (closure_route, tropical_closure,  # noqa: F401
+                  tropical_matmul)
 from .ref import NEG_INF, tropical_identity  # noqa: F401

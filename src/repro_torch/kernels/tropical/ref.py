@@ -3,12 +3,15 @@
 ``C[i,j] = max_k X[i,k] + A[k,j]`` — longest-path relaxation over a DAG
 adjacency (paper Alg 2: the critical path is the max-delay chain).  Each
 term is one float32 add and ``max`` is exact, so any evaluation order
-gives the same bits; NaN propagates, as ``torch.amax`` does.
+gives the same bits, but for a tie between +0 and -0, whose sign follows
+the order and the code path of the max; NaN propagates, as ``torch.amax``
+does.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -38,3 +41,21 @@ def tropical_identity(n: int, dtype=torch.float32, device=None
     eye = torch.eye(n, dtype=torch.bool, device=device)
     return torch.where(eye, torch.zeros((), dtype=dtype, device=device),
                        torch.full((), NEG_INF, dtype=dtype, device=device))
+
+
+def squarings(n: int, depth: int | None) -> int:
+    """⌈log₂ max(depth, 2)⌉ squarings of a closure (depth defaults to n),
+    as the reference's ``ops.tropical_closure`` counts them."""
+    depth = n if depth is None else max(int(depth), 1)
+    return int(np.ceil(np.log2(max(depth, 2))))
+
+
+def tropical_closure(a: torch.Tensor, depth: int | None = None
+                     ) -> torch.Tensor:
+    """All-pairs longest path of a DAG: (I ⊕ A)^(2^⌈log₂ depth⌉), the
+    plain squarings over ``tropical_matmul``."""
+    n = a.shape[-1]
+    m = torch.maximum(a, tropical_identity(n, a.dtype, a.device))
+    for _ in range(squarings(n, depth)):
+        m = tropical_matmul(m, m)
+    return m

@@ -12,13 +12,16 @@ Tolerances: the simulator's kernels are held bit for bit.
 same inputs (the serial lane-order path the CPU parity tests hold to the
 reference): every output, the instance sums included, at the pool shapes
 of the tests, case2b and a pool with most lanes on one instance; NaN
-where the plain version has NaN.  The max-plus product and the
-water-fill rates bit-equal.  The golden and fabric scenarios on the GPU
+where the plain version has NaN.  The max-plus product, the closure
+kernel (against the plain squarings) and the water-fill rates bit-equal
+(the tropical kernels compared through their int32 view, on inputs
+without -0; with NaN and +inf entries, NaN where the plain version has
+NaN and every other value equal).  The golden and fabric scenarios on the GPU
 against the CPU path: every leaf of the final state exact, ``NetStats``
 within ``NET_ULPS`` (0: the same sums in the same order on both
-devices).  Both simulator kernels, captured in a CUDA graph and replayed,
-give the eager launches' bits (one block, and the cooperative grid at
-case2b's width).
+devices).  Both simulator kernels and both tropical kernels, captured in
+a CUDA graph and replayed, give the eager launches' bits (one block, and
+the cooperative grid at case2b's width).
 
 The model-zoo kernels against their plain versions: ``flash_attention``
 within ``FLASH_TOL`` (relative, absolute) (float32 inputs: the sums in
@@ -211,22 +214,101 @@ def test_cloudlet_finish_progress_rounds_once(dev):
     assert bool((got.new_rem == float(np.float32(2.0 - 2.0 ** -23))).all())
 
 
+def _trop_rand(shape, r, dev, density=0.7):
+    """Signed weights (no -0, so no tie between +0 and -0), -inf off the
+    support."""
+    return torch.from_numpy(np.where(
+        r.random(shape) < density, r.normal(size=shape) * 3.0,
+        -np.inf).astype(np.float32)).to(dev)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.parametrize("B,M,K,N", [(4, 130, 70, 257), (60, 13, 13, 13),
                                      (2, 1, 1, 1), (1, 64, 0, 64),
-                                     (70_000, 2, 3, 2)])
+                                     (70_000, 2, 3, 2),
+                                     (2, 1024, 1024, 1024)])
 def test_tropical_kernel_matches_plain(B, M, K, N, dev):
     r = np.random.default_rng(B + M + K + N)
-    mk = lambda shape: torch.from_numpy(np.where(
-        r.random(shape) < 0.7, r.normal(size=shape) * 3.0,
-        -np.inf).astype(np.float32)).to(dev)
-    x, a = mk((B, M, K)), mk((B, K, N))
+    x, a = _trop_rand((B, M, K), r, dev), _trop_rand((B, K, N), r, dev)
+    before = counts["tropical_matmul"]
     got = ttrop.tropical_matmul(x, a)
-    assert torch.equal(got, ttrop_ref.tropical_matmul(x, a))
-    s = mk((3, 24, 24))
+    assert counts["tropical_matmul"] == before + 1
+    assert torch.equal(_bits(got), _bits(ttrop_ref.tropical_matmul(x, a)))
+    s = _trop_rand((3, 24, 24), r, dev)
     want = torch.maximum(s, ttrop_ref.tropical_identity(24, device=dev))
     for _ in range(5):
         want = ttrop_ref.tropical_matmul(want, want)
-    assert torch.equal(ttrop.tropical_closure(s), want)
+    assert torch.equal(_bits(ttrop.tropical_closure(s)), _bits(want))
+
+
+@pytest.mark.parametrize("depth", [None, 1, 3, 9])
+@pytest.mark.parametrize("B,S", [(60, 13), (4, 128), (3, 129), (5, 1),
+                                 (2, 127)])
+def test_tropical_closure_kernel_matches_plain(B, S, depth, dev):
+    """The closure on the card (one closure-kernel launch up to
+    ``CLOSURE_MAX_S``, ⌈log₂ depth⌉ products above) against the plain
+    squarings, bit for bit, on a DAG's delays and on a general matrix."""
+    r = np.random.default_rng(B * S + (depth or 0))
+    w = r.uniform(0.1, 2.0, size=(B, S, S))
+    dag = np.where(np.triu(r.random((B, S, S)) < 0.3, k=1), w, -np.inf)
+    for a in (torch.from_numpy(dag.astype(np.float32)).to(dev),
+              _trop_rand((B, S, S), r, dev, density=0.3)):
+        before = dict(counts)
+        got = ttrop.tropical_closure(a, depth=depth)
+        n = {k: counts[k] - before[k] for k in counts}
+        if ttrop.closure_route(S) == ttrop.CLOSURE:
+            assert n["tropical_closure"] == 1 and n["tropical_matmul"] == 0
+        else:
+            assert n["tropical_closure"] == 0
+            assert n["tropical_matmul"] == ttrop.squarings(S, depth)
+        want = ttrop_ref.tropical_closure(a, depth)
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_tropical_kernels_keep_nan_and_inf(dev):
+    """NaN and +inf entries: NaN where the plain version has NaN (the
+    kernels' NaN is the canonical one), every other value equal."""
+    r = np.random.default_rng(5)
+    x, a = _trop_rand((3, 130, 70), r, dev), _trop_rand((3, 70, 257), r, dev)
+    x[0, 5, 3] = float("nan")
+    x[1, 7, :5] = float("inf")
+    a[2, 9, 11] = float("inf")
+    s = _trop_rand((4, 13, 13), r, dev, density=0.2)
+    s[0, 2, 5] = float("nan")
+    s[1, 4, 6] = float("inf")
+    big = _trop_rand((2, 129, 129), r, dev, density=0.05)
+    big[0, 3, 8] = float("nan")
+    big[1, 10, 20] = float("inf")
+    pairs = [(ttrop.tropical_matmul(x, a), ttrop_ref.tropical_matmul(x, a))]
+    for m in (s, big):
+        pairs.append((ttrop.tropical_closure(m, depth=2),
+                      ttrop_ref.tropical_closure(m, 2)))
+    for got, want in pairs:
+        nan = torch.isnan(want)
+        assert bool(nan.any()) and bool(torch.isposinf(want).any())
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got.masked_fill(nan, 0.0),
+                           want.masked_fill(nan, 0.0))
+
+
+def test_tropical_closure_limit_is_the_c_entry_points(dev):
+    lib = ttrop._lib(dev)
+    assert lib.tropical_closure_max_s() == ttrop.CLOSURE_MAX_S
+
+
+def test_tropical_wrappers_check_their_inputs(dev):
+    x = torch.zeros((2, 4, 4), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        ttrop.tropical_matmul(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ttrop.tropical_closure(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="chain"):
+        ttrop.tropical_matmul(x, torch.zeros((2, 5, 4), device=dev))
+    with pytest.raises(ValueError, match="n, n"):
+        ttrop.tropical_closure(torch.zeros((2, 4, 5), device=dev))
 
 
 def _golden(device):
@@ -309,16 +391,21 @@ def test_link_share_kernel_matches_plain(C, H, iters, dev):
 @pytest.mark.parametrize("C", [8000, 262_144])
 def test_simulator_kernels_replay_in_a_cuda_graph(C, dev):
     """Both kernels of the tick captured in a CUDA graph (one block, and
-    the cooperative grid at case2b's width) and replayed: the eager
-    launches' bits."""
+    the cooperative grid at case2b's width), with a tropical product and
+    a closure-kernel launch, and replayed: the eager launches' bits."""
     I, R, H = (1000, 100_000, 15) if C == 8000 else (50_000, 1072, 781)
     cl, rate, req = _pool_inputs(C, I, R, 1, dev)
     time = torch.tensor(np.float32(12.5), device=dev)
     links = _link_inputs(C, H, 2, dev)
+    r = np.random.default_rng(C)
+    prod = _trop_rand((2, 256, 256), r, dev)
+    delays = _trop_rand((60, 13, 13), r, dev, density=0.3)
     work = [x.clone() for x in req]
     run = lambda: (cloudlet_finish_pool(cl, rate, time, 0.1, *work,
                                         n_inst=I),
-                   link_share(*links, iters=2))
+                   link_share(*links, iters=2),
+                   ttrop.tropical_matmul(prod, prod),
+                   ttrop.tropical_closure(delays, depth=4))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -326,16 +413,21 @@ def test_simulator_kernels_replay_in_a_cuda_graph(C, dev):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fin, rates = run()
+        fin, rates, trop, closure = run()
+    for t in (trop, closure):
+        t.fill_(0.0)
     for w, x in zip(work, req):
         w.copy_(x)
     graph.replay()
-    got = [x.clone() for x in fin] + [rates.clone()]
+    got = [x.clone() for x in fin] + [rates.clone(), trop.clone(),
+                                       closure.clone()]
     for w, x in zip(work, req):
         w.copy_(x)
     want = run()
     torch.cuda.synchronize()
-    for name, g, w in zip(NAMES + ("rates",), got, [*want[0], want[1]]):
+    for name, g, w in zip(NAMES + ("rates", "tropical_matmul",
+                                   "tropical_closure"),
+                          got, [*want[0], *want[1:]]):
         assert torch.equal(g, w), name
 
 
