@@ -47,30 +47,39 @@ Phases, in order (any failure exits non-zero):
    float32-pipe figure beside the bound; two launches bit-identical.
    Then the golden small scenarios of both network modes, whose integer
    counters and response digests are pinned;
-3. Table 2 case1b at full size, run twice (conservation laws, 10^6
-   requests admitted, one ``cloudlet_finish`` launch per tick, the two
-   final states bit-identical and every leaf equal to the JAX reference's
-   pin, ``CAPACITY_PINS``), with per-phase CUDA-event times over 100
-   ticks, the synchronising calls per tick and the device busy share;
+3. Table 2 case1b at full size, run twice through ``Simulation.run``,
+   which captures the tick as a CUDA graph at the first run and replays
+   it once per tick (conservation laws, 10^6 requests admitted, one
+   ``cloudlet_finish`` launch per tick, the two final states
+   bit-identical and every leaf equal to the JAX reference's pin,
+   ``CAPACITY_PINS``; the capture time, zero at the second run; the peak
+   device memory), with per-phase CUDA-event times over the 100 ticks of
+   an eager run (probes keep the tick eager), a 100-tick replayed run
+   that must equal that eager run in every leaf and trace, the
+   synchronising calls per replayed tick, the device busy share and
+   device operations per tick over 20 replayed ticks, and the tick's
+   operations by call site (counted on the CPU at a small size);
 4. Table 2 case1b+net (the network fabric on 10,000 Mbit/s NICs) at full
    size, once, with the same checks and one ``link_share`` launch per
    tick; its per-phase times name the Transit phase;
 5. Table 2 case2b at full size, once, with the same checks;
-6. SockShop (paper §6.3), three runs in three processes side by side on
-   the one card: 100 clients (HS) and 300 clients (NS) over 600 s,
-   average response against the testbed, and 300 clients with HS over
-   180 s, which must scale out; each run's response digest and integer
-   counters must equal the JAX reference's (``SOCKSHOP_PINS``); each run
-   launches
+6. SockShop (paper §6.3), three runs one after another: 100 clients
+   (HS) and 300 clients (NS) over 600 s, average response against the
+   testbed, and 300 clients with HS over 180 s, which must scale out;
+   each run's response digest and integer counters must equal the JAX
+   reference's (``SOCKSHOP_PINS``); each run replays its tick graphs
+   (two: the scaling tick apart) in 10 s windows, with the host's key
+   schedule for the whole run timed, its peak memory, and the busy share
+   and device operations per tick over 20 replayed ticks, launches
    ``cloudlet_finish`` once per tick and is followed by Alg 2 over its
    per-window node delays through one ``tropical_closure`` launch (and no
    ``tropical_matmul``), held against the DP critical path; the
    synchronising calls per tick over a window that holds a scaling tick;
 7. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
    ``examples/network_saturation.py``'s sweep) at 10, 50 and 100 clients
-   over 120 s, three processes side by side: one ``link_share`` and one
-   ``cloudlet_finish`` launch per tick, and the transit p95 rising with
-   the load;
+   over 120 s, one after another: one ``link_share`` and one
+   ``cloudlet_finish`` launch per tick, the same replay figures, and the
+   transit p95 rising with the load;
 8. Alg 2 at fleet scale: ``response_times_batched`` over a seeded
    1024-service DAG (each service calls up to 4 higher-numbered ones, 4
    APIs) in 8 windows, through ⌈log₂ depth⌉ ``tropical_matmul`` launches,
@@ -84,8 +93,12 @@ Phases, in order (any failure exits non-zero):
    unprofiled prefill's wall); and a 2-layer full-width model of each,
    whose card logits are held against its CPU logits;
 10. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
-   16 + 24 tokens), its tok/s, and the synchronising calls per decode
-   step;
+   16 + 24 tokens), which replays ``serve.DecodeGraph`` once per token
+   step, its tok/s, capture time and peak memory; the graph's logits
+   bit-equal to the
+   eager ``decode_step``'s over 8 steps, the device time, busy share and
+   operations per replayed step, and the synchronising calls per
+   replayed step;
 11. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
@@ -979,9 +992,11 @@ class PhaseTimer:
 
 def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0):
     """Synchronising CUDA calls per tick under sync debug mode "warn" over
-    ticks ``first_tick`` .. ``first_tick + n_ticks - 1`` (the ticks before
-    run unwatched), with the port's call sites that made them."""
+    ticks ``first_tick`` .. ``first_tick + n_ticks - 1`` replayed from
+    the tick's graphs (the capture and the ticks before run unwatched),
+    with the port's call sites that made them."""
     state = sim.init_state()
+    sim.compile(state)
     if first_tick:
         state, _ = sim.run_state(state, n_ticks=first_tick)
     torch.cuda.synchronize()
@@ -1022,9 +1037,11 @@ def sync_sites(fn, torch):
 
 
 def device_busy(sim, torch, n_ticks=20):
-    """Device busy share over ``n_ticks`` ticks: the summed kernel time
-    (torch.profiler) over the window's wall time; None if the profiler
-    saw no device time."""
+    """Over ``n_ticks`` replayed ticks (the run's own copies in and out
+    included): the device busy share, the summed device time
+    (torch.profiler) over the window's wall time, None if the profiler saw
+    no device time; the ms per tick under the profiler; and the device
+    operations (kernels, copies, fills) per tick."""
     from torch.profiler import ProfilerActivity, profile
     state = sim.init_state()
     state, _ = sim.run_state(state, n_ticks=2)
@@ -1036,7 +1053,8 @@ def device_busy(sim, torch, n_ticks=20):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = _device_us(prof) / 1e6
-    return (busy / wall if busy > 0 else None), wall / n_ticks * 1e3
+    return ((busy / wall if busy > 0 else None), wall / n_ticks * 1e3,
+            _device_ops(prof) / n_ticks)
 
 
 def _device_us_by_name(prof) -> dict:
@@ -1058,10 +1076,77 @@ def _device_us_by_name(prof) -> dict:
     return by_name
 
 
+def replay_figures(sim, torch) -> str:
+    """``device_busy``'s figures over 20 replayed ticks, as a phrase."""
+    share, ms_tick, ops = device_busy(sim, torch)
+    return (f"device busy share "
+            f"{'not measured' if share is None else f'{share:.3f}'} over 20 "
+            f"replayed ticks ({ms_tick:.3f} ms/tick under the profiler, "
+            f"{ops:.1f} device operations per tick)")
+
+
+def _device_ops(prof) -> int:
+    """The device operations (kernels, copies, fills) in a profile."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0.0)) > 0)
+
+
 def _device_us(prof) -> float:
     """Microseconds of device time in a profile (``_device_us_by_name``
     summed)."""
     return sum(_device_us_by_name(prof).values())
+
+
+def tick_ops_by_site(tag, torch, scale=0.005):
+    """The tensor operations one tick of ``tag`` dispatches (views
+    apart), by the port's function that issued them, counted on the CPU
+    at a small size: each becomes one device operation of the replayed
+    tick on the card, except the kernels' plain versions (``ref.py``),
+    which the card runs as one launch each.  "(random.py)" marks the
+    operations issued inside ``random.py`` (the draws, ``fma32``,
+    ``div32``) on that function's behalf."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch import random as rnd
+    from repro_torch.configs import capacity
+    from repro_torch.core import engine
+    from repro_torch.core.types import DynParams
+    views = {"view", "select", "slice", "expand", "reshape", "unsqueeze",
+             "t", "transpose", "alias", "_unsafe_view", "squeeze",
+             "permute", "as_strided", "detach", "lift_fresh"}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_site = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.split(".")[0] not in views:
+                stack = [f for f in traceback.extract_stack()
+                         if "repro_torch" in f.filename]
+                own = [f for f in stack if not f.filename.endswith(
+                    ("random.py", "engine.py"))]
+                site = (f"{own[-1].filename.rsplit('/', 1)[-1]}:"
+                        f"{own[-1].name}" if own else "engine.py")
+                if any(f.filename.endswith("random.py") for f in stack):
+                    site += " (random.py)"
+                self.by_site[site] += 1
+            return func(*args, **(kwargs or {}))
+
+    sim, _ = capacity.build_tagged(tag, scale=scale, device="cpu")
+    state = sim.init_state()
+    roots, _ = rnd.chain(state.rng, 3, engine.carry_path(sim.params))
+    loop = engine.TickLoop(sim._tick, DynParams.from_params(sim.params),
+                           sim.app, state, 3)
+    loop.keys.fill(roots)
+    loop.step(False)
+    loop.step(False)
+    with Count() as c:
+        loop.step(False)
+    return c.by_site
 
 
 def run_capacity(tag, repeats, torch, dev, launches):
@@ -1075,8 +1160,12 @@ def run_capacity(tag, repeats, torch, dev, launches):
     digests = []
     for rep in range(repeats):
         reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         res = sim.run()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n = {k: counts[k] for k in path}
+        check(rep == 0 or res.compile_time_s == 0.0,
+              f"{tag}: run {rep + 1} captured the tick anew")
         for k in path:
             launches.setdefault(k, n[k])
             check(n[k] == meta["n_ticks"], f"{tag}: {k} launched {n[k]} "
@@ -1087,7 +1176,8 @@ def run_capacity(tag, repeats, torch, dev, launches):
             check(laws["transits"] > 0, f"{tag}: no transfer arrived")
         digests.append(state_digest(res.state, torch))
         log(f"{tag} run {rep + 1}: wall {res.wall_time_s:.3f} s  "
-            f"{meta['n_ticks'] / res.wall_time_s:.2f} ticks/s  "
+            f"{meta['n_ticks'] / res.wall_time_s:.2f} ticks/s  capture "
+            f"{res.compile_time_s:.3f} s  peak memory {peak:.2f} GiB  "
             f"launches {n}  {laws}")
     if repeats > 1:
         bad = [k for k in digests[0] if digests[0][k] != digests[1][k]]
@@ -1096,23 +1186,34 @@ def run_capacity(tag, repeats, torch, dev, launches):
             f"({len(digests[0])} leaves)")
     check_pins(f"{tag} final state", leaf_digests(res.state),
                dict(zip(PIN_LEAVES, CAPACITY_PINS[tag].split())))
-    # per-phase times over the first 100 ticks of a third run
+    # per-phase times over the first 100 ticks of an eager run (the
+    # probes keep the tick eager), and the same 100 ticks replayed
     n = 100
     timer = PhaseTimer(torch)
     state = sim.init_state()
     torch.cuda.synchronize()
-    sim.run_state(state, n_ticks=n, probe=timer)
+    eager, eager_tr = sim.run_state(state, n_ticks=n, probe=timer)
     tot = timer.totals()
-    log(f"{tag} per-phase CUDA-event ms/tick (ticks 0-{n - 1}): " +
+    log(f"{tag} per-phase CUDA-event ms/tick (eager, ticks 0-{n - 1}): " +
         "  ".join(f"{k} {v / n:.3f}" for k, v in tot.items()))
+    replayed, replayed_tr = sim.run_state(state, n_ticks=n)
+    a, b = state_digest(eager, torch), state_digest(replayed, torch)
+    bad = [k for k in a if a[k] != b[k]] + [
+        f for f, x, y in zip(eager_tr._fields, eager_tr, replayed_tr)
+        if not torch.equal(x, y)]
+    check(not bad, f"{tag}: the replayed 100 ticks differ from the eager "
+          f"ones in {bad[:5]}")
+    log(f"{tag}: 100 replayed ticks equal 100 eager ticks in all {len(a)} "
+        f"leaves and {len(eager_tr)} traces")
     per_tick, sites = sync_calls_per_tick(sim, torch)
-    log(f"{tag}: synchronising calls per tick {per_tick:.2f} (first 10 "
-        f"ticks) {sites}")
+    log(f"{tag}: synchronising calls per replayed tick {per_tick:.2f} "
+        f"(first 10 ticks) {sites}")
     check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
-    share, ms_tick = device_busy(sim, torch)
-    log(f"{tag}: device busy share "
-        f"{'not measured' if share is None else f'{share:.3f}'} over 20 "
-        f"profiled ticks ({ms_tick:.2f} ms/tick under the profiler)")
+    log(f"{tag}: {replay_figures(sim, torch)}")
+    sites = tick_ops_by_site(tag, torch)
+    log(f"{tag}: {sum(sites.values())} operations a tick by call site "
+        "(the port's tick on the CPU at 1/200 of the size; plain kernels "
+        "there): " + ", ".join(f"{k} {v}" for k, v in sites.most_common()))
 
 
 SOCKSHOP_CASES = ((100, 600.0, 1), (300, 600.0, 0), (300, 180.0, 1))
@@ -1120,30 +1221,22 @@ SOCKSHOP_CASES = ((100, 600.0, 1), (300, 600.0, 0), (300, 180.0, 1))
 
 def run_sockshop(launches):
     """Paper §6.3: the testbed comparisons at 100 and 300 clients over
-    600 s, and a 300-client run with HS over 180 s that must scale out.
-    The tick loop is bound by the host's launch rate, so the three runs go
-    to three processes on the one card, side by side."""
-    import concurrent.futures as cf
-    import multiprocessing as mp
-    with cf.ProcessPoolExecutor(len(SOCKSHOP_CASES),
-                                mp_context=mp.get_context("spawn")) as pool:
-        futures = [pool.submit(sockshop_process, *case)
-                   for case in SOCKSHOP_CASES]
-        for fut in futures:
-            lines, n_trop = fut.result()
-            for line in lines:
-                log(line)
-            launches.setdefault("tropical_closure", n_trop)
+    600 s, and a 300-client run with HS over 180 s that must scale out,
+    one after another (each has the card to itself)."""
+    for case in SOCKSHOP_CASES:
+        lines, n_trop = sockshop_run(*case)
+        for line in lines:
+            log(line)
+        launches.setdefault("tropical_closure", n_trop)
 
 
-def sockshop_process(n_clients, duration, policy):
-    """One SockShop run in a process of its own; returns its log lines and
-    the ``tropical_closure`` launches of its Alg 2 call.  The HS run ends with the
-    synchronising calls per tick over a window that holds a scaling
+def sockshop_run(n_clients, duration, policy):
+    """One SockShop run; returns its log lines and the
+    ``tropical_closure`` launches of its Alg 2 call.  The HS run ends with
+    the synchronising calls per tick over a window that holds a scaling
     tick."""
     import torch
     from repro_torch.configs import sockshop
-    torch.set_num_threads(2)
     dev = torch.device("cuda")
     lines = []
     sim = sockshop.make_sim(n_clients, duration, scaling_policy=policy,
@@ -1170,13 +1263,9 @@ FABRIC_LOADS = (10, 50, 100)
 def run_sockshop_fabric(launches):
     """``examples/network_saturation.py``'s sweep: SockShop's 10 nodes at
     8 Mbit/s NICs with spread placement, 10, 50 and 100 clients over
-    120 s, one process each side by side.  The transit p95 must rise with
-    the load."""
-    import concurrent.futures as cf
-    import multiprocessing as mp
-    with cf.ProcessPoolExecutor(len(FABRIC_LOADS),
-                                mp_context=mp.get_context("spawn")) as pool:
-        results = list(pool.map(sockshop_fabric_process, FABRIC_LOADS))
+    120 s, one after another.  The transit p95 must rise with the
+    load."""
+    results = [sockshop_fabric_run(n) for n in FABRIC_LOADS]
     p95 = []
     for lines, n_link, rep_p95 in results:
         for line in lines:
@@ -1188,15 +1277,14 @@ def run_sockshop_fabric(launches):
           f"sockshop fabric: transit p95 {p95} does not rise with the load")
 
 
-def sockshop_fabric_process(n_clients):
-    """One fabric SockShop run in a process of its own; returns its log
-    lines, its ``link_share`` launches and its transit p95."""
+def sockshop_fabric_run(n_clients):
+    """One fabric SockShop run; returns its log lines, its ``link_share``
+    launches and its transit p95."""
     import dataclasses
     import torch
     from repro_torch.configs import sockshop
     from repro_torch.core import policies, qos
     from repro_torch.kernels import counts, reset_counts
-    torch.set_num_threads(2)
     dev = torch.device("cuda")
     # one client pool sized for the largest load, as the example's sweep
     sim = sockshop.make_sim(max(FABRIC_LOADS), 120.0, network="fabric",
@@ -1208,7 +1296,9 @@ def sockshop_fabric_process(n_clients):
     T = sim.params.n_ticks
     torch.cuda.synchronize()
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     res = sim.run()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n = dict(counts)
     tag = f"sockshop fabric {n_clients} clients"
     for k in ("cloudlet_finish", "link_share"):
@@ -1222,13 +1312,16 @@ def sockshop_fabric_process(n_clients):
     resp = res.state.requests.response.cpu().numpy()
     digest = int(resp.view(np.uint32).astype(np.uint64).sum())
     line = (f"{tag}: {T} ticks  wall {res.wall_time_s:.2f} s  "
-            f"{T / res.wall_time_s:.1f} ticks/s  launches "
+            f"{T / res.wall_time_s:.1f} ticks/s  capture "
+            f"{res.compile_time_s:.3f} s  launches "
             f"{dict((k, n[k]) for k in ('cloudlet_finish', 'link_share'))}"
             f"  transits {rep.net_transits}  transit p50 "
             f"{rep.transit_p50_ms:.1f} ms p95 {rep.transit_p95_ms:.1f} ms  "
             f"ingress util {rep.avg_ingress_util:.4f}  avg response "
             f"{rep.avg_response_ms:.1f} ms  response digest {digest}  {laws}")
-    return [line], n["link_share"], rep.transit_p95_ms
+    return ([line, f"{tag}: peak memory {peak:.2f} GiB; "
+             f"{replay_figures(sim, torch)}"],
+            n["link_share"], rep.transit_p95_ms)
 
 
 def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
@@ -1237,8 +1330,10 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
     through the closure kernel (one launch, no product) over its
     per-window node delays against the DP critical path.  Returns the QoS
     report and the ``tropical_closure`` launches."""
+    from repro_torch import random as rnd
     from repro_torch.configs import sockshop
     from repro_torch.core import qos
+    from repro_torch.core.engine import carry_path
     from repro_torch.core.critical_path import (critical_path,
                                                 response_times_batched)
     from repro_torch.core.engine import SimResult
@@ -1252,8 +1347,20 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
     snaps, traces = [], []
     prev_d = torch.zeros_like(state.svc_stats.delay_sum)
     prev_n = torch.zeros_like(state.svc_stats.finished)
+    compile_s = sim.compile(state)
+    # the host's key schedule for the whole run, as the windows build it
+    keys = next(iter(sim._graphs.values())).loop.keys
+    t0 = time.perf_counter()
+    roots, _ = rnd.chain(state.rng, T, carry_path(sim.params))
+    t1 = time.perf_counter()
+    keys.derive(roots)
+    t2 = time.perf_counter()
+    say(f"{tag}: key schedule of {T} ticks on the host: the root chain "
+        f"{(t1 - t0) * 1e3:.1f} ms, {len(keys.columns)} streams "
+        f"{(t2 - t1) * 1e3:.1f} ms")
     torch.cuda.synchronize()
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for w0 in range(0, T, window_ticks):
         state, tr = sim.run_state(state, min(window_ticks, T - w0),
@@ -1265,12 +1372,13 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
         prev_d, prev_n = d, n
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_fin = counts["cloudlet_finish"]
     check(n_fin == T, f"{tag}: cloudlet_finish launched {n_fin} times in "
           f"{T} ticks")
     trace = TickTrace(*[torch.cat(f) for f in zip(*traces)])
     res = SimResult(state=state, trace=trace, wall_time_s=wall,
-                    compile_time_s=0.0)
+                    compile_time_s=compile_s)
     laws = conservation(state)
     rep = qos.summarize(sim, res)
     check(math.isfinite(rep.avg_response_ms) and rep.avg_response_ms > 0
@@ -1282,12 +1390,14 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
         vs = (f" vs testbed {ref_ms:.0f} ms "
               f"({100 * (rep.avg_response_ms / ref_ms - 1):+.1f}%)")
     say(f"{tag}: {T} ticks  wall {wall:.2f} s  {T / wall:.1f} ticks/s  "
-        f"cloudlet_finish launches {n_fin}  avg response "
+        f"capture {compile_s:.3f} s  cloudlet_finish launches {n_fin}  "
+        f"avg response "
         f"{rep.avg_response_ms:.1f} ms{vs}  p95 {rep.p95_response_ms:.1f} "
         f"ms  scale_out {rep.scale_out}  scale_in {rep.scale_in}  "
         f"response digest {digest}  {laws}")
     check_pins(f"{tag} response digest and counters",
                sockshop_summary(state), pins, say)
+    say(f"{tag}: peak memory {peak:.2f} GiB; {replay_figures(sim, torch)}")
     # Alg 2 over the per-window node delays, through the closure kernel
     delays = torch.stack(snaps).cpu().numpy().astype(np.float32)
     reset_counts()
@@ -1481,42 +1591,73 @@ def check_two_layer(arch, torch, dev):
 
 def run_serve(arch, torch, dev):
     """``serve.main`` with its defaults (8 requests, 4 slots, 16 + 24
-    tokens) on the card; then the synchronising calls per decode step."""
+    tokens) on the card, which replays the decode graph; then the graph
+    against the eager ``decode_step`` (logits bit-equal over 8 steps),
+    its device time per step and the synchronising calls per replayed
+    step."""
     import contextlib
     import io
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import build_model
+    from torch.profiler import ProfilerActivity, profile
     cfg = get_config(arch)
     buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
         outputs = serve.main(["--arch", arch])
     for line in buf.getvalue().splitlines():
         log(f"{arch} serve: {line}")
+    log(f"{arch} serve: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(len(outputs) == 8 and all(len(o) == 24 for o in outputs)
           and all(0 <= t < cfg.vocab for o in outputs for t in o),
           f"{arch} serve: malformed outputs")
-    # synchronising calls per decode step (greedy, tokens on the device)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dev)
+    graph = serve.DecodeGraph(model, params, 4, 64, dev)
     state = model.init_decode_state(4, 64, device=dev)
-    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
-    box = [tok, state]
+    tok = torch.randint(0, cfg.vocab, (4, 8), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    for t in range(8):
+        want, state = model.decode_step(params, tok[:, t:t + 1], state)
+        got = graph.step(tok[:, t:t + 1])
+        check(torch.equal(got, want), f"{arch} decode graph: step {t}'s "
+              "logits differ from the eager decode_step's")
+    log(f"{arch} decode graph: captured in {graph.compile_time_s:.3f} s; "
+        "8 replayed steps' logits bit-equal to the eager decode_step's")
+    box = [tok[:, :1]]
 
     def steps(n):
         for _ in range(n):
-            logits, box[1] = model.decode_step(params, box[0], box[1])
+            logits = graph.step(box[0])
             box[0] = torch.argmax(logits[:, 0], dim=-1)[:, None]
+    graph.reset()
+    steps(2)
+    torch.cuda.synchronize()
+    n_steps = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _device_us(prof) / 1e6
+    log(f"{arch} decode graph: {wall / n_steps * 1e3:.3f} ms/step under "
+        f"the profiler, device {busy / n_steps * 1e3:.3f} ms/step, busy "
+        f"share {busy / wall:.3f}, {_device_ops(prof) / n_steps:.1f} device "
+        f"operations per step")
+    graph.reset()
     steps(2)
     torch.cuda.synchronize()
     n_steps = 8
     n, sites = sync_sites(lambda: steps(n_steps), torch)
-    log(f"{arch} decode: synchronising calls per step {n / n_steps:.2f} "
-        f"({n_steps} steps) {sites}")
+    log(f"{arch} decode: synchronising calls per replayed step "
+        f"{n / n_steps:.2f} ({n_steps} steps) {sites}")
     check(n == 0, f"{arch} decode: {n} synchronising calls in {n_steps} "
           "steps")
-    del params, state, box
+    del params, state, box, graph
     torch.cuda.empty_cache()
 
 

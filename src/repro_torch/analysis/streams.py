@@ -20,7 +20,8 @@ from .. import random as _random
 def split(key: torch.Tensor, num: int = 2, *,
           names: Sequence[str]) -> torch.Tensor:
     """``random.split`` with named children (``names`` has ``num``
-    distinct entries); returns the ``[num, 2]`` keys."""
+    distinct entries); returns the ``[num, 2]`` keys, or of a
+    ``random.TableKey`` its ``num`` child streams."""
     names = tuple(names)
     if len(names) != num:
         raise ValueError(

@@ -1,14 +1,44 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-``counts`` holds one launch counter per kernel: each wrapper adds one
-where it launches its CUDA kernel and nowhere else (the plain versions
-the CPU path runs are not counted).  ``reset_counts()`` zeroes them.
-``KERNELS`` names the CUDA sources (``csrc/<name>.cu``).
+``counts`` holds one launch counter per kernel: each wrapper calls
+``launched(name)`` where it launches its CUDA kernel and nowhere else
+(the plain versions the CPU path runs are not counted).  Under ``tally()``
+the launches go to the tally instead: a CUDA graph's capture records its
+launches there, and each replay adds them with ``add_counts``, so that
+``counts`` still counts the kernel's launches on the card.
+``reset_counts()`` zeroes them.  ``KERNELS`` names the CUDA sources
+(``csrc/<name>.cu``).
 """
+import contextlib
+
 KERNELS = ("cloudlet_finish", "tropical", "link_share", "flash_attention",
            "ssd_chunk")
 counts = {"cloudlet_finish": 0, "tropical_matmul": 0, "tropical_closure": 0,
           "link_share": 0, "flash_attention": 0, "ssd_chunk": 0}
+_TALLIES: list = []
+
+
+def launched(name: str) -> None:
+    """Count one launch of kernel ``name`` (in the innermost open tally,
+    if any)."""
+    (_TALLIES[-1] if _TALLIES else counts)[name] += 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the launches made inside the block in a dict of their own,
+    apart from ``counts``."""
+    t = dict.fromkeys(counts, 0)
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.pop()
+
+
+def add_counts(t: dict) -> None:
+    for k, v in t.items():
+        counts[k] += v
 
 
 def reset_counts() -> None:

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .. import _build, counts
+from .. import _build, launched
 from . import ref
 
 _ARGTYPES = (
@@ -135,7 +135,7 @@ def cloudlet_finish_pool(cl, rate, time, dt, req_finish, req_crit, req_out,
         stream)
     if err != 0:
         raise RuntimeError(f"cloudlet_finish launch failed: CUDA error {err}")
-    counts["cloudlet_finish"] += 1
+    launched("cloudlet_finish")
     return ref.FinishOut(new_rem=new_rem, fin=fin, tfin=tfin,
                          consumed=consumed, inst_acc=inst_acc,
                          req_finish=req_finish, req_crit=req_crit,

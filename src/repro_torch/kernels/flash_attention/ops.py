@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from .. import _build, counts
+from .. import _build, launched
 from . import ref
 
 HEAD_DIMS = (16, 32, 64, 128)      # the kernels' compiled head widths
@@ -111,5 +111,5 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err}")
-    counts["flash_attention"] += 1
+    launched("flash_attention")
     return out

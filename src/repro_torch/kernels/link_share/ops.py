@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from .. import _build, counts
+from .. import _build, launched
 from . import ref
 
 # One block holds the port tables in shared memory (227 KB a block on
@@ -106,5 +106,5 @@ def link_share(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"link_share launch failed: CUDA error {err}")
-    counts["link_share"] += 1
+    launched("link_share")
     return rate

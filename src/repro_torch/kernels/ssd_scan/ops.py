@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .. import _build, counts
+from .. import _build, launched
 from . import ref
 
 _SMEM_BYTES = 232_448          # what one Hopper block may hold
@@ -126,7 +126,7 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err}")
-    counts["ssd_chunk"] += 1
+    launched("ssd_chunk")
     return y, st, dec, tot
 
 

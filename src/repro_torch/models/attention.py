@@ -78,21 +78,24 @@ def attn_apply(p, x, *, n_heads, n_kv, head_dim, qk_norm=False,
     return out @ p["wo"]
 
 
-def attn_decode(p, x, cache: KVCache, pos: int, *, n_heads, n_kv, head_dim,
-                qk_norm=False, mrope_sections=None, rope_theta=1e6):
+def attn_decode(p, x, cache: KVCache, pos: torch.Tensor, *, n_heads, n_kv,
+                head_dim, qk_norm=False, mrope_sections=None,
+                rope_theta=1e6):
     """One-token decode against a fixed-capacity KV cache of S slots, of
-    which ``pos`` (a host integer) hold tokens.  x [B, 1, d].  The cache
-    is written in place at slot ``pos``.  Returns (out [B, 1, d], cache).
+    which ``pos`` (a 0-d int32 tensor on the cache's device, the
+    reference's ``cache.pos``) hold tokens.  x [B, 1, d].  The cache is
+    written in place at slot ``pos``.  Returns (out [B, 1, d], cache).
     """
     _unported(mrope_sections)
     B, T, _ = x.shape
     assert T == 1
     S = cache.k.shape[2]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = pos.view(1, 1).expand(B, 1)
     q, k, v = _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
                        rope_theta)
-    cache.k[:, :, pos:pos + 1] = k.transpose(1, 2).to(cache.k.dtype)
-    cache.v[:, :, pos:pos + 1] = v.transpose(1, 2).to(cache.v.dtype)
+    slot = pos.view(1).long()
+    cache.k.index_copy_(2, slot, k.transpose(1, 2).to(cache.k.dtype))
+    cache.v.index_copy_(2, slot, v.transpose(1, 2).to(cache.v.dtype))
     k_read = cache.k.float()
     v_read = cache.v.float()
     g = n_heads // n_kv

@@ -105,7 +105,8 @@ def mamba_state_zeros(batch: int, dims: MambaDims, device,
 
 
 def mamba_decode(p, x, state: MambaState, dims: MambaDims):
-    """One-token decode. x [B, 1, d] → ([B, 1, d], new state)."""
+    """One-token decode. x [B, 1, d] → ([B, 1, d], state); the state is
+    written in place."""
     B = x.shape[0]
     di, G, N, H, Pd = (dims.d_inner, dims.n_groups, dims.d_state,
                        dims.n_heads, dims.headdim)
@@ -122,4 +123,6 @@ def mamba_decode(p, x, state: MambaState, dims: MambaDims):
     h_new, y = ssd_decode_step(state.h, xs, dtv, A, Bm, Cm, p["D"])
     y = y.reshape(B, 1, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"])
-    return y @ p["out_proj"], MambaState(h=h_new, conv=window[:, 1:])
+    state.h.copy_(h_new)
+    state.conv.copy_(window[:, 1:])
+    return y @ p["out_proj"], state

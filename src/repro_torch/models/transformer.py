@@ -5,8 +5,12 @@ Layer structure: pre-norm mixer (attention or Mamba-2) + for attention
 a pre-norm SwiGLU FFN.  Parameters are stacked over a leading
 ``[n_layers, ...]`` axis as in the reference, and a Python loop over the
 layers takes the place of its ``lax.scan``; serving runs no remat.  In
-decode the cache position is the host loop's integer, so no layer reads
-anything back from the device.  ``moe`` and ``vlm`` raise.
+decode the cache position is a 0-d int32 tensor on the model's device, as
+the reference's ``cache.pos``, and ``decode_step`` writes the whole decode
+state in place: every step reads and writes the same buffers, so the step
+can be captured as a CUDA graph and replayed (``launch/serve.py``), and
+no layer reads anything back from the device.  ``moe`` and ``vlm``
+raise.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ def _layer(tree, i: int):
 
 class DecodeState(NamedTuple):
     layers: List[Any]        # per-layer KVCache or MambaState
-    pos: int                 # tokens already decoded (host integer)
+    pos: torch.Tensor        # 0-d int32: tokens already decoded
 
 
 class LM:
@@ -143,29 +147,26 @@ class LM:
                                   device=device),
                     v=torch.zeros(shape, dtype=torch.bfloat16,
                                   device=device)))
-        return DecodeState(layers=layers, pos=0)
+        return DecodeState(layers=layers, pos=torch.zeros(
+            (), dtype=torch.int32, device=device))
 
     def decode_step(self, params, tokens, state: DecodeState):
-        """tokens [B, 1] → (logits [B, 1, V], new state).  KV caches are
-        updated in place."""
+        """tokens [B, 1] → (logits [B, 1, V], state).  The state (KV
+        caches, Mamba states, ``pos``) is updated in place and returned."""
         cfg = self.cfg
         x = params["embed"][tokens]
-        new_layers = []
         for i, ls in enumerate(state.layers):
             lp = _layer(params["layers"], i)
             hn = rmsnorm(x, lp["mixer_norm"])
             if self.is_mamba:
-                out, ls = mamba_decode(lp["mamba"], hn, ls, cfg.mamba)
-                x = x + out
+                x = x + mamba_decode(lp["mamba"], hn, ls, cfg.mamba)[0]
             else:
-                out, ls = attn_decode(
+                x = x + attn_decode(
                     lp["attn"], hn, ls, state.pos, n_heads=cfg.n_heads,
                     n_kv=cfg.n_kv, head_dim=cfg.head_dim,
                     qk_norm=cfg.qk_norm, mrope_sections=cfg.mrope_sections,
-                    rope_theta=cfg.rope_theta)
-                x = x + out
+                    rope_theta=cfg.rope_theta)[0]
                 x = x + apply_mlp(lp["mlp"], rmsnorm(x, lp["mlp_norm"]))
-            new_layers.append(ls)
         h = rmsnorm(x, params["final_norm"])
-        return self.logits(params, h), DecodeState(layers=new_layers,
-                                                   pos=state.pos + 1)
+        state.pos.add_(1)
+        return self.logits(params, h), state

@@ -3,18 +3,23 @@ non-partitionable derivation of ``jax.random`` (``jax_threefry_partitionable
 = False``): ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``, ``uniform``,
 ``normal`` and ``randint``.
 
-Keys are int64 tensors of shape ``[2]`` holding two uint32 words, and they
-always live on the CPU: the simulation's key schedule is a pure function of
-the seed and the tick (it never reads simulation data), so deriving keys on
-the host costs the device nothing and never synchronises it.  Only the bulk
-bits behind ``uniform``/``normal``/``randint`` are generated on the caller's
-``device``.  uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF``.
+Keys are derived on the host: the simulation's key schedule is a pure
+function of the seed and the tick (it never reads simulation data), so
+deriving keys there costs the device nothing and never synchronises it.
+Only the bulk bits behind ``uniform``/``normal``/``randint`` are generated
+on the caller's ``device``.  A bulk draw takes its key in one of two
+forms: a host key (an int64 CPU tensor ``[2]`` holding two uint32 words,
+which ``split``/``fold_in`` also take), whose words enter the launches as
+constants; or a ``TableKey``, a stream of a ``KeyTable`` read on the device
+at the table's step counter, whose words enter ``threefry2x32`` as 0-d
+tensors, so a loop captured once as a CUDA graph draws from new keys at
+every replay.  uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF``.
 """
 from __future__ import annotations
 
 import math
 import struct
-from typing import Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +29,11 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
 
-def threefry2x32(k1: int, k2: int, x0, x1):
+def threefry2x32(k1, k2, x0, x1):
     """The Threefry-2x32 block cipher (20 rounds) on two uint32 lanes:
-    Python ints (key derivations, on the host) or int64 tensors (bulk
-    bits, on the caller's device) alike."""
+    Python ints (key derivations, on the host), int64 numpy arrays (a key
+    table's streams, on the host) or int64 tensors (bulk bits, on the
+    caller's device; the key words as ints or 0-d tensors) alike."""
     ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
@@ -40,11 +46,21 @@ def threefry2x32(k1: int, k2: int, x0, x1):
     return x0, x1
 
 
-def _key_words(key: torch.Tensor) -> tuple:
-    if key.device.type != "cpu" or key.shape != (2,):
-        raise ValueError("a key is a CPU tensor of shape [2]")
+def _host_words(key: torch.Tensor) -> tuple:
+    if not isinstance(key, torch.Tensor) or key.device.type != "cpu" \
+            or key.shape != (2,):
+        raise ValueError("key derivations take a host key: a CPU tensor "
+                         "of shape [2]")
     k1, k2 = key.tolist()
     return int(k1), int(k2)
+
+
+def _key_words(key) -> tuple:
+    """A bulk draw's key words: Python ints for a host key, 0-d tensors
+    for a table key."""
+    if isinstance(key, TableKey):
+        return key.table.words(key.path)
+    return _host_words(key)
 
 
 def _hash_counts(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -62,7 +78,7 @@ def _hash_counts(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
 def _hash_words(key: torch.Tensor, count: list) -> list:
     """``_hash_counts`` on a few Python ints (the key derivations: no
     tensor ops, nothing on any device)."""
-    k1, k2 = _key_words(key)
+    k1, k2 = _host_words(key)
     n = len(count)
     if n % 2:
         count = count + [0]
@@ -77,16 +93,142 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, s & M32], dtype=torch.int64)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split`` → ``[num, 2]`` keys."""
+def split(key, num: int = 2):
+    """``jax.random.split`` → ``[num, 2]`` keys; of a ``TableKey``, its
+    ``num`` child streams (a list)."""
+    if isinstance(key, TableKey):
+        return [TableKey(key.table, key.path + ((num, i),))
+                for i in range(num)]
     words = _hash_words(key, list(range(2 * num)))
     return torch.tensor(words, dtype=torch.int64).reshape(num, 2)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in`` with a scalar uint32 datum."""
+    """``jax.random.fold_in`` with a scalar uint32 datum (host keys
+    only)."""
     return torch.tensor(_hash_words(key, [0, int(data) & M32]),
                         dtype=torch.int64)
+
+
+def _split_child(k1, k2, num: int, i: int):
+    """The words of key ``i`` of ``split(key, num)`` for key words
+    ``k1``/``k2`` (ints, or numpy arrays of many keys): word ``j`` of the
+    split's flat output is lane ``j``'s first output for ``j < num``, else
+    lane ``j - num``'s second, and lane ``c`` hashes ``(c, num + c)``."""
+    out = []
+    for j in (2 * i, 2 * i + 1):
+        lane, half = (j, 0) if j < num else (j - num, 1)
+        out.append(threefry2x32(k1, k2, lane, num + lane)[half])
+    return out[0], out[1]
+
+
+def chain(key: torch.Tensor, n: int, path: Tuple[Tuple[int, int], ...]):
+    """The root keys of ``n`` steps of a loop whose next root is the key
+    at ``path`` (``(num, index)`` splits) of the current one, beginning
+    at host key ``key``: ``([n, 2]`` int64 words, the host key after the
+    last step)."""
+    k1, k2 = _host_words(key)
+    roots = np.empty((n, 2), np.int64)
+    for t in range(n):
+        roots[t] = k1, k2
+        for num, i in path:
+            k1, k2 = _split_child(k1, k2, num, i)
+    return roots, torch.tensor([k1, k2], dtype=torch.int64)
+
+
+class TableKey(NamedTuple):
+    """The stream at ``path`` (``(num, index)`` splits) below the current
+    step's root key of ``table``."""
+    table: "KeyTable"
+    path: Tuple[Tuple[int, int], ...]
+
+
+class KeyTable:
+    """The keys of a loop of steps, derived on the host before the loop
+    and read on the device at a step counter.
+
+    ``fill(roots)`` takes each step's root key (``chain``) and writes, for
+    each of those steps, the key of every stream drawn from so far into
+    the ``[cap, streams, 2]`` device table; ``root()`` is the current
+    step's root as a ``TableKey``, which ``split`` descends and a bulk draw
+    reads at ``step`` (a 0-d int64 device counter that ``advance()``
+    moves).  The step's row is gathered once, at its first draw.  A stream
+    first drawn from adds a column, derived on the host for the filled
+    steps: that may happen before a CUDA graph capture, never under one.
+    ``fill`` copies through pinned memory without synchronising."""
+
+    def __init__(self, cap: int, device):
+        self.device = torch.device(device)
+        self.cap = cap
+        self.step = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.table = torch.zeros((cap, 0, 2), dtype=torch.int64,
+                                 device=self.device)
+        self.columns: Dict[tuple, int] = {}
+        self.roots = np.zeros((0, 2), np.int64)
+        self._row = None
+
+    def root(self) -> TableKey:
+        return TableKey(self, ())
+
+    def derive(self, roots: np.ndarray, paths=None) -> np.ndarray:
+        """The host table ``[n, len(paths), 2]``: each path's key below
+        each of the ``n`` root keys (every column's, by default)."""
+        paths = list(self.columns) if paths is None else paths
+        memo = {(): roots}
+        out = np.empty((len(roots), len(paths), 2), np.int64)
+        for c, path in enumerate(paths):
+            for d in range(1, len(path) + 1):
+                if path[:d] not in memo:
+                    keys = memo[path[:d - 1]]
+                    memo[path[:d]] = np.stack(_split_child(
+                        keys[:, 0], keys[:, 1], *path[d - 1]), axis=1)
+            out[:, c] = memo[path]
+        return out
+
+    def _upload(self, rows: np.ndarray, dst: torch.Tensor) -> None:
+        host = torch.from_numpy(rows)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        dst.copy_(host, non_blocking=True)
+
+    def fill(self, roots: np.ndarray) -> None:
+        """Load the root keys of the next ``len(roots)`` steps (at most
+        ``cap``) and rewind the counter."""
+        if len(roots) > self.cap:
+            raise ValueError(f"{len(roots)} steps in a key table of "
+                             f"{self.cap}")
+        self.roots = np.asarray(roots, np.int64)
+        if self.columns and len(roots):
+            self._upload(self.derive(self.roots), self.table[:len(roots)])
+        self.rewind()
+
+    def rewind(self) -> None:
+        self.step.zero_()
+        self._row = None
+
+    def advance(self) -> None:
+        self.step.add_(1)
+        self._row = None
+
+    def words(self, path) -> tuple:
+        col = self.columns.get(path)
+        if col is None:
+            if self.device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"key stream {path} is first drawn from "
+                                   "under a CUDA graph capture; draw it "
+                                   "once before capturing")
+            col = self.columns[path] = len(self.columns)
+            rows = np.zeros((self.cap, 1, 2), np.int64)
+            rows[:len(self.roots)] = self.derive(self.roots, [path])
+            new = torch.empty((self.cap, 1, 2), dtype=torch.int64,
+                              device=self.device)
+            self._upload(rows, new)
+            self.table = torch.cat([self.table, new], dim=1)
+            self._row = None
+        if self._row is None:
+            self._row = self.table.index_select(0, self.step.view(1))[0]
+        return self._row[col, 0], self._row[col, 1]
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],

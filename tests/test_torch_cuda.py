@@ -21,7 +21,10 @@ against the CPU path: every leaf of the final state exact, ``NetStats``
 within ``NET_ULPS`` (0: the same sums in the same order on both
 devices).  Both simulator kernels and both tropical kernels, captured in
 a CUDA graph and replayed, give the eager launches' bits (one block, and
-the cooperative grid at case2b's width).
+the cooperative grid at case2b's width).  ``Simulation.run``'s replayed
+tick graphs give the eager tick's bits in every leaf and trace (the
+golden, fabric and a scaling SockShop scenario), and ``DecodeGraph``'s
+logits the eager ``decode_step``'s.
 
 The model-zoo kernels against their plain versions: ``flash_attention``
 within ``FLASH_TOL`` (relative, absolute) (float32 inputs: the sums in
@@ -494,6 +497,115 @@ def test_fabric_scenario_on_card_matches_cpu_and_pins(dev):
     resp = st.requests.response.cpu().numpy()
     assert int(resp.view(np.uint32).astype(np.uint64).sum()) \
         == 1292572014442
+
+
+# ---------------------------------------------------------------------------
+# the compiled run: the tick and the decode step replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _scaling(device):
+    """SockShop, 60 clients over 6 s with HS scaling every 5 ticks and
+    migration on (``test_torch_compiled``'s scaling app)."""
+    import dataclasses
+    from repro_torch.configs import sockshop
+    sim = sockshop.make_sim(60, 6.0, scaling_policy=1, hs_util_hi=0.05,
+                            hs_util_lo=0.04, share=300.0,
+                            migration_enabled=True, spawn_rate=50.0,
+                            device=device)
+    sim.params = dataclasses.replace(sim.params, scale_interval=5)
+    return sim
+
+
+def _leaf_bits(tree) -> dict:
+    """A state or trace as flat numpy arrays, floats as their bits."""
+    def flat(d, pre=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, pre + k + ".")
+            else:
+                v = np.asarray(v)
+                yield pre + k, v.view(np.uint32) if v.dtype == np.float32 \
+                    else v
+    if hasattr(tree, "requests"):
+        return dict(flat(convert.state_to_numpy(tree)))
+    return dict(flat({k: v.cpu().numpy()
+                      for k, v in tree._asdict().items()}))
+
+
+def _assert_same(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("which", ["golden", "fabric", "scaling"])
+def test_captured_run_is_the_eager_run(which, dev):
+    """``run()`` replays the tick's graphs (two where it scales): its
+    final state and traces equal, bit for bit, the eager run's (a probe
+    keeps the ticks eager); one launch of each kernel per tick; a second
+    ``run()`` captures nothing and gives the same bits."""
+    sim = {"golden": _golden, "fabric": _fabric, "scaling": _scaling}[
+        which](dev)
+    n = sim.params.n_ticks
+    reset_counts()
+    res = sim.run()
+    assert counts["cloudlet_finish"] == n
+    if which == "fabric":
+        assert counts["link_share"] == n
+    assert res.compile_time_s > 0.0
+    (graphs,) = sim._graphs.values()
+    assert len(graphs.graphs) == (2 if which == "scaling" else 1)
+    state, trace = sim.run_state(sim.init_state(), probe=lambda name: None)
+    _assert_same(_leaf_bits(res.state), _leaf_bits(state))
+    _assert_same(_leaf_bits(res.trace), _leaf_bits(trace))
+    again = sim.run()
+    assert again.compile_time_s == 0.0
+    assert list(sim._graphs.values()) == [graphs]
+    _assert_same(_leaf_bits(again.state), _leaf_bits(res.state))
+    if which == "scaling":
+        assert int(res.state.counters.scale_out) > 0
+
+
+def test_tick_capture_makes_no_synchronising_call(dev):
+    """The warm-up, the capture and the replays under sync debug mode
+    "error": no pageable copy, no pinned allocation in the tick, no
+    read back."""
+    sim = _fabric(dev)
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert sim.compile(state) > 0.0
+        sim.run_state(state, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+def test_decode_graph_is_the_eager_decode_step(arch, dev):
+    """``serve.DecodeGraph`` at 2 layers of the architecture's full width:
+    40 replayed steps give the eager ``decode_step``'s logits bit for bit,
+    across a reset."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import DecodeGraph
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    graph = DecodeGraph(model, params, 4, 48, dev)
+    assert graph.compile_time_s > 0.0
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 40))).to(dev)
+    for wave in range(2):
+        state = model.init_decode_state(4, 48, device=dev)
+        graph.reset()
+        for t in range(40 if wave == 0 else 5):
+            want, state = model.decode_step(params, tok[:, t:t + 1], state)
+            got = graph.step(tok[:, t:t + 1])
+            assert torch.equal(got, want), (wave, t)
+        assert int(graph.state.pos) == int(state.pos)
 
 
 # ---------------------------------------------------------------------------
