@@ -33,7 +33,12 @@ Phases, in order (any failure exits non-zero):
    version and timed beside its bound and the issue floor of an FADD and
    an FMNMX a term; ``link_share`` at the SockShop fabric,
    case1b+net and case2b+net shapes (rates bit-equal, two launches
-   bit-identical); ``flash_attention`` at qwen3-0.6b's prefill heads
+   bit-identical); both simulator kernels batched, one launch for every
+   point (``cloudlet_finish`` at 8 x SockShop's pool and 4 x case2b's, the
+   cooperative grid striding over the points' tiles; ``link_share`` at 8
+   x SockShop's fabric and 2 x case2b+net's), each point bit-equal to its
+   unbatched launch and to the plain version on a CPU copy;
+   ``flash_attention`` at qwen3-0.6b's prefill heads
    (B=1, Hq=16, Hkv=8, D=128, bfloat16: the tensor-core kernel) at
    T=4096 and at the prefill's own T=32,768, each element within one
    bfloat16 rounding of the plain version (run in query blocks at
@@ -75,11 +80,25 @@ Phases, in order (any failure exits non-zero):
    per-window node delays through one ``tropical_closure`` launch (and no
    ``tropical_matmul``), held against the DP critical path; the
    synchronising calls per tick over a window that holds a scaling tick;
+   Then ``benchmarks/bench_scaling.py``'s ``sweep8_demo`` at full width:
+   SockShop with HS and the Fig 11 knobs, 8 loads from 200 to 1100
+   clients over 600 s as one ``Simulation.run_batch`` (one replayed
+   batched tick a tick), timed beside a solo replayed run at the largest
+   load (``batch_over_solo``, ``batch_over_sequential``): one
+   ``cloudlet_finish`` launch a tick, each point's response digest and
+   counters equal to the JAX reference's ``run_batch`` (``SWEEP_PINS``),
+   points 0 and 7 equal to their solo runs, the device operations a
+   batched tick below twice the solo tick's, 0 synchronising calls a
+   replayed batched tick over a scaling tick, and 100 replayed batched
+   ticks equal to the eager ones (with their per-phase times);
 7. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
    ``examples/network_saturation.py``'s sweep) at 10, 50 and 100 clients
    over 120 s, one after another: one ``link_share`` and one
    ``cloudlet_finish`` launch per tick, the same replay figures, and the
-   transit p95 rising with the load;
+   transit p95 rising with the load; then the example's own batched
+   sweep (10, 25, 50 and 100 clients as one ``run_batch``): one launch of
+   each kernel a tick, the points at 10, 50 and 100 clients equal to the
+   solo runs in every leaf and trace, the transit p95 rising;
 8. Alg 2 at fleet scale: ``response_times_batched`` over a seeded
    1024-service DAG (each service calls up to 4 higher-numbered ones, 4
    APIs) in 8 windows, through ⌈log₂ depth⌉ ``tropical_matmul`` launches,
@@ -292,6 +311,55 @@ SOCKSHOP_PINS = {
 }
 
 
+# ``benchmarks/bench_scaling.py``'s ``sweep8_demo``: SockShop with HS and
+# the Fig 11 knobs (a copy: this script imports no part of the JAX
+# package; ``tools/chip_smoke_pins.py`` checks it against the benchmark's)
+# over 600 s, 8 loads, ``spawn_rate = n / 30``.
+FIG11_KNOBS = dict(
+    share=4725.0, hs_util_hi=0.03, hs_util_lo=0.002,
+    vs_util_hi=0.14, vs_util_lo=0.01, vs_up_factor=1.5, vs_down_factor=0.8,
+    util_ema=0.1, idle_mips_frac=0.01, vs_overhead_frac=0.11,
+)
+SWEEP8_LOADS = (200, 328, 457, 585, 714, 842, 971, 1100)
+# The JAX reference's ``run_batch`` of that sweep on the CPU
+# (``tools/chip_smoke_pins.py``): each point's response digest and
+# integer counters (``sockshop_summary``), in load order.
+SWEEP_PINS = (
+    dict(completed=11638, dropped_cloudlets=0, dropped_requests=0,
+         finished=49569, migrations=0, requests=11651,
+         resp_digest=240818220096163, scale_down=0, scale_in=3, scale_out=32,
+         scale_up=0, slo_violations=846, spawned=49602),
+    dict(completed=19205, dropped_cloudlets=0, dropped_requests=0,
+         finished=82875, migrations=0, requests=19226,
+         resp_digest=224524409847986, scale_down=0, scale_in=2, scale_out=32,
+         scale_up=0, slo_violations=1462, spawned=82920),
+    dict(completed=26727, dropped_cloudlets=0, dropped_requests=0,
+         finished=115356, migrations=0, requests=26753,
+         resp_digest=208327982299731, scale_down=0, scale_in=0, scale_out=36,
+         scale_up=0, slo_violations=2132, spawned=115412),
+    dict(completed=34144, dropped_cloudlets=0, dropped_requests=0,
+         finished=147651, migrations=0, requests=34177,
+         resp_digest=192358970736896, scale_down=0, scale_in=0, scale_out=37,
+         scale_up=0, slo_violations=2759, spawned=147705),
+    dict(completed=41768, dropped_cloudlets=0, dropped_requests=0,
+         finished=179760, migrations=0, requests=41819,
+         resp_digest=175943387592460, scale_down=0, scale_in=0, scale_out=39,
+         scale_up=0, slo_violations=3254, spawned=179852),
+    dict(completed=49121, dropped_cloudlets=0, dropped_requests=0,
+         finished=210899, migrations=0, requests=49161,
+         resp_digest=160112426462726, scale_down=0, scale_in=0, scale_out=39,
+         scale_up=0, slo_violations=3931, spawned=210974),
+    dict(completed=56642, dropped_cloudlets=0, dropped_requests=0,
+         finished=244180, migrations=0, requests=56699,
+         resp_digest=143921970845715, scale_down=0, scale_in=0, scale_out=39,
+         scale_up=0, slo_violations=4697, spawned=244308),
+    dict(completed=64263, dropped_cloudlets=0, dropped_requests=0,
+         finished=276777, migrations=0, requests=64330,
+         resp_digest=127515916884282, scale_down=0, scale_in=0, scale_out=39,
+         scale_up=0, slo_violations=5241, spawned=276913),
+)
+
+
 class SmokeError(RuntimeError):
     pass
 
@@ -387,6 +455,7 @@ def check_cloudlet_finish(tag, C, I, R, torch, dev, skew=None):
     from repro_torch.kernels.cloudlet_step import ops, ref
     from torch.profiler import ProfilerActivity, profile
     cl, rate, t0, dt, req = finish_inputs(C, I, R, 11, torch, dev, skew)
+    dt_dev = torch.tensor(np.float32(dt), device=dev)
     L = cl.layout
     cols = lambda d: (
         cl.ints[:, L.i("status")].to(d), cl.flts[:, L.f("rem")].to(d),
@@ -394,9 +463,11 @@ def check_cloudlet_finish(tag, C, I, R, torch, dev, skew=None):
         cl.flts[:, L.f("arrival")].to(d), cl.flts[:, L.f("start")].to(d),
         cl.ints[:, L.i("depth")].to(d))
     fresh = lambda d=dev: tuple(x.clone().to(d) for x in req)
-    kern = lambda: ops.cloudlet_finish_pool(cl, rate, t0, dt, *fresh(), I)
+    kern = lambda: ops.cloudlet_finish_pool(cl, rate, t0, dt_dev, *fresh(),
+                                            I)
     work = fresh()      # timing only: the kernel updates these in place
-    kern_t = lambda: ops.cloudlet_finish_pool(cl, rate, t0, dt, *work, I)
+    kern_t = lambda: ops.cloudlet_finish_pool(cl, rate, t0, dt_dev, *work,
+                                              I)
     plain = lambda d: ref.cloudlet_finish(*cols(d), rate.to(d), t0.to(d),
                                           dt, *fresh(d), n_inst=I)
     saved = dict(counts)
@@ -431,13 +502,7 @@ def check_cloudlet_finish(tag, C, I, R, torch, dev, skew=None):
     p_ev, p_dev = cuda_ms(lambda: ref.cloudlet_finish(
         *cols(dev), rate, t0, dt, *req, n_inst=I), 50, torch)
     counts.update(saved)
-    # bytes: 7 pool words + the rate per lane read; new_rem, tfin,
-    # consumed (4 B) and fin (1 B) written; the [I+1,5] sums written; each
-    # request row a finishing lane touches read and written in 3 arrays.
-    fin = p_cpu.fin & (cl.ints[:, L.i("req")].cpu() >= 0)
-    n_req = int(torch.unique(cl.ints[:, L.i("req")].cpu()[fin]).numel())
-    nbytes = C * (8 * 4 + 3 * 4 + 1) + (I + 1) * 5 * 4 + n_req * 3 * 4 * 2
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = _finish_bytes(cl, p_cpu.fin, C, I) / HBM_BYTES_PER_S * 1e3
     mode, tiles = ops.route(ops._lib(), C)
     log(f"cloudlet_finish {tag}: C={C} I={I} R={R} "
         f"({route_text(mode, tiles)})  "
@@ -464,6 +529,139 @@ def check_launch_floor(torch, dev):
     ev, dev_ms = cuda_ms(launch, 500, torch)
     log(f"empty kernel (1 block of 32 threads, through ctypes): "
         f"{_ms(dev_ms)} ms device / {ev:.4f} ms per call")
+
+
+def _finish_bytes(cl, fin, C, I):
+    """Bytes one point's ``cloudlet_finish`` must move: 7 pool words and
+    the rate per lane read; new_rem, tfin, consumed (4 B) and fin (1 B)
+    written; the [I+1,5] sums written; each request row a finishing lane
+    touches read and written in 3 arrays."""
+    L = cl.layout
+    req = cl.ints[:, L.i("req")].cpu()
+    n_req = int(req[fin & (req >= 0)].unique().numel())
+    return C * (8 * 4 + 3 * 4 + 1) + (I + 1) * 5 * 4 + n_req * 3 * 4 * 2
+
+
+def check_cloudlet_finish_batched(tag, B, C, I, R, torch, dev):
+    """``B`` points of one pool shape in one launch (the batched tick's
+    call): every point's outputs bit-equal to that point's unbatched
+    launch and to the plain version on a CPU copy of its inputs, with its
+    own time and dt; one launch and one device operation a call."""
+    from repro_torch.core.types import Cloudlets
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.cloudlet_step import ops, ref
+    from torch.profiler import ProfilerActivity, profile
+    pts = [finish_inputs(C, I, R, 11 + b, torch, dev) for b in range(B)]
+    L = pts[0][0].layout
+    cl = Cloudlets(torch.stack([p[0].ints for p in pts]),
+                   torch.stack([p[0].flts for p in pts]), L)
+    rate = torch.stack([p[1] for p in pts])
+    time_b = torch.tensor([10.0 + 0.5 * b for b in range(B)],
+                          dtype=torch.float32, device=dev)
+    dt_b = torch.tensor([0.5 if b % 2 == 0 else 0.1 for b in range(B)],
+                        dtype=torch.float32, device=dev)
+    req = tuple(torch.stack([p[4][k] for p in pts]) for k in range(3))
+    fresh = lambda: tuple(x.clone() for x in req)
+    saved = dict(counts)
+    n0 = counts["cloudlet_finish"]
+    got = ops.cloudlet_finish_pool(cl, rate, time_b, dt_b, *fresh(), I)
+    check(counts["cloudlet_finish"] == n0 + 1,
+          f"cloudlet_finish batched {tag}: not one launch a call")
+    col = lambda c, n, d: (c.ints[..., L.i(n)] if n in L.i_fields
+                           else c.flts[..., L.f(n)]).to(d)
+    names = ("status", "rem", "inst", "req", "arrival", "start", "depth")
+    max_err, nbytes = 0.0, 0
+    for b, (pcl, prate, _, _, preq) in enumerate(pts):
+        one = ops.cloudlet_finish_pool(pcl, prate, time_b[b], dt_b[b],
+                                       *[x.clone() for x in preq], I)
+        plain = ref.cloudlet_finish(
+            *[col(pcl, n, "cpu") for n in names], prate.cpu(),
+            time_b[b].cpu(), float(dt_b[b]), *[x.cpu() for x in preq],
+            n_inst=I)
+        torch.cuda.synchronize()
+        for f in plain._fields:
+            g = getattr(got, f)[b]
+            check(torch.equal(g, getattr(one, f)), f"cloudlet_finish "
+                  f"batched {tag}: point {b}'s {f} differs from its "
+                  "unbatched launch")
+            check(torch.equal(g.cpu(), getattr(plain, f)), f"cloudlet_finish"
+                  f" batched {tag}: point {b}'s {f} differs from the plain "
+                  "version")
+        max_err = max(max_err, max(
+            float((getattr(got, f)[b].cpu() - getattr(plain, f)).abs().max())
+            for f in ("new_rem", "tfin", "consumed", "inst_acc",
+                      "req_finish")))
+        nbytes += _finish_bytes(pcl, plain.fin, C, I)
+    work = fresh()
+    kern_t = lambda: ops.cloudlet_finish_pool(cl, rate, time_b, dt_b, *work,
+                                              I)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            kern_t()
+        torch.cuda.synchronize()
+    ops_seen = sorted(_device_us_by_name(prof))
+    check(len(ops_seen) == 1 and "finish_kernel" in ops_seen[0],
+          f"cloudlet_finish batched {tag}: its calls ran {ops_seen}")
+    k_ev, k_dev = cuda_ms(kern_t, 100, torch)
+    cols_b = [col(cl, n, dev) for n in names]
+    dt_host = dt_b.cpu()
+    p_ev, p_dev = cuda_ms(lambda: ref.cloudlet_finish_batched(
+        *cols_b, rate, time_b, dt_host, *req, n_inst=I), 5, torch)
+    counts.update(saved)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    mode, tiles = ops.route(ops._lib(), C)
+    log(f"cloudlet_finish batched {tag}: B={B} x (C={C} I={I} R={R}) "
+        f"({route_text(mode, tiles)} a point, one launch)  kernel "
+        f"{_ms(k_dev)} ms device / {k_ev:.4f} ms per call  plain (point by "
+        f"point) {_ms(p_dev)} ms device / {p_ev:.4f} ms per call  bound "
+        f"{bound_ms:.6f} ms (bytes)  every point bit-equal to its "
+        f"unbatched launch and to the plain version on the CPU (max|err| "
+        f"{max_err}); device operations a call: {ops_seen}")
+    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+                bound_ms=bound_ms, max_abs_err=max_err)
+
+
+def check_link_share_batched(tag, B, C, H, torch, dev, iters=2):
+    """``B`` points of one fabric shape in one launch, each over its own
+    capacities: every point's rates bit-equal to its unbatched launch and
+    to the plain version on a CPU copy; one launch a call."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.link_share import ops, ref
+    pts = [link_inputs(C, H, 13 + 7 * b, torch, dev) for b in range(B)]
+    args = [torch.stack([p[k] for p in pts]) for k in range(5)]
+    saved = dict(counts)
+    n0 = counts["link_share"]
+    got = ops.link_share(*args, iters=iters)
+    check(counts["link_share"] == n0 + 1,
+          f"link_share batched {tag}: not one launch a call")
+    max_err = 0.0
+    for b, p in enumerate(pts):
+        one = ops.link_share(*p, iters=iters)
+        plain = ref.waterfill(*[x.cpu() for x in p], iters)
+        torch.cuda.synchronize()
+        check(torch.equal(got[b], one), f"link_share batched {tag}: point "
+              f"{b} differs from its unbatched launch")
+        check(torch.equal(got[b].cpu(), plain), f"link_share batched {tag}:"
+              f" point {b} differs from the plain version")
+        max_err = max(max_err, float((got[b].cpu() - plain).abs().max()))
+    k_ev, k_dev = cuda_ms(lambda: ops.link_share(*args, iters=iters), 100,
+                          torch)
+    p_ev, p_dev = cuda_ms(lambda: ref.link_share_batched(*args, iters), 3,
+                          torch)
+    counts.update(saved)
+    nbytes = B * (C * (4 + 4 + 1 + 4) + 2 * H * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    per = -(-C // 16384)
+    route = ("one block a point" if per == 1 else
+             f"cooperative grid, {per} blocks a point")
+    log(f"link_share batched {tag}: B={B} x (C={C} H={H}) iters={iters} "
+        f"({route}, one launch)  kernel {_ms(k_dev)} ms device / "
+        f"{k_ev:.4f} ms per call  plain (point by point) {_ms(p_dev)} ms "
+        f"device / {p_ev:.4f} ms per call  bound {bound_ms:.6f} ms (bytes)"
+        f"  every point bit-equal to its unbatched launch and to the plain "
+        f"version on the CPU (max|err| {max_err})")
+    return dict(ms=k_dev or k_ev, plain_ms=p_dev or p_ev,
+                bound_ms=bound_ms, max_abs_err=max_err)
 
 
 def tropical_inputs(B, S, seed, torch, dev):
@@ -990,18 +1188,30 @@ class PhaseTimer:
         return tot
 
 
-def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0):
+def _runner(sim, sweeps):
+    """``run(state, n, first_tick)``: the solo run, or with ``sweeps`` the
+    batched one over those points."""
+    if sweeps is None:
+        return lambda st, n, first: sim.run_state(st, n_ticks=n,
+                                                  first_tick=first)
+    return lambda st, n, first: sim.run_batch_state(st, sweeps, n,
+                                                    first_tick=first)
+
+
+def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0, sweeps=None):
     """Synchronising CUDA calls per tick under sync debug mode "warn" over
     ticks ``first_tick`` .. ``first_tick + n_ticks - 1`` replayed from
     the tick's graphs (the capture and the ticks before run unwatched),
-    with the port's call sites that made them."""
+    with the port's call sites that made them; with ``sweeps``, of the
+    batched tick over those points."""
+    run = _runner(sim, sweeps)
     state = sim.init_state()
-    sim.compile(state)
     if first_tick:
-        state, _ = sim.run_state(state, n_ticks=first_tick)
+        state, _ = run(state, first_tick, 0)
+    else:
+        run(state, 1, 0)                 # captures; state stays at tick 0
     torch.cuda.synchronize()
-    n, counts = sync_sites(lambda: sim.run_state(
-        state, n_ticks=n_ticks, first_tick=first_tick), torch)
+    n, counts = sync_sites(lambda: run(state, n_ticks, first_tick), torch)
     return n / n_ticks, counts
 
 
@@ -1036,20 +1246,22 @@ def sync_sites(fn, torch):
     return len(sites), counts
 
 
-def device_busy(sim, torch, n_ticks=20):
+def device_busy(sim, torch, n_ticks=20, sweeps=None):
     """Over ``n_ticks`` replayed ticks (the run's own copies in and out
     included): the device busy share, the summed device time
     (torch.profiler) over the window's wall time, None if the profiler saw
     no device time; the ms per tick under the profiler; and the device
-    operations (kernels, copies, fills) per tick."""
+    operations (kernels, copies, fills) per tick.  With ``sweeps``, of the
+    batched tick over those points."""
     from torch.profiler import ProfilerActivity, profile
+    run = _runner(sim, sweeps)
     state = sim.init_state()
-    state, _ = sim.run_state(state, n_ticks=2)
+    state, _ = run(state, 2, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run_state(state, n_ticks=n_ticks, first_tick=2)
+        run(state, n_ticks, 2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = _device_us(prof) / 1e6
@@ -1076,9 +1288,9 @@ def _device_us_by_name(prof) -> dict:
     return by_name
 
 
-def replay_figures(sim, torch) -> str:
+def replay_figures(sim, torch, sweeps=None) -> str:
     """``device_busy``'s figures over 20 replayed ticks, as a phrase."""
-    share, ms_tick, ops = device_busy(sim, torch)
+    share, ms_tick, ops = device_busy(sim, torch, sweeps=sweeps)
     return (f"device busy share "
             f"{'not measured' if share is None else f'{share:.3f}'} over 20 "
             f"replayed ticks ({ms_tick:.3f} ms/tick under the profiler, "
@@ -1267,7 +1479,7 @@ def run_sockshop_fabric(launches):
     load."""
     results = [sockshop_fabric_run(n) for n in FABRIC_LOADS]
     p95 = []
-    for lines, n_link, rep_p95 in results:
+    for lines, n_link, rep_p95, _ in results:
         for line in lines:
             log(line)
         p95.append(rep_p95)
@@ -1275,11 +1487,12 @@ def run_sockshop_fabric(launches):
         f"{dict(zip(FABRIC_LOADS, p95))}")
     check(all(b >= a for a, b in zip(p95, p95[1:])) and p95[-1] > p95[0],
           f"sockshop fabric: transit p95 {p95} does not rise with the load")
+    return {n: r[3] for n, r in zip(FABRIC_LOADS, results)}
 
 
 def sockshop_fabric_run(n_clients):
     """One fabric SockShop run; returns its log lines, its ``link_share``
-    launches and its transit p95."""
+    launches, its transit p95 and its final state's and traces' bits."""
     import dataclasses
     import torch
     from repro_torch.configs import sockshop
@@ -1321,7 +1534,7 @@ def sockshop_fabric_run(n_clients):
             f"{rep.avg_response_ms:.1f} ms  response digest {digest}  {laws}")
     return ([line, f"{tag}: peak memory {peak:.2f} GiB; "
              f"{replay_figures(sim, torch)}"],
-            n["link_share"], rep.transit_p95_ms)
+            n["link_share"], rep.transit_p95_ms, run_bits(res, torch))
 
 
 def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
@@ -1419,6 +1632,184 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
         "per API: " + ", ".join(f"{a} {v:.1f}" for a, v in
                                 zip(sim.graph.api_names, mean_rt)))
     return rep, n_trop
+
+
+def run_bits(res, torch) -> dict:
+    """A run's final state and traces as bytes, leaf by leaf: what two
+    runs must share to be the same run."""
+    out = state_digest(res.state, torch)
+    for f, v in res.trace._asdict().items():
+        out["trace." + f] = v.cpu().numpy().tobytes()
+    return out
+
+
+def same_run(what, a, b):
+    bad = [k for k in a if a[k] != b.get(k)]
+    check(a.keys() == b.keys() and not bad,
+          f"{what}: differ in {bad[:5]} ({len(bad)} of {len(a)} leaves)")
+
+
+def run_sweep8(launches):
+    """``benchmarks/bench_scaling.py``'s ``sweep8_demo`` at full width:
+    SockShop, HS, ``FIG11_KNOBS``, 8 loads from 200 to 1100 clients over
+    600 s (6,000 ticks) as one ``run_batch``: one replayed batched tick a
+    tick.  Against a solo replayed run at the largest load: the wall, the
+    reference's two ratios, the device operations a tick (below 2x the
+    solo tick's), 0 synchronising calls a replayed batched tick over a
+    scaling tick, one ``cloudlet_finish`` launch a tick, every point's
+    response digest and counters against the JAX reference's ``run_batch``
+    (``SWEEP_PINS``), points 0 and 7 equal to their solo runs on the card,
+    and 100 replayed batched ticks equal to the eager ones."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import sockshop
+    from repro_torch.core import batch_item, policies, qos
+    from repro_torch.kernels import counts, reset_counts
+    dev = torch.device("cuda")
+    loads = SWEEP8_LOADS
+    B = len(loads)
+    sim = sockshop.make_sim(n_clients=max(loads), duration_s=600.0,
+                            scaling_policy=policies.SCALE_HORIZONTAL,
+                            device=dev, **FIG11_KNOBS)
+    base = sim.params
+    T = base.n_ticks
+    sweeps = [dataclasses.replace(base, n_clients=int(nc),
+                                  spawn_rate=float(nc) / 30.0)
+              for nc in loads]
+    check(sweeps[-1] == base, "sweep8: the largest load is not the solo run")
+    tag = "sweep8"
+    # the solo run at the largest load: captured, then replayed
+    solo = [sim.run(), sim.run()]
+    check(solo[1].compile_time_s == 0.0, f"{tag}: solo run captured anew")
+    solo_wall = min(r.wall_time_s for r in solo)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = sim.run_batch(sweeps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = dict(counts)
+    check(n["cloudlet_finish"] == T, f"{tag}: cloudlet_finish launched "
+          f"{n['cloudlet_finish']} times in {T} batched ticks")
+    wall = res.wall_time_s
+    log(f"{tag}: {B} points x {T} ticks as one run_batch  wall {wall:.3f} s"
+        f"  {T / wall:.2f} ticks/s  {B * T / wall:.1f} point-ticks/s  "
+        f"{wall / T * 1e3:.3f} ms per batched tick  capture "
+        f"{res.compile_time_s:.3f} s  peak memory {peak:.2f} GiB  "
+        f"cloudlet_finish launches {n['cloudlet_finish']}")
+    log(f"{tag}: solo replayed run at {max(loads)} clients {solo_wall:.3f} s"
+        f" ({T / solo_wall:.2f} ticks/s, capture "
+        f"{solo[0].compile_time_s:.3f} s);  batch_over_solo "
+        f"{wall / solo_wall:.3f}  batch_over_sequential "
+        f"{wall / (B * solo_wall):.3f}  ({gpu_line()})")
+    rows = []
+    for b, nc in enumerate(loads):
+        item = batch_item(res, b)
+        got = sockshop_summary(item.state)
+        if SWEEP_PINS:
+            check_pins(f"{tag} point {b} ({nc} clients) response digest and "
+                       "counters", got, SWEEP_PINS[b])
+        rep = qos.summarize(sim, item, params=sweeps[b])
+        rows.append(f"{nc}: avg {rep.avg_response_ms:.1f} ms p95 "
+                    f"{rep.p95_response_ms:.1f} ms, {rep.avg_milicores:.1f} "
+                    f"mc/inst, scale_out {rep.scale_out}, completed "
+                    f"{rep.completed_requests}")
+    check(bool(SWEEP_PINS), f"{tag}: no SWEEP_PINS to hold the points to")
+    log(f"{tag} per point: " + "; ".join(rows))
+    # points 0 and 7 against their own solo runs on the card
+    same_run(f"{tag} point {B - 1} against its solo run",
+             run_bits(batch_item(res, B - 1), torch), run_bits(solo[1],
+                                                               torch))
+    sim.params = sweeps[0]
+    solo0 = sim.run()
+    sim.params = base
+    same_run(f"{tag} point 0 against its solo run",
+             run_bits(batch_item(res, 0), torch), run_bits(solo0, torch))
+    log(f"{tag}: points 0 and {B - 1} equal their solo runs on the card in "
+        f"every leaf and trace")
+    # the batched tick against the solo one, over 20 replayed ticks
+    share_b, ms_b, ops_b = device_busy(sim, torch, sweeps=sweeps)
+    share_s, ms_s, ops_s = device_busy(sim, torch)
+    fmt = lambda x: "not measured" if x is None else f"{x:.3f}"
+    log(f"{tag}: 20 replayed ticks: batched {ops_b:.1f} device operations a"
+        f" tick, busy share {fmt(share_b)}, {ms_b:.3f} ms/tick under the "
+        f"profiler; solo {ops_s:.1f}, {fmt(share_s)}, {ms_s:.3f} ms/tick;"
+        f" ratio of operations {ops_b / ops_s:.3f}")
+    check(ops_b < 2 * ops_s, f"{tag}: {ops_b:.1f} device operations a "
+          f"batched tick, at least twice the solo tick's {ops_s:.1f}")
+    si = int(base.scale_interval)
+    per_tick, sites = sync_calls_per_tick(sim, torch, n_ticks=20,
+                                          first_tick=si - 10, sweeps=sweeps)
+    log(f"{tag}: synchronising calls per replayed batched tick "
+        f"{per_tick:.2f} (ticks {si - 10}-{si + 9}, scaling tick "
+        f"{si - 1}) {sites}")
+    check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
+    # 100 batched ticks eager (per-phase times) and replayed
+    timer = PhaseTimer(torch)
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    eager = sim.run_batch_state(state, sweeps, 100, probe=timer)
+    tot = timer.totals()
+    log(f"{tag} per-phase CUDA-event ms per batched tick (eager, ticks "
+        "0-99): " + "  ".join(f"{k} {v / 100:.3f}" for k, v in tot.items()))
+    replayed = sim.run_batch_state(state, sweeps, 100)
+    a = run_bits(_result(*eager), torch)
+    same_run(f"{tag}: 100 replayed batched ticks against the eager ones", a,
+             run_bits(_result(*replayed), torch))
+    log(f"{tag}: 100 replayed batched ticks equal the eager ones in all "
+        f"{len(a)} leaves and traces")
+
+
+def _result(state, trace):
+    from repro_torch.core.engine import SimResult
+    return SimResult(state=state, trace=trace, wall_time_s=0.0,
+                     compile_time_s=0.0)
+
+
+FABRIC_SWEEP = (10, 25, 50, 100)
+
+
+def run_fabric_sweep(solo_bits):
+    """``examples/network_saturation.py``'s sweep as the example runs it:
+    one ``run_batch`` over 10, 25, 50 and 100 clients (8 Mbit/s NICs,
+    spread placement, 120 s): one ``link_share`` launch a tick, the points
+    at 10, 50 and 100 clients equal to phase 7's solo runs in every leaf
+    and trace, the transit p95 rising with the load."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import sockshop
+    from repro_torch.core import batch_item, policies, qos
+    from repro_torch.kernels import counts, reset_counts
+    dev = torch.device("cuda")
+    sim = sockshop.make_sim(max(FABRIC_SWEEP), 120.0, network="fabric",
+                            nic_egress_mbps=8.0, nic_ingress_mbps=8.0,
+                            placement_policy=policies.PLACE_SPREAD,
+                            device=dev)
+    sweeps = [dataclasses.replace(sim.params, n_clients=nc,
+                                  spawn_rate=nc / 10.0)
+              for nc in FABRIC_SWEEP]
+    T = sim.params.n_ticks
+    tag = "sockshop fabric sweep"
+    torch.cuda.synchronize()
+    reset_counts()
+    res = sim.run_batch(sweeps)
+    n = {k: counts[k] for k in ("cloudlet_finish", "link_share")}
+    for k, v in n.items():
+        check(v == T, f"{tag}: {k} launched {v} times in {T} batched ticks")
+    p95 = []
+    for b, nc in enumerate(FABRIC_SWEEP):
+        item = batch_item(res, b)
+        p95.append(qos.summarize(sim, item, params=sweeps[b]).transit_p95_ms)
+        if nc in solo_bits:
+            same_run(f"{tag}: the point at {nc} clients against its solo "
+                     "run", run_bits(item, torch), solo_bits[nc])
+    log(f"{tag}: {len(FABRIC_SWEEP)} points x {T} ticks as one run_batch  "
+        f"wall {res.wall_time_s:.3f} s  {T / res.wall_time_s:.1f} ticks/s  "
+        f"capture {res.compile_time_s:.3f} s  launches {n}  transit p95 ms "
+        f"by load {dict(zip(FABRIC_SWEEP, p95))}; the points at "
+        f"{sorted(solo_bits)} clients equal their solo runs; "
+        f"{replay_figures(sim, torch, sweeps)}")
+    check(all(b >= a for a, b in zip(p95, p95[1:])) and p95[-1] > p95[0],
+          f"{tag}: transit p95 {p95} does not rise with the load")
 
 
 FLEET = dict(services=1024, max_calls=4, apis=4, windows=8, seed=23)
@@ -1697,6 +2088,12 @@ def main() -> int:
         results["link_share"] = check_link_share("case1b+net", 8000, 15,
                                                  torch, dev)
         check_link_share("case2b+net", 262144, 781, torch, dev)
+        check_cloudlet_finish_batched("sockshop", 8, 8192, 60, 82756,
+                                      torch, dev)
+        check_cloudlet_finish_batched("case2b", 4, 262144, 50000, 1072,
+                                      torch, dev)
+        check_link_share_batched("sockshop", 8, 8192, 10, torch, dev)
+        check_link_share_batched("case2b+net", 2, 262144, 781, torch, dev)
         check_flash("T=4096", 1, 16, 8, 4096, 128, torch, dev, 20)
         results["flash_attention"] = check_flash(
             "prefill_32k", 1, 16, 8, prefill_len(), 128, torch, dev, 3)
@@ -1710,7 +2107,8 @@ def main() -> int:
         run_capacity("case1b+net", 1, torch, dev, launches)
         run_capacity("case2b", 1, torch, dev, launches)
         run_sockshop(launches)
-        run_sockshop_fabric(launches)
+        run_sweep8(launches)
+        run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
         for arch in SERVE_ARCHS:
             run_prefill(arch, torch, dev, launches)

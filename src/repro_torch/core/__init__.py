@@ -2,6 +2,7 @@
 
 Public API:
     Simulation, SimCaps, SimParams   — build & run a simulation
+    batch_item / stack_dyn            — slice / build a run_batch sweep
     build_graph / ServiceGraph       — service-dependency DAG (paper §4.1.1)
     register                          — file registry (paper §3.1)
     summarize / QoSReport             — QoS feedback (paper §3.1)
@@ -13,7 +14,8 @@ from .app import AppStatic, InstanceTemplate, build_app  # noqa: F401
 from .critical_path import (critical_path, path_delay,  # noqa: F401
                             response_times,  # noqa: F401
                             response_times_batched)  # noqa: F401
-from .engine import SimResult, Simulation, make_tick  # noqa: F401
+from .engine import (SimResult, Simulation, batch_item,  # noqa: F401
+                     make_tick, stack_dyn)  # noqa: F401
 from .generator import (n_clients_analytic, qps_analytic,  # noqa: F401
                         total_requests_analytic)  # noqa: F401
 from .graph import (ServiceGraph, build_graph, diamond,  # noqa: F401

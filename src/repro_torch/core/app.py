@@ -59,21 +59,23 @@ class AppStatic(NamedTuple):
     slo_target_ms: torch.Tensor  # [S] f32 per-service SLO target (-1 = run)
     slo_budget: torch.Tensor     # [S] f32 per-service error budget
 
+    # (the tick's copy carries a leading batch axis: the sizes read the
+    # trailing axes)
     @property
     def n_services(self) -> int:
-        return self.succ.shape[0]
+        return self.succ.shape[-2]
 
     @property
     def n_apis(self) -> int:
-        return self.api_cdf.shape[0]
+        return self.api_cdf.shape[-1]
 
     @property
     def n_edges(self) -> int:
-        return self.edge_retry.shape[0]
+        return self.edge_retry.shape[-1]
 
     @property
     def n_hosts(self) -> int:
-        return self.host_zone.shape[0]
+        return self.host_zone.shape[-1]
 
 
 def _np(t) -> np.ndarray:

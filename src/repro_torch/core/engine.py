@@ -13,6 +13,11 @@ on the CPU, and on the card when a ``probe`` is passed, the same step runs
 eagerly.  The loop never synchronises with the device: the key schedule
 and the scaling cadence are pure functions of the tick index, computed
 on the host, and every data-dependent choice is a tensor select.
+
+The tick runs over a batch of sweep points (``core.batch``): a solo
+``run`` is a batch of one, and ``run_batch`` runs a parameter sweep as
+one batched tick a tick, the counterpart of the reference's vmapped
+scan, with one capture for every sweep of the same number of points.
 """
 from __future__ import annotations
 
@@ -26,16 +31,19 @@ import torch
 from .. import kernels
 from .. import random as rnd
 from ..analysis import streams
+from . import batch as batchmod
 from . import network as netmod
 from . import policies, pool, scheduler
 from .app import AppStatic, InstanceTemplate, build_app, validate_app
+from .batch import dyn_host
 from .generator import client_phase
 from .graph import ServiceGraph
 from .placement import initial_allocation, migrate
 from .scaling import scaling_event
 from .types import (CL_EXEC, CL_TRANSIT, CL_WAITING, Cloudlets, DynParams,
                     INST_ON, SimCaps, SimParams, SimState, TickTrace,
-                    check_main_path, resolve_device, zeros_state)
+                    _F32_FIELDS, check_main_path, resolve_device,
+                    zeros_state)
 
 # Stream names of the tick's single wide split; positions are the
 # contract (split is not prefix-stable, so the fabric's two extra streams
@@ -55,7 +63,9 @@ def carry_path(params: SimParams) -> tuple:
 def make_tick(caps: SimCaps, params: SimParams,
               has_edges: bool = True) -> Callable:
     """Build the tick function ``tick(state, dyn, app, key, scale_due,
-    probe)``.
+    probe)``, over a batch: every leaf of ``state`` (its key apart), of
+    ``app`` and of ``dyn`` carries a leading axis of ``B`` sweep points
+    (``core.batch``; a solo run is a batch of one).
 
     ``params`` supplies the knobs that choose program structure.
     ``network="fabric"`` adds the Transit phase (core/network.py) between
@@ -63,12 +73,17 @@ def make_tick(caps: SimCaps, params: SimParams,
     (``faults``, ``telemetry``, ``alerting`` other than their defaults)
     raise ``NotImplementedError``.
     ``key`` is the tick's root key (the role of ``state.rng``: a host key
-    or a ``random.TableKey``); the tick draws from its streams and leaves
-    ``state.rng`` to the caller, who derives the next root
-    (``carry_path``).  ``scale_due`` (a host bool) says whether this tick
-    ends a scaling interval.  ``probe``, when given, is called with each
-    phase name just before the phase runs and with ``"end"`` after the
-    last one — the hook behind the per-phase CUDA-event timings.
+    or a ``random.TableKey``), one for every point; the tick draws from
+    its streams and leaves ``state.rng`` to the caller, who derives the
+    next root (``carry_path``).  ``scale_due`` says whether this tick
+    ends a scaling interval: a host bool for all points (the hoisted
+    cadence of a sweep that shares one interval), or ``"mask"``, which
+    runs the scaling phase and keeps its result only at the points whose
+    own interval ends at this tick (``(tick % interval) == interval - 1``
+    on the device), every other point's state as it was.  ``probe``, when
+    given, is called with each phase name just before the phase runs and
+    with ``"end"`` after the last one — the hook behind the per-phase
+    CUDA-event timings.
     """
     check_main_path(params)
     scales = bool(params.scaling_policy or params.migration_enabled)
@@ -76,7 +91,7 @@ def make_tick(caps: SimCaps, params: SimParams,
     key_names = FABRIC_KEY_NAMES if network else KEY_NAMES
 
     def tick(state: SimState, dyn: DynParams, app: AppStatic, key,
-             scale_due: bool = False,
+             scale_due=False,
              probe: Optional[Callable[[str], None]] = None
              ) -> Tuple[SimState, TickTrace]:
         mark = probe or (lambda name: None)
@@ -112,29 +127,46 @@ def make_tick(caps: SimCaps, params: SimParams,
 
         if scales and scale_due:
             mark("Scaling")
-            state = scaling_event(state, app, caps, params, dyn)
+            scaled = scaling_event(state, app, caps, params, dyn)
             if params.migration_enabled:
-                state = migrate(state, app, caps, dyn)
+                scaled = migrate(scaled, app, caps, dyn)
+            if scale_due == "mask":
+                si = dyn.scale_interval
+                scaled = _select((state.tick % si) == si - 1, scaled, state)
+            state = scaled
 
         mark("Trace")
         cs = state.cloudlets.status
+        count = lambda m: torch.sum(m, dim=1, dtype=torch.int32)
         trace = TickTrace(
             completed=n_done,
             generated=gen_res.n_new_requests,
-            n_waiting=torch.sum(cs == CL_WAITING, dtype=torch.int32),
-            n_exec=torch.sum(cs == CL_EXEC, dtype=torch.int32),
-            n_transit=torch.sum(cs == CL_TRANSIT, dtype=torch.int32),
-            used_mips=pool.tree_sum(state.instances.used_mips),
-            active_instances=torch.sum(state.instances.status == INST_ON,
-                                       dtype=torch.int32),
+            n_waiting=count(cs == CL_WAITING),
+            n_exec=count(cs == CL_EXEC),
+            n_transit=count(cs == CL_TRANSIT),
+            used_mips=pool.tree_sum(state.instances.used_mips, dim=1),
+            active_instances=count(state.instances.status == INST_ON),
             active_clients=gen.n_active,
         )
         state = state._replace(tick=state.tick + 1,
-                               time=state.time + float(dyn.dt))
+                               time=state.time + dyn.dt)
         mark("end")
         return state, trace
 
     return tick
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Per point: ``a``'s leaf where ``mask`` (``[B]``), else ``b``'s;
+    leaves ``a`` shares with ``b`` are taken as they are."""
+    if a is b:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    if isinstance(a, Cloudlets):
+        return Cloudlets(_select(mask, a.ints, b.ints),
+                         _select(mask, a.flts, b.flts), a.layout)
+    return type(a)(*[_select(mask, x, y) for x, y in zip(a, b)])
 
 
 def _leaves(tree) -> list:
@@ -158,8 +190,9 @@ def _clone(tree):
 
 def _write_back(dst, src) -> None:
     """Copy each leaf of ``src`` that is not ``dst``'s own tensor into
-    it.  A leaf sharing storage with any leaf of ``dst`` is cloned first,
-    so no copy overwrites what a later one reads."""
+    it (a leaf without ``dst``'s batch axis is broadcast over it).  A
+    leaf sharing storage with any leaf of ``dst`` is cloned first, so no
+    copy overwrites what a later one reads."""
     dsts, srcs = _leaves(dst), _leaves(src)
     held = {t.untyped_storage().data_ptr() for t in dsts if t.numel()}
     pairs = []
@@ -173,51 +206,115 @@ def _write_back(dst, src) -> None:
         d.copy_(s)
 
 
+def _upload(host: np.ndarray, dst: torch.Tensor) -> None:
+    """Copy a host array into a device buffer without synchronising
+    (through pinned memory on the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)
+
+
+def stack_dyn(dyns) -> DynParams:
+    """Stack per-point :class:`DynParams` into the batched tuple
+    ``run_batch`` consumes (leading axis = sweep point; ``[B]`` CPU
+    tensors)."""
+    rows = [dyn_host(d) for d in dyns]
+    return DynParams(*[torch.from_numpy(np.concatenate(col))
+                       for col in zip(*rows)])
+
+
 class TickLoop:
     """The tick as a step over fixed buffers.  Each ``step`` reads its
     keys from ``keys`` at the step counter, writes the tick's trace into
-    ``[cap]`` buffers at that row, writes the next state back into
+    ``[cap, B]`` buffers at that row, writes the next state back into
     ``state`` (the buffers it read) and advances the counter, so every
     tick reads and writes the same addresses: the step can be captured
-    once as a CUDA graph and replayed.  ``load`` starts a run: it copies
-    the start state in and fills the key table with the run's root
-    keys."""
+    once as a CUDA graph and replayed.  The swept values (``dyn``: one
+    ``[n_fields, B]`` int32 buffer, float fields viewed as float32) and
+    the application (``app``: ``[B, ...]``) are buffers too, so a capture
+    bakes no swept value and serves every sweep of ``B`` points.  ``load``
+    starts a run: it copies the start state in (a solo state broadcast
+    over the batch) and fills the key table with the run's root keys,
+    and the swept values and application where given."""
 
     def __init__(self, tick: Callable, dyn: DynParams, app: AppStatic,
                  state: SimState, cap: int):
-        self.tick, self.dyn, self.app, self.cap = tick, dyn, app, cap
-        self.state = _clone(state)
-        self.keys = rnd.KeyTable(cap, state.tick.device)
+        dev = state.tick.device
+        host = dyn_host(dyn)
+        self.tick, self.cap, self.B = tick, cap, len(host.dt)
+        B = self.B
+        self._dyn = torch.empty((len(host), B), dtype=torch.int32,
+                                device=dev)
+        self.dyn = DynParams(*[
+            row.view(torch.float32) if f in _F32_FIELDS else row
+            for f, row in zip(DynParams._fields, self._dyn)])
+        lead = app.succ.dim() - 2          # 1 for a batched app
+        self.app = AppStatic(*[torch.empty((B,) + tuple(t.shape[lead:]),
+                                           dtype=t.dtype, device=dev)
+                               for t in app])
+        if state.tick.dim() == 0:
+            state = batchmod.lift(state, B)
+        self.state = _clone(state._replace(rng=_root(state.rng)))
+        self.keys = rnd.KeyTable(cap, dev)
         self.trace: Optional[TickTrace] = None
+        self.set_dyn(host)
+        self.set_app(app)
 
-    def load(self, state: SimState, roots: np.ndarray) -> None:
-        _write_back(self.state, state)
+    def set_dyn(self, dyn: DynParams) -> None:
+        host = dyn_host(dyn)
+        if len(host.dt) != self.B:
+            raise ValueError(f"{len(host.dt)} sweep points for a loop of "
+                             f"{self.B}")
+        rows = np.stack([v.view(np.int32) for v in host])
+        _upload(rows, self._dyn)
+
+    def set_app(self, app: AppStatic) -> None:
+        for d, s in zip(self.app, app):
+            d.copy_(s)
+
+    def load(self, state: SimState, roots: np.ndarray,
+             dyn: Optional[DynParams] = None,
+             app: Optional[AppStatic] = None) -> None:
+        _write_back(self.state, state._replace(rng=_root(state.rng)))
         self.keys.fill(roots)
+        if dyn is not None:
+            self.set_dyn(dyn)
+        if app is not None:
+            self.set_app(app)
 
-    def step(self, scale_due: bool,
+    def step(self, scale_due=False,
              probe: Optional[Callable[[str], None]] = None) -> None:
         out, tr = self.tick(self.state, self.dyn, self.app,
                             self.keys.root(), scale_due, probe)
         if self.trace is None:
             self.trace = TickTrace(*[
-                torch.empty((self.cap,), dtype=v.dtype, device=v.device)
-                for v in tr])
+                torch.empty((self.cap, self.B), dtype=v.dtype,
+                            device=v.device) for v in tr])
         row = self.keys.step.view(1)
         for buf, v in zip(self.trace, tr):
-            buf.index_copy_(0, row, v.reshape(1))
+            buf.index_copy_(0, row, v.reshape(1, self.B))
         _write_back(self.state, out)
         self.keys.advance()
 
     def traces(self, n: int) -> TickTrace:
+        """The first ``n`` ticks' traces, ``[n, B]``."""
         if self.trace is None or n == 0:
-            empty = torch.zeros((0,), device=self.state.tick.device)
+            empty = torch.zeros((0, self.B), device=self.state.tick.device)
             return TickTrace(*[empty] * 8)
         return TickTrace(*[b[:n].clone() for b in self.trace])
 
 
+def _root(rng: torch.Tensor) -> torch.Tensor:
+    """A state's host key: a batched state's keys are all the same."""
+    return rng[0] if rng.dim() == 2 else rng
+
+
 class TickGraphs:
-    """``TickLoop``'s step captured as CUDA graphs: the ordinary tick
-    and, where the params scale, the scaling tick, in one memory pool.
+    """``TickLoop``'s step captured as CUDA graphs, one per variant of
+    the scaling cadence (``False``: the ordinary tick; ``True``: the
+    scaling tick; ``"mask"``: the scaling tick kept per point), in one
+    memory pool.
 
     The capture first runs each variant once on a side stream (loading
     the libraries, setting the kernels' scratch, shared-memory limits and
@@ -226,12 +323,11 @@ class TickGraphs:
     graph's own are added to ``kernels.counts`` at every replay.
     ``compile_time_s`` is the warm-up and capture time."""
 
-    def __init__(self, loop: TickLoop, scales: bool, state: SimState,
+    def __init__(self, loop: TickLoop, variants: tuple, state: SimState,
                  roots: np.ndarray):
         dev = loop.state.tick.device
         t0 = _time.perf_counter()
         self.loop = loop
-        variants = (False, True) if scales else (False,)
         loop.load(state, roots)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -240,21 +336,22 @@ class TickGraphs:
                 loop.keys.rewind()
                 loop.step(due)
         torch.cuda.current_stream(dev).wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
+        pool_ = torch.cuda.graph_pool_handle()
         self.graphs = {}
         for due in variants:
             graph = torch.cuda.CUDAGraph()
             with kernels.tally() as launches:
-                with torch.cuda.graph(graph, pool=pool):
+                with torch.cuda.graph(graph, pool=pool_):
                     loop.step(due)
             self.graphs[due] = (graph, launches)
         torch.cuda.synchronize(dev)
         self.compile_time_s = _time.perf_counter() - t0
 
-    def run(self, state: SimState, roots: np.ndarray, due: list
+    def run(self, state: SimState, roots: np.ndarray, due: list,
+            dyn: DynParams, app: AppStatic
             ) -> Tuple[SimState, TickTrace]:
-        """Replay one graph per tick (the scaling one where ``due``)."""
-        self.loop.load(state, roots)
+        """Replay one graph per tick (the variant ``due`` names)."""
+        self.loop.load(state, roots, dyn, app)
         for d in due:
             graph, launches = self.graphs[d]
             graph.replay()
@@ -267,14 +364,25 @@ class SimResult:
     """A run's final state and per-tick traces.  ``wall_time_s`` excludes
     ``compile_time_s``: on the card, the warm-up and capture of the tick's
     CUDA graphs (0.0 when the run replayed graphs captured by an earlier
-    run); on the CPU, where the tick runs eagerly, 0.0."""
+    run); on the CPU, where the tick runs eagerly, 0.0.  A ``run_batch``
+    result holds the whole sweep: every state leaf (its key too) and
+    every trace with a leading sweep axis (traces ``[B, T]``)."""
     state: SimState
-    trace: TickTrace          # each field stacked over ticks: [T]
+    trace: TickTrace          # each field stacked over ticks: [T] or [B, T]
     wall_time_s: float
     compile_time_s: float
 
     def trace_np(self) -> dict:
         return {k: v.cpu().numpy() for k, v in self.trace._asdict().items()}
+
+
+def batch_item(result: SimResult, b: int) -> SimResult:
+    """Slice one sweep point out of a :meth:`Simulation.run_batch` result
+    (wall/compile times are those of the whole batch)."""
+    return SimResult(state=batchmod.item(result.state, b),
+                     trace=batchmod.item(result.trace, b),
+                     wall_time_s=result.wall_time_s,
+                     compile_time_s=result.compile_time_s)
 
 
 class Simulation:
@@ -388,21 +496,59 @@ class Simulation:
         si = int(self.params.scale_interval)
         return tick % si == si - 1
 
-    def _graphs_for(self, state: SimState, dyn: DynParams, n: int
+    # Every SimParams knob that selects program structure (anything not
+    # carried by the swept DynParams): the capture cache and run_batch's
+    # checks both derive from this list, as the reference's do.  seed is
+    # absent: it only feeds init_state's key.
+    _STATIC_FIELDS = ("lb_policy", "share_policy", "scaling_policy",
+                      "migration_enabled", "n_ticks", "use_pallas_tick",
+                      "pallas_interpret", "network", "waterfill_iters",
+                      "net_hist_bin_s", "faults", "egress_shaping",
+                      "telemetry", "tel_window_ticks", "tel_windows",
+                      "tel_span_k", "tel_span_cap", "tel_span_tick_cap",
+                      "alerting",
+                      "slo_short_wins", "slo_long_wins", "slo_for_ticks",
+                      "slo_event_cap")
+
+    def _static_key(self) -> tuple:
+        p = self.params
+        return (self.caps, self._has_edges, p.max_concurrent > 0,
+                tuple(getattr(p, f) for f in self._STATIC_FIELDS))
+
+    def _cadence(self, si: np.ndarray, first_tick: int, n: int):
+        """(each tick's graph variant, the variants the run needs) for
+        ticks ``first_tick`` .. ``first_tick + n - 1`` of points with
+        scaling intervals ``si``: the cadence is hoisted to the host when
+        every point shares its interval; otherwise a tick where some
+        point's interval ends runs the per-point ``"mask"`` variant."""
+        if not self._scales:
+            return [False] * n, (False,)
+        ticks = np.arange(first_tick, first_tick + n)[:, None]
+        due = ticks % si == si - 1                            # [n, B]
+        if (si == si[0]).all():
+            return [bool(d) for d in due[:, 0]], (False, True)
+        return ["mask" if d.any() else False for d in due], (False, "mask")
+
+    def _graphs_for(self, state: SimState, B: int, variants: tuple,
+                    n: int, dyn: DynParams, app: AppStatic
                     ) -> Tuple[TickGraphs, float]:
-        """The captured tick for ``state``'s shapes, holding at least ``n``
-        ticks of keys and traces, and the capture time (0.0 when cached)."""
-        key = (self.params, self.caps,
-               tuple((tuple(t.shape), t.dtype) for t in _leaves(state)))
+        """The captured tick for ``B`` points from states shaped as
+        ``state``, in the cadence ``variants``, holding at least ``n``
+        ticks of keys and traces, and the capture time (0.0 when cached).
+        The key is the structure only: swept values and the application
+        live in the loop's buffers."""
+        solo = state if state.tick.dim() == 0 else batchmod.item(state, 0)
+        key = (self._static_key(), B, variants,
+               tuple((tuple(t.shape), t.dtype) for t in _leaves(solo)))
         hit = self._graphs.get(key)
         if hit is not None and hit.loop.cap >= n:
             return hit, 0.0
         self._graphs.pop(key, None)    # free a smaller capture first
         del hit
         cap = max(n, int(self.params.n_ticks), 2)
-        loop = TickLoop(self._tick, dyn, self.app, state, cap)
-        roots, _ = rnd.chain(state.rng, 1, carry_path(self.params))
-        graphs = TickGraphs(loop, self._scales, state, roots)
+        loop = TickLoop(self._tick, dyn, app, state, cap)
+        roots, _ = rnd.chain(_root(state.rng), 1, carry_path(self.params))
+        graphs = TickGraphs(loop, variants, state, roots)
         self._graphs[key] = graphs
         return graphs, graphs.compile_time_s
 
@@ -413,14 +559,43 @@ class Simulation:
 
     def compile(self, state: SimState, n_ticks: Optional[int] = None
                 ) -> float:
-        """Capture the tick's CUDA graphs for runs from states shaped as
-        ``state`` (on the card; a no-op on the CPU) and return the time
+        """Capture the tick's CUDA graphs for solo runs from states shaped
+        as ``state`` (on the card; a no-op on the CPU) and return the time
         it took, 0.0 if they were captured before."""
+        dyn = dyn_host(DynParams.from_params(self.params))
+        return self._compile(state, dyn, None, n_ticks)
+
+    def _compile(self, state: SimState, dyn: DynParams,
+                 app: Optional[AppStatic], n_ticks: Optional[int]) -> float:
         if self.device.type != "cuda":
             return 0.0
         n = self.params.n_ticks if n_ticks is None else n_ticks
-        return self._graphs_for(state, DynParams.from_params(self.params),
-                                n)[1]
+        variants = self._cadence(dyn.scale_interval, 0, 1)[1]
+        return self._graphs_for(state, len(dyn.dt), variants, n, dyn,
+                                self.app if app is None else app)[1]
+
+    def _advance(self, state: SimState, dyn: DynParams,
+                 app: Optional[AppStatic], n: int, first_tick: int,
+                 probe: Optional[Callable[[str], None]]
+                 ) -> Tuple[SimState, TickTrace]:
+        """``n`` ticks of the batch ``dyn`` (``[B]`` host arrays) from
+        ``state`` (solo: broadcast over the batch): the batched final
+        state (its key ``[B, 2]``) and traces ``[n, B]``."""
+        B = len(dyn.dt)
+        app = self.app if app is None else app
+        roots, carry = rnd.chain(_root(state.rng), n,
+                                 carry_path(self.params))
+        due, variants = self._cadence(dyn.scale_interval, first_tick, n)
+        if self.device.type == "cuda" and probe is None:
+            graphs = self._graphs_for(state, B, variants, n, dyn, app)[0]
+            out, trace = graphs.run(state, roots, due, dyn, app)
+        else:
+            loop = TickLoop(self._tick, dyn, app, state, max(n, 1))
+            loop.keys.fill(roots)
+            for d in due:
+                loop.step(d, probe)
+            out, trace = loop.state, loop.traces(n)
+        return out._replace(rng=carry.expand(B, 2)), trace
 
     def run_state(self, state: SimState, n_ticks: Optional[int] = None,
                   probe: Optional[Callable[[str], None]] = None,
@@ -430,22 +605,12 @@ class Simulation:
         left as it was.  ``first_tick`` is the index of ``state``'s tick
         (the scaling cadence counts from it).  On the card the ticks
         replay CUDA graphs (captured on first use), unless ``probe`` is
-        given: then they run eagerly, calling it at each phase."""
-        dyn = DynParams.from_params(self.params)
+        given: then they run eagerly, calling it at each phase.  A solo
+        run is a batch of one."""
         n = self.params.n_ticks if n_ticks is None else n_ticks
-        roots, carry = rnd.chain(state.rng, n, carry_path(self.params))
-        due = [self._scales and self.scale_due(first_tick + k)
-               for k in range(n)]
-        if self.device.type == "cuda" and probe is None:
-            out, trace = self._graphs_for(state, dyn, n)[0].run(
-                state, roots, due)
-        else:
-            loop = TickLoop(self._tick, dyn, self.app, state, max(n, 1))
-            loop.keys.fill(roots)
-            for d in due:
-                loop.step(d, probe)
-            out, trace = loop.state, loop.traces(n)
-        return out._replace(rng=carry), trace
+        dyn = dyn_host(DynParams.from_params(self.params))
+        out, trace = self._advance(state, dyn, None, n, first_tick, probe)
+        return batchmod.item(out, 0), TickTrace(*[t[:, 0] for t in trace])
 
     def run(self, seed: Optional[int] = None) -> SimResult:
         """Run ``params.n_ticks`` ticks from a fresh state (on the card,
@@ -453,15 +618,123 @@ class Simulation:
         none for them, timed apart as ``compile_time_s``)."""
         state = self.init_state(seed)
         compile_s = self.compile(state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         t1 = _time.perf_counter()
         out_state, trace = self.run_state(state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         t2 = _time.perf_counter()
         return SimResult(state=out_state, trace=trace, wall_time_s=t2 - t1,
                          compile_time_s=compile_s)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def _check_static_point(self, p: SimParams, b: int) -> None:
+        """A sweep point may only vary the DynParams-carried scalars: the
+        captured tick keeps ``self.params``' structure, so a mismatch in
+        a structural knob would silently run the wrong program."""
+        bad = [f for f in self._STATIC_FIELDS
+               if getattr(p, f) != getattr(self.params, f)]
+        if (p.max_concurrent > 0) != (self.params.max_concurrent > 0):
+            bad.append("max_concurrent (capped vs uncapped)")
+        if bad:
+            raise ValueError(
+                f"run_batch sweep point {b} differs from the Simulation's "
+                f"params in structural knob(s) {bad}; these select program "
+                "structure and cannot be swept — build a separate "
+                "Simulation instead")
+        if p.seed != self.params.seed:
+            raise ValueError(
+                f"run_batch sweep point {b} has a different seed; every "
+                "point starts from the same initial state — pass seed= to "
+                "run_batch (or run separate simulations) instead")
+
+    @staticmethod
+    def _shape_key(tree) -> tuple:
+        return tuple((tuple(x.shape), x.dtype) for x in tree)
+
+    def _sweep(self, dyn_batch, apps=None
+               ) -> Tuple[DynParams, Optional[AppStatic]]:
+        """A sweep's ``[B]`` host values and, with ``apps``, the stacked
+        ``[B, ...]`` application on the device, checked as the
+        reference's ``run_batch`` checks them."""
+        if not isinstance(dyn_batch, DynParams):
+            points = list(dyn_batch)
+            for b, d in enumerate(points):
+                if isinstance(d, SimParams):
+                    self._check_static_point(d, b)
+            dyn_batch = stack_dyn(
+                d if isinstance(d, DynParams) else DynParams.from_params(d)
+                for d in points)
+        dyn = dyn_host(dyn_batch)
+        B = len(dyn.dt)
+        if apps is None:
+            return dyn, None
+        apps = list(apps)
+        if len(apps) != B:
+            raise ValueError(
+                f"apps must supply one AppStatic per sweep point: got "
+                f"{len(apps)} apps for {B} points")
+        ref = self._shape_key(self.app)
+        for b, a in enumerate(apps):
+            if self._shape_key(a) != ref:
+                raise ValueError(
+                    f"apps[{b}] has different array shapes than the "
+                    "Simulation's app; shape-changing graphs need a "
+                    "separate Simulation")
+        return dyn, AppStatic(*[torch.stack([t.to(self.device) for t in f])
+                                for f in zip(*apps)])
+
+    def run_batch_state(self, state: SimState, dyn_batch,
+                        n_ticks: Optional[int] = None,
+                        probe: Optional[Callable[[str], None]] = None,
+                        first_tick: int = 0, apps=None
+                        ) -> Tuple[SimState, TickTrace]:
+        """``run_state`` for a sweep: advance ``state`` (a solo state,
+        broadcast over the points, or a batched one from an earlier call)
+        by ``n_ticks`` ticks of every point of ``dyn_batch`` (as
+        :meth:`run_batch` takes it) and return the batched final state
+        and traces ``[B, n]``."""
+        n = self.params.n_ticks if n_ticks is None else n_ticks
+        dyn, app = self._sweep(dyn_batch, apps)
+        out, trace = self._advance(state, dyn, app, n, first_tick, probe)
+        return out, TickTrace(*[t.t().contiguous() for t in trace])
+
+    def run_batch(self, dyn_batch, seed: Optional[int] = None,
+                  apps=None) -> SimResult:
+        """Run a whole parameter sweep as one batched tick, replayed once
+        per tick (on the card: one capture, kept for every sweep of the
+        same number of points).
+
+        ``dyn_batch`` is either a batched :class:`DynParams` (every leaf
+        carries a leading sweep axis) or a sequence of per-point
+        :class:`DynParams` / :class:`SimParams` which is stacked here.
+        Every sweep point starts from the same initial state (same seed),
+        so point ``b`` of the result equals ``run()`` with that point's
+        dyn values.  Structure-changing knobs (policy selectors, pool
+        sizes, ``n_ticks``) are static — sweep those with separate
+        Simulations.
+
+        ``apps`` optionally supplies one :class:`AppStatic` per sweep
+        point (every leaf must match ``self.app``'s shape — e.g.
+        re-parameterized length/payload models for calibration); the whole
+        sweep still runs as one batched tick over (dyn, app).
+        """
+        dyn, app = self._sweep(dyn_batch, apps)
+        state = self.init_state(seed)
+        compile_s = self._compile(state, dyn, app, None)
+        self._sync()
+        t1 = _time.perf_counter()
+        out, trace = self._advance(state, dyn, app, self.params.n_ticks, 0,
+                                   None)
+        self._sync()
+        t2 = _time.perf_counter()
+        return SimResult(state=out,
+                         trace=TickTrace(*[t.t().contiguous()
+                                           for t in trace]),
+                         wall_time_s=t2 - t1, compile_time_s=compile_s)
 
     def responses(self, result: SimResult) -> np.ndarray:
         r = result.state.requests.response.cpu().numpy()

@@ -14,46 +14,52 @@ import torch
 
 from .. import random as rnd
 from ..analysis import streams
+from .batch import solo_as_batch
 from .types import DynParams, SimParams
 
 
 class GenOut(NamedTuple):
-    fired: torch.Tensor       # [Nc] bool — client fired this tick
-    api: torch.Tensor         # [Nc] i32 — chosen API (valid where fired)
-    n_active: torch.Tensor    # scalar i32 — active clients (Eq 1)
-    wait_proposal: torch.Tensor  # [Nc] i32 — next wait if the fire is accepted
+    fired: torch.Tensor       # [B, Nc] bool — client fired this tick
+    api: torch.Tensor         # [B, Nc] i32 — chosen API (valid where fired)
+    n_active: torch.Tensor    # [B] i32 — active clients (Eq 1)
+    wait_proposal: torch.Tensor  # [B, Nc] i32 — next wait if the fire is
+    #                              accepted
 
 
+@solo_as_batch("time", "wait", "time", "req_count", "api_weight_cdf")
 def client_phase(wait: torch.Tensor, time: torch.Tensor,
                  req_count: torch.Tensor, api_weight_cdf: torch.Tensor,
                  dyn: DynParams, rng: torch.Tensor) -> GenOut:
     """One generation tick (paper Alg 1 lines 4–17, vectorized): fire
     decisions + proposed wait resets; the engine commits them after
-    admission (backpressure may defer a fire to the next tick)."""
-    Nc = wait.shape[0]
+    admission (backpressure may defer a fire to the next tick).  Each
+    point of the batch has its own clients, clock, API weights and swept
+    values; the draws are shared."""
+    B, Nc = wait.shape
     dev = wait.device
     idx = torch.arange(Nc, dtype=torch.int32, device=dev)
     # Eq 1: N(t) = min(Nc, v * t)   (ramp at spawn rate v).
-    n_active = torch.clamp_max(
+    n_active = torch.minimum(
         torch.floor(dyn.spawn_rate * time).to(torch.int32) + 1,
-        int(dyn.n_clients))
-    active = idx < n_active
-    under_limit = req_count < int(dyn.num_limit)
-    fired = active & (wait <= 0) & under_limit
+        dyn.n_clients)
+    active = idx < n_active[:, None]
+    under_limit = req_count < dyn.num_limit
+    fired = active & (wait <= 0) & under_limit[:, None]
 
     k_api, k_wait = streams.split(rng, names=("api", "wait"))
     # Weighted API selection (Alg 1 line 9): inverse-CDF on the weight set.
     u = rnd.uniform(k_api, (Nc,), device=dev)
-    api = torch.searchsorted(api_weight_cdf, u, right=False).to(torch.int32)
-    api = torch.clamp_max(api, api_weight_cdf.shape[0] - 1)
+    api = torch.searchsorted(api_weight_cdf, u.expand(B, Nc).contiguous(),
+                             right=False).to(torch.int32)
+    api = torch.clamp_max(api, api_weight_cdf.shape[-1] - 1)
 
     # Alg 1 line 13: wait ~ U[p0, p1] (converted to ticks, ≥ 1); the
     # reference's compiled program fuses the multiply-add.
-    span = float(dyn.wait_hi - dyn.wait_lo)
-    wait_s = rnd.fma32(rnd.uniform(k_wait, (Nc,), device=dev), span,
-                       float(dyn.wait_lo))
-    wait_ticks = torch.clamp_min(torch.round(rnd.div32(wait_s, dyn.dt)),
-                                 1).to(torch.int32)
+    span = dyn.wait_hi - dyn.wait_lo
+    wait_s = rnd.fma32(rnd.uniform(k_wait, (Nc,), device=dev), span[:, None],
+                       dyn.wait_lo[:, None])
+    wait_ticks = torch.clamp_min(
+        torch.round(rnd.div32(wait_s, dyn.dt[:, None])), 1).to(torch.int32)
     return GenOut(fired=fired, api=api, n_active=n_active,
                   wait_proposal=wait_ticks)
 

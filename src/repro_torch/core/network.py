@@ -39,7 +39,8 @@ from .. import random as rnd
 from ..kernels.link_share import link_share
 from . import policies
 from .app import AppStatic
-from .pool import segment_rank, segment_sum, tree_sum
+from .batch import solo_as_batch
+from .pool import segment_rank, segment_sum, take, tree_sum
 from .types import (CL_TRANSIT, CL_WAITING, DynParams, INST_ON, SimCaps,
                     SimParams, SimState)
 
@@ -57,23 +58,25 @@ ONE_HOT_BUDGET = 1 << 22
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` with the index clamped into range, as the
-    reference's gathers clamp."""
-    return table[idx.clamp(0, table.shape[0] - 1)]
+    """``table[b, idx]`` per point with the index clamped into range, as
+    the reference's gathers clamp."""
+    return take(table, idx.clamp(0, table.shape[1] - 1))
 
 
+@solo_as_batch("state", "svc", "live")
 def pick_replicas(svc: torch.Tensor, live: torch.Tensor, state: SimState,
                   caps: SimCaps, params: SimParams, rng: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Client-side load balancing at spawn time: each new RPC of the wave
     is addressed to a replica of its target service.  Round-robin ranks
-    FCFS within the wave.  Returns ([K] target instance ids, -1 where no
-    live replica exists; the updated round-robin cursors)."""
+    FCFS within the wave.  Returns ([B, K] target instance ids, -1 where
+    no live replica exists; the updated round-robin cursors)."""
     sched, inst = state.sched, state.instances
-    S = sched.svc_replicas.shape[0]
+    B, S = sched.svc_replicas.shape
     iof, reps = sched.inst_of_rank, sched.svc_replicas
+    Rm = iof.shape[2]
     svc_safe = torch.where(live, svc, 0)
-    replicas = reps[svc_safe]
+    replicas = take(reps, svc_safe)
     rep_safe = torch.clamp_min(replicas, 1)
 
     rr_policy = params.lb_policy == policies.LB_ROUND_ROBIN
@@ -83,10 +86,11 @@ def pick_replicas(svc: torch.Tensor, live: torch.Tensor, state: SimState,
         params.lb_policy, state.rr, svc_safe, rep_safe, offset, rng,
         iof, inst.status, inst.n_exec, inst.mips)
 
-    target = iof[svc_safe, torch.clamp_max(rank, caps.max_replicas - 1)]
+    target = take(iof.reshape(B, -1), svc_safe * Rm
+                  + torch.clamp_max(rank, caps.max_replicas - 1))
     ok = live & (replicas > 0) & (target >= 0)
     tgt_safe = torch.where(ok, target, 0)
-    ok = ok & (inst.status[tgt_safe] == INST_ON)
+    ok = ok & (take(inst.status, tgt_safe) == INST_ON)
 
     new_rr = state.rr
     if rr_policy:
@@ -102,34 +106,38 @@ def sample_payload(mean: torch.Tensor, std: torch.Tensor,
     """Gaussian per-RPC payload (MB), floored at MIN_PAYLOAD_MB; ``mean +
     std·noise`` is one fused multiply-add, as in the reference's compiled
     program (``lone``: std comes from a one-entry table, see
-    ``random.normal_fma``)."""
+    ``random.normal_fma``).  ``mean``/``std`` are ``[n]`` or ``[B, n]``:
+    the noise is one draw of ``n``, shared by the points."""
     return torch.clamp_min(
-        rnd.normal_fma(rng, tuple(mean.shape), std, mean, lone,
+        rnd.normal_fma(rng, tuple(mean.shape[-1:]), std, mean, lone,
                        device=mean.device), MIN_PAYLOAD_MB)
 
 
 def inflight_mb(cl) -> torch.Tensor:
-    """Σ remaining MB of the transfers on the fabric."""
-    return tree_sum(torch.where(cl.status == CL_TRANSIT, cl.rem_bytes, 0.0))
+    """Σ remaining MB of the transfers on the fabric (per point of a
+    batched pool)."""
+    x = torch.where(cl.status == CL_TRANSIT, cl.rem_bytes, 0.0)
+    return tree_sum(x, dim=x.dim() - 1)
 
 
+@solo_as_batch("state")
 def transit(state: SimState, caps: SimCaps, params: SimParams,
             dyn: DynParams, app: AppStatic | None = None) -> SimState:
     """One fabric tick: water-fill every NIC port, advance the transfers,
     deliver the arrivals into the waiting queue (Transit phase)."""
     cl, inst, net = state.cloudlets, state.instances, state.net
-    H = state.hosts.egress_scale.shape[0]
-    NB = net.hist.shape[0]
-    dt = float(dyn.dt)
-    time = state.time
+    H = state.hosts.egress_scale.shape[1]
+    NB = net.hist.shape[1]
+    dt = dyn.dt[:, None]
+    time = state.time[:, None]
 
     status = cl.status
     active = status == CL_TRANSIT
     dst = torch.where(active & (cl.inst >= 0), _take(inst.host, cl.inst), -1)
     src = cl.src_host
-    cap_e = (state.hosts.egress_scale * float(dyn.nic_egress_mbps)
+    cap_e = (state.hosts.egress_scale * dyn.nic_egress_mbps[:, None]
              * MBIT_PER_S_TO_MBYTE_PER_S)
-    cap_i = (state.hosts.ingress_scale * float(dyn.nic_ingress_mbps)
+    cap_i = (state.hosts.ingress_scale * dyn.nic_ingress_mbps[:, None]
              * MBIT_PER_S_TO_MBYTE_PER_S)
     flowing = active & (dst >= 0)
 
@@ -139,7 +147,7 @@ def transit(state: SimState, caps: SimCaps, params: SimParams,
     if params.egress_shaping:
         # an instance's concurrent transfers share its own Instances.bw
         # allowance on top of the port-level water-fill (only lowers rates)
-        I = inst.status.shape[0]
+        I = inst.status.shape[1]
         sin = cl.src_inst
         shaped = active & (sin >= 0)
         n_from = segment_sum(shaped.to(f32), torch.where(shaped, sin, -1), I)
@@ -170,19 +178,21 @@ def transit(state: SimState, caps: SimCaps, params: SimParams,
 
     # --- per-host accounting (goodput: bytes moved / port capacity), the
     # sums in the reference's order -----------------------------------------
-    C = src.shape[0]
+    C = src.shape[1]
     if C * H <= ONE_HOT_BUDGET:
         hosts = torch.arange(H, dtype=i32, device=src.device)
-        on_e = (active & (src >= 0))[:, None] & (src[:, None] == hosts)
-        on_i = (active & (dst >= 0))[:, None] & (dst[:, None] == hosts)
-        sums = tree_sum(torch.cat([torch.where(on_e, moved[:, None], 0.0),
-                                   torch.where(on_i, moved[:, None], 0.0),
-                                   dur[:, None]], dim=1))
-        out_mb, in_mb, dur_sum = sums[:H], sums[H:2 * H], sums[2 * H]
+        on_e = (active & (src >= 0))[:, :, None] & (src[:, :, None] == hosts)
+        on_i = (active & (dst >= 0))[:, :, None] & (dst[:, :, None] == hosts)
+        mv = moved[:, :, None]
+        sums = tree_sum(torch.cat([torch.where(on_e, mv, 0.0),
+                                   torch.where(on_i, mv, 0.0),
+                                   dur[:, :, None]], dim=2), dim=1)
+        out_mb, in_mb, dur_sum = (sums[:, :H], sums[:, H:2 * H],
+                                  sums[:, 2 * H])
     else:
         out_mb = segment_sum(moved, torch.where(active, src, -1), H)
         in_mb = segment_sum(moved, torch.where(active, dst, -1), H)
-        dur_sum = tree_sum(dur)
+        dur_sum = tree_sum(dur, dim=1)
     util_e = out_mb / torch.clamp_min(cap_e * dt, 1e-9)
     util_i = in_mb / torch.clamp_min(cap_i * dt, 1e-9)
 
@@ -195,7 +205,7 @@ def transit(state: SimState, caps: SimCaps, params: SimParams,
         bytes_in=net.bytes_in + in_mb,
         egress_busy=rnd.fma32(util_e, dt, net.egress_busy),
         ingress_busy=rnd.fma32(util_i, dt, net.ingress_busy),
-        transits=net.transits + torch.sum(real, dtype=i32),
+        transits=net.transits + torch.sum(real, dim=1, dtype=i32),
         transit_sum=net.transit_sum + dur_sum,
         hist=hist)
     return state._replace(cloudlets=cloudlets, net=net)

@@ -1,8 +1,9 @@
 """Service placement & migration (paper §5.1, Algorithm 3).
 
 Initial allocation runs host-side (numpy) at build time — it is
-configuration, not state.  Runtime migration (overloaded VM → cooler VM)
-runs inside the tick loop on the device, without synchronising.
+configuration, not state, and every point of a sweep starts from it.
+Runtime migration (overloaded VM → cooler VM) runs inside the tick loop
+on the device, without synchronising.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from . import policies
 from .app import AppStatic
+from .batch import solo_as_batch
 from .pool import at
 from .types import DynParams, INST_ON, SimCaps, SimState
 
@@ -106,30 +108,33 @@ def initial_allocation(app_replicas: np.ndarray, tmpl_mips: np.ndarray,
 
 
 def _onehot(n: int, i: torch.Tensor) -> torch.Tensor:
-    return torch.arange(n, device=i.device) == i
+    """``[B, n]``: True at ``i[b]`` in row ``b``."""
+    return torch.arange(n, device=i.device) == i[:, None]
 
 
+@solo_as_batch("state")
 def migrate(state: SimState, app: AppStatic, caps: SimCaps,
             dyn: DynParams) -> SimState:
     """One migration step (paper §5.1): if the hottest VM exceeds the
-    utilization threshold, move its smallest instance to the coolest VM."""
+    utilization threshold, move its smallest instance to the coolest VM
+    (each point of the batch on its own)."""
     inst, vms = state.instances, state.vms
-    V = vms.mips.shape[0]
-    I = inst.mips.shape[0]
+    V = vms.mips.shape[1]
+    I = inst.mips.shape[1]
     util = vms.mips_used / torch.clamp_min(vms.mips, 1e-9)
-    hot = torch.argmax(util)
+    hot = torch.argmax(util, dim=1)
     util_hot = at(util, hot)
-    need = util_hot > float(dyn.mig_vm_util_hi)
+    need = util_hot > dyn.mig_vm_util_hi
 
-    on_hot = (inst.status == INST_ON) & (inst.vm == hot)
+    on_hot = (inst.status == INST_ON) & (inst.vm == hot[:, None])
     cand_mips = torch.where(on_hot, inst.mips, float("inf"))
-    mover = torch.argmin(cand_mips)
+    mover = torch.argmin(cand_mips, dim=1)
     movable = need & at(on_hot, mover)
 
     # never migrate onto the source VM or a down host
     free = torch.where(_onehot(V, hot) | (state.fault.host_up <= 0),
                        float("-inf"), vms.mips - vms.mips_used)
-    tgt = torch.argmax(free)
+    tgt = torch.argmax(free, dim=1)
     m_mips, m_ram = at(inst.mips, mover), at(inst.ram, mover)
     fits = (at(free, tgt) >= m_mips) & \
         (at(vms.ram, tgt) - at(vms.ram_used, tgt) >= m_ram)
@@ -138,8 +143,8 @@ def migrate(state: SimState, app: AppStatic, caps: SimCaps,
         / torch.clamp_min(at(vms.mips, tgt), 1e-9)
     do = movable & fits & (tgt_util_after < util_hot - 1e-6)
 
-    dm = torch.where(do, m_mips, 0.0)
-    dr = torch.where(do, m_ram, 0.0)
+    dm = torch.where(do, m_mips, 0.0)[:, None]
+    dr = torch.where(do, m_ram, 0.0)[:, None]
     oh_hot, oh_tgt = _onehot(V, hot), _onehot(V, tgt)
     mips_used = torch.where(oh_hot, vms.mips_used - dm, vms.mips_used)
     mips_used = torch.where(oh_tgt, mips_used + dm, mips_used)
@@ -149,8 +154,8 @@ def migrate(state: SimState, app: AppStatic, caps: SimCaps,
     new_vm = torch.where(do, tgt.to(torch.int32), at(inst.vm, mover))
     oh_mover = _onehot(I, mover)
     inst = inst._replace(
-        vm=torch.where(oh_mover, new_vm, inst.vm),
-        host=torch.where(oh_mover, new_vm, inst.host))
+        vm=torch.where(oh_mover, new_vm[:, None], inst.vm),
+        host=torch.where(oh_mover, new_vm[:, None], inst.host))
     counters = state.counters._replace(
         migrations=state.counters.migrations + do.to(torch.int32))
     return state._replace(instances=inst, vms=vms, counters=counters)

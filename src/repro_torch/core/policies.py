@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from .. import random as rnd
+from .pool import take
 from .types import INST_ON
 
 # --- load balancing (paper §4.2: "maximum idle resources or random") ------
@@ -46,18 +47,21 @@ def lb_rank(lb_policy: int, rr: torch.Tensor, svc: torch.Tensor,
             inst_of_rank: torch.Tensor, inst_status: torch.Tensor,
             inst_n_exec: torch.Tensor, inst_mips: torch.Tensor
             ) -> torch.Tensor:
-    """Per-lane replica rank for the three built-in LB policies.  ``svc``
-    must be pre-sanitized (masked lanes pointing at a valid id)."""
+    """Per-lane replica rank for the three built-in LB policies, per point
+    of the batch (``svc`` [B, n]).  ``svc`` must be pre-sanitized (masked
+    lanes pointing at a valid id).  The random policy's draw is one row
+    shared by the points."""
     if lb_policy == LB_ROUND_ROBIN:
-        return (rr[svc] + offset) % rep_safe
+        return (take(rr, svc) + offset) % rep_safe
     if lb_policy == LB_RANDOM:
-        return rnd.randint(rng, svc.shape, 0, 1 << 30,
+        return rnd.randint(rng, svc.shape[1:], 0, 1 << 30,
                            device=svc.device) % rep_safe
     # LB_LEAST_LOADED: per service, the replica with the lowest
     # executing-per-mips load among its ON instances.
     valid = inst_of_rank >= 0
     iof_safe = torch.where(valid, inst_of_rank, 0)
-    load = inst_n_exec[iof_safe] / torch.clamp_min(inst_mips[iof_safe], 1e-6)
-    load = torch.where(valid & (inst_status[iof_safe] == INST_ON),
+    load = take(inst_n_exec, iof_safe) / torch.clamp_min(
+        take(inst_mips, iof_safe), 1e-6)
+    load = torch.where(valid & (take(inst_status, iof_safe) == INST_ON),
                        load, float("inf"))
-    return torch.argmin(load, dim=1).to(torch.int32)[svc]
+    return take(torch.argmin(load, dim=2).to(torch.int32), svc)

@@ -4,9 +4,16 @@ The r-th new cloudlet goes to the r-th free slot of the active buffer with
 two prefix sums and two scatters — O(pool + spawns), no sort.  Overflow is
 counted, never silently ignored.
 
+Every function here takes the tick's leading batch axis: a pool is
+``[B, C]``, one row per point of a sweep (a solo run is a batch of one).
+Prefix sums, ranks and tree sums run along the last axis, per point; a
+scatter flattens the batch, point ``b``'s row ``i`` becoming flat row
+``b·n + i``, so each point's lanes meet in the order a solo scatter sees
+them.
+
 The reference's out-of-range scatter mode (``mode="drop"``) has no torch
-counterpart: each scatter here routes the dropped lanes to an overflow row
-one past the end and slices it off.  Integer prefix sums name their dtype
+counterpart: each scatter here routes the dropped lanes to overflow rows
+past the end and slices them off.  Integer prefix sums name their dtype
 (``torch.cumsum`` of int32 would give int64).  Float scatter-adds go through
 :func:`scatter_add`, which sums in index order on both devices, so a run
 gives the same bits every time.
@@ -36,106 +43,160 @@ def fill(v, shape, dtype, device) -> torch.Tensor:
     return torch.full(shape, v, dtype=dtype, device=device)
 
 
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[b, idx[b, ...]]`` for every point ``b``: a gather along
+    dim 1 of ``table`` (``[B, N, *F]``) with ``idx`` (``[B, ...]``, in
+    range), shaped ``idx.shape + F``."""
+    B = idx.shape[0]
+    flat = idx.reshape(B, -1).long()
+    feat = tuple(table.shape[2:])
+    if feat:
+        flat = flat.reshape((B, -1) + (1,) * len(feat)).expand(
+            (B, flat.shape[1]) + feat)
+    return torch.gather(table, 1, flat).reshape(tuple(idx.shape) + feat)
+
+
 def at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a 0-d device index.  Plain ``x[i]`` with a 0-d tensor
-    reads the index back to the host (a synchronisation); this does not."""
-    return x.index_select(0, i.reshape(1).long())[0]
+    """``x[b, i[b]]`` for a ``[B]`` device index: no read back."""
+    return torch.gather(x, 1, i.reshape(-1, 1).long())[:, 0]
 
 
-def _overflow_index(ids: torch.Tensor, valid: torch.Tensor, n: int
-                    ) -> torch.Tensor:
-    return torch.where(valid & (ids >= 0) & (ids < n), ids, n).long()
+# (device, B, n, M) -> (offsets, overflow rows): constant for a shape, so
+# kept (built outside a CUDA graph capture; a replayed tick only reads
+# them)
+_FLAT_ROWS: dict = {}
+
+
+def _flat_rows(B: int, n: int, M: int, device):
+    """``[B, 1]`` offsets ``b·n`` (point ``b``'s rows of a flattened
+    ``[B·n]`` table) and ``[B, M]`` overflow rows ``B·n + b·M + m``, one
+    for each lane of ``M``."""
+    key = (torch.device(device), B, n, M)
+    hit = _FLAT_ROWS.get(key)
+    if hit is None:
+        hit = (torch.arange(0, B * n, n, device=device).reshape(B, 1),
+               torch.arange(B * n, B * (n + M), device=device).reshape(B, M))
+        if not (key[0].type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _FLAT_ROWS[key] = hit
+    return hit
 
 
 def add_drop(dst: torch.Tensor, ids: torch.Tensor, vals,
              valid: torch.Tensor | None = None) -> torch.Tensor:
-    """``dst.at[ids].add(vals, mode="drop")`` (lanes with ``valid`` False
-    or ids out of range are dropped); returns a new tensor."""
-    n = dst.shape[0]
+    """``dst.at[ids].add(vals, mode="drop")`` for each point: ``dst``
+    ``[B, n, *F]``, ``ids`` ``[B, M]`` (lanes with ``valid`` False or ids
+    out of range are dropped); returns a new tensor.  One flat scatter
+    over every point: point ``b``'s row ``i`` is flat row ``b·n + i``, so
+    each row's lanes stay in lane order, and every dropped lane gets an
+    overflow row of its own (no long run of duplicates to sum)."""
+    B, n = dst.shape[:2]
+    M = ids.shape[1]
+    feat = tuple(dst.shape[2:])
     valid = torch.ones_like(ids, dtype=torch.bool) if valid is None else valid
-    ext = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
-    vals = fill(vals, ids.shape + dst.shape[1:], dst.dtype, dst.device)
-    return scatter_add(ext, _overflow_index(ids, valid, n), vals)[:n]
+    ok = valid & (ids >= 0) & (ids < n)
+    base, spill = _flat_rows(B, n, M, dst.device)
+    idx = torch.where(ok, ids.long() + base, spill)
+    ext = torch.cat([dst.reshape((B * n,) + feat),
+                     dst.new_zeros((B * M,) + feat)])
+    vals = fill(vals, (B, M) + feat, dst.dtype, dst.device)
+    out = scatter_add(ext, idx.reshape(-1), vals.reshape((B * M,) + feat))
+    return out[:B * n].reshape(dst.shape)
 
 
 def set_drop(dst: torch.Tensor, ids: torch.Tensor, vals,
              valid: torch.Tensor | None = None) -> torch.Tensor:
-    """``dst.at[ids].set(vals, mode="drop")`` for ids that are distinct
-    where valid; returns a new tensor."""
-    n = dst.shape[0]
+    """``dst.at[ids].set(vals, mode="drop")`` for each point (``dst``
+    ``[B, n, *F]``, ``ids`` ``[B, M]``) for ids that are distinct where
+    valid; returns a new tensor."""
+    B, n = dst.shape[:2]
+    M = ids.shape[1]
+    feat = tuple(dst.shape[2:])
     valid = torch.ones_like(ids, dtype=torch.bool) if valid is None else valid
-    ext = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
-    vals = fill(vals, ids.shape + dst.shape[1:], dst.dtype, dst.device)
+    ok = valid & (ids >= 0) & (ids < n)
+    idx = torch.where(ok, ids.long() + _flat_rows(B, n, M, dst.device)[0],
+                      B * n)
+    ext = torch.cat([dst.reshape((B * n,) + feat),
+                     dst.new_zeros((1,) + feat)])
+    vals = fill(vals, (B, M) + feat, dst.dtype, dst.device)
     # only the dropped lanes share an index (the overflow row, discarded)
-    return ext.index_copy_(0, _overflow_index(ids, valid, n), vals)[:n]
+    out = ext.index_copy_(0, idx.reshape(-1),
+                          vals.reshape((B * M,) + feat))
+    return out[:B * n].reshape(dst.shape)
 
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor, n: int,
                 valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Scatter-add ``data`` into ``n`` segments, dropping -1/invalid ids."""
+    """Scatter-add ``data`` (``[B, M]``) into ``n`` segments per point,
+    dropping -1/invalid ids."""
     if valid is None:
         valid = ids >= 0
-    return add_drop(data.new_zeros((n,)), ids,
+    return add_drop(data.new_zeros((data.shape[0], n)), ids,
                     torch.where(valid, data, torch.zeros_like(data)), valid)
 
 
-def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 0 in the order of the reference's compiled CPU
-    reductions (XLA's tree-reduction rewrite): while more than 32 rows
-    remain, pad with zero rows split evenly before and after (one more
-    after) to a multiple of 32, and sum each window of 32 rows in order
-    from 0; then sum the last at most 32 rows in order from 0.  Gives the
-    same bits on every device (elementwise adds only, no atomics)."""
-    while x.shape[0] > 32:
-        n, rest = x.shape[0], tuple(x.shape[1:])
+def tree_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim`` (0, or 1 below a batch axis) in the order of the
+    reference's compiled CPU reductions (XLA's tree-reduction rewrite):
+    while more than 32 rows remain, pad with zero rows split evenly
+    before and after (one more after) to a multiple of 32, and sum each
+    window of 32 rows in order from 0; then sum the last at most 32 rows
+    in order from 0.  Gives the same bits on every device (elementwise
+    adds only, no atomics), for each point of a batch alike."""
+    pre = tuple(x.shape[:dim])
+    row = (slice(None),) * dim
+    while x.shape[dim] > 32:
+        n, rest = x.shape[dim], tuple(x.shape[dim + 1:])
         m = -(-n // 32)
         pad = 32 * m - n
         if pad:
-            x = torch.cat([x.new_zeros((pad // 2,) + rest), x,
-                           x.new_zeros((pad - pad // 2,) + rest)])
-        w = x.reshape((m, 32) + rest)
-        acc = x.new_zeros((m,) + rest)
+            x = torch.cat([x.new_zeros(pre + (pad // 2,) + rest), x,
+                           x.new_zeros(pre + (pad - pad // 2,) + rest)],
+                          dim=dim)
+        w = x.reshape(pre + (m, 32) + rest)
+        acc = x.new_zeros(pre + (m,) + rest)
         for j in range(32):
-            acc = acc + w[:, j]
+            acc = acc + w[row + (slice(None), j)]
         x = acc
-    acc = x.new_zeros(tuple(x.shape[1:]))
-    for j in range(x.shape[0]):
-        acc = acc + x[j]
+    acc = x.new_zeros(pre + tuple(x.shape[dim + 1:]))
+    for j in range(x.shape[dim]):
+        acc = acc + x[row + (j,)]
     return acc
 
 
 class SlotAssignment(NamedTuple):
-    dst: torch.Tensor        # [K] i32 destination pool slot for rank r
-    src: torch.Tensor        # [K] i32 source descriptor index for rank r
-    live: torch.Tensor       # [K] bool rank is actually assigned
-    n_assigned: torch.Tensor  # scalar i32
-    n_dropped: torch.Tensor   # scalar i32 (valid descriptors with no slot)
+    dst: torch.Tensor        # [B, K] i32 destination pool slot for rank r
+    src: torch.Tensor        # [B, K] i32 source descriptor index for rank r
+    live: torch.Tensor       # [B, K] bool rank is actually assigned
+    n_assigned: torch.Tensor  # [B] i32
+    n_dropped: torch.Tensor   # [B] i32 (valid descriptors with no slot)
 
 
 def assign_free_slots(free_mask: torch.Tensor, valid_mask: torch.Tensor,
                       k_static: int | None = None) -> SlotAssignment:
-    """Match the r-th valid descriptor to the r-th free pool slot
-    (``free_mask`` [C], ``valid_mask`` [M]; at most ``k_static`` per call,
-    default min(C, M))."""
-    C = free_mask.shape[0]
-    M = valid_mask.shape[0]
+    """Match the r-th valid descriptor to the r-th free pool slot, per
+    point (``free_mask`` [B, C], ``valid_mask`` [B, M]; at most
+    ``k_static`` per call, default min(C, M))."""
+    B, C = free_mask.shape
+    M = valid_mask.shape[1]
     K = min(C, M) if k_static is None else min(k_static, C, M)
     i32 = torch.int32
     dev = free_mask.device
 
-    free_rank = torch.cumsum(free_mask, 0, dtype=i32) - 1       # [C]
-    want_rank = torch.cumsum(valid_mask, 0, dtype=i32) - 1      # [M]
-    n_free = free_rank[-1] + 1
-    n_want = want_rank[-1] + 1
+    free_rank = torch.cumsum(free_mask, 1, dtype=i32) - 1       # [B, C]
+    want_rank = torch.cumsum(valid_mask, 1, dtype=i32) - 1      # [B, M]
+    n_free = free_rank[:, -1] + 1
+    n_want = want_rank[:, -1] + 1
     n_assigned = torch.clamp_max(torch.minimum(n_free, n_want), K)
 
-    slot_of_rank = set_drop(torch.zeros((K,), dtype=i32, device=dev),
-                            free_rank, torch.arange(C, dtype=i32, device=dev),
+    zeros = torch.zeros((B, K), dtype=i32, device=dev)
+    slot_of_rank = set_drop(zeros, free_rank,
+                            torch.arange(C, dtype=i32, device=dev),
                             free_mask & (free_rank < K))
-    src_of_rank = set_drop(torch.zeros((K,), dtype=i32, device=dev),
-                           want_rank, torch.arange(M, dtype=i32, device=dev),
+    src_of_rank = set_drop(zeros, want_rank,
+                           torch.arange(M, dtype=i32, device=dev),
                            valid_mask & (want_rank < K))
-    live = torch.arange(K, dtype=i32, device=dev) < n_assigned
+    live = torch.arange(K, dtype=i32, device=dev) < n_assigned[:, None]
     return SlotAssignment(dst=slot_of_rank, src=src_of_rank, live=live,
                           n_assigned=n_assigned,
                           n_dropped=n_want - n_assigned)
@@ -143,11 +204,12 @@ def assign_free_slots(free_mask: torch.Tensor, valid_mask: torch.Tensor,
 
 def scatter_pool(cl, asg: SlotAssignment, **cols):
     """Fused spawn writer: one wave of new cloudlets lands in exactly two
-    scatters — every int32 column of the stacked [C, NI] block in one,
-    every float32 column of the [C, NF] block in the other.  Columns are
-    passed by name (rank-level [K] tensors or scalars); every column of
-    the active layout must be given, registered columns outside it are
-    skipped.  Dead ranks go to the overflow row.  Returns new blocks."""
+    scatters — every int32 column of the stacked [B, C, NI] block in one,
+    every float32 column of the [B, C, NF] block in the other.  Columns
+    are passed by name (rank-level [B, K] tensors, [B, 1] per-point
+    values or scalars); every column of the active layout must be given,
+    registered columns outside it are skipped.  Dead ranks go to the
+    overflow row.  Returns new blocks."""
     from .types import CL_F_FIELDS, CL_I_FIELDS
     layout = cl.layout
     vocab = set(CL_I_FIELDS) | set(CL_F_FIELDS)
@@ -158,11 +220,11 @@ def scatter_pool(cl, asg: SlotAssignment, **cols):
             f"scatter_pool needs every column of the active layout "
             f"{layout.columns}; missing {sorted(missing)}, "
             f"unknown {unknown}")
-    K = asg.dst.shape[0]
+    shape = tuple(asg.dst.shape)
 
     def stacked(names, like):
-        return torch.stack([fill(cols[n], (K,), like.dtype, like.device)
-                            for n in names], dim=1)
+        return torch.stack([fill(cols[n], shape, like.dtype, like.device)
+                            for n in names], dim=2)
 
     return cl.replace(
         ints=set_drop(cl.ints, asg.dst, stacked(layout.i_fields, cl.ints),
@@ -174,13 +236,14 @@ def scatter_pool(cl, asg: SlotAssignment, **cols):
 def segment_rank(keys: torch.Tensor, mask: torch.Tensor,
                  num_segments: int, block: int = 128) -> torch.Tensor:
     """Rank of each masked element within its segment (FCFS by slot order),
-    sort-free: intra-block ranks from a strictly-lower-triangular equality
-    count, block offsets from a per-segment count matrix cumsummed over
-    blocks.  Unmasked elements get rank = n.  Falls back to the sort-based
-    ranking when the count matrix would pass 64 MB."""
-    n = keys.shape[0]
-    n_blocks = -(-n // max(min(block, n), 1))
-    if n_blocks * (num_segments + 1) > (1 << 24):
+    per point (``keys``/``mask`` [B, n]), sort-free: intra-block ranks
+    from a strictly-lower-triangular equality count, block offsets from a
+    per-segment count matrix cumsummed over blocks.  Unmasked elements get
+    rank = n.  Falls back to the sort-based ranking when a point's count
+    matrix would pass 64 MB."""
+    B, n = keys.shape
+    nb = -(-n // max(min(block, n), 1))
+    if nb * (num_segments + 1) > (1 << 24):
         return segment_rank_sorted(keys, mask, num_segments)
     i32 = torch.int32
     dev = keys.device
@@ -188,40 +251,40 @@ def segment_rank(keys: torch.Tensor, mask: torch.Tensor,
     L = min(block, n)
     pad = -n % L
     if pad:
-        k = torch.cat([k, torch.full((pad,), num_segments, dtype=i32,
-                                     device=dev)])
-        mask_p = torch.cat([mask, torch.zeros((pad,), dtype=torch.bool,
-                                              device=dev)])
+        k = torch.cat([k, torch.full((B, pad), num_segments, dtype=i32,
+                                     device=dev)], dim=1)
+        mask_p = torch.cat([mask, torch.zeros((B, pad), dtype=torch.bool,
+                                              device=dev)], dim=1)
     else:
         mask_p = mask
-    B = k.shape[0] // L
-    kb = k.reshape(B, L)
-    mb = mask_p.reshape(B, L)
-    same = (kb[:, :, None] == kb[:, None, :]) & mb[:, None, :]
+    kb = k.reshape(B, nb, L)
+    mb = mask_p.reshape(B, nb, L)
+    same = (kb[..., :, None] == kb[..., None, :]) & mb[..., None, :]
     earlier = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev),
-                         diagonal=-1)[None]
-    intra = torch.sum(same & earlier, dim=2, dtype=i32)          # [B, L]
-    cnt = torch.zeros((B, num_segments + 1), dtype=i32, device=dev)
-    rows = torch.arange(B, device=dev)[:, None].expand(B, L)
+                         diagonal=-1)
+    intra = torch.sum(same & earlier, dim=3, dtype=i32)       # [B, nb, L]
+    cnt = torch.zeros((B * nb, num_segments + 1), dtype=i32, device=dev)
+    rows = torch.arange(B * nb, device=dev)[:, None].expand(B * nb, L)
     cnt.index_put_((rows.reshape(-1), kb.reshape(-1).long()),
                    mb.reshape(-1).to(i32), accumulate=True)
-    base = torch.cumsum(cnt, 0, dtype=i32) - cnt                 # [B, S+1]
-    rank = (torch.gather(base, 1, kb.long()) + intra).reshape(-1)[:n]
+    cnt = cnt.reshape(B, nb, num_segments + 1)
+    base = torch.cumsum(cnt, 1, dtype=i32) - cnt             # [B, nb, S+1]
+    rank = (torch.gather(base, 2, kb.long()) + intra).reshape(B, -1)[:, :n]
     return torch.where(mask, rank, n)
 
 
 def segment_rank_sorted(keys: torch.Tensor, mask: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
-    """O(n log n) sort-based ranking: the oracle for :func:`segment_rank`
-    and its O(n)-memory fallback."""
-    n = keys.shape[0]
+    """O(n log n) sort-based ranking per point: the oracle for
+    :func:`segment_rank` and its O(n)-memory fallback."""
+    B, n = keys.shape
     i32 = torch.int32
     dev = keys.device
-    k = torch.where(mask, keys.to(i32), num_segments)
-    order = torch.sort(k, stable=True).indices
-    pos = torch.empty((n,), dtype=i32, device=dev)
-    pos[order] = torch.arange(n, dtype=i32, device=dev)
-    first = torch.full((num_segments + 1,), n, dtype=i32, device=dev)
-    first = first.scatter_reduce(0, k.long(), pos, "amin")
-    rank = pos - first[k.long()]
+    k = torch.where(mask, keys.to(i32), num_segments).long()
+    order = torch.sort(k, dim=1, stable=True).indices
+    pos = torch.empty((B, n), dtype=i32, device=dev).scatter_(
+        1, order, torch.arange(n, dtype=i32, device=dev).expand(B, n))
+    first = torch.full((B, num_segments + 1), n, dtype=i32, device=dev)
+    first = first.scatter_reduce(1, k, pos, "amin")
+    rank = pos - torch.gather(first, 1, k)
     return torch.where(mask, rank, n)

@@ -33,8 +33,9 @@ from ..kernels.cloudlet_step import cloudlet_finish_pool
 from . import network as netmod
 from . import policies
 from .app import AppStatic
+from .batch import solo_as_batch
 from .pool import (add_drop, assign_free_slots, scatter_pool, segment_rank,
-                   segment_sum, set_drop)
+                   segment_sum, set_drop, take)
 from .types import (CL_EXEC, CL_FREE, CL_TRANSIT, CL_WAITING, DynParams,
                     INST_DRAIN, INST_FREE, INST_ON, SimCaps, SimParams,
                     SimState)
@@ -43,7 +44,19 @@ i32, f32 = torch.int32, torch.float32
 
 
 def _sum_i32(x: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x, dtype=i32)
+    """Count along the last axis (per point)."""
+    return torch.sum(x, dim=-1, dtype=i32)
+
+
+def _spawn_length(app: AppStatic, svc: torch.Tensor, rng,
+                  dev) -> torch.Tensor:
+    """Gaussian cloudlet lengths (MI, at least 1) of a spawn wave's ranks
+    (``svc`` [B, K]; a dead rank's -1 reads service 0, its length is
+    never written)."""
+    s = torch.clamp_min(svc, 0)
+    return torch.clamp_min(rnd.normal_fma(
+        rng, (svc.shape[1],), take(app.len_std, s), take(app.len_mean, s),
+        lone=app.len_std.shape[-1] == 1, device=dev), 1.0)
 
 
 # ===========================================================================
@@ -54,6 +67,7 @@ class GenResult(NamedTuple):
     n_new_requests: torch.Tensor
 
 
+@solo_as_batch("state", "fired", "api", "wait_proposal")
 def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
               fired: torch.Tensor, api: torch.Tensor,
               wait_proposal: torch.Tensor, rng: torch.Tensor,
@@ -67,17 +81,19 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
     client is external, so only the destination's ingress port carries
     it (``src_host = -1``)."""
     req, cl, ctr = state.requests, state.cloudlets, state.counters
-    R = req.api.shape[0]
+    B, R = req.api.shape
     dev = fired.device
-    Nc = fired.shape[0]
+    Nc = fired.shape[1]
     K = caps.k_fire if caps.k_fire > 0 else Nc
     K = min(K, Nc)
-    E = app.api_entry.shape[1]
+    E = app.api_entry.shape[2]
+    count = req.count[:, None]
+    now = state.time[:, None]
 
-    rank = torch.cumsum(fired, 0, dtype=i32) - 1
+    rank = torch.cumsum(fired, 1, dtype=i32) - 1
     # Admission: per-tick budget AND the generator's numLimit (Alg 1).
-    in_budget = fired & (rank < K) & (req.count + rank < int(dyn.num_limit))
-    slot = req.count + rank
+    in_budget = fired & (rank < K) & (count + rank < dyn.num_limit[:, None])
+    slot = count + rank
     has_slot = in_budget & (slot < R)
     n_accept = _sum_i32(has_slot)
     n_pool_drop = _sum_i32(in_budget & ~has_slot)
@@ -93,45 +109,45 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
     requests = req._replace(
         count=req.count + n_accept,
         api=set_drop(req.api, slot, api, has_slot),
-        arrival=set_drop(req.arrival, slot, state.time.expand(Nc), has_slot),
+        arrival=set_drop(req.arrival, slot, now, has_slot),
     )
 
-    # ---- root cloudlet descriptors [K, E] in rank order -----------------
+    # ---- root cloudlet descriptors [B, K, E] in rank order --------------
     client_of_rank = set_drop(
-        torch.zeros((K,), dtype=i32, device=dev), rank,
+        torch.zeros((B, K), dtype=i32, device=dev), rank,
         torch.arange(Nc, dtype=i32, device=dev), has_slot & (rank < K))
     ranks = torch.arange(K, dtype=i32, device=dev)
-    r_live = ranks < n_accept
-    api_r = api[client_of_rank]                      # [K]
-    req_slot_r = req.count + ranks                   # [K]
+    r_live = ranks < n_accept[:, None]
+    api_r = take(api, client_of_rank)                # [B, K]
+    req_slot_r = count + ranks                       # [B, K]
 
-    svc_d = app.api_entry[api_r]                     # [K, E]
-    n_ent = app.api_n_entry[api_r]                   # [K]
-    valid = (r_live[:, None]
-             & (torch.arange(E, device=dev)[None, :] < n_ent[:, None])
-             & (svc_d >= 0)).reshape(-1)
-    svc_flat = svc_d.reshape(-1)
-    req_flat = req_slot_r[:, None].expand(K, E).reshape(-1)
+    svc_d = take(app.api_entry, api_r)               # [B, K, E]
+    n_ent = take(app.api_n_entry, api_r)             # [B, K]
+    valid = (r_live[:, :, None]
+             & (torch.arange(E, device=dev) < n_ent[:, :, None])
+             & (svc_d >= 0)).reshape(B, -1)
+    svc_flat = svc_d.reshape(B, -1)
+    req_flat = req_slot_r[:, :, None].expand(B, K, E).reshape(B, -1)
 
     asg = assign_free_slots(cl.status == CL_FREE, valid)
-    Ka = asg.dst.shape[0]
-    svc_new = svc_flat[asg.src]
-    req_new = torch.clamp_max(req_flat[asg.src], R - 1)
-    length = torch.clamp_min(rnd.normal_fma(
-        rng, (Ka,), app.len_std[svc_new], app.len_mean[svc_new],
-        lone=app.len_std.numel() == 1, device=dev), 1.0)
+    Ka = asg.dst.shape[1]
+    svc_new = take(svc_flat, asg.src)
+    req_new = torch.clamp_max(take(req_flat, asg.src), R - 1)
+    length = _spawn_length(app, svc_new, rng, dev)
 
     rr = state.rr
     if net_rng is None:                  # uniform mode
         status_new, inst_new, bytes_new = CL_WAITING, -1, 0.0
     else:                                # fabric mode: address + payload
-        api_new = api_r[:, None].expand(K, E).reshape(-1)[asg.src]
+        api_new = take(api_r[:, :, None].expand(B, K, E).reshape(B, -1),
+                       asg.src)
         k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
         tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
                                        params, k_lb)
         payload = netmod.sample_payload(
-            app.api_payload_mean[api_new], app.api_payload_std[api_new],
-            k_pay, lone=app.api_payload_std.numel() == 1)
+            take(app.api_payload_mean, api_new),
+            take(app.api_payload_std, api_new),
+            k_pay, lone=app.api_payload_std.shape[-1] == 1)
         # no live replica yet: park in the waiting queue (dispatch
         # re-balances); clients are external, so no loopback fast path
         status_new = torch.where(tgt >= 0, CL_TRANSIT, CL_WAITING)
@@ -141,8 +157,8 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
     cloudlets = scatter_pool(
         cl, asg, status=status_new, req=req_new, service=svc_new,
         inst=inst_new, wait_ticks=0, depth=0, src_host=-1, src_inst=-1,
-        length=length, rem=length, arrival=state.time.expand(Ka),
-        start=-1.0, rem_bytes=bytes_new)
+        length=length, rem=length, arrival=now, start=-1.0,
+        rem_bytes=bytes_new)
 
     # A request with several entry cloudlets hits its counters repeatedly.
     requests = requests._replace(
@@ -162,14 +178,16 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
 # Dispatch: waiting → execution with load balancing (paper §4.2)
 # ===========================================================================
 
+@solo_as_batch("state")
 def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
              params: SimParams, dyn: DynParams,
              rng: torch.Tensor, network: bool = False) -> SimState:
     cl, inst, sched = state.cloudlets, state.instances, state.sched
-    C = cl.ints.shape[0]
-    I = inst.status.shape[0]
+    B, C = cl.ints.shape[:2]
+    I = inst.status.shape[1]
     S = app.n_services
     dev = cl.ints.device
+    now = state.time[:, None]
 
     if network:
         # fabric mode: a waiting cloudlet has already crossed the network
@@ -179,10 +197,12 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
         # an RPC hop traverses the network (load-independent latency)
         # before it may be scheduled
         waiting = (cl.status == CL_WAITING) & \
-            (state.time + 1e-6 >= cl.arrival + float(dyn.net_latency))
+            ((state.time + 1e-6)[:, None]
+             >= cl.arrival + dyn.net_latency[:, None])
     iof, reps = sched.inst_of_rank, sched.svc_replicas
+    Rm = iof.shape[2]
     svc = torch.where(waiting, cl.service, 0)
-    replicas = reps[svc]                                    # [C]
+    replicas = take(reps, svc)                              # [B, C]
     has_rep = waiting & (replicas > 0)
     rep_safe = torch.clamp_min(replicas, 1)
 
@@ -191,10 +211,11 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
         torch.arange(C, dtype=i32, device=dev), rng,
         iof, inst.status, inst.n_exec, inst.mips)
 
-    target = iof[svc, torch.clamp_max(rank, caps.max_replicas - 1)]
+    target = take(iof.reshape(B, -1),
+                  svc * Rm + torch.clamp_max(rank, caps.max_replicas - 1))
     ok = has_rep & (target >= 0)
     tgt_safe = torch.where(ok, target, 0)
-    ok = ok & (inst.status[tgt_safe] == INST_ON)
+    ok = ok & (take(inst.status, tgt_safe) == INST_ON)
 
     if network:
         # honour the spawn-time address while that replica is still ON
@@ -203,8 +224,8 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
         pre = cl.inst
         pre_safe = torch.clamp_min(pre, 0)
         use_pre = (waiting & (pre >= 0)
-                   & (inst.status[pre_safe] == INST_ON)
-                   & (inst.service[pre_safe] == cl.service))
+                   & (take(inst.status, pre_safe) == INST_ON)
+                   & (take(inst.service, pre_safe) == cl.service))
         target = torch.where(use_pre, pre, target)
         ok = ok | use_pre
         tgt_safe = torch.where(ok, target, 0)
@@ -213,8 +234,9 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
         # Space-shared admission: FCFS rank within the target instance
         # must fit in the remaining concurrency budget.
         intra = segment_rank(torch.where(ok, target, I), ok, I + 1)
-        cap_left = torch.clamp_min(int(dyn.max_concurrent) - inst.n_exec, 0)
-        admit = ok & (intra < cap_left[tgt_safe])
+        cap_left = torch.clamp_min(
+            dyn.max_concurrent[:, None] - inst.n_exec, 0)
+        admit = ok & (intra < take(cap_left, tgt_safe))
     else:
         admit = ok
 
@@ -235,7 +257,7 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
     cloudlets = cl.with_cols(
         status=torch.where(admit, CL_EXEC, cl.status),
         inst=torch.where(admit, target, cl.inst),
-        start=torch.where(admit & (cl.start < 0), state.time, cl.start),
+        start=torch.where(admit & (cl.start < 0), now, cl.start),
         wait_ticks=cl.wait_ticks + (waiting & ~admit).to(i32),
     )
     instances = inst._replace(n_exec=inst.n_exec + admit_per_inst)
@@ -247,21 +269,22 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
 # ===========================================================================
 
 class FinishInfo(NamedTuple):
-    fin: torch.Tensor       # [C] bool finished this tick
-    tfin: torch.Tensor      # [C] f32 sub-tick finish timestamp
-    pre_service: torch.Tensor  # [C] i32 service ids before slot clearing
+    fin: torch.Tensor       # [B, C] bool finished this tick
+    tfin: torch.Tensor      # [B, C] f32 sub-tick finish timestamp
+    pre_service: torch.Tensor  # [B, C] i32 service ids before slot clearing
     pre_req: torch.Tensor
     pre_depth: torch.Tensor
     pre_inst: torch.Tensor
 
 
+@solo_as_batch("state")
 def execute(state: SimState, app: AppStatic, caps: SimCaps,
             params: SimParams, dyn: DynParams
             ) -> Tuple[SimState, FinishInfo]:
     cl, inst, vms = state.cloudlets, state.instances, state.vms
-    I = inst.status.shape[0]
+    B, I = inst.status.shape
     S = app.n_services
-    dt = float(dyn.dt)
+    dt = dyn.dt[:, None]
 
     status_c, rem_c, inst_c = cl.status, cl.rem, cl.inst
     execm = status_c == CL_EXEC
@@ -276,18 +299,18 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
         wsum = n_exec.to(f32)
     inst_safe = torch.where(execm, inst_c, 0)
     # Instances run at their host's CPU speed (1.0 by default: exact).
-    mips_eff = inst.mips * state.hosts.cpu_scale[torch.clamp_min(inst.host,
-                                                                 0)]
-    rate = torch.where(execm, mips_eff[inst_safe] * w
-                       / torch.clamp_min(wsum[inst_safe], 1e-9), 0.0)
+    mips_eff = inst.mips * take(state.hosts.cpu_scale,
+                                torch.clamp_min(inst.host, 0))
+    rate = torch.where(execm, take(mips_eff, inst_safe) * w
+                       / torch.clamp_min(take(wsum, inst_safe), 1e-9), 0.0)
 
     # --- fused finish reduction: progress + every per-finish aggregate ---
     req = state.requests
-    out = cloudlet_finish_pool(cl, rate, state.time, dt, req.finish,
+    out = cloudlet_finish_pool(cl, rate, state.time, dyn.dt, req.finish,
                                req.critical_len, req.outstanding, n_inst=I)
     fin, tfin = out.fin, out.tfin
-    used_mips = out.inst_acc[:I, 0]
-    fin_per_inst = out.inst_acc[:I, 1].to(i32)
+    used_mips = out.inst_acc[:, :I, 0]
+    fin_per_inst = out.inst_acc[:, :I, 1].to(i32)
 
     svc_of_inst = inst.service
     util = torch.where(inst.mips > 0,
@@ -298,33 +321,34 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
     # (a*x + b*y sums: the reference's compiled program fuses the second
     # product into the add)
     acct_mips = rnd.fma32(
-        torch.where(on, inst.mips, 0.0), float(dyn.idle_mips_frac),
+        torch.where(on, inst.mips, 0.0), dyn.idle_mips_frac[:, None],
         used_mips * (1.0 + torch.where(inst.mips > inst.request_mips,
-                                       float(dyn.vs_overhead_frac), 0.0)))
-    a = float(dyn.util_ema)
-    keep = float(1 - dyn.util_ema)
+                                       dyn.vs_overhead_frac[:, None], 0.0)))
+    a = dyn.util_ema[:, None]
+    keep = (1 - dyn.util_ema)[:, None]
     util_ema = torch.where(inst.status != INST_FREE,
                            rnd.fma32(inst.util_ema, keep, a * util), 0.0)
     used_ram = torch.where(
         svc_of_inst >= 0,
-        app.ram_per_cl[torch.clamp_min(svc_of_inst, 0)] * n_exec.to(f32),
-        0.0)
+        take(app.ram_per_cl, torch.clamp_min(svc_of_inst, 0))
+        * n_exec.to(f32), 0.0)
 
     # --- per-service usage history / node-delay estimates: fold the
     # per-instance statistics into services with one stacked scatter ----
     st = state.svc_stats
     acct_dt = acct_mips * dt
-    svc_rows = torch.cat([acct_dt[:, None], out.inst_acc[:I, 1:5]], dim=1)
+    svc_rows = torch.cat([acct_dt[:, :, None], out.inst_acc[:, :I, 1:5]],
+                         dim=2)
     svc_acc = add_drop(
-        torch.zeros((S, 5), dtype=f32, device=rate.device), svc_of_inst,
-        torch.where((svc_of_inst >= 0)[:, None], svc_rows, 0.0),
+        torch.zeros((B, S, 5), dtype=f32, device=rate.device), svc_of_inst,
+        torch.where((svc_of_inst >= 0)[:, :, None], svc_rows, 0.0),
         svc_of_inst >= 0)
     svc_stats = st._replace(
-        usage_sum=st.usage_sum + svc_acc[:, 0],
-        finished=st.finished + svc_acc[:, 1].to(i32),
-        delay_sum=st.delay_sum + svc_acc[:, 2],
-        exec_sum=st.exec_sum + svc_acc[:, 3],
-        wait_sum=st.wait_sum + svc_acc[:, 4],
+        usage_sum=st.usage_sum + svc_acc[:, :, 0],
+        finished=st.finished + svc_acc[:, :, 1].to(i32),
+        delay_sum=st.delay_sum + svc_acc[:, :, 2],
+        exec_sum=st.exec_sum + svc_acc[:, :, 3],
+        wait_sum=st.wait_sum + svc_acc[:, :, 4],
     )
 
     requests = req._replace(outstanding=out.req_out, finish=out.req_finish,
@@ -343,7 +367,7 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
     # --- drained instances release their VM share (HS scale-in) ---------
     n_exec_after = n_exec - fin_per_inst
     drain_done = (inst.status == INST_DRAIN) & (n_exec_after == 0)
-    V = vms.mips.shape[0]
+    V = vms.mips.shape[1]
     rel_mips = segment_sum(torch.where(drain_done, inst.mips, 0.0),
                            inst.vm, V)
     rel_ram = segment_sum(torch.where(drain_done, inst.ram, 0.0), inst.vm, V)
@@ -375,37 +399,39 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
 # Derive: finished cloudlets spawn successors (paper §4.1.2 "Derivative")
 # ===========================================================================
 
+@solo_as_batch("state")
 def derive(state: SimState, app: AppStatic, caps: SimCaps,
            info: FinishInfo, rng: torch.Tensor,
            params: SimParams | None = None,
            net_rng: torch.Tensor | None = None) -> SimState:
     cl, req, ctr = state.cloudlets, state.requests, state.counters
-    C = cl.ints.shape[0]
-    I = state.instances.status.shape[0]
-    D = app.succ.shape[1]
+    B, C = cl.ints.shape[:2]
+    I = state.instances.status.shape[1]
+    S, D = app.succ.shape[1:]
     dev = cl.ints.device
+
+    def per_edge(x):           # [B, C] → [B, C·D], one lane per edge slot
+        return x[:, :, None].expand(B, C, D).reshape(B, -1)
 
     parent_svc = torch.where(info.fin, torch.clamp_min(info.pre_service, 0),
                              0)
-    child = app.succ[parent_svc]                      # [C, D]
-    valid = (info.fin[:, None] & (child >= 0)).reshape(-1)
-    svc_flat = child.reshape(-1)
-    req_flat = info.pre_req[:, None].expand(C, D).reshape(-1)
-    dep_flat = (info.pre_depth + 1)[:, None].expand(C, D).reshape(-1)
-    tf_flat = info.tfin[:, None].expand(C, D).reshape(-1)
-    pin_flat = info.pre_inst[:, None].expand(C, D).reshape(-1)
+    child = take(app.succ, parent_svc)               # [B, C, D]
+    valid = (info.fin[:, :, None] & (child >= 0)).reshape(B, -1)
+    svc_flat = child.reshape(B, -1)
+    req_flat = per_edge(info.pre_req)
+    dep_flat = per_edge(info.pre_depth + 1)
+    tf_flat = per_edge(info.tfin)
+    pin_flat = per_edge(info.pre_inst)
 
     asg = assign_free_slots(cl.status == CL_FREE, valid, k_static=C)
-    Ka = asg.dst.shape[0]
-    svc_new = svc_flat[asg.src]
-    req_new = req_flat[asg.src]
+    Ka = asg.dst.shape[1]
+    svc_new = take(svc_flat, asg.src)
+    req_new = take(req_flat, asg.src)
     # clamp is a no-op (acyclic graphs cap chains at S-1 hops)
-    dep_new = torch.clamp_max(dep_flat[asg.src], app.succ.shape[0] - 1)
-    tf_new = tf_flat[asg.src]
-    pin_new = pin_flat[asg.src]
-    length = torch.clamp_min(rnd.normal_fma(
-        rng, (Ka,), app.len_std[svc_new], app.len_mean[svc_new],
-        lone=app.len_std.numel() == 1, device=dev), 1.0)
+    dep_new = torch.clamp_max(take(dep_flat, asg.src), S - 1)
+    tf_new = take(tf_flat, asg.src)
+    pin_new = take(pin_flat, asg.src)
+    length = _spawn_length(app, svc_new, rng, dev)
 
     rr = state.rr
     if net_rng is None:                  # uniform mode
@@ -413,19 +439,20 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
         src_host_new, bytes_new = -1, 0.0
     else:                                # fabric mode: address + payload
         # edge (row = parent service, column = successor slot)
-        psvc_new = parent_svc[:, None].expand(C, D).reshape(-1)[asg.src]
-        slot_new = asg.src % D
+        psvc_new = take(per_edge(parent_svc), asg.src)
+        edge_new = psvc_new * D + asg.src % D
         k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
         tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
                                        params, k_lb)
         payload = netmod.sample_payload(
-            app.payload_mean[psvc_new, slot_new],
-            app.payload_std[psvc_new, slot_new], k_pay,
-            lone=app.payload_std.numel() == 1)
+            take(app.payload_mean.reshape(B, -1), edge_new),
+            take(app.payload_std.reshape(B, -1), edge_new), k_pay,
+            lone=S * D == 1)
         host = state.instances.host
         src_host = torch.where(pin_new >= 0,
-                               host[torch.clamp_min(pin_new, 0)], -1)
-        dst_host = torch.where(tgt >= 0, host[torch.clamp_min(tgt, 0)], -1)
+                               take(host, torch.clamp_min(pin_new, 0)), -1)
+        dst_host = torch.where(tgt >= 0, take(host, torch.clamp_min(tgt, 0)),
+                               -1)
         # loopback fast path: co-located hops never touch a NIC
         loop = (tgt >= 0) & (src_host >= 0) & (src_host == dst_host)
         in_transit = (tgt >= 0) & ~loop
@@ -446,10 +473,10 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
         spawned=add_drop(req.spawned, req_new, 1, asg.live))
 
     # Outbound-RPC bandwidth (linear usage model, paper §5.2).
-    live_pinst = torch.where(asg.live, pin_flat[asg.src], -1)
+    live_pinst = torch.where(asg.live, pin_new, -1)
     psvc = torch.where(asg.live, torch.clamp_min(
-        state.instances.service[torch.clamp_min(live_pinst, 0)], 0), 0)
-    bw = segment_sum(app.bytes_per_rpc[psvc] * asg.live.to(f32),
+        take(state.instances.service, torch.clamp_min(live_pinst, 0)), 0), 0)
+    bw = segment_sum(take(app.bytes_per_rpc, psvc) * asg.live.to(f32),
                      live_pinst, I)
     instances = state.instances._replace(used_bw=bw)
 
@@ -464,6 +491,7 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
 # Complete: close requests whose dependency tree drained (paper §4.3.2)
 # ===========================================================================
 
+@solo_as_batch("state")
 def complete(state: SimState, dyn: DynParams
              ) -> Tuple[SimState, torch.Tensor]:
     req, ctr = state.requests, state.counters
@@ -471,10 +499,11 @@ def complete(state: SimState, dyn: DynParams
             & (req.arrival >= 0))
     resp = torch.where(done, req.finish - req.arrival, req.response)
     n_done = _sum_i32(done)
-    viol = done & (resp * 1000.0 > float(dyn.slo_ms))
+    viol = done & (resp * 1000.0 > dyn.slo_ms[:, None])
     counters = ctr._replace(
         completed=ctr.completed + n_done,
-        resp_sum=ctr.resp_sum + torch.sum(torch.where(done, resp, 0.0)),
+        resp_sum=ctr.resp_sum + torch.sum(torch.where(done, resp, 0.0),
+                                          dim=-1),
         slo_violations=ctr.slo_violations + _sum_i32(viol),
     )
     state = state._replace(requests=req._replace(response=resp),

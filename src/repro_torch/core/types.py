@@ -245,10 +245,13 @@ _I32_FIELDS = ("n_clients", "num_limit", "max_concurrent", "scale_interval",
 
 
 class DynParams(NamedTuple):
-    """The reference's traced scalars, as numpy float32/int32 scalars:
-    scalar-with-scalar arithmetic rounds in float32 exactly as the
-    reference's 0-d arrays do, and each value acts as a plain number in a
-    tensor op.  Only the fields the ported phases read are kept."""
+    """The reference's traced scalars: the values a sweep may vary
+    without a new capture.  ``from_params`` gives one point's as numpy
+    float32/int32 scalars; ``engine.stack_dyn`` stacks points into
+    ``[B]`` arrays; inside the tick they are ``[B]`` float32/int32 tensors
+    on the device, in buffers a run fills (``engine.TickLoop``), so no
+    captured tick bakes a swept value.  Only the fields the ported phases
+    read are kept."""
 
     dt: np.float32
     n_clients: np.int32
@@ -479,8 +482,8 @@ class Cloudlets:
 
     def __init__(self, ints: torch.Tensor, flts: torch.Tensor,
                  layout: PoolLayout):
-        self.ints = ints        # [C, len(layout.i_fields)] i32
-        self.flts = flts        # [C, len(layout.f_fields)] f32
+        self.ints = ints        # [(B,) C, len(layout.i_fields)] i32
+        self.flts = flts        # [(B,) C, len(layout.f_fields)] f32
         self.layout = layout
 
     def replace(self, ints=None, flts=None) -> "Cloudlets":
@@ -489,9 +492,9 @@ class Cloudlets:
 
     def col(self, name: str) -> torch.Tensor:
         if _COL_BLOCK.get(name) == "i":
-            return self.ints[:, self.layout.i(name)]
+            return self.ints[..., self.layout.i(name)]
         if _COL_BLOCK.get(name) == "f":
-            return self.flts[:, self.layout.f(name)]
+            return self.flts[..., self.layout.f(name)]
         raise KeyError(f"unknown pool column {name!r}")
 
     status = property(lambda self: self.col("status"))
@@ -509,9 +512,9 @@ class Cloudlets:
     rem_bytes = property(lambda self: self.col("rem_bytes"))
 
     def with_cols(self, **cols) -> "Cloudlets":
-        """Replace whole [C] columns by name (new blocks; the old ones are
-        left untouched).  Registered columns outside the layout are
-        skipped; unregistered names raise."""
+        """Replace whole ``[(B,) C]`` columns by name (new blocks; the old
+        ones are left untouched).  Registered columns outside the layout
+        are skipped; unregistered names raise."""
         ints, flts = self.ints.clone(), self.flts.clone()
         L = self.layout
         for name, v in cols.items():
@@ -520,9 +523,9 @@ class Cloudlets:
             if name not in L:
                 continue
             if _COL_BLOCK[name] == "i":
-                ints[:, L.i(name)] = v
+                ints[..., L.i(name)] = v
             else:
-                flts[:, L.f(name)] = v
+                flts[..., L.f(name)] = v
         return Cloudlets(ints, flts, L)
 
 

@@ -65,6 +65,19 @@
 // plain version does.  min and max propagate NaN, as torch.minimum and
 // torch.maximum do.
 //
+// A batch of B points (the sweep axis of the simulator's tick: B pools of
+// the same shape, each with its own time, dt and request arrays) is one
+// launch.  Each point keeps its own lanes, tiles, scratch, table and masks,
+// and its instance sums are its own fold in ascending lane order, so every
+// point's outputs are the bits of its unbatched launch.  Up to 16,384 lanes
+// a point the grid is (tiles, B) and each point's tiles form their own
+// cluster (clusterDim (tiles, 1, 1)), with their own barrier; the one-block
+// route is (1, B).  The cooperative route's grid is bounded by what is
+// resident at once (one 1,024-thread block an SM), so its blocks stride
+// over the (point, tile) pairs for the sort, meet at one grid barrier, and
+// stride over the (point, row) pairs for the fold: one launch and one
+// barrier for any B.
+//
 // One launch a call, no host sync and no allocation: the wrapper keeps the
 // scratch (terms, sorted terms, run table, row masks) per device and shape.
 #include <cooperative_groups.h>
@@ -88,15 +101,42 @@ constexpr int WARP_CHUNK = 64;   // lanes a warp loads at a time
 constexpr int BUF_STRIDE = WARP_CHUNK + 1;   // a column of the buffer
 constexpr unsigned FULL = 0xffffffffu;
 
+// The launch's arguments.  Every pointer is to point 0 of the batch;
+// point(a, b) moves them to point b and reads its time and dt.
 struct Args {
   const int32_t* ints; int ni, c_status, c_inst, c_req, c_depth;
   const float* flts; int nf, c_rem, c_arrival, c_start;
-  const float* rate; const float* time_ptr; float dt; int n_lanes;
+  const float* rate; const float* time_ptr; const float* dt_ptr;
+  int n_lanes, n_batch, tiles;
   float* req_finish; int32_t* req_crit; int32_t* req_out; int n_req;
   float* new_rem; bool* fin; float* tfin; float* consumed;
   float4* terms; float4* sterms; uint32_t* table; uint32_t* mask;
   int mask_words; float* inst_acc; int n_inst; int key_bits;
+  float time, dt;   // point b's, set by point()
 };
+
+__device__ __forceinline__ Args point(const Args& a, int b) {
+  Args p = a;
+  const int64_t C = a.n_lanes, R = a.n_req, rows = a.n_inst + 1;
+  p.ints += b * C * a.ni;
+  p.flts += b * C * a.nf;
+  p.rate += b * C;
+  p.req_finish += b * R;
+  p.req_crit += b * R;
+  p.req_out += b * R;
+  p.new_rem += b * C;
+  p.fin += b * C;
+  p.tfin += b * C;
+  p.consumed += b * C;
+  p.terms += b * C * 2;
+  p.sterms += b * C * 2;
+  p.table += b * a.tiles * rows;
+  p.mask += b * rows * a.mask_words;
+  p.inst_acc += b * rows * NT;
+  p.time = a.time_ptr[b];
+  p.dt = a.dt_ptr[b];
+  return p;
+}
 
 template <int ITEMS>
 using Sorter = cub::BlockRadixSort<unsigned, THREADS, ITEMS, int>;
@@ -131,8 +171,8 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
 // The lane math of lane c: writes its per-lane outputs and request updates
 // and, for a contributing lane, its five terms; returns its sort key (the
 // instance row, or n_inst + 1 for a lane that adds nothing).
-__device__ __forceinline__ unsigned lane(const Args& a, int c, float time) {
-  const float dt = a.dt;
+__device__ __forceinline__ unsigned lane(const Args& a, int c) {
+  const float dt = a.dt, time = a.time;
   const int32_t* row_i = a.ints + static_cast<int64_t>(c) * a.ni;
   const float* row_f = a.flts + static_cast<int64_t>(c) * a.nf;
   const int status = row_i[a.c_status];
@@ -286,41 +326,31 @@ __device__ __forceinline__ void fold_row_warp(const Args& a, int r,
   if (lane < NT) a.inst_acc[static_cast<int64_t>(r) * NT + lane] = acc;
 }
 
-template <int ITEMS, Mode MODE>
-__global__ void __launch_bounds__(THREADS, 1) finish_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared<ITEMS>& sh = *reinterpret_cast<Shared<ITEMS>*>(smem_raw);
-  __shared__ int long_rows[LONG_ROWS];
-  __shared__ int n_long;
+// The lane math and the stable sort of tile `tile` of point p: its run
+// table and its bit in the row masks.  Ends with the block synchronised,
+// so the caller may reuse the shared storage.
+template <int ITEMS>
+__device__ __forceinline__ void sort_tile(const Args& p, int tile,
+                                          Shared<ITEMS>& sh) {
   constexpr int T = THREADS * ITEMS;
-  const int tid = threadIdx.x, tile = blockIdx.x, tiles = gridDim.x;
+  const int tid = threadIdx.x;
   const int base = tile * T;
-  const int rows = a.n_inst + 1;
+  const int rows = p.n_inst + 1;
   const unsigned none = static_cast<unsigned>(rows);
-  // the row masks (bit t: the row has a run in tile t) start clear
-  const int64_t mask_len = static_cast<int64_t>(rows) * a.mask_words;
-  for (int64_t i = static_cast<int64_t>(tile) * THREADS + tid; i < mask_len;
-       i += static_cast<int64_t>(tiles) * THREADS) {
-    a.mask[i] = 0u;
-  }
-  if (tid == 0) n_long = 0;
-  sync_all<MODE>();
-
   // the lane math, lanes striped over the threads (coalesced), then the
   // keys into lane order (ITEMS consecutive lanes a thread) for the sort
-  const float time = *a.time_ptr;
   unsigned keys[ITEMS];
   int vals[ITEMS];
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const int c = base + j * THREADS + tid;
-    keys[j] = c < a.n_lanes ? lane(a, c, time) : none;
+    keys[j] = c < p.n_lanes ? lane(p, c) : none;
     vals[j] = tid * ITEMS + j;
   }
   Exchange<ITEMS>(sh.exchange).StripedToBlocked(keys, keys);
   __syncthreads();
-  // sorted position p = j * THREADS + tid afterwards (striped)
-  Sorter<ITEMS>(sh.sort).SortBlockedToStriped(keys, vals, 0, a.key_bits);
+  // sorted position q = j * THREADS + tid afterwards (striped)
+  Sorter<ITEMS>(sh.sort).SortBlockedToStriped(keys, vals, 0, p.key_bits);
   __syncthreads();   // the sort's storage becomes the sorted key list
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) sh.key[j * THREADS + tid] = keys[j];
@@ -328,48 +358,101 @@ __global__ void __launch_bounds__(THREADS, 1) finish_kernel(const Args a) {
   // this tile's run table: per row (start | end << 16), read only where
   // the row's mask has the tile's bit
   uint16_t* half = reinterpret_cast<uint16_t*>(
-      a.table + static_cast<int64_t>(tile) * rows);
+      p.table + static_cast<int64_t>(tile) * rows);
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    const int p = j * THREADS + tid;
+    const int q = j * THREADS + tid;
     const unsigned k = keys[j];
     if (k >= none) continue;
-    const float4* src = a.terms + static_cast<int64_t>(base + vals[j]) * 2;
-    float4* dst = a.sterms + static_cast<int64_t>(base + p) * 2;
+    const float4* src = p.terms + static_cast<int64_t>(base + vals[j]) * 2;
+    float4* dst = p.sterms + static_cast<int64_t>(base + q) * 2;
     dst[0] = src[0];
     dst[1] = src[1];
-    if (p == 0 || sh.key[p - 1] != k) {
-      half[2 * k] = static_cast<uint16_t>(p);
-      atomicOr(a.mask + static_cast<int64_t>(k) * a.mask_words + tile / 32,
+    if (q == 0 || sh.key[q - 1] != k) {
+      half[2 * k] = static_cast<uint16_t>(q);
+      atomicOr(p.mask + static_cast<int64_t>(k) * p.mask_words + tile / 32,
                1u << (tile % 32));
     }
-    if (p == T - 1 || sh.key[p + 1] != k) {
-      half[2 * k + 1] = static_cast<uint16_t>(p + 1);
+    if (q == T - 1 || sh.key[q + 1] != k) {
+      half[2 * k + 1] = static_cast<uint16_t>(q + 1);
     }
+  }
+  __syncthreads();   // the key list is read before the next tile's sort
+}
+
+// A batch of B points.  BLOCK and CLUSTER: block (tile, b) of a (tiles, B)
+// grid, each point's tiles one cluster (or one block).  GRID: a
+// cooperative grid that strides over (point, tile) pairs for the sort and
+// over (point, row) pairs for the fold.
+template <int ITEMS, Mode MODE>
+__global__ void __launch_bounds__(THREADS, 1) finish_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared<ITEMS>& sh = *reinterpret_cast<Shared<ITEMS>*>(smem_raw);
+  __shared__ int long_rows[LONG_ROWS];
+  __shared__ int n_long;
+  constexpr int T = THREADS * ITEMS;
+  const int tid = threadIdx.x;
+  const int rows = a.n_inst + 1;
+  const bool grid = MODE == GRID;
+  // the pairs this block takes: (point, tile) for the sort; the first
+  // point and row its threads fold, and the stride between them
+  const int first_pair = grid ? blockIdx.x : blockIdx.y * a.tiles
+                                                 + blockIdx.x;
+  const int pair_stride = grid ? gridDim.x : a.tiles * a.n_batch;
+  const int n_pairs = grid ? a.tiles * a.n_batch : first_pair + 1;
+  // the row masks (bit t: the row has a run in tile t) start clear: a grid
+  // clears every point's, a cluster its own point's
+  {
+    const int64_t len = static_cast<int64_t>(rows) * a.mask_words;
+    const int64_t lo = grid ? 0 : len * blockIdx.y;
+    const int64_t hi = grid ? len * a.n_batch : lo + len;
+    const int64_t first = lo + static_cast<int64_t>(blockIdx.x) * THREADS
+                          + tid;
+    const int64_t step = static_cast<int64_t>(
+        grid ? gridDim.x : a.tiles) * THREADS;
+    for (int64_t i = first; i < hi; i += step) a.mask[i] = 0u;
+  }
+  if (tid == 0) n_long = 0;
+  sync_all<MODE>();
+
+  for (int q = first_pair; q < n_pairs; q += pair_stride) {
+    const int b = q / a.tiles;
+    sort_tile<ITEMS>(point(a, b), q % a.tiles, sh);
   }
   sync_all<MODE>();
 
   // one thread a row, one warp a long row: the row's runs, tile after
-  // tile, folded in lane order
-  for (int r = tile * THREADS + tid; r < rows; r += tiles * THREADS) {
+  // tile, folded in lane order.  A row is (point, row) as b * rows + r.
+  const int64_t first_row = grid
+      ? static_cast<int64_t>(blockIdx.x) * THREADS + tid
+      : static_cast<int64_t>(blockIdx.y) * rows
+            + static_cast<int64_t>(blockIdx.x) * THREADS + tid;
+  const int64_t end_row = grid ? static_cast<int64_t>(rows) * a.n_batch
+                               : static_cast<int64_t>(blockIdx.y + 1) * rows;
+  const int64_t row_stride = static_cast<int64_t>(
+      grid ? gridDim.x : a.tiles) * THREADS;
+  for (int64_t g = first_row; g < end_row; g += row_stride) {
+    const int b = static_cast<int>(g / rows), r = static_cast<int>(g % rows);
+    const Args p = point(a, b);
     int total = 0;
-    for_each_run<T>(a, r, [&](const float4*, int start, int end) {
+    for_each_run<T>(p, r, [&](const float4*, int start, int end) {
       total += end - start;
     });
     if (total > LONG_RUN) {
       const int slot = atomicAdd(&n_long, 1);
       if (slot < LONG_ROWS) {
-        long_rows[slot] = r;
+        long_rows[slot] = static_cast<int>(g);
         continue;
       }
     }
-    fold_row<T>(a, r);
+    fold_row<T>(p, r);
   }
   __syncthreads();   // the sort's storage becomes the warps' buffers
   const int n = min(n_long, LONG_ROWS);
   const int warp = tid >> 5;
   for (int i = warp; i < n; i += THREADS / 32) {
-    fold_row_warp<T>(a, long_rows[i], sh.fold[warp]);
+    const int g = long_rows[i];
+    fold_row_warp<T>(point(a, g / rows), g % rows, sh.fold[warp]);
   }
 }
 
@@ -430,22 +513,45 @@ cudaError_t prepare(size_t* smem) {
   return err;
 }
 
+// The blocks of one launch that can all be resident at once (a
+// cooperative grid may hold no more).
+template <int ITEMS>
+cudaError_t resident_blocks(size_t smem, int* n) {
+  static int known[64] = {};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && known[dev]) {
+    *n = known[dev];
+    return cudaSuccess;
+  }
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, finish_kernel<ITEMS, GRID>, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  *n = sms * per_sm;
+  if (dev < 64) known[dev] = *n;
+  return cudaSuccess;
+}
+
 template <int ITEMS, Mode MODE>
-cudaError_t launch(Args* a, int tiles, cudaStream_t s) {
+cudaError_t launch(Args* a, cudaStream_t s) {
   size_t smem = 0;
   cudaError_t err = prepare<ITEMS, MODE>(&smem);
   if (err != cudaSuccess) return err;
   if constexpr (MODE == BLOCK) {
-    finish_kernel<ITEMS, BLOCK><<<1, THREADS, smem, s>>>(*a);
+    finish_kernel<ITEMS, BLOCK><<<dim3(1, a->n_batch), THREADS, smem, s>>>(
+        *a);
     return cudaGetLastError();
   } else if constexpr (MODE == CLUSTER) {
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = tiles;
+    attr[0].val.clusterDim.x = a->tiles;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(tiles);
+    cfg.gridDim = dim3(a->tiles, a->n_batch);
     cfg.blockDim = dim3(THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
@@ -453,10 +559,15 @@ cudaError_t launch(Args* a, int tiles, cudaStream_t s) {
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(&cfg, finish_kernel<ITEMS, CLUSTER>, *a);
   } else {
+    int resident = 0;
+    err = resident_blocks<ITEMS>(smem, &resident);
+    if (err != cudaSuccess) return err;
+    const long long pairs = static_cast<long long>(a->tiles) * a->n_batch;
+    const int blocks = static_cast<int>(pairs < resident ? pairs : resident);
     void* args[] = {a};
     return cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(finish_kernel<ITEMS, GRID>),
-        dim3(tiles), dim3(THREADS), args, smem, s);
+        dim3(blocks), dim3(THREADS), args, smem, s);
   }
 }
 
@@ -491,34 +602,44 @@ extern "C" long long cloudlet_finish_max_lanes() {
   return static_cast<long long>(sms) * per_sm * THREADS * MAX_ITEMS;
 }
 
+// One launch over n_batch points of n_lanes lanes each: every array holds
+// the points one after another (ints [B, n_lanes, ni], time and dt [B] on
+// the device, request arrays [B, n_req], inst_acc [B, n_inst + 1, 5]; the
+// scratch B times the unbatched launch's, the run table [B * tiles,
+// n_inst + 1] and the row masks [B * (n_inst + 1), ceil(tiles / 32)]).
 extern "C" int cloudlet_finish_launch(
     const int32_t* ints, int ni, int c_status, int c_inst, int c_req,
     int c_depth, const float* flts, int nf, int c_rem, int c_arrival,
-    int c_start, const float* rate, const float* time_ptr, float dt,
-    int n_lanes, float* req_finish, int32_t* req_crit, int32_t* req_out,
-    int n_req, float* new_rem, bool* fin, float* tfin, float* consumed,
-    float4* terms, float4* sterms, uint32_t* table, uint32_t* mask,
-    float* inst_acc, int n_inst, void* stream) {
+    int c_start, const float* rate, const float* time_ptr,
+    const float* dt_ptr, int n_lanes, int n_batch, float* req_finish,
+    int32_t* req_crit, int32_t* req_out, int n_req, float* new_rem,
+    bool* fin, float* tfin, float* consumed, float4* terms, float4* sterms,
+    uint32_t* table, uint32_t* mask, float* inst_acc, int n_inst,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_batch < 1 || n_batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Route r = route_for(n_lanes, sms);
   Args a{ints, ni, c_status, c_inst, c_req, c_depth,
          flts, nf, c_rem, c_arrival, c_start,
-         rate, time_ptr, dt, n_lanes,
+         rate, time_ptr, dt_ptr, n_lanes, n_batch, r.tiles,
          req_finish, req_crit, req_out, n_req,
          new_rem, fin, tfin, consumed,
          terms, sterms, table, mask, (r.tiles + 31) / 32, inst_acc, n_inst,
-         32 - __builtin_clz(static_cast<unsigned>(n_inst) + 1u)};
+         32 - __builtin_clz(static_cast<unsigned>(n_inst) + 1u),
+         0.0f, 0.0f};
   if (r.mode == BLOCK) {
-    err = launch<1, BLOCK>(&a, 1, s);
+    err = launch<1, BLOCK>(&a, s);
   } else if (r.mode == CLUSTER) {
-    err = r.items == 1 ? launch<1, CLUSTER>(&a, r.tiles, s)
-                       : launch<2, CLUSTER>(&a, r.tiles, s);
+    err = r.items == 1 ? launch<1, CLUSTER>(&a, s)
+                       : launch<2, CLUSTER>(&a, s);
   } else {
-    err = r.items == 4 ? launch<4, GRID>(&a, r.tiles, s)
-                       : launch<MAX_ITEMS, GRID>(&a, r.tiles, s);
+    err = r.items == 4 ? launch<4, GRID>(&a, s)
+                       : launch<MAX_ITEMS, GRID>(&a, s);
   }
   return static_cast<int>(err);
 }

@@ -53,6 +53,16 @@
 //   * each lane adds the round's water level in round order, as the plain
 //     version does.
 // Two launches on the same inputs give the same bits.
+//
+// A batch of B points (the sweep axis of the simulator's tick: B pools of
+// the same shape over each point's own port capacities) is one launch:
+// one block a point up to 16,384 transfers; above, each point takes G =
+// ceil(C / 16,384) blocks, the cooperative grid holds P = min(B, resident
+// / G) groups of G, and group g solves points g, g + P, ... in turn (every
+// block takes part in every grid barrier, a group past the last point with
+// no lanes).  Each point's solve is the unbatched one on its own lanes,
+// capacities and occupancy table ([B, 2, H]), so its rates are the bits of
+// its unbatched launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,12 +83,26 @@ constexpr unsigned HOST_MASK = (1u << HOST_BITS) - 1u;
 constexpr unsigned HAS_SRC = 1u << 14, E_COUNTED = 1u << 15;
 constexpr unsigned I_COUNTED = 1u << 30, LIVE = 1u << 31;
 
+// Every pointer is to point 0 of the batch; point(a, b) moves them to b.
 struct Args {
   const int32_t* src; const int32_t* dst; const bool* active;
   const float* cap_e; const float* cap_i;
-  int n_lanes, n_hosts, iters;
-  float* rate; int* occupancy;   // [2, H] in device memory (grid only)
+  int n_lanes, n_hosts, iters, n_batch;
+  float* rate; int* occupancy;   // [B, 2, H] in device memory (grid only)
 };
+
+__device__ __forceinline__ Args point(const Args& a, int b) {
+  Args p = a;
+  const int64_t C = a.n_lanes, H = a.n_hosts;
+  p.src += b * C;
+  p.dst += b * C;
+  p.active += b * C;
+  p.rate += b * C;
+  p.cap_e += b * H;
+  p.cap_i += b * H;
+  p.occupancy += b * 2 * H;
+  return p;
+}
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
@@ -156,12 +180,15 @@ __device__ __forceinline__ void sync_all() {
   }
 }
 
+// One point's water-fill: slice `slice` of its `slices` blocks (its
+// transfers [slice, slice + 1) x THREADS x ITEMS), `live` false for a
+// block of a group past the last point (no lanes, no writes, every
+// barrier).
 template <int ITEMS, bool GRID>
-__global__ void __launch_bounds__(THREADS, 1) waterfill_kernel(
-    const Args a) {
-  extern __shared__ float tables[];
-  __shared__ float red[WARPS + 1];
+__device__ __forceinline__ void solve(const Args& a, int slice, int slices,
+                                      bool live, float* tables, float* red) {
   const int H = a.n_hosts;
+  const int n_lanes = live ? a.n_lanes : 0;
   float* rem_e = tables;
   float* rem_i = rem_e + H;
   int* n_e = reinterpret_cast<int*>(rem_i + H);   // n_i = n_e + H
@@ -179,9 +206,8 @@ __global__ void __launch_bounds__(THREADS, 1) waterfill_kernel(
     n_i[h] = 0;
     if (GRID) tally[h] = tally[H + h] = 0;
   }
-  if (GRID) {
-    for (int h = blockIdx.x * THREADS + tid; h < 2 * H;
-         h += gridDim.x * THREADS) {
+  if (GRID && live) {
+    for (int h = slice * THREADS + tid; h < 2 * H; h += slices * THREADS) {
       a.occupancy[h] = 0;
     }
   }
@@ -190,13 +216,13 @@ __global__ void __launch_bounds__(THREADS, 1) waterfill_kernel(
   // live = active & (dst >= 0); this slice's occupancy of round 0
   unsigned w[ITEMS];
   float rate[ITEMS];
-  const int first = blockIdx.x * THREADS * ITEMS + tid;
+  const int first = slice * THREADS * ITEMS + tid;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const int c = first + j * THREADS;
     w[j] = 0u;
     rate[j] = 0.0f;
-    if (c < a.n_lanes) {
+    if (c < n_lanes) {
       const int s = a.src[c], d = a.dst[c];
       if (s >= 0) w[j] |= HAS_SRC | clamp_host(s, H);
       if (s >= 0 && s < H) w[j] |= E_COUNTED;
@@ -273,13 +299,36 @@ __global__ void __launch_bounds__(THREADS, 1) waterfill_kernel(
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
     const int c = first + j * THREADS;
-    if (c >= a.n_lanes) continue;
+    if (c >= n_lanes) continue;
     if (w[j] & LIVE) {
       const float fe = (w[j] & HAS_SRC) ? rem_e[w[j] & HOST_MASK] : inf;
       const float fill = nan_min(fe, rem_i[(w[j] >> 16) & HOST_MASK]);
       rate[j] = __fadd_rn(rate[j], nan_max0(fill));
     }
     a.rate[c] = rate[j];
+  }
+  __syncthreads();   // the tables are read before the next point's solve
+}
+
+// One block a point (a plain launch of B blocks), or in a cooperative grid
+// groups of `slices` blocks, each group solving points group, group +
+// groups, ... (`rounds` of them, the same count in every block).
+template <int ITEMS, bool GRID>
+__global__ void __launch_bounds__(THREADS, 1) waterfill_kernel(
+    const Args a, int slices, int rounds) {
+  extern __shared__ float tables[];
+  __shared__ float red[WARPS + 1];
+  if constexpr (!GRID) {
+    solve<ITEMS, false>(point(a, blockIdx.x), 0, 1, true, tables, red);
+  } else {
+    const int groups = gridDim.x / slices;
+    const int group = blockIdx.x / slices, slice = blockIdx.x % slices;
+    for (int k = 0; k < rounds; ++k) {
+      const int b = group + k * groups;
+      const bool live = b < a.n_batch;
+      solve<ITEMS, true>(point(a, live ? b : 0), slice, slices, live,
+                         tables, red);
+    }
   }
 }
 
@@ -314,19 +363,55 @@ cudaError_t prepare(int smem) {
   return err;
 }
 
+// The grid blocks of the kernel that can all be resident at once.
+cudaError_t resident_blocks(int smem, int* n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = prepare<MAX_ITEMS, true>(smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, waterfill_kernel<MAX_ITEMS, true>, THREADS, smem);
+  *n = sms * per_sm;
+  return err;
+}
+
 template <int ITEMS, bool GRID>
 cudaError_t launch(Args* a, cudaStream_t s) {
   const int smem = table_bytes(a->n_hosts, GRID);
   cudaError_t err = prepare<ITEMS, GRID>(smem);
   if (err != cudaSuccess) return err;
   if constexpr (!GRID) {
-    waterfill_kernel<ITEMS, false><<<1, THREADS, smem, s>>>(*a);
+    waterfill_kernel<ITEMS, false><<<a->n_batch, THREADS, smem, s>>>(
+        *a, 1, 1);
     return cudaGetLastError();
   } else {
-    void* args[] = {a};
+    // the residency of a launch at this table size, once per device
+    static int known[64][2] = {};
+    int dev = 0, resident = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 64 && known[dev][0] == smem) {
+      resident = known[dev][1];
+    } else {
+      err = resident_blocks(smem, &resident);
+      if (err != cudaSuccess) return err;
+      if (dev < 64) {
+        known[dev][0] = smem;
+        known[dev][1] = resident;
+      }
+    }
+    int slices = blocks_for(a->n_lanes);
+    if (slices > resident) return cudaErrorCooperativeLaunchTooLarge;
+    const int groups = a->n_batch < resident / slices ? a->n_batch
+                                                      : resident / slices;
+    int rounds = (a->n_batch + groups - 1) / groups;
+    void* args[] = {a, &slices, &rounds};
     return cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(waterfill_kernel<ITEMS, true>),
-        dim3(blocks_for(a->n_lanes)), dim3(THREADS), args,
+        dim3(groups * slices), dim3(THREADS), args,
         static_cast<size_t>(smem), s);
   }
 }
@@ -342,29 +427,28 @@ extern "C" int link_share_table_bytes(int n_hosts, int n_lanes) {
 // The most transfers one launch takes on the current device at n_hosts
 // hosts: 16 a thread in blocks that are all resident at once.
 extern "C" long long link_share_max_lanes(int n_hosts) {
-  int dev = 0, sms = 0, per_sm = 0;
-  const int smem = table_bytes(n_hosts, true);
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+  int resident = 0;
+  if (resident_blocks(table_bytes(n_hosts, true), &resident)
       != cudaSuccess) return -1;
-  if (prepare<MAX_ITEMS, true>(smem) != cudaSuccess) return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, waterfill_kernel<MAX_ITEMS, true>, THREADS, smem)
-      != cudaSuccess) return -1;
-  return static_cast<long long>(sms) * per_sm * THREADS * MAX_ITEMS;
+  return static_cast<long long>(resident) * THREADS * MAX_ITEMS;
 }
 
+// One launch over n_batch points of n_lanes transfers and n_hosts hosts
+// each: every array holds the points one after another (src, dst, active
+// and rate [B, n_lanes], cap_e and cap_i [B, n_hosts], the occupancy
+// scratch [B, 2, n_hosts]).
 extern "C" int link_share_launch(const int32_t* src, const int32_t* dst,
                                  const bool* active, const float* cap_e,
                                  const float* cap_i, int n_lanes,
-                                 int n_hosts, int iters, float* rate,
-                                 int* occupancy, void* stream) {
+                                 int n_hosts, int n_batch, int iters,
+                                 float* rate, int* occupancy,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_hosts < 1 || n_hosts > (1 << HOST_BITS)) {
+  if (n_hosts < 1 || n_hosts > (1 << HOST_BITS) || n_batch < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{src, dst, active, cap_e, cap_i, n_lanes, n_hosts, iters, rate,
-         occupancy};
+  Args a{src, dst, active, cap_e, cap_i, n_lanes, n_hosts, iters, n_batch,
+         rate, occupancy};
   switch (items_for(n_lanes)) {
     case 4: return static_cast<int>(launch<4, false>(&a, s));
     case 8: return static_cast<int>(launch<8, false>(&a, s));

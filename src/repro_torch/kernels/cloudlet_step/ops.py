@@ -2,6 +2,12 @@
 ``csrc/cloudlet_finish.cu`` on a CUDA tensor, the plain version of
 ``ref.py`` on a CPU tensor, an error on anything else.
 
+The wrapper takes the tick's batch axis: a pool of ``[B, C]`` lanes (one
+row per point of a sweep), per-point ``time`` and ``dt`` ``[B]`` and
+request arrays ``[B, R]``, in one launch for all points; solo inputs
+(``rate`` ``[C]``) are a batch of one and come back without the axis.
+The plain version runs the solo plain version point by point.
+
 On CUDA the request arrays ``req_finish``/``req_crit``/``req_out`` are
 updated in place where they lie in device memory and returned; the plain
 version returns new arrays.  Callers use the returned arrays.
@@ -16,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build, launched
@@ -24,11 +31,12 @@ from . import ref
 _ARGTYPES = (
     [ctypes.c_void_p] + [ctypes.c_int] * 5          # ints, ni, 4 columns
     + [ctypes.c_void_p] + [ctypes.c_int] * 4        # flts, nf, 3 columns
-    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2    # rate, time, dt; C, B
     + [ctypes.c_void_p] * 3 + [ctypes.c_int]        # request arrays, R
     + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p])
 
-# (device, lanes, instances) -> (terms, sorted terms, run table, row masks)
+# (device, points, lanes, instances) -> (terms, sorted terms, run table,
+# row masks)
 _SCRATCH: dict = {}
 _MAX_LANES: dict = {}     # device -> lanes one launch takes
 
@@ -58,8 +66,8 @@ def route(lib, C: int):
     return ROUTES[mode], tiles.value
 
 
-def _scratch(lib, dev, C: int, n_inst: int):
-    key = (dev, C, n_inst)
+def _scratch(lib, dev, B: int, C: int, n_inst: int):
+    key = (dev, B, C, n_inst)
     buf = _SCRATCH.get(key)
     if buf is None:
         with torch.cuda.device(dev):
@@ -68,12 +76,14 @@ def _scratch(lib, dev, C: int, n_inst: int):
             tiles = route(lib, C)[1]
         if C > _MAX_LANES[dev]:
             raise ValueError(f"cloudlet_finish takes at most "
-                             f"{_MAX_LANES[dev]} lanes on {dev}, got {C}")
+                             f"{_MAX_LANES[dev]} lanes a point on {dev}, "
+                             f"got {C}")
         rows, i32, f32 = n_inst + 1, torch.int32, torch.float32
-        buf = (torch.empty((C, 8), dtype=f32, device=dev),
-               torch.empty((C, 8), dtype=f32, device=dev),
-               torch.empty((tiles, rows), dtype=i32, device=dev),
-               torch.empty((rows, -(-tiles // 32)), dtype=i32, device=dev))
+        buf = (torch.empty((B * C, 8), dtype=f32, device=dev),
+               torch.empty((B * C, 8), dtype=f32, device=dev),
+               torch.empty((B * tiles, rows), dtype=i32, device=dev),
+               torch.empty((B * rows, -(-tiles // 32)), dtype=i32,
+                           device=dev))
         _SCRATCH[key] = buf
     return buf
 
@@ -93,41 +103,56 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def cloudlet_finish_pool(cl, rate, time, dt, req_finish, req_crit, req_out,
                          n_inst: int) -> ref.FinishOut:
     """One-pass execution tick over the stacked cloudlet pool ``cl``
-    (``core.types.Cloudlets``); ``time`` is a 0-d float32 tensor on the
-    pool's device, ``dt`` a number."""
+    (``core.types.Cloudlets``, blocks ``[B, C, *]``) for every point of
+    the batch: ``rate`` ``[B, C]``, ``time`` ``[B]`` float32 and ``dt``
+    ``[B]`` float32 on the pool's device, request arrays ``[B, R]``.
+    Solo inputs (blocks ``[C, *]``, ``rate`` ``[C]``, ``time`` 0-d, ``dt``
+    a number or a 0-d tensor) are a batch of one."""
+    if rate.dim() == 1:
+        if not isinstance(dt, torch.Tensor):
+            dt = torch.full((), float(np.float32(dt)), dtype=torch.float32,
+                            device=rate.device)
+        out = cloudlet_finish_pool(
+            type(cl)(cl.ints[None], cl.flts[None], cl.layout), rate[None],
+            time.reshape(1), dt.reshape(1), req_finish[None], req_crit[None],
+            req_out[None], n_inst)
+        return ref.FinishOut(*[x[0] for x in out])
     L = cl.layout
     ints, flts = cl.ints, cl.flts
     dev = ints.device
     if dev.type == "cpu":
-        return ref.cloudlet_finish(
-            ints[:, L.i("status")], flts[:, L.f("rem")], ints[:, L.i("inst")],
-            ints[:, L.i("req")], flts[:, L.f("arrival")],
-            flts[:, L.f("start")], ints[:, L.i("depth")], rate, time, dt,
-            req_finish, req_crit, req_out, n_inst=n_inst)
+        return ref.cloudlet_finish_batched(
+            ints[..., L.i("status")], flts[..., L.f("rem")],
+            ints[..., L.i("inst")], ints[..., L.i("req")],
+            flts[..., L.f("arrival")], flts[..., L.f("start")],
+            ints[..., L.i("depth")], rate, time, dt, req_finish, req_crit,
+            req_out, n_inst=n_inst)
     if dev.type != "cuda":
         raise ValueError(f"cloudlet_finish runs on cuda or cpu, not {dev}")
-    C, NI = ints.shape
-    NF = flts.shape[1]
-    R = req_finish.shape[0]
-    _check(ints, "ints", torch.int32, (C, NI), dev)
-    _check(flts, "flts", torch.float32, (C, NF), dev)
-    _check(rate, "rate", torch.float32, (C,), dev)
-    _check(time, "time", torch.float32, (), dev)
-    _check(req_finish, "req_finish", torch.float32, (R,), dev)
-    _check(req_crit, "req_crit", torch.int32, (R,), dev)
-    _check(req_out, "req_out", torch.int32, (R,), dev)
+    B, C, NI = ints.shape
+    NF = flts.shape[2]
+    R = req_finish.shape[1]
+    _check(ints, "ints", torch.int32, (B, C, NI), dev)
+    _check(flts, "flts", torch.float32, (B, C, NF), dev)
+    _check(rate, "rate", torch.float32, (B, C), dev)
+    _check(time, "time", torch.float32, (B,), dev)
+    _check(dt, "dt", torch.float32, (B,), dev)
+    _check(req_finish, "req_finish", torch.float32, (B, R), dev)
+    _check(req_crit, "req_crit", torch.int32, (B, R), dev)
+    _check(req_out, "req_out", torch.int32, (B, R), dev)
     lib = _lib()
-    terms, sterms, table, mask = _scratch(lib, dev, C, n_inst)
-    new_rem = torch.empty((C,), dtype=torch.float32, device=dev)
-    fin = torch.empty((C,), dtype=torch.bool, device=dev)
-    tfin = torch.empty((C,), dtype=torch.float32, device=dev)
-    consumed = torch.empty((C,), dtype=torch.float32, device=dev)
-    inst_acc = torch.empty((n_inst + 1, 5), dtype=torch.float32, device=dev)
+    terms, sterms, table, mask = _scratch(lib, dev, B, C, n_inst)
+    new_rem = torch.empty((B, C), dtype=torch.float32, device=dev)
+    fin = torch.empty((B, C), dtype=torch.bool, device=dev)
+    tfin = torch.empty((B, C), dtype=torch.float32, device=dev)
+    consumed = torch.empty((B, C), dtype=torch.float32, device=dev)
+    inst_acc = torch.empty((B, n_inst + 1, 5), dtype=torch.float32,
+                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.cloudlet_finish_launch(
         ints.data_ptr(), NI, L.i("status"), L.i("inst"), L.i("req"),
         L.i("depth"), flts.data_ptr(), NF, L.f("rem"), L.f("arrival"),
-        L.f("start"), rate.data_ptr(), time.data_ptr(), float(dt), C,
+        L.f("start"), rate.data_ptr(), time.data_ptr(), dt.data_ptr(), C, B,
         req_finish.data_ptr(), req_crit.data_ptr(), req_out.data_ptr(), R,
         new_rem.data_ptr(), fin.data_ptr(), tfin.data_ptr(),
         consumed.data_ptr(), terms.data_ptr(), sterms.data_ptr(),

@@ -98,3 +98,21 @@ def cloudlet_finish(status, rem, inst, req, arrival, start, depth, rate,
     return FinishOut(new_rem=new_rem, fin=fin, tfin=tfin, consumed=consumed,
                      inst_acc=inst_acc, req_finish=req_finish,
                      req_crit=req_crit, req_out=req_out)
+
+
+def cloudlet_finish_batched(status, rem, inst, req, arrival, start, depth,
+                            rate, time, dt, req_finish, req_crit, req_out,
+                            n_inst: int) -> FinishOut:
+    """:func:`cloudlet_finish` for a batch: ``[B, C]`` lanes, ``time``
+    ``[B]``, ``dt`` ``[B]`` (a tensor) or one number, ``[B, R]`` request
+    arrays; the solo plain version point by point, stacked.  Not the
+    card's path (the kernel takes a batch in one launch): the CPU's, and
+    the comparisons'."""
+    outs = []
+    for b in range(rate.shape[0]):
+        d = float(dt[b]) if isinstance(dt, torch.Tensor) else dt
+        outs.append(cloudlet_finish(
+            status[b], rem[b], inst[b], req[b], arrival[b], start[b],
+            depth[b], rate[b], time[b], d, req_finish[b], req_crit[b],
+            req_out[b], n_inst=n_inst))
+    return FinishOut(*[torch.stack(x) for x in zip(*outs)])

@@ -97,3 +97,13 @@ def waterfill(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
 def link_share(src, dst, active, cap_e, cap_i, iters: int = 4):
     """Max-min fair per-transfer rates (MB/s) over host NIC ports."""
     return waterfill(src, dst, active, cap_e, cap_i, iters)
+
+
+def link_share_batched(src, dst, active, cap_e, cap_i, iters: int = 4):
+    """:func:`link_share` for a batch (``[B, C]`` transfers, ``[B, H]``
+    capacities): the solo plain version point by point, stacked.  Not the
+    card's path (the kernel takes a batch in one launch): the CPU's, and
+    the comparisons'."""
+    return torch.stack([waterfill(src[b], dst[b], active[b], cap_e[b],
+                                  cap_i[b], iters)
+                        for b in range(src.shape[0])])

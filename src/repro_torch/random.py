@@ -14,6 +14,12 @@ constants; or a ``TableKey``, a stream of a ``KeyTable`` read on the device
 at the table's step counter, whose words enter ``threefry2x32`` as 0-d
 tensors, so a loop captured once as a CUDA graph draws from new keys at
 every replay.  uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF``.
+
+The draws carry no batch axis.  Every point of a sweep
+(``Simulation.run_batch``) starts from the same seed and the key schedule
+depends on nothing else, so all points draw the same bits: a batched tick
+draws once, from one row of the ``KeyTable``, and broadcasts the draw over
+its points.
 """
 from __future__ import annotations
 
@@ -296,10 +302,13 @@ def _fma32_poly(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def div32(x: torch.Tensor, s) -> torch.Tensor:
-    """``x / s`` for a Python-number ``s``, rounded as one IEEE division on
-    every device.  (PyTorch's CUDA path turns division by a host scalar
-    into multiplication by its reciprocal, which can differ in the last
-    bit; a 0-d tensor on the device keeps it a true division.)"""
+    """``x / s`` for a Python number or a device tensor ``s`` (a sweep's
+    per-point values, shaped to broadcast), rounded as one IEEE division
+    on every device.  (PyTorch's CUDA path turns division by a host
+    scalar into multiplication by its reciprocal, which can differ in the
+    last bit; a tensor on the device keeps it a true division.)"""
+    if isinstance(s, torch.Tensor):
+        return x / s
     return x / torch.full((), float(np.float32(s)), dtype=x.dtype,
                           device=x.device)
 

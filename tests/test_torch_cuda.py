@@ -24,7 +24,12 @@ a CUDA graph and replayed, give the eager launches' bits (one block, and
 the cooperative grid at case2b's width).  ``Simulation.run``'s replayed
 tick graphs give the eager tick's bits in every leaf and trace (the
 golden, fabric and a scaling SockShop scenario), and ``DecodeGraph``'s
-logits the eager ``decode_step``'s.
+logits the eager ``decode_step``'s.  The batch axis: both simulator
+kernels over B points in one launch (every route, the cooperative grids
+striding over points) bit-equal point by point to each point's unbatched
+launch and to the plain version; ``run_batch``'s replayed batched tick
+equal to the eager batched tick and each point to its solo run; its
+capture free of synchronising calls.
 
 The model-zoo kernels against their plain versions: ``flash_attention``
 within ``FLASH_TOL`` (relative, absolute) (float32 inputs: the sums in
@@ -579,6 +584,128 @@ def test_tick_capture_makes_no_synchronising_call(dev):
         sim.run_state(state, 20)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: both simulator kernels over B points in one launch, and
+# the batched tick replayed
+# ---------------------------------------------------------------------------
+
+def _stack_pools(pools):
+    cl = Cloudlets(torch.stack([p[0].ints for p in pools]),
+                   torch.stack([p[0].flts for p in pools]), pools[0][0].layout)
+    rate = torch.stack([p[1] for p in pools])
+    req = tuple(torch.stack([p[2][k] for p in pools]) for k in range(3))
+    return cl, rate, req
+
+
+# one block (B=3), a cluster (B=8, SockShop's shape), the cooperative grid
+# with its blocks striding over 3 x 64 (point, tile) pairs
+@pytest.mark.parametrize("B,C,I,R", [(3, 1000, 33, 2000),
+                                     (8, 8192, 60, 3000),
+                                     (3, 262_144, 50_000, 1072)])
+def test_batched_cloudlet_finish_is_each_points_launch(B, C, I, R, dev):
+    pools = [_pool_inputs(C, I, R, C + b, dev, skew=5 if b == 1 else None)
+             for b in range(B)]
+    cl, rate, req = _stack_pools(pools)
+    time = torch.tensor([12.5 + b for b in range(B)], dtype=torch.float32,
+                        device=dev)
+    dt = torch.tensor([0.1, 0.25, 0.05, 0.1, 0.2, 0.1, 0.3, 0.1][:B],
+                      dtype=torch.float32, device=dev)
+    before = counts["cloudlet_finish"]
+    got = cloudlet_finish_pool(cl, rate, time, dt, *[x.clone() for x in req],
+                               n_inst=I)
+    assert counts["cloudlet_finish"] == before + 1
+    for b, (pcl, prate, preq) in enumerate(pools):
+        one = cloudlet_finish_pool(pcl, prate, time[b], dt[b],
+                                   *[x.clone() for x in preq], n_inst=I)
+        plain = _plain_on("cpu", pcl, prate, time[b], float(dt[b]), preq, I)
+        torch.cuda.synchronize()
+        for name, g, o, w in zip(NAMES, got, one, plain):
+            assert torch.equal(g[b], o), (b, name)
+            assert _same(g[b], w), (b, name)
+
+
+@pytest.mark.parametrize("B,C,H", [(8, 8192, 10), (2, 262_144, 781),
+                                   (9, 262_144, 781), (5, 40_000, 50)])
+def test_batched_link_share_is_each_points_launch(B, C, H, dev):
+    """One launch for every point: a block a point, and the cooperative
+    grid (case2b+net's 16 blocks a point: 2 points in one round, 9 in two
+    rounds of at most 8 groups on 132 SMs; 5 points of 3 blocks)."""
+    points = [_link_inputs(C, H, 7 * b + C, dev) for b in range(B)]
+    args = [torch.stack([p[k] for p in points]) for k in range(5)]
+    before = counts["link_share"]
+    got = link_share(*args, iters=2)
+    assert counts["link_share"] == before + 1
+    for b, p in enumerate(points):
+        one = link_share(*p, iters=2)
+        want = tlink.waterfill(*[x.cpu() for x in p], 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got[b], one), b
+        assert torch.equal(got[b].cpu(), want), b
+
+
+def _intervals_sweep(sim):
+    """Points of ``sim`` whose scaling intervals differ (the per-point
+    ``"mask"`` tick) and two that share it."""
+    import dataclasses
+    return [dataclasses.replace(sim.params, scale_interval=si,
+                                hs_util_hi=th, n_clients=nc)
+            for si, th, nc in [(5, 0.05, 60), (7, 0.04, 40), (5, 0.1, 50)]]
+
+
+@pytest.mark.parametrize("which", ["fabric", "scaling"])
+def test_batched_replay_is_the_eager_batch_and_each_solo_run(which, dev):
+    """``run_batch`` replays one batched tick graph (the scaling SockShop
+    with per-point intervals: the ordinary tick and the masked one): its
+    bits are the eager batched tick's, one launch of each kernel per
+    tick, and each point is that point's solo run on the card."""
+    import dataclasses
+    sim = {"fabric": _fabric, "scaling": _scaling}[which](dev)
+    if which == "fabric":
+        sweeps = [dataclasses.replace(sim.params, nic_egress_mbps=m,
+                                      nic_ingress_mbps=m, n_clients=nc)
+                  for m, nc in [(50.0, 12), (4.0, 16), (20.0, 8)]]
+    else:
+        sweeps = _intervals_sweep(sim)
+    n = sim.params.n_ticks
+    reset_counts()
+    res = sim.run_batch(sweeps)
+    assert counts["cloudlet_finish"] == n
+    if which == "fabric":
+        assert counts["link_share"] == n
+    state, trace = sim.run_batch_state(sim.init_state(), sweeps,
+                                       probe=lambda name: None)
+    _assert_same(_leaf_bits(res.state), _leaf_bits(state))
+    _assert_same(_leaf_bits(res.trace), _leaf_bits(trace))
+    from repro_torch.core import batch_item
+    base = sim.params
+    for b, p in enumerate(sweeps):
+        sim.params = p
+        solo = sim.run()
+        one = batch_item(res, b)
+        _assert_same(_leaf_bits(one.state), _leaf_bits(solo.state))
+        _assert_same(_leaf_bits(one.trace), _leaf_bits(solo.trace))
+    sim.params = base
+    if which == "scaling":
+        assert int(res.state.counters.scale_out.sum()) > 0
+
+
+def test_batched_capture_makes_no_synchronising_call(dev):
+    """The batched tick's warm-up, capture (both variants of a per-point
+    cadence) and replays under sync debug mode "error"."""
+    sim = _scaling(dev)
+    sweeps = _intervals_sweep(sim)
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim.run_batch_state(state, sweeps, 20)
+        sim.run_batch_state(state, sweeps, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    (graphs,) = [g for k, g in sim._graphs.items() if k[1] == len(sweeps)]
+    assert sorted(map(str, graphs.graphs)) == ["False", "mask"]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])

@@ -5,7 +5,7 @@ reference on the CPU.
 chip_smoke imports neither JAX nor the JAX package, so the reference's
 results at chip_smoke's own configurations are computed here and written
 into it as constants (``PIN_LEAVES``, ``CAPACITY_PINS``,
-``SOCKSHOP_PINS``; this script prints them):
+``SOCKSHOP_PINS``, ``SWEEP_PINS``; this script prints them):
 
 * Table 2 case1b, case1b+net and case2b (``benchmarks/bench_capacity.py``
   sizing): a digest of every leaf of the final state, the reference's
@@ -13,14 +13,19 @@ into it as constants (``PIN_LEAVES``, ``CAPACITY_PINS``,
   and digested as chip_smoke digests the card's (``chip_smoke.
   leaf_digests``);
 * SockShop (paper §6.3): 100 clients HS and 300 NS over 600 s, 300 HS
-  over 180 s: the response digest and the integer counters.
+  over 180 s: the response digest and the integer counters;
+* ``benchmarks/bench_scaling.py``'s ``sweep8_demo`` (SockShop, HS,
+  ``FIG11_KNOBS``, 8 loads from 200 to 1100 clients over 600 s) as one
+  ``run_batch``: each point's response digest and integer counters
+  (``SWEEP_PINS``, in load order).
 
 The reference runs as its goldens were pinned: non-partitionable threefry,
 compile cache cleared; numpy runs on its baseline code paths, as in
 chip_smoke (its ``NUMPY_BASELINE``: the instance placement's order among
 VMs of equal free capacity is numpy's argsort's, which depends on the SIMD
 sort numpy dispatches to).  Run from the repository root (the reference
-takes about 40 s for case2b and under two minutes in all on the CPU):
+takes about 40 s for case2b and under two minutes in all on the CPU, and
+a few minutes more for the sweep):
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tools/chip_smoke_pins.py
 
@@ -111,13 +116,54 @@ def sockshop_pins(n_clients, duration, policy, port):
     return pins
 
 
+def sweep_pins(port):
+    """The reference's ``sweep8_demo`` sweep as one ``run_batch``: each
+    point's ``sockshop_summary``, in load order.  chip_smoke keeps its own
+    copy of the sweep's knobs and loads (it imports no part of the JAX
+    package); they must be the benchmark's."""
+    import dataclasses
+    from benchmarks import bench_scaling
+    from repro.configs import sockshop as jsock
+    from repro.core import batch_item, policies
+    knobs, loads = chip_smoke.FIG11_KNOBS, chip_smoke.SWEEP8_LOADS
+    assert knobs == bench_scaling.FIG11_KNOBS, "FIG11_KNOBS drifted"
+    assert list(loads) == [int(x) for x in np.linspace(200, 1100, 8)]
+    t0 = time.perf_counter()
+    with _reference():
+        jsim = jsock.make_sim(n_clients=max(loads), duration_s=600.0,
+                              scaling_policy=policies.SCALE_HORIZONTAL,
+                              **knobs)
+        sweeps = [dataclasses.replace(jsim.params, n_clients=int(nc),
+                                      spawn_rate=float(nc) / 30.0)
+                  for nc in loads]
+        res = jsim.run_batch(sweeps)
+        pins = [chip_smoke.sockshop_summary(batch_item(res, b).state)
+                for b in range(len(loads))]
+    print(f"# sweep8: reference {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if port:
+        from repro_torch.configs import sockshop as tsock
+        from repro_torch.core import batch_item as titem
+        t0 = time.perf_counter()
+        tsim = tsock.make_sim(n_clients=max(loads), duration_s=600.0,
+                              scaling_policy=policies.SCALE_HORIZONTAL,
+                              device="cpu", **knobs)
+        tres = tsim.run_batch([dataclasses.replace(p) for p in sweeps])
+        got = [chip_smoke.sockshop_summary(titem(tres, b).state)
+               for b in range(len(loads))]
+        print(f"# ... port on the CPU {time.perf_counter() - t0:.1f} s, "
+              f"{'matches' if got == pins else f'differs: {got}'}",
+              file=sys.stderr)
+    return pins
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU and compare")
     ap.add_argument("--only", default="",
                     help="comma-separated subset of case1b, case1b+net, "
-                    "case2b, sockshop")
+                    "case2b, sockshop, sweep")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     cap = {tag: capacity_pins(tag, args.port) for tag in CAPACITY
@@ -127,11 +173,12 @@ def main(argv=None) -> int:
         for case in chip_smoke.SOCKSHOP_CASES:
             sock["%d/%d/%d" % (case[0], case[1], case[2])] = sockshop_pins(
                 *case, args.port)
-    print(_source(cap, sock))
+    sweep = sweep_pins(args.port) if not only or "sweep" in only else []
+    print(_source(cap, sock, sweep))
     return 0
 
 
-def _source(cap, sock) -> str:
+def _source(cap, sock, sweep=()) -> str:
     """The pins as chip_smoke's constants: the leaf names once
     (``PIN_LEAVES``, sorted), each capacity case's leaf digests in that
     order as one string, the SockShop summaries as dictionaries; lines of
@@ -165,6 +212,14 @@ def _source(cap, sock) -> str:
             "        ", " ")]
         out[-1] = out[-1][:-1] + "),"
     out.append("}")
+    out.append("SWEEP_PINS = (")
+    for pin in sweep:
+        rows = packed([f"{k}={v}," for k, v in sorted(pin.items())],
+                      "        ", " ")
+        out.append("    dict(" + rows[0].rstrip())
+        out += ["         " + r.rstrip() for r in rows[1:]]
+        out[-1] = out[-1][:-1] + "),"
+    out.append(")")
     return "\n".join(out)
 
 
