@@ -33,7 +33,11 @@ Phases, in order (any failure exits non-zero):
    version and timed beside its bound and the issue floor of an FADD and
    an FMNMX a term; ``link_share`` at the SockShop fabric,
    case1b+net and case2b+net shapes (rates bit-equal, two launches
-   bit-identical); both simulator kernels batched, one launch for every
+   bit-identical) and at case1b+net's shape on chaos mode's inputs (a
+   quarter of the egress and a fifth of the ingress ports at capacity 0,
+   a fifth of the transfers cut out of the water-fill), bit-equal to the
+   plain version on the card and on the CPU; both simulator kernels
+   batched, one launch for every
    point (``cloudlet_finish`` at 8 x SockShop's pool and 4 x case2b's, the
    cooperative grid striding over the points' tiles; ``link_share`` at 8
    x SockShop's fabric and 2 x case2b+net's), each point bit-equal to its
@@ -51,7 +55,11 @@ Phases, in order (any failure exits non-zero):
    stated tolerance, with its TFLOP/s, share of the bound and the
    float32-pipe figure beside the bound; two launches bit-identical.
    Then the golden small scenarios of both network modes, whose integer
-   counters and response digests are pinned;
+   counters and response digests are pinned, and their chaos combos
+   (``faults="chaos"``, in a child process on numpy's own code paths,
+   as ``MATRIX_GOLDEN`` was pinned), held to its pinned fields, the chaos
+   conservation law, one launch of each kernel a tick and, every leaf
+   and trace, the same run on the CPU;
 3. Table 2 case1b at full size, run twice through ``Simulation.run``,
    which captures the tick as a CUDA graph at the first run and replays
    it once per tick (conservation laws, 10^6 requests admitted, one
@@ -67,7 +75,13 @@ Phases, in order (any failure exits non-zero):
 4. Table 2 case1b+net (the network fabric on 10,000 Mbit/s NICs) at full
    size, once, with the same checks and one ``link_share`` launch per
    tick; its per-phase times name the Transit phase;
-5. Table 2 case2b at full size, once, with the same checks;
+5. Table 2 case2b at full size, once, with the same checks; then the
+   chaos cases case1b+faults, case1b+chaos2 and case1b+net+chaos2 (the
+   Disruption phase on; the last two with every gray-failure stream over
+   4 zones), once each, with the same checks (their final states against
+   ``CAPACITY_PINS``, the chaos conservation law with the fault counters
+   printed, per-phase times that name Disruption), and their replayed
+   ms per tick, device operations a tick and busy share beside case1b's;
 6. SockShop (paper §6.3), three runs one after another: 100 clients
    (HS) and 300 clients (NS) over 600 s, average response against the
    testbed, and 300 clients with HS over 180 s, which must scale out;
@@ -91,6 +105,13 @@ Phases, in order (any failure exits non-zero):
    batched tick below twice the solo tick's, 0 synchronising calls a
    replayed batched tick over a scaling tick, and 100 replayed batched
    ticks equal to the eager ones (with their per-phase times);
+   then ``examples/chaos_study.py``'s sweep (``CHAOS_STUDY``: SockShop
+   with 2 replicas spread, zone fail-slow chaos, 100 clients over 120 s,
+   blast radii 1, 2 and 5 x outlier ejection off and on) as one
+   ``run_batch(apps=)``: one ``cloudlet_finish`` launch a batched tick,
+   each point's response digest, counters and ``FaultStats`` equal to the
+   JAX reference's (``CHAOS_PINS``), 0 synchronising calls a replayed
+   batched tick, and the study's table;
 7. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
    ``examples/network_saturation.py``'s sweep) at 10, 50 and 100 clients
    over 120 s, one after another: one ``link_share`` and one
@@ -128,6 +149,7 @@ or time a kernel are not counted in the reported launches.
 from __future__ import annotations
 
 import os
+import sys
 
 # numpy on its baseline code paths, before anything imports it.  The Table
 # 2 cases place instances on VMs of equal free capacity, and the
@@ -135,17 +157,22 @@ import os
 # argsort, whose order among ties depends on the SIMD sort numpy dispatches
 # to and on its version (case2b's 781 tied VMs: three orders on one host);
 # the baseline quicksort gives one order on every host.  The pins
-# (``tools/chip_smoke_pins.py``) are taken with the same setting.
+# (``tools/chip_smoke_pins.py``) are taken with the same setting.  The one
+# exception is the golden scenario's chaos phase, which this script runs
+# in a child process (``GOLDEN_CHAOS_FLAG``) on numpy's own code paths:
+# ``MATRIX_GOLDEN``'s chaos pins were taken with numpy's SIMD sort, whose
+# order among the golden scenario's 4 tied VMs is not the baseline's.
 NUMPY_BASELINE = ("AVX2 FMA3 AVX512F AVX512CD AVX512_SKX AVX512_CLX "
                   "AVX512_CNL AVX512_ICL AVX512_SPR")
-os.environ["NPY_DISABLE_CPU_FEATURES"] = NUMPY_BASELINE
+GOLDEN_CHAOS_FLAG = "--golden-chaos"
+if GOLDEN_CHAOS_FLAG not in sys.argv:
+    os.environ["NPY_DISABLE_CPU_FEATURES"] = NUMPY_BASELINE
 
 import json  # noqa: E402
 import math
 import re
 import shutil
 import subprocess
-import sys
 import time
 import traceback
 import warnings
@@ -291,6 +318,81 @@ CAPACITY_PINS = {
         "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
         "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 933dccc013e6 f48fa41d00cd "
         "368e9aabca1a 01a9ff9ad4a6"),
+    "case1b+chaos2": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "4f7988030a00 d0889dd7dea0 9a181641cc03 cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 7167e520a3eb df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 19e7f4494456 cee19cda5a70 "
+        "af5570f5a181 af5570f5a181 af5570f5a181 4fd1d2ff6c51 a3e902d34859 "
+        "fc19b1997119 fc19b1997119 17ebf9fbb644 fc19b1997119 fc19b1997119 "
+        "08149ef58087 a3e902d34859 fa807c957eaf df3f619804a9 4f4b9b7d8b86 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 9d9f290527a6 "
+        "9d9f290527a6 df3f619804a9 9d9f290527a6 df3f619804a9 df3f619804a9 "
+        "32434dc5b0f7 fa72dd1e82ac e8613f5a5bc9 08149ef58087 08149ef58087 "
+        "08149ef58087 afea72635a16 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 e1dd2d624177 9d1679c5aa9b fc19b1997119 fc19b1997119 "
+        "fc19b1997119 93ccf2ea3c2b 53267cbb8711 5dcc1b5872dd 5dcc1b5872dd "
+        "5dcc1b5872dd 5341e6b26469 5dcc1b5872dd df3f619804a9 df3f619804a9 "
+        "28303a108841 07622e6f2e11 cee19cda5a70 9e94cbbf1036 2d8ab68b400e "
+        "2df77297ded1 560db0b0dacf c6826e44264a 9e94cbbf1036 1cb86bba75ce "
+        "df3f619804a9 550625f47dc1 79ff7fbc96a0 c9929f20b694 344c2e8430e4 "
+        "cee19cda5a70 a5979970b15e f11771e2174f e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
+    "case1b+faults": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "4f7988030a00 73616bd060ef 14c96f150671 cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 162d5c594873 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 e4f0233cbbfe cee19cda5a70 "
+        "af5570f5a181 af5570f5a181 af5570f5a181 5dcc1b5872dd a3e902d34859 "
+        "fc19b1997119 fc19b1997119 964c4a8aa000 fc19b1997119 fc19b1997119 "
+        "08149ef58087 a3e902d34859 fa807c957eaf df3f619804a9 4f4b9b7d8b86 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 9d9f290527a6 "
+        "9d9f290527a6 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 08149ef58087 08149ef58087 "
+        "08149ef58087 f5eb42464752 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 e1dd2d624177 ee2d850f18bd fc19b1997119 fc19b1997119 "
+        "fc19b1997119 e650a46f1b8e 53267cbb8711 5dcc1b5872dd 5dcc1b5872dd "
+        "5dcc1b5872dd 5341e6b26469 5dcc1b5872dd df3f619804a9 df3f619804a9 "
+        "28303a108841 07622e6f2e11 cee19cda5a70 9e94cbbf1036 2d8ab68b400e "
+        "66c0551e5ded 560db0b0dacf 006d81cb8d29 9e94cbbf1036 1cb86bba75ce "
+        "df3f619804a9 550625f47dc1 79ff7fbc96a0 4a34fa9b691d 9fac8ea207d2 "
+        "cee19cda5a70 c52d2bba2aa2 17f08f4dfd0c e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
+    "case1b+net+chaos2": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "4f7988030a00 cab3f62226dd 6516d6233610 cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 43f97f9b7e06 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 eed72f47b9a4 6e8a30b4a05a "
+        "f50dbbf0c280 af5570f5a181 af5570f5a181 5dcc1b5872dd a3e902d34859 "
+        "fc19b1997119 fc19b1997119 70448138cea8 fc19b1997119 fc19b1997119 "
+        "08149ef58087 a3e902d34859 fa807c957eaf df3f619804a9 41d043a7c0f0 "
+        "df3f619804a9 af220e86f3b7 df3f619804a9 df3f619804a9 2594b6a92ebf "
+        "2594b6a92ebf df3f619804a9 2594b6a92ebf df3f619804a9 af220e86f3b7 "
+        "b01099398ce2 044ff6211dc3 fb5e512425fc 08149ef58087 08149ef58087 "
+        "08149ef58087 4369f2ba7d8c 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 ef2d9ea73cb0 b5a47706d0ae fc19b1997119 fc19b1997119 "
+        "fc19b1997119 2c8e8457dad1 53267cbb8711 1f166fb1a8aa 5dcc1b5872dd "
+        "5dcc1b5872dd b59836de47ad e9c8140102cf bca472964bfb 635235589bf9 "
+        "28303a108841 ca062df3604b cee19cda5a70 9e94cbbf1036 2d8ab68b400e "
+        "5cd21fdf25d4 560db0b0dacf 5c2b745b7973 9927159bee41 24d42edb34cf "
+        "af220e86f3b7 550625f47dc1 79ff7fbc96a0 43f97f9b7e06 7c6c88cf9c5a "
+        "cee19cda5a70 48930ae6e734 a33eadf8ad0f e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
 }
 SOCKSHOP_PINS = {
     "100/600/1": dict(
@@ -358,6 +460,106 @@ SWEEP_PINS = (
          resp_digest=127515916884282, scale_down=0, scale_in=0, scale_out=39,
          scale_up=0, slo_violations=5241, spawned=276913),
 )
+
+
+# ``examples/chaos_study.py``'s sweep with the example's defaults (a copy;
+# ``tools/chip_smoke_pins.py`` checks it against the example's): SockShop
+# with 2 replicas per service spread over the 10 nodes, zone fail-slow
+# chaos, 100 clients over 120 s; blast radii 1, 2 and 5 hosts a zone, each
+# with outlier ejection off (threshold 2.0 > 1) and on (0.35), as one
+# ``run_batch(apps=)`` whose points differ in ``host_zone``.
+CHAOS_STUDY = dict(
+    n_clients=100, duration_s=120.0, replicas=2, share=600.0,
+    faults="chaos", host_mtbf_s=float("inf"), inst_kill_rate=0.0,
+    retry_timeout_s=2.5, retry_budget=2, cb_err_thresh=0.5,
+    cb_cooldown_s=5.0, cb_alpha=0.3, zone_slow_rate=0.02,
+    host_slow_factor=0.1, host_slow_mttr_s=15.0, eject_cooldown_s=8.0)
+CHAOS_RADII = (1, 2, 5)
+CHAOS_EJECT = (2.0, 0.35)
+CHAOS_HOSTS = 10
+# The JAX reference's ``run_batch`` of that sweep on the CPU
+# (``tools/chip_smoke_pins.py``): each point's ``chaos_summary``, radius
+# by radius, ejection off then on.
+CHAOS_PINS = (
+    {"completed": 1089, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "finished": 3267, "fstats.breaker_trips": 33,
+     "fstats.down_time_s": 0, "fstats.ejections": 0,
+     "fstats.failed_attempts": 867, "fstats.failed_requests": 586,
+     "fstats.failfast": 565, "fstats.host_crashes": 0,
+     "fstats.host_recoveries": 0, "fstats.inst_kills": 0,
+     "fstats.partitions": 0, "fstats.readmissions": 0,
+     "fstats.retries": 111, "fstats.slow_episodes": 22,
+     "fstats.slow_time_s": 1130083197, "fstats.zone_faults": 26,
+     "migrations": 0, "requests": 1104, "resp_digest": 3182428345586,
+     "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
+     "slo_violations": 744, "spawned": 4153},
+    {"completed": 1094, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "finished": 3383, "fstats.breaker_trips": 22,
+     "fstats.down_time_s": 0, "fstats.ejections": 24,
+     "fstats.failed_attempts": 831, "fstats.failed_requests": 550,
+     "fstats.failfast": 509, "fstats.host_crashes": 0,
+     "fstats.host_recoveries": 0, "fstats.inst_kills": 0,
+     "fstats.partitions": 0, "fstats.readmissions": 22,
+     "fstats.retries": 116, "fstats.slow_episodes": 22,
+     "fstats.slow_time_s": 1130083197, "fstats.zone_faults": 26,
+     "migrations": 0, "requests": 1104, "resp_digest": 3176017740126,
+     "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
+     "slo_violations": 747, "spawned": 4226},
+    {"completed": 1081, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "finished": 2939, "fstats.breaker_trips": 36,
+     "fstats.down_time_s": 0, "fstats.ejections": 0,
+     "fstats.failed_attempts": 780, "fstats.failed_requests": 512,
+     "fstats.failfast": 488, "fstats.host_crashes": 0,
+     "fstats.host_recoveries": 0, "fstats.inst_kills": 0,
+     "fstats.partitions": 0, "fstats.readmissions": 0,
+     "fstats.retries": 127, "fstats.slow_episodes": 17,
+     "fstats.slow_time_s": 1129558972, "fstats.zone_faults": 11,
+     "migrations": 0, "requests": 1104, "resp_digest": 3185254167252,
+     "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
+     "slo_violations": 660, "spawned": 3750},
+    {"completed": 1080, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "finished": 3127, "fstats.breaker_trips": 21,
+     "fstats.down_time_s": 0, "fstats.ejections": 22,
+     "fstats.failed_attempts": 635, "fstats.failed_requests": 426,
+     "fstats.failfast": 416, "fstats.host_crashes": 0,
+     "fstats.host_recoveries": 0, "fstats.inst_kills": 0,
+     "fstats.partitions": 0, "fstats.readmissions": 21,
+     "fstats.retries": 91, "fstats.slow_episodes": 17,
+     "fstats.slow_time_s": 1129558972, "fstats.zone_faults": 11,
+     "migrations": 0, "requests": 1104, "resp_digest": 3191991108030,
+     "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
+     "slo_violations": 602, "spawned": 3794},
+    {"completed": 1070, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "finished": 3194, "fstats.breaker_trips": 27,
+     "fstats.down_time_s": 0, "fstats.ejections": 0,
+     "fstats.failed_attempts": 540, "fstats.failed_requests": 384,
+     "fstats.failfast": 316, "fstats.host_crashes": 0,
+     "fstats.host_recoveries": 0, "fstats.inst_kills": 0,
+     "fstats.partitions": 0, "fstats.readmissions": 0,
+     "fstats.retries": 104, "fstats.slow_episodes": 19,
+     "fstats.slow_time_s": 1128621701, "fstats.zone_faults": 4,
+     "migrations": 0, "requests": 1104, "resp_digest": 3192304955814,
+     "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
+     "slo_violations": 595, "spawned": 3777},
+    {"completed": 1076, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "finished": 3784, "fstats.breaker_trips": 15,
+     "fstats.down_time_s": 0, "fstats.ejections": 20,
+     "fstats.failed_attempts": 401, "fstats.failed_requests": 277,
+     "fstats.failfast": 241, "fstats.host_crashes": 0,
+     "fstats.host_recoveries": 0, "fstats.inst_kills": 0,
+     "fstats.partitions": 0, "fstats.readmissions": 17,
+     "fstats.retries": 90, "fstats.slow_episodes": 19,
+     "fstats.slow_time_s": 1128621701, "fstats.zone_faults": 4,
+     "migrations": 0, "requests": 1104, "resp_digest": 3266596732370,
+     "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
+     "slo_violations": 562, "spawned": 4221},
+)
+
+
+def study_zones(radius: int) -> np.ndarray:
+    """The chaos study's failure domains: contiguous runs of ``radius``
+    hosts (the last one ragged)."""
+    return (np.arange(CHAOS_HOSTS) // radius).astype(np.int32)
 
 
 class SmokeError(RuntimeError):
@@ -808,6 +1010,49 @@ def check_link_share(tag, C, H, torch, dev, iters=2):
                 bound_ms=bound_ms, max_abs_err=max_err)
 
 
+def check_link_share_cut(tag, C, H, torch, dev, iters=2):
+    """``link_share`` on chaos mode's new inputs: a quarter of the egress
+    and a fifth of the ingress ports at capacity 0 (a brownout of severity
+    0) and a fifth of the transfers cut out of ``flowing`` (a zone-pair
+    partition), bit-equal to the plain version on the card and on a CPU
+    copy of the inputs."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.link_share import ops, ref
+    src, dst, active, cap_e, cap_i = link_inputs(C, H, 29, torch, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cap_e[::4] = 0.0
+    cap_i[1::5] = 0.0
+    active &= torch.rand(C, generator=g, device=dev) >= 0.2
+    args = (src, dst, active, cap_e, cap_i)
+    saved = dict(counts)
+    k1 = ops.link_share(*args, iters=iters)
+    k2 = ops.link_share(*args, iters=iters)
+    p = ref.waterfill(*args, iters)
+    cpu = ref.waterfill(*[a.cpu() for a in args], iters)
+    torch.cuda.synchronize()
+    counts.update(saved)
+    check(torch.equal(k1, k2), f"link_share {tag}: two launches differ")
+    check(torch.equal(k1, p), f"link_share {tag}: differs from the plain "
+          "version on the card")
+    check(torch.equal(k1.cpu(), cpu), f"link_share {tag}: differs from the "
+          "plain version on the CPU")
+    starved = (active & (dst >= 0) & (cap_i[dst.clamp_min(0)] == 0))
+    check(bool((k1[starved] == 0).all()), f"link_share {tag}: a transfer "
+          "into a zero-capacity port moved")
+    check(bool((k1 > 0).any()), f"link_share {tag}: no transfer moved")
+    k_ev, k_dev = cuda_ms(lambda: ops.link_share(*args, iters=iters), 200,
+                          torch)
+    p_ev, p_dev = cuda_ms(lambda: ref.waterfill(*args, iters), 20, torch)
+    counts.update(saved)
+    log(f"link_share {tag}: C={C} H={H} iters={iters}, "
+        f"{int((cap_e == 0).sum())} egress and {int((cap_i == 0).sum())} "
+        f"ingress ports at capacity 0, {int((~active).sum())} transfers "
+        "out of the water-fill: bit-equal to the plain version on the card "
+        f"and on the CPU, two launches bit-identical  kernel {_ms(k_dev)} ms"
+        f" device / {k_ev:.4f} ms per call  plain {_ms(p_dev)} ms device / "
+        f"{p_ev:.4f} ms per call")
+
+
 def flash_inputs(B, Hq, Hkv, T, D, torch, dev, seed=17):
     g = torch.Generator(device=dev).manual_seed(seed)
     mk = lambda H: torch.randn((B, H, T, D), generator=g, device=dev) \
@@ -1044,9 +1289,25 @@ def check_ssd(tag, M, K, L, P, N, torch, dev):
                 bound_ms=bound_ms, bound_by=by, max_abs_err=err)
 
 
-def golden_sim(network, dev):
+# The golden scenario's chaos pins (``tests/test_layouts.py``
+# ``MATRIX_GOLDEN``; ``tools/chip_smoke_pins.py`` checks the copy).
+GOLDEN_CHAOS = {
+    "uniform": dict(completed=54, spawned=1002, finished=296,
+                    resp_digest=1530248430121, transits=0,
+                    failed_attempts=517, retries=388),
+    "fabric": dict(completed=78, spawned=803, finished=626,
+                   resp_digest=1477918938445, transits=289,
+                   failed_attempts=80, retries=79),
+}
+# the golden scenario's chaos knobs (``matrix_sim``'s)
+GOLDEN_CHAOS_KNOBS = dict(faults="chaos", host_mtbf_s=20.0, host_mttr_s=5.0,
+                          retry_timeout_s=3.0, retry_budget=2,
+                          inst_kill_rate=0.01)
+
+
+def golden_sim(network, dev, chaos=False):
     """The reference's golden scenario (``tests/test_layouts.py``
-    ``matrix_sim``) in either network mode, no faults."""
+    ``matrix_sim``) in either network mode, with or without chaos."""
     from repro_torch.core import (InstanceTemplate, SimCaps, SimParams,
                                   Simulation, diamond)
     caps = SimCaps(n_clients=16, max_requests=512, max_cloudlets=512,
@@ -1054,6 +1315,8 @@ def golden_sim(network, dev):
     net = (dict(network="fabric", nic_egress_mbps=50.0,
                 nic_ingress_mbps=50.0) if network == "fabric"
            else dict(net_latency_s=0.05))
+    if chaos:
+        net.update(GOLDEN_CHAOS_KNOBS)
     params = SimParams(dt=0.05, n_ticks=300, n_clients=12, spawn_rate=5.0,
                        wait_lo=0.5, wait_hi=1.5, seed=3, **net)
     return Simulation(diamond(mi=400.0), caps=caps, params=params,
@@ -1085,6 +1348,55 @@ def check_golden(torch, dev):
         log(f"golden scenario ({network}) on the card: {got}")
         check(got == pins, f"golden scenario ({network}) differs from its "
               f"pins {pins}")
+
+
+def run_golden_chaos():
+    """``check_golden_chaos`` in a child process on numpy's own code paths
+    (see ``GOLDEN_CHAOS_FLAG``), its output relayed; fails if it does."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "NPY_DISABLE_CPU_FEATURES"}
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          GOLDEN_CHAOS_FLAG], env=env, capture_output=True,
+                         text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        log(line)
+    check(out.returncode == 0, "golden chaos phase failed:\n"
+          + out.stderr[-3000:])
+
+
+def check_golden_chaos(torch, dev):
+    """The golden scenario's chaos combos on the card: the pinned fields
+    of ``MATRIX_GOLDEN``, the chaos conservation law, one kernel launch a
+    tick, and every leaf and trace equal to the same run on the CPU."""
+    from repro_torch.kernels import counts
+    for network, pins in GOLDEN_CHAOS.items():
+        saved = dict(counts)
+        res = golden_sim(network, dev, chaos=True).run()
+        n = {k: counts[k] - saved[k] for k in ("cloudlet_finish",
+                                                "link_share")}
+        counts.update(saved)
+        st = res.state
+        got = dict(completed=int(st.counters.completed),
+                   spawned=int(st.counters.spawned),
+                   finished=int(st.counters.finished),
+                   resp_digest=sockshop_summary(st)["resp_digest"],
+                   transits=int(st.net.transits),
+                   failed_attempts=int(st.fstats.failed_attempts),
+                   retries=int(st.fstats.retries))
+        want = dict(cloudlet_finish=300,
+                    link_share=300 if network == "fabric" else 0)
+        check(n == want, f"golden chaos ({network}): launches {n}, want "
+              f"{want}")
+        laws = conservation(st)
+        check(got == pins, f"golden chaos ({network}) on the card: {got} "
+              f"differs from its pins {pins}")
+        t0 = time.perf_counter()
+        cpu = golden_sim(network, "cpu", chaos=True).run()
+        same_run(f"golden chaos ({network}): the card against the CPU",
+                 run_bits(res, torch), run_bits(cpu, torch))
+        log(f"golden chaos ({network}) on the card: {got} equal the pins; "
+            f"every leaf and trace equal to the CPU run "
+            f"({time.perf_counter() - t0:.1f} s); launches {n}; {laws}")
 
 
 # ---------------------------------------------------------------------------
@@ -1136,6 +1448,20 @@ def sockshop_summary(state) -> dict:
     return out
 
 
+FSTATS_FLOATS = ("down_time_s", "slow_time_s")
+
+
+def chaos_summary(state) -> dict:
+    """``sockshop_summary`` and every ``FaultStats`` counter (the two
+    float sums as their float32 bits): what ``CHAOS_PINS`` holds."""
+    out = sockshop_summary(state)
+    for k, v in state.fstats._asdict().items():
+        v = _host(v)
+        out["fstats." + k] = int(v.astype(np.float32).view(np.uint32)) \
+            if k in FSTATS_FLOATS else int(v)
+    return out
+
+
 def check_pins(what, got, pins, say=log):
     """Fail on the first key of ``pins`` where ``got`` differs."""
     bad = [k for k in pins if got.get(k) != pins[k]]
@@ -1145,13 +1471,29 @@ def check_pins(what, got, pins, say=log):
 
 
 def conservation(state, n_requests=None):
-    """The conservation laws of the reference's engine invariants test."""
+    """The conservation laws of the reference's engine invariants test,
+    and under chaos its chaos law: every spawned cloudlet finished, in
+    flight or a counted failed attempt, ``n_exec`` equal to the pool and
+    the failed requests counted once."""
     st = state
     cls = st.cloudlets.status.cpu().numpy()
     in_flight = int((cls != 0).sum())
     spawned, finished = int(st.counters.spawned), int(st.counters.finished)
-    check(spawned == finished + in_flight,
-          f"spawned {spawned} != finished {finished} + in flight {in_flight}")
+    failed = int(st.fstats.failed_attempts)
+    check(spawned == finished + in_flight + failed,
+          f"spawned {spawned} != finished {finished} + in flight "
+          f"{in_flight} + failed attempts {failed}")
+    if st.requests.failed.numel():
+        inst = st.cloudlets.inst.cpu().numpy()
+        n_exec = st.instances.n_exec.cpu().numpy()
+        check((np.bincount(inst[cls == 2], minlength=len(n_exec))
+               [:len(n_exec)] == n_exec).all(),
+              "instance n_exec counts differ from the executing pool")
+        resp = st.requests.response.cpu().numpy()
+        fl = st.requests.failed.cpu().numpy()
+        check(int(st.fstats.failed_requests)
+              == int(((resp >= 0) & (fl > 0)).sum()),
+              "failed requests not counted once each")
     n = int(st.requests.count)
     out = st.requests.outstanding.cpu().numpy()[:n]
     check((out >= 0).all() and int(out.sum()) == in_flight,
@@ -1163,8 +1505,13 @@ def conservation(state, n_requests=None):
     if n_requests is not None:
         check(n == n_requests, f"{n} requests admitted, expected "
               f"{n_requests}")
-    return dict(spawned=spawned, finished=finished, in_flight=in_flight,
-                requests=n, completed=int(st.counters.completed))
+    out = dict(spawned=spawned, finished=finished, in_flight=in_flight,
+               requests=n, completed=int(st.counters.completed))
+    if st.requests.failed.numel():
+        out.update({k: int(getattr(st.fstats, k)) for k in (
+            "host_crashes", "retries", "failed_attempts", "failed_requests",
+            "slow_episodes", "partitions", "ejections")})
+    return out
 
 
 class PhaseTimer:
@@ -1188,23 +1535,24 @@ class PhaseTimer:
         return tot
 
 
-def _runner(sim, sweeps):
+def _runner(sim, sweeps, apps=None):
     """``run(state, n, first_tick)``: the solo run, or with ``sweeps`` the
-    batched one over those points."""
+    batched one over those points (and ``apps``)."""
     if sweeps is None:
         return lambda st, n, first: sim.run_state(st, n_ticks=n,
                                                   first_tick=first)
-    return lambda st, n, first: sim.run_batch_state(st, sweeps, n,
-                                                    first_tick=first)
+    return lambda st, n, first: sim.run_batch_state(
+        st, sweeps, n, first_tick=first, apps=apps)
 
 
-def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0, sweeps=None):
+def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0, sweeps=None,
+                        apps=None):
     """Synchronising CUDA calls per tick under sync debug mode "warn" over
     ticks ``first_tick`` .. ``first_tick + n_ticks - 1`` replayed from
     the tick's graphs (the capture and the ticks before run unwatched),
-    with the port's call sites that made them; with ``sweeps``, of the
-    batched tick over those points."""
-    run = _runner(sim, sweeps)
+    with the port's call sites that made them; with ``sweeps`` (and
+    ``apps``), of the batched tick over those points."""
+    run = _runner(sim, sweeps, apps)
     state = sim.init_state()
     if first_tick:
         state, _ = run(state, first_tick, 0)
@@ -1246,15 +1594,15 @@ def sync_sites(fn, torch):
     return len(sites), counts
 
 
-def device_busy(sim, torch, n_ticks=20, sweeps=None):
+def device_busy(sim, torch, n_ticks=20, sweeps=None, apps=None):
     """Over ``n_ticks`` replayed ticks (the run's own copies in and out
     included): the device busy share, the summed device time
     (torch.profiler) over the window's wall time, None if the profiler saw
     no device time; the ms per tick under the profiler; and the device
-    operations (kernels, copies, fills) per tick.  With ``sweeps``, of the
-    batched tick over those points."""
+    operations (kernels, copies, fills) per tick.  With ``sweeps`` (and
+    ``apps``), of the batched tick over those points."""
     from torch.profiler import ProfilerActivity, profile
-    run = _runner(sim, sweeps)
+    run = _runner(sim, sweeps, apps)
     state = sim.init_state()
     state, _ = run(state, 2, 0)
     torch.cuda.synchronize()
@@ -1288,9 +1636,12 @@ def _device_us_by_name(prof) -> dict:
     return by_name
 
 
-def replay_figures(sim, torch, sweeps=None) -> str:
-    """``device_busy``'s figures over 20 replayed ticks, as a phrase."""
-    share, ms_tick, ops = device_busy(sim, torch, sweeps=sweeps)
+def replay_figures(sim, torch, sweeps=None, apps=None, out=None) -> str:
+    """``device_busy``'s figures over 20 replayed ticks, as a phrase (and
+    into ``out``, where given)."""
+    share, ms_tick, ops = device_busy(sim, torch, sweeps=sweeps, apps=apps)
+    if out is not None:
+        out.update(busy=share, profiled_ms=ms_tick, ops=ops)
     return (f"device busy share "
             f"{'not measured' if share is None else f'{share:.3f}'} over 20 "
             f"replayed ticks ({ms_tick:.3f} ms/tick under the profiler, "
@@ -1362,6 +1713,9 @@ def tick_ops_by_site(tag, torch, scale=0.005):
 
 
 def run_capacity(tag, repeats, torch, dev, launches):
+    """One Table 2 case at full size (see the module docstring, phase 3);
+    returns its replay figures: the replayed ms per tick of the last run,
+    and ``device_busy``'s."""
     from repro_torch.configs import capacity
     from repro_torch.kernels import counts, reset_counts
     t_build = time.perf_counter()
@@ -1387,6 +1741,7 @@ def run_capacity(tag, repeats, torch, dev, launches):
             laws["transits"] = int(res.state.net.transits)
             check(laws["transits"] > 0, f"{tag}: no transfer arrived")
         digests.append(state_digest(res.state, torch))
+        fig = dict(ms=res.wall_time_s / meta["n_ticks"] * 1e3)
         log(f"{tag} run {rep + 1}: wall {res.wall_time_s:.3f} s  "
             f"{meta['n_ticks'] / res.wall_time_s:.2f} ticks/s  capture "
             f"{res.compile_time_s:.3f} s  peak memory {peak:.2f} GiB  "
@@ -1408,6 +1763,8 @@ def run_capacity(tag, repeats, torch, dev, launches):
     tot = timer.totals()
     log(f"{tag} per-phase CUDA-event ms/tick (eager, ticks 0-{n - 1}): " +
         "  ".join(f"{k} {v / n:.3f}" for k, v in tot.items()))
+    if sim.params.faults == "chaos":
+        check("Disruption" in tot, f"{tag}: no Disruption phase timed")
     replayed, replayed_tr = sim.run_state(state, n_ticks=n)
     a, b = state_digest(eager, torch), state_digest(replayed, torch)
     bad = [k for k in a if a[k] != b[k]] + [
@@ -1421,11 +1778,13 @@ def run_capacity(tag, repeats, torch, dev, launches):
     log(f"{tag}: synchronising calls per replayed tick {per_tick:.2f} "
         f"(first 10 ticks) {sites}")
     check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
-    log(f"{tag}: {replay_figures(sim, torch)}")
+    log(f"{tag}: {replay_figures(sim, torch, out=fig)}")
     sites = tick_ops_by_site(tag, torch)
+    fig["cpu_ops"] = sum(sites.values())
     log(f"{tag}: {sum(sites.values())} operations a tick by call site "
         "(the port's tick on the CPU at 1/200 of the size; plain kernels "
         "there): " + ", ".join(f"{k} {v}" for k, v in sites.most_common()))
+    return fig
 
 
 SOCKSHOP_CASES = ((100, 600.0, 1), (300, 600.0, 0), (300, 180.0, 1))
@@ -1765,6 +2124,69 @@ def _result(state, trace):
                      compile_time_s=0.0)
 
 
+def run_chaos_study(launches):
+    """``examples/chaos_study.py``'s sweep as the example runs it
+    (``CHAOS_STUDY``): radii 1, 2 and 5 x ejection off and on, 6 points,
+    as one ``run_batch(apps=)`` whose points differ in ``host_zone``.
+    Every point's response digest, integer counters and ``FaultStats``
+    against the JAX reference's ``run_batch`` (``CHAOS_PINS``), one
+    ``cloudlet_finish`` launch a batched tick, 0 synchronising calls a
+    replayed batched tick, and the study's table."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import sockshop
+    from repro_torch.core import batch_item, policies, qos
+    from repro_torch.kernels import counts, reset_counts
+    dev = torch.device("cuda")
+    tag = "chaos study"
+    sim = sockshop.make_sim(placement_policy=policies.PLACE_SPREAD,
+                            host_zone=study_zones(CHAOS_RADII[0]),
+                            device=dev, **CHAOS_STUDY)
+    points, apps, labels = [], [], []
+    for r in CHAOS_RADII:
+        app_r = sim.app._replace(host_zone=torch.as_tensor(
+            study_zones(r), device=dev))
+        for thresh in CHAOS_EJECT:
+            points.append(dataclasses.replace(sim.params,
+                                              eject_err_thresh=thresh))
+            apps.append(app_r)
+            labels.append((r, thresh < 1.0))
+    T = sim.params.n_ticks
+    torch.cuda.synchronize()
+    reset_counts()
+    res = sim.run_batch(points, apps=apps)
+    n = counts["cloudlet_finish"]
+    check(n == T, f"{tag}: cloudlet_finish launched {n} times in {T} "
+          "batched ticks")
+    check(len(CHAOS_PINS) == len(points), f"{tag}: no CHAOS_PINS to hold "
+          "the points to")
+    rows = []
+    for b, ((r, ej), p) in enumerate(zip(labels, points)):
+        item = batch_item(res, b)
+        conservation(item.state)
+        check_pins(f"{tag} point {b} (radius {r}, ejection "
+                   f"{'on' if ej else 'off'}) response digest, counters and "
+                   "FaultStats", chaos_summary(item.state), CHAOS_PINS[b])
+        rep = qos.summarize(sim, item, params=p)
+        rows.append(f"radius {r} eject {'on' if ej else 'off'}: avail "
+                    f"{rep.availability:.3f} err {rep.error_rate:.3f} "
+                    f"failed {rep.failed_requests} slow_eps "
+                    f"{rep.slow_episodes} ejects {rep.ejections} readmit "
+                    f"{rep.readmissions} trips {rep.breaker_trips} p95 "
+                    f"{rep.p95_response_ms:.0f} ms")
+    log(f"{tag}: {len(points)} points x {T} ticks as one run_batch(apps=)  "
+        f"wall {res.wall_time_s:.3f} s  {T / res.wall_time_s:.1f} ticks/s  "
+        f"capture {res.compile_time_s:.3f} s  cloudlet_finish launches {n}"
+        f"  ({gpu_line()})")
+    log(f"{tag} table: " + "; ".join(rows))
+    per_tick, sites = sync_calls_per_tick(sim, torch, sweeps=points,
+                                          apps=apps)
+    log(f"{tag}: synchronising calls per replayed batched tick "
+        f"{per_tick:.2f} (first 10 ticks) {sites}; "
+        f"{replay_figures(sim, torch, points, apps)}")
+    check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
+
+
 FABRIC_SWEEP = (10, 25, 50, 100)
 
 
@@ -2052,6 +2474,25 @@ def run_serve(arch, torch, dev):
     torch.cuda.empty_cache()
 
 
+CHAOS_CASES = ("case1b+faults", "case1b+chaos2", "case1b+net+chaos2")
+
+
+def chaos_overhead(figs):
+    """The chaos cases' replay figures beside case1b's from the same run:
+    their ratios are the port's chaos overhead."""
+    base = figs["case1b"]
+    fmt = lambda x: "not measured" if x is None else f"{x:.3f}"
+    for tag in CHAOS_CASES:
+        f = figs[tag]
+        log(f"{tag} against case1b: replayed {f['ms']:.3f} against "
+            f"{base['ms']:.3f} ms/tick ({f['ms'] / base['ms']:.3f}x), "
+            f"{f['ops']:.1f} against {base['ops']:.1f} device operations a "
+            f"tick ({f['ops'] / base['ops']:.3f}x), busy share "
+            f"{fmt(f['busy'])} against {fmt(base['busy'])}, {f['cpu_ops']} "
+            f"against {base['cpu_ops']} operations a tick on the CPU "
+            f"({gpu_line()})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2088,6 +2529,7 @@ def main() -> int:
         results["link_share"] = check_link_share("case1b+net", 8000, 15,
                                                  torch, dev)
         check_link_share("case2b+net", 262144, 781, torch, dev)
+        check_link_share_cut("case1b+net chaos", 8000, 15, torch, dev)
         check_cloudlet_finish_batched("sockshop", 8, 8192, 60, 82756,
                                       torch, dev)
         check_cloudlet_finish_batched("case2b", 4, 262144, 50000, 1072,
@@ -2102,12 +2544,17 @@ def main() -> int:
         results["ssd_chunk"] = check_ssd(
             "prefill_32k", 24, prefill_len() // 128, 128, 64, 128, torch, dev)
         check_golden(torch, dev)
+        run_golden_chaos()
 
-        run_capacity("case1b", 2, torch, dev, launches)
+        figs = {"case1b": run_capacity("case1b", 2, torch, dev, launches)}
         run_capacity("case1b+net", 1, torch, dev, launches)
         run_capacity("case2b", 1, torch, dev, launches)
+        for tag in CHAOS_CASES:
+            figs[tag] = run_capacity(tag, 1, torch, dev, launches)
+        chaos_overhead(figs)
         run_sockshop(launches)
         run_sweep8(launches)
+        run_chaos_study(launches)
         run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
         for arch in SERVE_ARCHS:
@@ -2160,5 +2607,20 @@ def _build_names():
     return list(KERNELS)
 
 
+def golden_chaos_main() -> int:
+    """The child process of ``run_golden_chaos``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        check_golden_chaos(torch, torch.device("cuda"))
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(golden_chaos_main() if GOLDEN_CHAOS_FLAG in sys.argv
+             else main())

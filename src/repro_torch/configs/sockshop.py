@@ -142,9 +142,9 @@ def make_sim(n_clients: int = 100, duration_s: float = 600.0,
     the 10-node cluster's NICs (DESIGN.md §6); ``placement_policy=
     policies.PLACE_SPREAD`` puts the services on different nodes so their
     calls cross NICs.  ``replicas`` sets the initial replica count per
-    service; ``host_zone`` maps the 10 nodes onto failure domains.  The
-    chaos mode of the reference (``faults="chaos"``) is not ported yet and
-    raises.
+    service; ``host_zone`` maps the 10 nodes onto failure domains.  Pass
+    ``faults="chaos"`` (plus the fault-rate knobs) for the Disruption
+    phase, as the chaos study (``examples/chaos_study.py``) does.
     """
     param_overrides.setdefault("net_latency_s", net_latency_s)
     max_replicas = max(max_replicas, replicas)

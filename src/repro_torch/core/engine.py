@@ -1,8 +1,9 @@
 """Simulation engine: one tick per paper event cycle, looped over time.
 
 ``make_tick`` assembles the event phases of paper §3.2 —
-Generation → (Transit, fabric mode) → Dispatching → Scheduling →
-Derivative → Response → Scaling & Migration — into one state transition.
+Generation → (Disruption, chaos mode) → (Transit, fabric mode) →
+Dispatching → Scheduling → Derivative → Response → Scaling & Migration —
+into one state transition.
 ``Simulation`` runs it as ``TickLoop``'s step over fixed buffers: the
 step reads its keys from a ``random.KeyTable`` at a device counter, writes
 its trace into preallocated buffers at that row and its next state back
@@ -32,6 +33,7 @@ from .. import kernels
 from .. import random as rnd
 from ..analysis import streams
 from . import batch as batchmod
+from . import faults as faultsmod
 from . import network as netmod
 from . import policies, pool, scheduler
 from .app import AppStatic, InstanceTemplate, build_app, validate_app
@@ -47,16 +49,23 @@ from .types import (CL_EXEC, CL_TRANSIT, CL_WAITING, Cloudlets, DynParams,
 
 # Stream names of the tick's single wide split; positions are the
 # contract (split is not prefix-stable, so the fabric's two extra streams
-# change every key), names are the audit labels.  "carry" is the next
-# tick's root key.
+# and chaos mode's three change every key), names are the audit labels.
+# "carry" is the next tick's root key.
 KEY_NAMES = ("carry", "gen", "spawn", "lb", "derive")
 FABRIC_KEY_NAMES = KEY_NAMES + ("net_gen", "net_derive")
+CHAOS_KEY_NAMES = ("faults", "retry_len", "retry_net")
+
+
+def key_names(params: SimParams) -> tuple:
+    """The names of the tick's streams for ``params``' modes."""
+    return ((FABRIC_KEY_NAMES if params.network == "fabric" else KEY_NAMES)
+            + (CHAOS_KEY_NAMES if params.faults == "chaos" else ()))
 
 
 def carry_path(params: SimParams) -> tuple:
     """Where the next tick's root key lies below this tick's, as
     ``random.chain`` takes it."""
-    names = FABRIC_KEY_NAMES if params.network == "fabric" else KEY_NAMES
+    names = key_names(params)
     return ((len(names), names.index("carry")),)
 
 
@@ -69,9 +78,11 @@ def make_tick(caps: SimCaps, params: SimParams,
 
     ``params`` supplies the knobs that choose program structure.
     ``network="fabric"`` adds the Transit phase (core/network.py) between
-    Generation and Dispatch.  Modes the port does not have yet
-    (``faults``, ``telemetry``, ``alerting`` other than their defaults)
-    raise ``NotImplementedError``.
+    Generation and Dispatch; ``faults="chaos"`` adds the Disruption phase
+    (core/faults.py) after Generation, drawing from the tick's last three
+    streams.  Modes the port does not have yet (``telemetry`` and
+    ``alerting`` other than their defaults, ``hs_mode="slo_burn"``) raise
+    ``NotImplementedError``.
     ``key`` is the tick's root key (the role of ``state.rng``: a host key
     or a ``random.TableKey``), one for every point; the tick draws from
     its streams and leaves ``state.rng`` to the caller, who derives the
@@ -88,14 +99,15 @@ def make_tick(caps: SimCaps, params: SimParams,
     check_main_path(params)
     scales = bool(params.scaling_policy or params.migration_enabled)
     network = params.network == "fabric"
-    key_names = FABRIC_KEY_NAMES if network else KEY_NAMES
+    chaos = params.faults == "chaos"
+    names = key_names(params)
 
     def tick(state: SimState, dyn: DynParams, app: AppStatic, key,
              scale_due=False,
              probe: Optional[Callable[[str], None]] = None
              ) -> Tuple[SimState, TickTrace]:
         mark = probe or (lambda name: None)
-        keys = streams.split(key, len(key_names), names=key_names)
+        keys = streams.split(key, len(names), names=names)
         k_gen, k_gen2, k_lb, k_der = keys[1:5]
         k_net_g, k_net_d = (keys[5], keys[6]) if network else (None, None)
 
@@ -105,6 +117,12 @@ def make_tick(caps: SimCaps, params: SimParams,
         state, gen_res = scheduler.gen_spawn(
             state, app, caps, gen.fired, gen.api, gen.wait_proposal,
             k_gen2, dyn, params=params, net_rng=k_net_g)
+
+        if chaos:
+            mark("Disruption")
+            state = faultsmod.disruption(
+                state, app, caps, params, dyn, keys[-3], keys[-2],
+                keys[-1] if network else None)
 
         if network:
             mark("Transit")
@@ -123,7 +141,7 @@ def make_tick(caps: SimCaps, params: SimParams,
                                      params=params, net_rng=k_net_d)
 
         mark("Response")
-        state, n_done = scheduler.complete(state, dyn)
+        state, n_done = scheduler.complete(state, dyn, faults=chaos)
 
         if scales and scale_due:
             mark("Scaling")

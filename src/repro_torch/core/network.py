@@ -1,7 +1,6 @@
 """Network fabric (``network="fabric"``, DESIGN.md §6): host NICs, payload
 transit and max-min fair contention, as the reference's
-``repro.core.network`` (fault-free mode; the chaos branches are not
-ported).
+``repro.core.network``, in both fault modes.
 
 * every instance is attached to a host NIC (``Instances.host``);
 * every RPC carries a Gaussian payload sampled from the edge it traverses
@@ -11,7 +10,11 @@ ported).
   (``kernels/link_share``) splits every egress and ingress port among its
   transfers before ``dispatch`` admits the arrivals;
 * intra-host hops take the loopback fast path (straight to the waiting
-  queue, no NIC).
+  queue, no NIC);
+* under ``faults="chaos"`` a degraded NIC runs at its brownout factor
+  (``FaultState.nic_factor``, which may be 0), a transfer across a cut
+  zone pair leaves the water-fill (it stalls, nothing crashes), and
+  spawn-time addressing skips ejected replicas (``policies.eject_view``).
 
 No function here synchronises with the device.  The statistics
 (``NetStats``) are float sums over the pool, taken in the reference's
@@ -73,7 +76,11 @@ def pick_replicas(svc: torch.Tensor, live: torch.Tensor, state: SimState,
     no live replica exists; the updated round-robin cursors)."""
     sched, inst = state.sched, state.instances
     B, S = sched.svc_replicas.shape
-    iof, reps = sched.inst_of_rank, sched.svc_replicas
+    if params.faults == "chaos":
+        iof, reps = policies.eject_view(sched, state.fault.inst_eject_until,
+                                        state.time)
+    else:
+        iof, reps = sched.inst_of_rank, sched.svc_replicas
     Rm = iof.shape[2]
     svc_safe = torch.where(live, svc, 0)
     replicas = take(reps, svc_safe)
@@ -126,7 +133,7 @@ def transit(state: SimState, caps: SimCaps, params: SimParams,
     """One fabric tick: water-fill every NIC port, advance the transfers,
     deliver the arrivals into the waiting queue (Transit phase)."""
     cl, inst, net = state.cloudlets, state.instances, state.net
-    H = state.hosts.egress_scale.shape[1]
+    B, H = state.hosts.egress_scale.shape
     NB = net.hist.shape[1]
     dt = dyn.dt[:, None]
     time = state.time[:, None]
@@ -140,6 +147,18 @@ def transit(state: SimState, caps: SimCaps, params: SimParams,
     cap_i = (state.hosts.ingress_scale * dyn.nic_ingress_mbps[:, None]
              * MBIT_PER_S_TO_MBYTE_PER_S)
     flowing = active & (dst >= 0)
+    if params.faults == "chaos":
+        nic = state.fault.nic_factor
+        cap_e = cap_e * nic
+        cap_i = cap_i * nic
+        if app is not None:
+            # a transfer across a cut zone pair leaves the water-fill
+            # (client ingress, src = -1, is never cut)
+            hz, cut = app.host_zone, state.fault.zone_cut
+            zs, zd = _take(hz, src), _take(hz, dst)
+            cut = ((src >= 0) & (dst >= 0)
+                   & (take(cut.reshape(B, -1), zs * H + zd) > 0))
+            flowing = flowing & ~cut
 
     rate = link_share(src.contiguous(), dst.contiguous(), flowing, cap_e,
                       cap_i, iters=params.waterfill_iters)

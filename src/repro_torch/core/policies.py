@@ -1,5 +1,6 @@
-"""Built-in policy identifiers (paper §3.2, §5) and the load-balancing
-rank selection shared by the dispatch phase.
+"""Built-in policy identifiers (paper §3.2, §5), the load-balancing
+rank selection shared by the dispatch phase, and the outlier-ejection
+view of the dispatch table (chaos mode).
 
 Built-ins are selected with the integer ids below, as in the reference.
 """
@@ -65,3 +66,28 @@ def lb_rank(lb_policy: int, rr: torch.Tensor, svc: torch.Tensor,
     load = torch.where(valid & (take(inst_status, iof_safe) == INST_ON),
                        load, float("inf"))
     return take(torch.argmin(load, dim=2).to(torch.int32), svc)
+
+
+def eject_view(sched, eject_until: torch.Tensor, time: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch rank table with every OPEN-ejected replica
+    (``time < eject_until``) compacted out, per point (``sched`` tables
+    ``[B, S, R]`` / ``[B, S]``, ``eject_until`` ``[B, I]``, ``time``
+    ``[B]``): ``(inst_of_rank, svc_replicas)``.  HALF-OPEN replicas stay
+    in the rotation as probe targets.  With nothing ejected the keep mask
+    is the in-rank mask, each kept replica keeps its rank, and the tables
+    equal ``sched``'s."""
+    i32 = torch.int32
+    iof = sched.inst_of_rank
+    B, S, Rm = iof.shape
+    idx = torch.arange(Rm, dtype=i32, device=iof.device)
+    in_rank = idx < sched.svc_replicas[:, :, None]
+    ejected = take(eject_until, torch.clamp_min(iof, 0)) > time[:, None, None]
+    keep = in_rank & ~ejected
+    pos = torch.cumsum(keep, 2, dtype=i32) - 1
+    n_ok = torch.amax(torch.where(keep, pos + 1, 0), dim=2)
+    # within a row the kept positions are a prefix ranking: distinct
+    # targets; a dropped lane lands in the spare column Rm
+    out = torch.full((B, S, Rm + 1), -1, dtype=i32, device=iof.device)
+    out.scatter_(2, torch.where(keep, pos, Rm).long(), iof)
+    return out[:, :, :Rm], n_ok

@@ -1,9 +1,13 @@
 """Cloudlet scheduler phases (paper §4.2) + derivative spawning (§4.1.2),
-for both network modes (uniform latency and the fabric) without faults.
+for both network modes (uniform latency and the fabric) and both fault
+modes.
 
 Every tick runs, in order:
 
   ``gen_spawn``   — new requests fire root cloudlets at API entry services
+  ``disruption``  — (chaos mode, core/faults.py) hosts crash and recover,
+                    instances die, doomed work fails, retries respawn,
+                    circuit breakers and outlier ejection advance
   ``transit``     — (fabric mode, core/network.py) in-flight payloads share
                     host NICs max-min fairly; arrivals join the waiting queue
   ``dispatch``    — waiting→execution transition with load balancing
@@ -35,7 +39,7 @@ from . import policies
 from .app import AppStatic
 from .batch import solo_as_batch
 from .pool import (add_drop, assign_free_slots, scatter_pool, segment_rank,
-                   segment_sum, set_drop, take)
+                   segment_sum, set_drop, take, tree_sum)
 from .types import (CL_EXEC, CL_FREE, CL_TRANSIT, CL_WAITING, DynParams,
                     INST_DRAIN, INST_FREE, INST_ON, SimCaps, SimParams,
                     SimState)
@@ -133,14 +137,18 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
     Ka = asg.dst.shape[1]
     svc_new = take(svc_flat, asg.src)
     req_new = torch.clamp_max(take(req_flat, asg.src), R - 1)
+    chaos = "edge" in cl.layout
+    if chaos or net_rng is not None:
+        api_new = take(api_r[:, :, None].expand(B, K, E).reshape(B, -1),
+                       asg.src)
+    # client→entry edge id: after the S·d_max call edges (chaos mode)
+    edge_new = app.n_services * app.succ.shape[2] + api_new if chaos else -1
     length = _spawn_length(app, svc_new, rng, dev)
 
     rr = state.rr
     if net_rng is None:                  # uniform mode
         status_new, inst_new, bytes_new = CL_WAITING, -1, 0.0
     else:                                # fabric mode: address + payload
-        api_new = take(api_r[:, :, None].expand(B, K, E).reshape(B, -1),
-                       asg.src)
         k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
         tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
                                        params, k_lb)
@@ -156,9 +164,9 @@ def gen_spawn(state: SimState, app: AppStatic, caps: SimCaps,
 
     cloudlets = scatter_pool(
         cl, asg, status=status_new, req=req_new, service=svc_new,
-        inst=inst_new, wait_ticks=0, depth=0, src_host=-1, src_inst=-1,
-        length=length, rem=length, arrival=now, start=-1.0,
-        rem_bytes=bytes_new)
+        inst=inst_new, wait_ticks=0, depth=0, src_host=-1, attempt=0,
+        edge=edge_new, src_inst=-1, length=length, rem=length,
+        arrival=now, start=-1.0, rem_bytes=bytes_new)
 
     # A request with several entry cloudlets hits its counters repeatedly.
     requests = requests._replace(
@@ -183,6 +191,7 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
              params: SimParams, dyn: DynParams,
              rng: torch.Tensor, network: bool = False) -> SimState:
     cl, inst, sched = state.cloudlets, state.instances, state.sched
+    chaos = params.faults == "chaos"
     B, C = cl.ints.shape[:2]
     I = inst.status.shape[1]
     S = app.n_services
@@ -199,7 +208,13 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
         waiting = (cl.status == CL_WAITING) & \
             ((state.time + 1e-6)[:, None]
              >= cl.arrival + dyn.net_latency[:, None])
-    iof, reps = sched.inst_of_rank, sched.svc_replicas
+    if chaos:
+        # dispatch around OPEN-ejected replicas (the identity view when
+        # nothing is ejected)
+        iof, reps = policies.eject_view(sched, state.fault.inst_eject_until,
+                                        state.time)
+    else:
+        iof, reps = sched.inst_of_rank, sched.svc_replicas
     Rm = iof.shape[2]
     svc = torch.where(waiting, cl.service, 0)
     replicas = take(reps, svc)                              # [B, C]
@@ -226,6 +241,10 @@ def dispatch(state: SimState, app: AppStatic, caps: SimCaps,
         use_pre = (waiting & (pre >= 0)
                    & (take(inst.status, pre_safe) == INST_ON)
                    & (take(inst.service, pre_safe) == cl.service))
+        if chaos:
+            # nor a replica ejected while the payload was in flight
+            use_pre = use_pre & ~(take(state.fault.inst_eject_until,
+                                       pre_safe) > now)
         target = torch.where(use_pre, pre, target)
         ok = ok | use_pre
         tgt_safe = torch.where(ok, target, 0)
@@ -301,6 +320,15 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
     # Instances run at their host's CPU speed (1.0 by default: exact).
     mips_eff = inst.mips * take(state.hosts.cpu_scale,
                                 torch.clamp_min(inst.host, 0))
+    chaos = params.faults == "chaos"
+    if chaos:
+        # a fail-slow host runs its instances at a fraction of their
+        # allocation (the scheduling weights are untouched)
+        is_slow = (inst.host >= 0) & (take(state.fault.host_slow,
+                                           torch.clamp_min(inst.host, 0)) > 0)
+        mips_eff = torch.where(is_slow,
+                               mips_eff * dyn.host_slow_factor[:, None],
+                               mips_eff)
     rate = torch.where(execm, take(mips_eff, inst_safe) * w
                        / torch.clamp_min(take(wsum, inst_safe), 1e-9), 0.0)
 
@@ -326,8 +354,12 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
                                        dyn.vs_overhead_frac[:, None], 0.0)))
     a = dyn.util_ema[:, None]
     keep = (1 - dyn.util_ema)[:, None]
-    util_ema = torch.where(inst.status != INST_FREE,
-                           rnd.fma32(inst.util_ema, keep, a * util), 0.0)
+    # (the compiled tick fuses the second product into the add; with
+    # the Disruption phase in the program, the first)
+    util_ema = torch.where(
+        inst.status != INST_FREE,
+        rnd.fma32(util, a, keep * inst.util_ema) if chaos
+        else rnd.fma32(inst.util_ema, keep, a * util), 0.0)
     used_ram = torch.where(
         svc_of_inst >= 0,
         take(app.ram_per_cl, torch.clamp_min(svc_of_inst, 0))
@@ -390,9 +422,20 @@ def execute(state: SimState, app: AppStatic, caps: SimCaps,
     )
     counters = state.counters._replace(
         finished=state.counters.finished + _sum_i32(fin))
+
+    # --- per-edge / per-replica success counts (chaos mode), which the
+    # next Disruption pass folds into the breaker and ejection EMAs -------
+    fault = state.fault
+    if chaos:
+        E = fault.edge_succ.shape[1]
+        fault = fault._replace(
+            edge_succ=fault.edge_succ + segment_sum(
+                fin.to(i32), torch.where(fin, cl.col("edge"), -1), E),
+            inst_succ=fault.inst_succ + fin_per_inst,
+            inst_lat_sum=fault.inst_lat_sum + out.inst_acc[:, :I, 2])
     return state._replace(cloudlets=cloudlets, instances=instances, vms=vms,
                           requests=requests, svc_stats=svc_stats,
-                          counters=counters), info
+                          counters=counters, fault=fault), info
 
 
 # ===========================================================================
@@ -431,6 +474,10 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
     dep_new = torch.clamp_max(take(dep_flat, asg.src), S - 1)
     tf_new = take(tf_flat, asg.src)
     pin_new = take(pin_flat, asg.src)
+    edge_new = -1
+    if "edge" in cl.layout or net_rng is not None:
+        # edge (row = parent service, column = successor slot)
+        edge_new = take(per_edge(parent_svc), asg.src) * D + asg.src % D
     length = _spawn_length(app, svc_new, rng, dev)
 
     rr = state.rr
@@ -438,9 +485,6 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
         status_new, inst_new = CL_WAITING, -1
         src_host_new, bytes_new = -1, 0.0
     else:                                # fabric mode: address + payload
-        # edge (row = parent service, column = successor slot)
-        psvc_new = take(per_edge(parent_svc), asg.src)
-        edge_new = psvc_new * D + asg.src % D
         k_lb, k_pay = streams.split(net_rng, names=("lb", "payload"))
         tgt, rr = netmod.pick_replicas(svc_new, asg.live, state, caps,
                                        params, k_lb)
@@ -464,8 +508,8 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
     cloudlets = scatter_pool(
         cl, asg, status=status_new, req=req_new, service=svc_new,
         inst=inst_new, wait_ticks=0, depth=dep_new, src_host=src_host_new,
-        src_inst=pin_new, length=length, rem=length, arrival=tf_new,
-        start=-1.0, rem_bytes=bytes_new)
+        attempt=0, edge=edge_new, src_inst=pin_new, length=length,
+        rem=length, arrival=tf_new, start=-1.0, rem_bytes=bytes_new)
 
     # several successors of one parent share a request — intended collisions
     requests = req._replace(
@@ -492,7 +536,7 @@ def derive(state: SimState, app: AppStatic, caps: SimCaps,
 # ===========================================================================
 
 @solo_as_batch("state")
-def complete(state: SimState, dyn: DynParams
+def complete(state: SimState, dyn: DynParams, faults: bool = False
              ) -> Tuple[SimState, torch.Tensor]:
     req, ctr = state.requests, state.counters
     done = ((req.outstanding == 0) & (req.spawned > 0) & (req.response < 0)
@@ -500,12 +544,24 @@ def complete(state: SimState, dyn: DynParams
     resp = torch.where(done, req.finish - req.arrival, req.response)
     n_done = _sum_i32(done)
     viol = done & (resp * 1000.0 > dyn.slo_ms[:, None])
+    if faults:
+        # a failed completion is an SLO violation however fast it failed
+        failed_done = done & (req.failed > 0)
+        viol = viol | failed_done
     counters = ctr._replace(
         completed=ctr.completed + n_done,
-        resp_sum=ctr.resp_sum + torch.sum(torch.where(done, resp, 0.0),
-                                          dim=-1),
+        # (in the order of the reference's compiled reduction: under chaos
+        # the responses summed in one tick are inexact enough to show it)
+        resp_sum=ctr.resp_sum + tree_sum(torch.where(done, resp, 0.0),
+                                         dim=1),
         slo_violations=ctr.slo_violations + _sum_i32(viol),
     )
     state = state._replace(requests=req._replace(response=resp),
                            counters=counters)
+    if faults:
+        # a request whose failed flag is set completes as a failed
+        # completion, counted once, at its one done tick
+        state = state._replace(fstats=state.fstats._replace(
+            failed_requests=state.fstats.failed_requests
+            + _sum_i32(failed_done)))
     return state, n_done

@@ -11,8 +11,10 @@ Conventions: int32 / float32 everywhere (the reference runs with x64 off);
 ``-1`` is the null id; pools have fixed capacity.  The PRNG key
 (``SimState.rng``) is the one leaf that always lives on the CPU — see
 ``repro_torch.random``.  Both network modes (``"uniform"`` and
-``"fabric"``) are ported, with ``faults="none"``, ``telemetry="none"`` and
-``alerting="none"``: the other modes' tables exist with zero width.
+``"fabric"``) and both fault modes (``"none"`` and ``"chaos"``) are
+ported, with ``telemetry="none"`` and ``alerting="none"``: the telemetry
+and alert tables exist with zero width, as do the chaos tables with
+``faults="none"``.
 """
 from __future__ import annotations
 
@@ -234,14 +236,26 @@ class SimParams:
 # Horizontal scale-out gates (dyn.hs_mode encodes the index).
 HS_MODES = ("util", "slo_burn")
 
+# The chaos knobs of the Disruption phase (core/faults.py), in the
+# reference's DynParams order; all float32 but ``retry_budget``.
+_CHAOS_FIELDS = (
+    "host_mtbf_s", "host_mttr_s", "inst_kill_rate", "inst_mttr_s",
+    "nic_degrade_rate", "nic_mttr_s", "nic_degrade_factor", "retry_budget",
+    "retry_timeout_s", "cb_err_thresh", "cb_alpha", "cb_cooldown_s",
+    "host_slow_mtbf_s", "host_slow_mttr_s", "host_slow_factor",
+    "nic_degrade_spread", "zone_fault_rate", "zone_slow_rate",
+    "zone_partition_rate", "zone_partition_mttr_s", "eject_err_thresh",
+    "eject_lat_factor", "eject_cooldown_s")
+
 _F32_FIELDS = (
     "dt", "spawn_rate", "wait_lo", "wait_hi", "hs_util_hi", "hs_util_lo",
     "vs_util_hi", "vs_util_lo", "vs_up_factor", "vs_down_factor",
     "util_ema", "mig_vm_util_hi", "slo_ms", "net_latency",
     "idle_mips_frac", "vs_overhead_frac", "nic_egress_mbps",
-    "nic_ingress_mbps")
+    "nic_ingress_mbps") + tuple(f for f in _CHAOS_FIELDS
+                                if f != "retry_budget")
 _I32_FIELDS = ("n_clients", "num_limit", "max_concurrent", "scale_interval",
-               "hs_mode")
+               "retry_budget", "hs_mode")
 
 
 class DynParams(NamedTuple):
@@ -275,6 +289,29 @@ class DynParams(NamedTuple):
     vs_overhead_frac: np.float32
     nic_egress_mbps: np.float32
     nic_ingress_mbps: np.float32
+    host_mtbf_s: np.float32
+    host_mttr_s: np.float32
+    inst_kill_rate: np.float32
+    inst_mttr_s: np.float32
+    nic_degrade_rate: np.float32
+    nic_mttr_s: np.float32
+    nic_degrade_factor: np.float32
+    retry_budget: np.int32
+    retry_timeout_s: np.float32
+    cb_err_thresh: np.float32
+    cb_alpha: np.float32
+    cb_cooldown_s: np.float32
+    host_slow_mtbf_s: np.float32
+    host_slow_mttr_s: np.float32
+    host_slow_factor: np.float32
+    nic_degrade_spread: np.float32
+    zone_fault_rate: np.float32
+    zone_slow_rate: np.float32
+    zone_partition_rate: np.float32
+    zone_partition_mttr_s: np.float32
+    eject_err_thresh: np.float32
+    eject_lat_factor: np.float32
+    eject_cooldown_s: np.float32
     hs_mode: np.int32
 
     @staticmethod
@@ -304,7 +341,8 @@ class Requests(NamedTuple):
     finish: torch.Tensor       # [R] f32 max cloudlet finish time so far
     response: torch.Tensor     # [R] f32 final response (s), -1 while open
     critical_len: torch.Tensor # [R] i32 nodes on the critical (longest) chain
-    failed: torch.Tensor       # [0] u8 (chaos-mode column, zero-width here)
+    failed: torch.Tensor       # [R] u8 1 = a cloudlet failed for good
+    #                            (chaos mode; zero-width with faults off)
 
 
 POOL_COLUMNS = (
@@ -579,23 +617,32 @@ class NetStats(NamedTuple):
 
 
 class FaultState(NamedTuple):
-    """Resilience state: ``host_up``/``nic_ok`` are [H] in every mode
-    (placement and scaling read ``host_up``); every other table is a
-    chaos-only column, zero-width here."""
+    """Resilience state (the Disruption phase, core/faults.py):
+    ``host_up``/``nic_ok`` are [H] in every mode (placement and scaling
+    read ``host_up``); every other table is a chaos-only column,
+    zero-width with faults off.
 
-    host_up: torch.Tensor
-    nic_ok: torch.Tensor
-    edge_open_until: torch.Tensor
-    edge_err_ema: torch.Tensor
-    edge_succ: torch.Tensor
-    host_slow: torch.Tensor
-    nic_factor: torch.Tensor
-    zone_cut: torch.Tensor
-    inst_err_ema: torch.Tensor
-    inst_lat_ema: torch.Tensor
-    inst_eject_until: torch.Tensor
-    inst_succ: torch.Tensor
-    inst_lat_sum: torch.Tensor
+    The circuit breaker of an edge is CLOSED while ``edge_open_until <=
+    0``, OPEN while ``time < edge_open_until`` (new calls fail fast) and
+    HALF-OPEN once the cooldown has passed (probe traffic flows; a
+    failure re-opens it, a clean tick closes it).  Outlier ejection
+    (``inst_eject_until``) is the same machine per replica: an OPEN
+    replica is left out of the dispatch rank table
+    (``policies.eject_view``)."""
+
+    host_up: torch.Tensor          # [H] i32 1 = host up
+    nic_ok: torch.Tensor           # [H] i32 1 = NIC healthy
+    edge_open_until: torch.Tensor  # [E] f32 breaker clock
+    edge_err_ema: torch.Tensor     # [E] f32 error-rate EMA per edge
+    edge_succ: torch.Tensor        # [E] i32 successes since the last pass
+    host_slow: torch.Tensor        # [H] i32 1 = fail-slow episode
+    nic_factor: torch.Tensor       # [H] f32 NIC capacity multiplier
+    zone_cut: torch.Tensor         # [H, H] i32 zone-pair partition mask
+    inst_err_ema: torch.Tensor     # [I] f32 per-replica error-rate EMA
+    inst_lat_ema: torch.Tensor     # [I] f32 per-replica sojourn EMA (s)
+    inst_eject_until: torch.Tensor # [I] f32 ejection clock
+    inst_succ: torch.Tensor        # [I] i32 successes since the last pass
+    inst_lat_sum: torch.Tensor     # [I] f32 Σ sojourn of those successes
 
 
 class FaultStats(NamedTuple):
@@ -727,14 +774,18 @@ def edge_table_size(n_services: int, d_max: int, n_apis: int) -> int:
 
 def check_main_path(params: SimParams) -> None:
     """Raise for every mode knob whose phase the port does not have yet
-    (and, as the reference does, for a network mode that does not
-    exist)."""
+    (and, as the reference does, for a network or fault mode that does
+    not exist)."""
     if params.network not in ("uniform", "fabric"):
         raise ValueError(
             f"SimParams.network must be 'uniform' or 'fabric', "
             f"got {params.network!r}")
-    for knob, want in (("faults", "none"), ("telemetry", "none"),
-                       ("alerting", "none"), ("hs_mode", "util")):
+    if params.faults not in ("none", "chaos"):
+        raise ValueError(
+            f"SimParams.faults must be 'none' or 'chaos', "
+            f"got {params.faults!r}")
+    for knob, want in (("telemetry", "none"), ("alerting", "none"),
+                       ("hs_mode", "util")):
         if getattr(params, knob) != want:
             raise NotImplementedError(
                 f"SimParams.{knob}={getattr(params, knob)!r} is not ported "
@@ -753,10 +804,13 @@ def resolve_device(device) -> torch.device:
 
 
 def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
-                n_services: int = 1, app=None,
-                device="cuda") -> SimState:
+                n_services: int = 1, app=None, device="cuda",
+                n_edges: int | None = None, n_apis: int = 1) -> SimState:
     """The initial (empty) simulation state on ``device`` — the reference's
-    ``zeros_state`` for the default mode, leaf for leaf."""
+    ``zeros_state``, leaf for leaf.  Under ``faults="chaos"`` the edge
+    tables are sized from ``app`` (its ``n_edges``), else from
+    ``n_edges`` or the caps-derived bound for ``n_apis`` APIs, as the
+    reference sizes them; the other chaos tables from the pools."""
     caps.validate()
     check_main_path(params)
     f32, i32 = torch.float32, torch.int32
@@ -764,7 +818,14 @@ def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
                       caps.max_instances, caps.n_vms)
     if app is not None:
         n_services = int(app.n_services)
+        n_edges = int(app.n_edges)
     S = n_services
+    chaos = params.faults == "chaos"
+    E = n_edges if n_edges is not None \
+        else edge_table_size(n_services, caps.d_max, n_apis)
+    if not chaos:
+        E = 0
+    Hc, Ic = (V, I) if chaos else (0, 0)
     layout = resolve_layout(params)
     dev = resolve_device(device)
 
@@ -785,7 +846,7 @@ def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
             arrival=full((R,), -1.0, f32), outstanding=z((R,), i32),
             spawned=z((R,), i32), finish=z((R,), f32),
             response=full((R,), -1.0, f32), critical_len=z((R,), i32),
-            failed=z((0,), torch.uint8)),
+            failed=z((R if chaos else 0,), torch.uint8)),
         cloudlets=Cloudlets(
             ints=torch.from_numpy(layout.init_ints()).to(dev)
             .repeat(C, 1),
@@ -819,12 +880,12 @@ def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
                             + [z((), i32) for _ in range(6)])),
         fault=FaultState(
             host_up=full((V,), 1, i32), nic_ok=full((V,), 1, i32),
-            edge_open_until=z((0,), f32), edge_err_ema=z((0,), f32),
-            edge_succ=z((0,), i32), host_slow=z((0,), i32),
-            nic_factor=z((0,), f32), zone_cut=z((0, 0), i32),
-            inst_err_ema=z((0,), f32), inst_lat_ema=z((0,), f32),
-            inst_eject_until=z((0,), f32), inst_succ=z((0,), i32),
-            inst_lat_sum=z((0,), f32)),
+            edge_open_until=z((E,), f32), edge_err_ema=z((E,), f32),
+            edge_succ=z((E,), i32), host_slow=z((Hc,), i32),
+            nic_factor=full((Hc,), 1.0, f32), zone_cut=z((Hc, Hc), i32),
+            inst_err_ema=z((Ic,), f32), inst_lat_ema=z((Ic,), f32),
+            inst_eject_until=z((Ic,), f32), inst_succ=z((Ic,), i32),
+            inst_lat_sum=z((Ic,), f32)),
         fstats=FaultStats(*([z((), i32) for _ in range(8)] + [z((), f32)]
                             + [z((), i32) for _ in range(5)]
                             + [z((), f32)])),

@@ -109,11 +109,28 @@ def split(key, num: int = 2):
     return torch.tensor(words, dtype=torch.int64).reshape(num, 2)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in`` with a scalar uint32 datum (host keys
-    only)."""
+def fold_in(key, data: int):
+    """``jax.random.fold_in`` with a scalar uint32 datum; of a
+    ``TableKey``, the child stream below a fold step."""
+    if isinstance(key, TableKey):
+        return TableKey(key.table, key.path + ((FOLD, int(data) & M32),))
     return torch.tensor(_hash_words(key, [0, int(data) & M32]),
                         dtype=torch.int64)
+
+
+# The first entry of a path step that folds in a datum (``(FOLD, data)``)
+# where a split step is ``(num, index)``.
+FOLD = "fold"
+
+
+def _child(k1, k2, step):
+    """The words of the key one path step below key words ``k1``/``k2``
+    (ints, or numpy arrays of many keys): ``(num, index)`` is key
+    ``index`` of ``split(key, num)``, ``(FOLD, data)`` is ``fold_in(key,
+    data)``, which hashes the count pair ``(0, data)``."""
+    if step[0] == FOLD:
+        return threefry2x32(k1, k2, 0, step[1])
+    return _split_child(k1, k2, *step)
 
 
 def _split_child(k1, k2, num: int, i: int):
@@ -128,25 +145,25 @@ def _split_child(k1, k2, num: int, i: int):
     return out[0], out[1]
 
 
-def chain(key: torch.Tensor, n: int, path: Tuple[Tuple[int, int], ...]):
+def chain(key: torch.Tensor, n: int, path: Tuple[tuple, ...]):
     """The root keys of ``n`` steps of a loop whose next root is the key
-    at ``path`` (``(num, index)`` splits) of the current one, beginning
-    at host key ``key``: ``([n, 2]`` int64 words, the host key after the
-    last step)."""
+    at ``path`` (steps as ``_child`` takes them) of the current one,
+    beginning at host key ``key``: ``([n, 2]`` int64 words, the host key
+    after the last step)."""
     k1, k2 = _host_words(key)
     roots = np.empty((n, 2), np.int64)
     for t in range(n):
         roots[t] = k1, k2
-        for num, i in path:
-            k1, k2 = _split_child(k1, k2, num, i)
+        for step in path:
+            k1, k2 = _child(k1, k2, step)
     return roots, torch.tensor([k1, k2], dtype=torch.int64)
 
 
 class TableKey(NamedTuple):
-    """The stream at ``path`` (``(num, index)`` splits) below the current
-    step's root key of ``table``."""
+    """The stream at ``path`` (``(num, index)`` splits and ``(FOLD,
+    data)`` folds) below the current step's root key of ``table``."""
     table: "KeyTable"
-    path: Tuple[Tuple[int, int], ...]
+    path: Tuple[tuple, ...]
 
 
 class KeyTable:
@@ -186,8 +203,8 @@ class KeyTable:
             for d in range(1, len(path) + 1):
                 if path[:d] not in memo:
                     keys = memo[path[:d - 1]]
-                    memo[path[:d]] = np.stack(_split_child(
-                        keys[:, 0], keys[:, 1], *path[d - 1]), axis=1)
+                    memo[path[:d]] = np.stack(_child(
+                        keys[:, 0], keys[:, 1], path[d - 1]), axis=1)
             out[:, c] = memo[path]
         return out
 
@@ -262,6 +279,56 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     f = _unit_floats(random_bits(key, shape, device))
     span = float(np.float32(hi - lo))
     return torch.clamp_min(f * span + float(lo), float(lo))
+
+
+# (device, draw sizes) -> the counter lanes of ``uniform_many``: constant
+# for the sizes, so kept (built outside a CUDA graph capture)
+_LANES: dict = {}
+
+
+def _lanes(sizes: tuple, device) -> tuple:
+    """The two counter lanes ``_hash_counts`` hashes for draws of
+    ``sizes`` words, concatenated draw by draw."""
+    key = (torch.device(device), sizes)
+    hit = _LANES.get(key)
+    if hit is None:
+        x0, x1 = [], []
+        for n in sizes:
+            h = (n + 1) // 2
+            c = np.arange(2 * h, dtype=np.int64)
+            c[n:] = 0
+            x0.append(c[:h])
+            x1.append(c[h:])
+        hit = tuple(torch.from_numpy(np.concatenate(x)).to(device)
+                    for x in (x0, x1))
+        if not (key[0].type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _LANES[key] = hit
+    return hit
+
+
+def uniform_many(draws, device=None) -> list:
+    """``uniform(key, shape)`` (on [0, 1)) for each ``(key, shape)`` of
+    ``draws``, hashed in one pass: each lane runs threefry under its own
+    draw's key words, so every draw gets ``uniform``'s bits for the
+    operations of one draw."""
+    shapes = [tuple(int(d) for d in shape) for _, shape in draws]
+    sizes = tuple(math.prod(sh) for sh in shapes)
+    x0, x1 = _lanes(sizes, device)
+    k1, k2 = [], []
+    for (key, _), n in zip(draws, sizes):
+        h = (n + 1) // 2
+        for w, out in zip(_key_words(key), (k1, k2)):
+            out.append(w.expand(h) if isinstance(w, torch.Tensor) else
+                       torch.full((h,), w, dtype=torch.int64, device=device))
+    y0, y1 = threefry2x32(torch.cat(k1), torch.cat(k2), x0, x1)
+    u0, u1 = _unit_floats(y0), _unit_floats(y1)
+    out, a = [], 0
+    for shape, n in zip(shapes, sizes):
+        h = (n + 1) // 2
+        out.append(torch.cat([u0[a:a + h], u1[a:a + h]])[:n].reshape(shape))
+        a += h
+    return out
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -371,6 +438,36 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     s = poly(_L1P_NUM) / poly(_L1P_DEN)
     small = x + _fma32_poly(x2, -0.5, (x * x2) * s)
     return torch.where(x.abs() < _SMALL, small, _logf(x + 1.0))
+
+
+# XLA's CPU ``exponential`` for float32: Cephes' ``expf`` range reduction
+# and polynomial, with the input clamped to [-104, 88.8] and the exponent
+# to [-127, 127] (2^-127 flushes to 0).  The constants are those of the
+# lowered LLVM IR; the backend contracts every multiply feeding an add or
+# a subtract into an FMA, and flushes denormals to zero.
+_EXP_LO, _EXP_HI = _f32("C055F33340000000"), _f32("4056333340000000")
+_LOG2E = _f32("3FF7154760000000")
+_EXP_C1, _EXP_C2 = _f32("3FE6300000000000"), _f32("BF2BD01060000000")
+_EXP_P = tuple(_f32(h) for h in (
+    "3F2A0D2CE0000000", "3F56E879C0000000", "3F81112100000000",
+    "3FA5553820000000", "3FC5555540000000")) + (0.5,)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp`` as XLA's CPU backend computes it (held bit for bit
+    against ``jax.jit(jnp.exp)``)."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma32(x, _LOG2E, 0.5)), -127.0, 127.0)
+    a = fma32(n, -_EXP_C1, x)
+    a = fma32(n, -_EXP_C2, a)
+    z = fma32(a, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = fma32(z, a, c)
+    z = fma32(z, a * a, a) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = z * pow2
+    # the backend flushes denormal results to zero
+    return torch.where(out < _FLT_MIN, 0.0, out)
 
 
 # M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),

@@ -156,8 +156,12 @@ def test_bulk_draws_from_a_table_key_equal_the_host_key(draw):
 def test_key_derivations_take_host_keys_only():
     table = trnd.KeyTable(2, "cpu")
     table.fill(np.zeros((2, 2), np.int64))
+    # a loop's root chain starts from a host key; a table key's streams
+    # are derived by path steps (splits, and folds since chaos mode)
     with pytest.raises(ValueError, match="host key"):
-        trnd.fold_in(table.root(), 3)
+        trnd.chain(table.root(), 2, ((5, 0),))
+    folded = trnd.fold_in(table.root(), 3)
+    assert folded.path == ((trnd.FOLD, 3),) and folded.table is table
     with pytest.raises(ValueError, match="steps in a key table"):
         table.fill(np.zeros((3, 2), np.int64))
 

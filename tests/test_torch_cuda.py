@@ -543,14 +543,76 @@ def _assert_same(a: dict, b: dict):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("which", ["golden", "fabric", "scaling"])
+def _chaos(device, network="uniform"):
+    """The golden scenario's chaos combo (``test_layouts.matrix_sim``)."""
+    net = (dict(network="fabric", nic_egress_mbps=50.0,
+                nic_ingress_mbps=50.0) if network == "fabric"
+           else dict(net_latency_s=0.05))
+    caps = SimCaps(n_clients=16, max_requests=512, max_cloudlets=512,
+                   max_instances=8, n_vms=4, d_max=2, max_replicas=2)
+    params = SimParams(dt=0.05, n_ticks=300, n_clients=12, spawn_rate=5.0,
+                       wait_lo=0.5, wait_hi=1.5, seed=3, faults="chaos",
+                       host_mtbf_s=20.0, host_mttr_s=5.0,
+                       retry_timeout_s=3.0, retry_budget=2,
+                       inst_kill_rate=0.01, **net)
+    return Simulation(diamond(mi=400.0), caps=caps, params=params,
+                      default_template=InstanceTemplate(
+                          mips=8000.0, limit_mips=16000.0, replicas=2),
+                      vm_mips=np.full(4, 64000.0, np.float32),
+                      device=device)
+
+
+# MATRIX_GOLDEN's chaos fields (tests/test_layouts.py)
+CHAOS_PINS = {"uniform": (54, 1002, 296, 1530248430121, 517, 388),
+              "fabric": (78, 803, 626, 1477918938445, 80, 79)}
+
+
+@pytest.mark.parametrize("network", ["uniform", "fabric"])
+def test_chaos_golden_on_card_matches_cpu_and_pins(network, dev):
+    reset_counts()
+    gpu = _chaos(dev, network).run()
+    assert counts["cloudlet_finish"] == 300
+    assert counts["link_share"] == (300 if network == "fabric" else 0)
+    cpu = _chaos("cpu", network).run()
+    _assert_same(_leaf_bits(gpu.state), _leaf_bits(cpu.state))
+    _assert_same(_leaf_bits(gpu.trace), _leaf_bits(cpu.trace))
+    st = gpu.state
+    resp = st.requests.response.cpu().numpy()
+    got = (int(st.counters.completed), int(st.counters.spawned),
+           int(st.counters.finished),
+           int(resp.view(np.uint32).astype(np.uint64).sum()),
+           int(st.fstats.failed_attempts), int(st.fstats.retries))
+    assert got == CHAOS_PINS[network]
+
+
+def test_link_share_with_dead_ports_and_cut_transfers(dev):
+    """Chaos mode's inputs at case1b+net's shape: ports at capacity 0 (a
+    brownout of severity 0) and transfers out of the water-fill (a zone
+    cut), bit-equal to the plain version on the card and on the CPU."""
+    src, dst, active, cap_e, cap_i = _link_inputs(8000, 15, 41, dev)
+    cap_e[::4] = 0.0
+    cap_i[1::5] = 0.0
+    r = np.random.default_rng(3)
+    active &= torch.from_numpy(r.random(8000) >= 0.2).to(dev)
+    args = (src, dst, active, cap_e, cap_i)
+    got = link_share(*args, iters=2)
+    assert torch.equal(got, tlink.waterfill(*args, 2))
+    assert torch.equal(got.cpu(), tlink.waterfill(*[a.cpu() for a in args],
+                                                  2))
+    into_dead = active & (dst >= 0) & (cap_i[dst.clamp_min(0)] == 0)
+    assert bool((got[into_dead] == 0).all()) and bool((got > 0).any())
+
+
+@pytest.mark.parametrize("which", ["golden", "fabric", "scaling", "chaos",
+                                   "fabric_chaos"])
 def test_captured_run_is_the_eager_run(which, dev):
     """``run()`` replays the tick's graphs (two where it scales): its
     final state and traces equal, bit for bit, the eager run's (a probe
     keeps the ticks eager); one launch of each kernel per tick; a second
     ``run()`` captures nothing and gives the same bits."""
-    sim = {"golden": _golden, "fabric": _fabric, "scaling": _scaling}[
-        which](dev)
+    sim = {"golden": _golden, "fabric": _fabric, "scaling": _scaling,
+           "chaos": _chaos,
+           "fabric_chaos": lambda d: _chaos(d, "fabric")}[which](dev)
     n = sim.params.n_ticks
     reset_counts()
     res = sim.run()

@@ -2,6 +2,7 @@
 neither JAX nor the JAX package, import PyYAML only lazily, run with both
 of them unimportable, and never fall back to the CPU unasked."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -142,16 +143,34 @@ def test_unported_modes_raise():
     from repro_torch.core import SimCaps, SimParams, Simulation, diamond
     caps = SimCaps(n_clients=4, max_requests=16, max_cloudlets=16,
                    max_instances=8, n_vms=2, d_max=2)
+    # chaos mode is ported: both network modes build and run
     for knob in (dict(faults="chaos"), dict(network="fabric",
-                                            faults="chaos"),
-                 dict(telemetry="stream"),
-                 dict(telemetry="stream", alerting="burn")):
+                                            faults="chaos")):
+        sim = Simulation(diamond(), caps=caps,
+                         params=SimParams(n_ticks=2, **knob), device="cpu")
+        assert int(sim.run().state.tick) == 2
+    for knob in (dict(telemetry="stream"),
+                 dict(telemetry="stream", alerting="burn"),
+                 dict(telemetry="stream", alerting="burn",
+                      hs_mode="slo_burn"),
+                 dict(hs_mode="slo_burn"),
+                 dict(faults="chaos", telemetry="stream"),
+                 dict(faults="chaos", telemetry="stream", alerting="burn")):
         with pytest.raises(NotImplementedError):
             Simulation(diamond(), caps=caps,
                        params=SimParams(n_ticks=1, **knob), device="cpu")
     with pytest.raises(ValueError, match="uniform.*fabric"):
         Simulation(diamond(), caps=caps,
                    params=SimParams(n_ticks=1, network="mesh"), device="cpu")
+    with pytest.raises(ValueError, match="none.*chaos"):
+        Simulation(diamond(), caps=caps,
+                   params=SimParams(n_ticks=1, faults="mayhem"),
+                   device="cpu")
+    # as the reference's run_batch: a sweep may not vary the fault mode
+    params = SimParams(n_ticks=1)
+    sim = Simulation(diamond(), caps=caps, params=params, device="cpu")
+    with pytest.raises(ValueError, match="structural"):
+        sim.run_batch([params, dataclasses.replace(params, faults="chaos")])
 
 
 def test_registry_reads_dicts_json_strings_and_json_files(tmp_path):

@@ -7,17 +7,25 @@ results at chip_smoke's own configurations are computed here and written
 into it as constants (``PIN_LEAVES``, ``CAPACITY_PINS``,
 ``SOCKSHOP_PINS``, ``SWEEP_PINS``; this script prints them):
 
-* Table 2 case1b, case1b+net and case2b (``benchmarks/bench_capacity.py``
-  sizing): a digest of every leaf of the final state, the reference's
-  state carried into the port's containers (``repro_torch.core.convert``)
-  and digested as chip_smoke digests the card's (``chip_smoke.
-  leaf_digests``);
+* Table 2 case1b, case1b+net, case2b and the chaos cases case1b+faults,
+  case1b+chaos2 and case1b+net+chaos2 (``benchmarks/bench_capacity.py``
+  sizing, which the port's ``configs/capacity.py`` must copy: checked): a
+  digest of every leaf of the final state, the reference's state carried
+  into the port's containers (``repro_torch.core.convert``) and digested
+  as chip_smoke digests the card's (``chip_smoke.leaf_digests``);
 * SockShop (paper §6.3): 100 clients HS and 300 NS over 600 s, 300 HS
   over 180 s: the response digest and the integer counters;
 * ``benchmarks/bench_scaling.py``'s ``sweep8_demo`` (SockShop, HS,
   ``FIG11_KNOBS``, 8 loads from 200 to 1100 clients over 600 s) as one
   ``run_batch``: each point's response digest and integer counters
-  (``SWEEP_PINS``, in load order).
+  (``SWEEP_PINS``, in load order);
+* ``examples/chaos_study.py``'s sweep (radii 1, 2, 5 x ejection off and
+  on, 100 clients over 120 s) as one ``run_batch(apps=)``: each point's
+  response digest, integer counters and ``FaultStats`` (``CHAOS_PINS``,
+  ``chip_smoke.chaos_summary``).  chip_smoke's copy of the study's
+  configuration (``CHAOS_STUDY``) is checked against the example's
+  source, and its copy of the golden scenario's chaos pins
+  (``GOLDEN_CHAOS``) against ``tests/test_layouts.py``'s.
 
 The reference runs as its goldens were pinned: non-partitionable threefry,
 compile cache cleared; numpy runs on its baseline code paths, as in
@@ -25,7 +33,7 @@ chip_smoke (its ``NUMPY_BASELINE``: the instance placement's order among
 VMs of equal free capacity is numpy's argsort's, which depends on the SIMD
 sort numpy dispatches to).  Run from the repository root (the reference
 takes about 40 s for case2b and under two minutes in all on the CPU, and
-a few minutes more for the sweep):
+a few minutes more for the sweeps):
 
     PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tools/chip_smoke_pins.py
 
@@ -56,7 +64,7 @@ import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-CAPACITY = ("case1b", "case1b+net", "case2b")
+CAPACITY = ("case1b", "case1b+net", "case2b") + chip_smoke.CHAOS_CASES
 
 
 def _reference():
@@ -70,16 +78,22 @@ def capacity_pins(tag, port):
     from repro_torch.core import convert
     from repro_torch.core.types import resolve_layout
     from test_torch_phases import jax_tree_np
+    import dataclasses
     case, _, variant = tag.partition("+")
     n_req, S, reps, _, fanout = capacity.CASES[case]
     t0 = time.perf_counter()
     with _reference():
         jsim, _ = bench_capacity.build_case(n_req, S, reps, fanout,
-                                            network=variant == "net")
+                                            **capacity.VARIANTS[variant])
         jst = jsim.run().state
     tree = jax_tree_np(jst)
-    layout = resolve_layout(capacity.build_tagged(tag, device="cpu")[0]
-                            .params)
+    tsim = capacity.build_tagged(tag, device="cpu")[0]
+    assert dataclasses.asdict(tsim.params) == \
+        dataclasses.asdict(jsim.params), f"{tag}: SimParams drifted"
+    assert dataclasses.asdict(tsim.caps) == dataclasses.asdict(jsim.caps)
+    assert (tsim.app.host_zone.numpy() == np.asarray(
+        jsim.app.host_zone)).all(), f"{tag}: host_zone drifted"
+    layout = resolve_layout(tsim.params)
     state = convert.state_from_numpy(tree, layout, device="cpu")
     pins = chip_smoke.leaf_digests(state)
     print(f"# {tag}: reference {time.perf_counter() - t0:.1f} s",
@@ -157,13 +171,98 @@ def sweep_pins(port):
     return pins
 
 
+def check_copies():
+    """chip_smoke's copies of the chaos study's configuration and of the
+    golden scenario's chaos pins must be the sources'."""
+    import ast
+    from test_layouts import MATRIX_GOLDEN
+    for net, pins in chip_smoke.GOLDEN_CHAOS.items():
+        want = MATRIX_GOLDEN[(net, "chaos")]
+        got = dict(pins, resp=pins["resp_digest"])
+        assert all(got[k] == want[k] for k in want if k != "used_mips"), \
+            f"GOLDEN_CHAOS[{net!r}] drifted"
+    src = open(os.path.join(ROOT, "examples", "chaos_study.py")).read()
+    tree = ast.parse(src)
+    defaults, kw = {}, {}
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Call) and getattr(n.func, "attr", "") \
+                == "add_argument":
+            for k in n.keywords:
+                if k.arg == "default":
+                    defaults[n.args[0].value.lstrip("-").replace("-", "_")] \
+                        = ast.literal_eval(k.value)
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Call) and getattr(n.func, "attr", "") \
+                == "make_sim":
+            for k in n.keywords:
+                text = ast.unparse(k.value)
+                if text.startswith("args."):
+                    kw[k.arg] = defaults[text[5:]]
+                elif k.arg not in ("placement_policy", "host_zone"):
+                    kw[k.arg] = eval(text, {"float": float})
+                else:
+                    kw[k.arg] = text
+    assert kw.pop("placement_policy") == "policies.PLACE_SPREAD"
+    assert kw.pop("host_zone") == "zones(radii[0])"
+    assert kw == chip_smoke.CHAOS_STUDY, f"CHAOS_STUDY drifted: {kw}"
+    radii = tuple(int(x) for x in defaults["radii"].split(","))
+    assert radii == chip_smoke.CHAOS_RADII
+    assert chip_smoke.CHAOS_EJECT == (2.0, defaults["eject_thresh"])
+    assert "(np.arange(N_HOSTS) // radius)" in src \
+        and "N_HOSTS = 10" in src and chip_smoke.CHAOS_HOSTS == 10
+
+
+def chaos_pins(port):
+    """The reference's chaos study as one ``run_batch(apps=)``: each
+    point's ``chaos_summary``, radius by radius, ejection off then on."""
+    import dataclasses
+    import jax.numpy as jnp
+    from repro.configs import sockshop as jsock
+    from repro.core import batch_item, policies
+    check_copies()
+    cs = chip_smoke
+    t0 = time.perf_counter()
+
+    def sweep(sock, zone_table):
+        sim = sock.make_sim(placement_policy=policies.PLACE_SPREAD,
+                            host_zone=cs.study_zones(cs.CHAOS_RADII[0]),
+                            **cs.CHAOS_STUDY, **kw)
+        points, apps = [], []
+        for r in cs.CHAOS_RADII:
+            app_r = sim.app._replace(host_zone=zone_table(cs.study_zones(r)))
+            for thresh in cs.CHAOS_EJECT:
+                points.append(dataclasses.replace(sim.params,
+                                                  eject_err_thresh=thresh))
+                apps.append(app_r)
+        return sim.run_batch(points, apps=apps), len(points)
+
+    kw = {}
+    with _reference():
+        res, B = sweep(jsock, jnp.asarray)
+        pins = [cs.chaos_summary(batch_item(res, b).state) for b in range(B)]
+    print(f"# chaos study: reference {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if port:
+        import torch
+        from repro_torch.configs import sockshop as tsock
+        from repro_torch.core import batch_item as titem
+        t0 = time.perf_counter()
+        kw = dict(device="cpu")
+        tres, _ = sweep(tsock, torch.from_numpy)
+        got = [cs.chaos_summary(titem(tres, b).state) for b in range(B)]
+        print(f"# ... port on the CPU {time.perf_counter() - t0:.1f} s, "
+              f"{'matches' if got == pins else f'differs: {got}'}",
+              file=sys.stderr)
+    return pins
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU and compare")
     ap.add_argument("--only", default="",
-                    help="comma-separated subset of case1b, case1b+net, "
-                    "case2b, sockshop, sweep")
+                    help="comma-separated subset of "
+                    f"{', '.join(CAPACITY)}, sockshop, sweep, chaos")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
     cap = {tag: capacity_pins(tag, args.port) for tag in CAPACITY
@@ -174,11 +273,12 @@ def main(argv=None) -> int:
             sock["%d/%d/%d" % (case[0], case[1], case[2])] = sockshop_pins(
                 *case, args.port)
     sweep = sweep_pins(args.port) if not only or "sweep" in only else []
-    print(_source(cap, sock, sweep))
+    chaos = chaos_pins(args.port) if not only or "chaos" in only else []
+    print(_source(cap, sock, sweep, chaos))
     return 0
 
 
-def _source(cap, sock, sweep=()) -> str:
+def _source(cap, sock, sweep=(), chaos=()) -> str:
     """The pins as chip_smoke's constants: the leaf names once
     (``PIN_LEAVES``, sorted), each capacity case's leaf digests in that
     order as one string, the SockShop summaries as dictionaries; lines of
@@ -219,6 +319,14 @@ def _source(cap, sock, sweep=()) -> str:
         out.append("    dict(" + rows[0].rstrip())
         out += ["         " + r.rstrip() for r in rows[1:]]
         out[-1] = out[-1][:-1] + "),"
+    out.append(")")
+    out.append("CHAOS_PINS = (")
+    for pin in chaos:
+        rows = packed([f'"{k}": {v},' for k, v in sorted(pin.items())],
+                      "        ", " ")
+        out.append("    {" + rows[0].rstrip())
+        out += ["     " + r.rstrip() for r in rows[1:]]
+        out[-1] = out[-1][:-1] + "},"
     out.append(")")
     return "\n".join(out)
 
