@@ -112,7 +112,25 @@ Phases, in order (any failure exits non-zero):
    each point's response digest, counters and ``FaultStats`` equal to the
    JAX reference's (``CHAOS_PINS``), 0 synchronising calls a replayed
    batched tick, and the study's table;
-7. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
+7. observability (``repro_torch.obs``): case1b+obs (streamed telemetry:
+   metric rows in 16-tick windows, 1 request in 100 traced) and
+   case1b+slo (burn-rate alerting too) at full size, twice each, with
+   case1b's checks: every simulation leaf equal to case1b's pin, the
+   telemetry and alert leaves and a digest of the streamed metric and
+   alert rows equal to the JAX reference's (``CAPACITY_PINS``,
+   ``ROW_PINS``), per-phase times that name Telemetry and Alerting, 0
+   synchronising calls over ten replayed ticks that hold a flush of the
+   metric ring, and their replay figures beside case1b's; case1b+slo's
+   ``phase_breakdown`` as a table; SockShop, 100 clients with HS over
+   600 s with ``examples/telemetry_study.py``'s telemetry: its pins
+   unchanged, and ``verify_traces`` on the card equal to the reference's
+   (``TRACE_PINS``), every eligible trace exact, each graph-level Alg 2
+   one ``tropical_closure`` launch; and ``examples/slo_study.py`` at its
+   defaults, both arms as one ``run_batch``, each arm's counters, alert
+   counters and alert rows equal to the reference's (``SLO_PINS``), the
+   burn arm's violation rate below the util arm's, 0 synchronising calls
+   a replayed batched tick over a flush and a scaling tick;
+8. SockShop on the network fabric (8 Mbit/s NICs, spread placement,
    ``examples/network_saturation.py``'s sweep) at 10, 50 and 100 clients
    over 120 s, one after another: one ``link_share`` and one
    ``cloudlet_finish`` launch per tick, the same replay figures, and the
@@ -120,11 +138,11 @@ Phases, in order (any failure exits non-zero):
    sweep (10, 25, 50 and 100 clients as one ``run_batch``): one launch of
    each kernel a tick, the points at 10, 50 and 100 clients equal to the
    solo runs in every leaf and trace, the transit p95 rising;
-8. Alg 2 at fleet scale: ``response_times_batched`` over a seeded
+9. Alg 2 at fleet scale: ``response_times_batched`` over a seeded
    1024-service DAG (each service calls up to 4 higher-numbered ones, 4
    APIs) in 8 windows, through ⌈log₂ depth⌉ ``tropical_matmul`` launches,
    every (window, API) held against the DP critical path;
-9. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
+10. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
    and mamba2-130m at full width and depth on seeded random weights, at
    ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
    last-position logits, 28 ``flash_attention`` and 24 ``ssd_chunk``
@@ -132,14 +150,14 @@ Phases, in order (any failure exits non-zero):
    device traces, the device busy share (device time over the
    unprofiled prefill's wall); and a 2-layer full-width model of each,
    whose card logits are held against its CPU logits;
-10. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
+11. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
    16 + 24 tokens), which replays ``serve.DecodeGraph`` once per token
    step, its tok/s, capture time and peak memory; the graph's logits
    bit-equal to the
    eager ``decode_step``'s over 8 steps, the device time, busy share and
    operations per replayed step, and the synchronising calls per
    replayed step;
-11. one JSON line with each kernel's launches, times and bound; then the
+12. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
@@ -393,6 +411,56 @@ CAPACITY_PINS = {
         "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
         "e3b0c44298fc 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
         "fba7e9d699f0 3c7aedfc7500"),
+    "case1b+obs": (
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "4f7988030a00 990ffda621f2 ab45da00286d cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 dd40a7748e48 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 cee19cda5a70 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc a3e902d34859 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc a3e902d34859 e3b0c44298fc df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 08149ef58087 08149ef58087 "
+        "08149ef58087 d6e3119544f0 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 ef2d9ea73cb0 0a0bff3f3525 fc19b1997119 fc19b1997119 "
+        "fc19b1997119 aea32e5e36ba 53267cbb8711 5dcc1b5872dd 5dcc1b5872dd "
+        "5dcc1b5872dd 5341e6b26469 5dcc1b5872dd df3f619804a9 df3f619804a9 "
+        "28303a108841 7a47de4cc34f cee19cda5a70 9e94cbbf1036 e3b0c44298fc "
+        "f6d5b935a899 560db0b0dacf 2a671ff829f2 9e94cbbf1036 8c988d7c3481 "
+        "df3f619804a9 550625f47dc1 79ff7fbc96a0 dd40a7748e48 dd40a7748e48 "
+        "cee19cda5a70 d7971c8f6c95 df3f619804a9 af5570f5a181 200342c9c368 "
+        "3015b744160e 823b9c3162e7 8e9db6d6f46f dc12fce04fc6 2385b2772b66 "
+        "e8a4b2ee7ede 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
+    "case1b+slo": (
+        "af5570f5a181 df3f619804a9 df3f619804a9 5f70bf18a086 5f70bf18a086 "
+        "5f70bf18a086 5f70bf18a086 af5570f5a181 af5570f5a181 df3f619804a9 "
+        "af5570f5a181 af5570f5a181 af5570f5a181 66687aadf862 e8a4b2ee7ede "
+        "4f7988030a00 990ffda621f2 ab45da00286d cee19cda5a70 df3f619804a9 "
+        "df3f619804a9 cee19cda5a70 df3f619804a9 dd40a7748e48 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 cee19cda5a70 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc a3e902d34859 "
+        "e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc e3b0c44298fc "
+        "e3b0c44298fc a3e902d34859 e3b0c44298fc df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 df3f619804a9 "
+        "df3f619804a9 df3f619804a9 df3f619804a9 08149ef58087 08149ef58087 "
+        "08149ef58087 d6e3119544f0 8c8ef95dda66 53267cbb8711 90a5e16ab5fe "
+        "15ba73223892 e271f40b1207 fc19b1997119 9e504c05d5c0 e271f40b1207 "
+        "fc19b1997119 ef2d9ea73cb0 0a0bff3f3525 fc19b1997119 fc19b1997119 "
+        "fc19b1997119 aea32e5e36ba 53267cbb8711 5dcc1b5872dd 5dcc1b5872dd "
+        "5dcc1b5872dd 5341e6b26469 5dcc1b5872dd df3f619804a9 df3f619804a9 "
+        "28303a108841 7a47de4cc34f cee19cda5a70 9e94cbbf1036 e3b0c44298fc "
+        "f6d5b935a899 560db0b0dacf 2a671ff829f2 9e94cbbf1036 8c988d7c3481 "
+        "df3f619804a9 550625f47dc1 79ff7fbc96a0 dd40a7748e48 dd40a7748e48 "
+        "cee19cda5a70 d7971c8f6c95 df3f619804a9 af5570f5a181 200342c9c368 "
+        "3015b744160e 823b9c3162e7 8e9db6d6f46f dc12fce04fc6 2385b2772b66 "
+        "e8a4b2ee7ede 9a0f8ec2df5d 1bfec212884f 3c3c8de91b0e 4e59112073c6 "
+        "fba7e9d699f0 3c7aedfc7500"),
 }
 SOCKSHOP_PINS = {
     "100/600/1": dict(
@@ -553,6 +621,73 @@ CHAOS_PINS = (
      "migrations": 0, "requests": 1104, "resp_digest": 3266596732370,
      "scale_down": 0, "scale_in": 0, "scale_out": 0, "scale_up": 0,
      "slo_violations": 562, "spawned": 4221},
+)
+
+
+# The observability cells: Table 2 case1b with streamed telemetry
+# (``+obs``) and with burn-rate alerting too (``+slo``), as the
+# reference's ``benchmarks/bench_capacity.py`` builds them.
+OBS_CASES = ("case1b+obs", "case1b+slo")
+# ``examples/telemetry_study.py``'s ``TEL_KW`` (a copy, checked by
+# ``tools/chip_smoke_pins.py``): 5 s windows, 1 request in 25 traced.
+TEL_KW = dict(telemetry="stream", tel_window_ticks=50, tel_windows=4,
+              tel_span_k=25, tel_span_cap=2048)
+# ``examples/slo_study.py``'s sweep with the example's defaults (a copy of
+# the arguments it gives ``sockshop.make_sim``, checked by
+# ``tools/chip_smoke_pins.py``; the placement is spread and the 10 hosts
+# form 5 zones of 2): SockShop with 2 replicas, zone fail-slow chaos, HS
+# re-evaluated every 5 s, 100 clients over 240 s; its two arms, the util
+# gate with plain ejection and the burn gate with ejection tightened to
+# 0.3 while alerts fire, as one ``run_batch``.
+SLO_STUDY = dict(
+    n_clients=100, duration_s=240.0, replicas=2, share=900.0, seed=11,
+    scaling_policy=1, hs_util_hi=0.5, hs_util_lo=0.05, faults="chaos",
+    host_mtbf_s=float("inf"), inst_kill_rate=0.0, retry_timeout_s=2.5,
+    retry_budget=2, cb_err_thresh=0.5, cb_cooldown_s=5.0, cb_alpha=0.3,
+    zone_slow_rate=0.015, host_slow_factor=0.1, host_slow_mttr_s=15.0,
+    eject_err_thresh=0.35, eject_cooldown_s=8.0, telemetry="stream",
+    tel_window_ticks=50, tel_windows=4, tel_span_k=50, tel_span_cap=1024,
+    alerting="burn", slo_budget=0.05, slo_short_wins=3, slo_long_wins=12,
+    slo_for_ticks=5, slo_stabilize_s=10.0)
+SLO_ARMS = (("util", dict(scale_interval=50, hs_mode="util",
+                          slo_eject_tighten=1.0)),
+            ("slo_burn", dict(scale_interval=50, hs_mode="slo_burn",
+                              slo_eject_tighten=0.3)))
+# The JAX reference's results for the observability phase
+# (``tools/chip_smoke_pins.py``): the streamed metric and alert rows of
+# the ``OBS_CASES`` (``rows_summary``, ``alerts_summary``); SockShop 100
+# clients HS over 600 s with ``TEL_KW``: its rows and ``verify_traces``
+# (``traces_summary``); and each arm of the slo study (``slo_summary``).
+ROW_PINS = {
+    "case1b+obs": {
+        "events": 0, "events_digest": "4f53cda18c2b", "rows": 42,
+        "rows_digest": "4af4e812226f",
+    },
+    "case1b+slo": {
+        "events": 0, "events_digest": "4f53cda18c2b", "rows": 42,
+        "rows_digest": "4af4e812226f",
+    },
+}
+TRACE_PINS = {
+    "checks": 230, "checks_digest": "31c4c2525476", "eligible": 230,
+    "exact": 230, "graph": 230, "rows": 120,
+    "rows_digest": "1d920628657d",
+}
+SLO_PINS = (
+    {"alerts.ev_drops": 0, "alerts.ev_n": 60, "alerts.fires": 16,
+     "alerts.firing_ticks": 1437, "alerts.resolves": 15, "alerts.win": 48,
+     "completed": 2272, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "events": 60, "events_digest": "315f1be3ba14", "finished": 7217,
+     "migrations": 0, "requests": 2283, "resp_digest": 5304697311180,
+     "scale_down": 0, "scale_in": 24, "scale_out": 14, "scale_up": 0,
+     "slo_violations": 1459, "spawned": 8815},
+    {"alerts.ev_drops": 0, "alerts.ev_n": 44, "alerts.fires": 11,
+     "alerts.firing_ticks": 856, "alerts.resolves": 11, "alerts.win": 48,
+     "completed": 2272, "dropped_cloudlets": 0, "dropped_requests": 0,
+     "events": 44, "events_digest": "397085495627", "finished": 7390,
+     "migrations": 0, "requests": 2283, "resp_digest": 5380114226336,
+     "scale_down": 0, "scale_in": 18, "scale_out": 5, "scale_up": 0,
+     "slo_violations": 1397, "spawned": 8846},
 )
 
 
@@ -1462,6 +1597,64 @@ def chaos_summary(state) -> dict:
     return out
 
 
+def _digest(data: bytes) -> str:
+    import hashlib
+    return hashlib.sha256(data).hexdigest()[:12]
+
+
+def rows_summary(rows) -> dict:
+    """Streamed metric rows (dicts of ``TEL_METRIC_COLUMNS``), of the
+    port's exporter or the reference's: their number and a digest of
+    their float32 words, sorted by tag and window."""
+    from repro_torch.core.types import TEL_METRIC_COLUMNS
+    a = np.array([[r[n] for n in TEL_METRIC_COLUMNS] for r in rows],
+                 np.float32).reshape(-1, len(TEL_METRIC_COLUMNS))
+    a = a[np.lexsort((a[:, 0], a[:, 2]))]
+    return {"rows": len(a), "rows_digest": _digest(a.tobytes())}
+
+
+def alerts_summary(rows) -> dict:
+    """Alert-transition rows: their number and a digest of them sorted
+    by tag, time, service and rule (the times as float32 words)."""
+    key = lambda r: (r["tag"], r["time_s"], r["service"], r["rule"])
+    text = json.dumps([[float(r["tag"]),
+                        int(np.float32(r["time_s"]).view(np.uint32)),
+                        int(r["service"]), r["rule"], r["state"]]
+                       for r in sorted(rows, key=key)])
+    return {"events": len(rows), "events_digest": _digest(text.encode())}
+
+
+def traces_summary(checks) -> dict:
+    """``obs.spans.verify_traces``'s checks, of either package: how many,
+    how many are exact, eligible (completed, not failed, retry-free) and
+    carry a graph-level Alg 2, and a digest of every check's fields but
+    that float32 Alg 2 (the floats as their words)."""
+    bits = lambda x: int(np.float32(x).view(np.uint32))
+    text = json.dumps([[int(c.req), int(c.api), int(c.n_spans),
+                        bool(c.retry_free), bool(c.failed),
+                        bits(c.response), bits(c.tree), bits(c.tropical)]
+                       for c in checks])
+    count = lambda xs: int(sum(bool(x) for x in xs))
+    return {"checks": len(checks), "exact": count(c.exact for c in checks),
+            "eligible": count(not c.failed and c.retry_free
+                              for c in checks),
+            "graph": count(c.graph is not None for c in checks),
+            "checks_digest": _digest(text.encode())}
+
+
+def slo_summary(state, events) -> dict:
+    """An slo study arm: ``sockshop_summary``, its alert counters and
+    its alert-transition rows (``alerts_summary``)."""
+    al = state.alerts
+    out = sockshop_summary(state)
+    for k in ("fires", "resolves", "firing_ticks"):
+        out["alerts." + k] = int(_host(getattr(al, k)).sum())
+    for k in ("ev_n", "ev_drops", "win"):
+        out["alerts." + k] = int(_host(getattr(al, k)).reshape(-1)[0])
+    out.update(alerts_summary(events))
+    return out
+
+
 def check_pins(what, got, pins, say=log):
     """Fail on the first key of ``pins`` where ``got`` differs."""
     bad = [k for k in pins if got.get(k) != pins[k]]
@@ -1712,22 +1905,39 @@ def tick_ops_by_site(tag, torch, scale=0.005):
     return c.by_site
 
 
+def obs_counts(state) -> str:
+    """A final state's telemetry and alert counters, as a phrase."""
+    tel, al = state.telemetry, state.alerts
+    first = lambda t: int(_host(t).reshape(-1)[0])
+    out = (f"windows {first(tel.win)}, spans {first(tel.span_n)} (dropped "
+           f"{first(tel.span_drops)})")
+    if al.fires.numel():
+        out += (f", alert fires {int(_host(al.fires).sum())} resolves "
+                f"{int(_host(al.resolves).sum())} events {first(al.ev_n)} "
+                f"(dropped {first(al.ev_drops)})")
+    return out
+
+
 def run_capacity(tag, repeats, torch, dev, launches):
     """One Table 2 case at full size (see the module docstring, phase 3);
     returns its replay figures: the replayed ms per tick of the last run,
     and ``device_busy``'s."""
     from repro_torch.configs import capacity
     from repro_torch.kernels import counts, reset_counts
+    from repro_torch.obs import export, telemetry
     t_build = time.perf_counter()
     sim, meta = capacity.build_tagged(tag, device=dev)
     log(f"{tag}: built in {time.perf_counter() - t_build:.1f} s  {meta}")
     path = ["cloudlet_finish"] + (["link_share"]
                                   if sim.params.network == "fabric" else [])
+    obs = sim.params.telemetry == "stream"
+    alerting = obs and sim.params.alerting == "burn"
     digests = []
     for rep in range(repeats):
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        res = sim.run()
+        with export.collecting() as rows, export.alert_collecting() as ev:
+            res = sim.run()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n = {k: counts[k] for k in path}
         check(rep == 0 or res.compile_time_s == 0.0,
@@ -1751,8 +1961,27 @@ def run_capacity(tag, repeats, torch, dev, launches):
         check(not bad, f"{tag}: the two runs differ in {bad[:5]}")
         log(f"{tag}: the two runs are bit-identical "
             f"({len(digests[0])} leaves)")
-    check_pins(f"{tag} final state", leaf_digests(res.state),
-               dict(zip(PIN_LEAVES, CAPACITY_PINS[tag].split())))
+    pins = dict(zip(PIN_LEAVES, CAPACITY_PINS[tag].split()))
+    check_pins(f"{tag} final state", leaf_digests(res.state), pins)
+    if obs:
+        # telemetry and alerting observe only: the simulation leaves are
+        # the case's without them
+        case = tag.partition("+")[0]
+        base = dict(zip(PIN_LEAVES, CAPACITY_PINS[case].split()))
+        sim_leaves = [k for k in PIN_LEAVES
+                      if not k.startswith(("telemetry.", "alerts."))]
+        bad = [k for k in sim_leaves if pins[k] != base[k]]
+        check(not bad, f"{tag}: simulation leaves pinned unlike {case}'s "
+              f"in {bad[:5]}")
+        export.validate_rows(rows.rows)
+        export.validate_alert_rows(ev.rows)
+        check_pins(f"{tag} streamed metric and alert rows",
+                   dict(rows_summary(rows.rows), **alerts_summary(ev.rows)),
+                   ROW_PINS[tag])
+        log(f"{tag}: the {len(sim_leaves)} simulation leaves equal "
+            f"{case}'s pins; {len(rows.rows)} metric rows and "
+            f"{len(ev.rows)} alert transitions streamed; "
+            + obs_counts(res.state))
     # per-phase times over the first 100 ticks of an eager run (the
     # probes keep the tick eager), and the same 100 ticks replayed
     n = 100
@@ -1765,6 +1994,9 @@ def run_capacity(tag, repeats, torch, dev, launches):
         "  ".join(f"{k} {v / n:.3f}" for k, v in tot.items()))
     if sim.params.faults == "chaos":
         check("Disruption" in tot, f"{tag}: no Disruption phase timed")
+    if obs:
+        check("Telemetry" in tot and ("Alerting" in tot or not alerting),
+              f"{tag}: no Telemetry or Alerting phase timed")
     replayed, replayed_tr = sim.run_state(state, n_ticks=n)
     a, b = state_digest(eager, torch), state_digest(replayed, torch)
     bad = [k for k in a if a[k] != b[k]] + [
@@ -1774,9 +2006,15 @@ def run_capacity(tag, repeats, torch, dev, launches):
           f"ones in {bad[:5]}")
     log(f"{tag}: 100 replayed ticks equal 100 eager ticks in all {len(a)} "
         f"leaves and {len(eager_tr)} traces")
-    per_tick, sites = sync_calls_per_tick(sim, torch)
+    # with telemetry on, ten ticks around the first flush of the ring
+    first = telemetry.flush_ticks(sim.params) - 5 if obs else 0
+    per_tick, sites = sync_calls_per_tick(sim, torch, first_tick=first)
+    flushed = telemetry.flush_after(sim.params, first, 10)
+    check(bool(flushed) == obs, f"{tag}: the window holds no flush")
+    where = f", the ring flushed after tick {first + flushed[0]}" \
+        if obs else ""
     log(f"{tag}: synchronising calls per replayed tick {per_tick:.2f} "
-        f"(first 10 ticks) {sites}")
+        f"(ticks {first}-{first + 9}{where}) {sites}")
     check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
     log(f"{tag}: {replay_figures(sim, torch, out=fig)}")
     sites = tick_ops_by_site(tag, torch)
@@ -2187,6 +2425,149 @@ def run_chaos_study(launches):
     check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
 
 
+def run_obs(figs, torch, dev, launches):
+    """The observability phase (see the module docstring, phase 7)."""
+    for tag in OBS_CASES:
+        figs[tag] = run_capacity(tag, 2, torch, dev, launches)
+    overhead(figs, OBS_CASES)
+    run_obs_profile(torch, dev)
+    run_sockshop_traces(torch, dev, launches)
+    run_slo_study(torch, dev)
+
+
+def run_obs_profile(torch, dev):
+    """``obs.profile.phase_breakdown`` of case1b+slo over 50 eager ticks
+    (CUDA events at the phase probes), as a table."""
+    from repro_torch.configs import capacity
+    from repro_torch.obs import profile
+    sim, _ = capacity.build_tagged("case1b+slo", device=dev)
+    costs = profile.phase_breakdown(sim, reps=1, n_ticks=50)
+    labels = [c.label for c in costs]
+    check(labels == profile.tick_phases(sim) + ["Trace+rest"]
+          and "Alerting" in labels, f"case1b+slo profile labels {labels}")
+    check(all(math.isfinite(c.delta_s) and c.delta_s >= 0 for c in costs),
+          "case1b+slo profile: a phase's time is not finite")
+    log("case1b+slo phase_breakdown over 50 eager ticks (CUDA events, "
+        f"{gpu_line()}):\n" + profile.format_table(costs, "tick phase"))
+
+
+def run_sockshop_traces(torch, dev, launches):
+    """SockShop, 100 clients with HS over 600 s, with
+    ``examples/telemetry_study.py``'s telemetry (``TEL_KW``): the run
+    equal to the telemetry-free one's pins (``SOCKSHOP_PINS``), its
+    streamed rows and ``verify_traces`` on the card equal to the JAX
+    reference's (``TRACE_PINS``), every completed, not failed, retry-free
+    trace exact, and each graph-level Alg 2 one ``tropical_closure``
+    launch."""
+    from repro_torch.configs import sockshop
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.obs import export, spans
+    tag = "sockshop 100 clients HS with telemetry"
+    sim = sockshop.make_sim(100, 600.0, scaling_policy=1, device=dev,
+                            **TEL_KW)
+    T = sim.params.n_ticks
+    torch.cuda.synchronize()
+    reset_counts()
+    with export.collecting() as rows:
+        res = sim.run()
+    n = counts["cloudlet_finish"]
+    check(n == T, f"{tag}: cloudlet_finish launched {n} times in {T} ticks")
+    check_pins(f"{tag}: response digest and counters",
+               sockshop_summary(res.state), SOCKSHOP_PINS["100/600/1"])
+    export.validate_rows(rows.rows)
+    reset_counts()
+    t0 = time.perf_counter()
+    checks = spans.verify_traces(res.state, sim.graph,
+                                 int(sim.app.succ.shape[1]))
+    t_verify = time.perf_counter() - t0
+    n_trop = counts["tropical_closure"]
+    got = dict(rows_summary(rows.rows), **traces_summary(checks))
+    check_pins(f"{tag}: streamed rows and trace checks", got, TRACE_PINS)
+    check(got["eligible"] > 0 and got["exact"] == got["eligible"],
+          f"{tag}: {got['eligible'] - got['exact']} of {got['eligible']} "
+          "eligible traces are not exact")
+    check(n_trop == got["graph"] > 0 and counts["tropical_matmul"] == 0,
+          f"{tag}: {n_trop} tropical_closure launches for {got['graph']} "
+          "graph-level Alg 2 checks")
+    err = max(abs(float(c.graph) / float(c.response) - 1.0)
+              for c in checks if c.graph is not None)
+    launches["tropical_closure"] = launches.get("tropical_closure", 0) \
+        + n_trop
+    log(f"{tag}: {T} ticks  wall {res.wall_time_s:.2f} s  capture "
+        f"{res.compile_time_s:.3f} s  {got['rows']} rows  "
+        f"{obs_counts(res.state)};  verify_traces {t_verify:.2f} s: "
+        f"{got['checks']} traces, {got['exact']} of {got['eligible']} "
+        f"eligible exact, {got['graph']} graph-level Alg 2 through "
+        f"{n_trop} tropical_closure launches (largest relative gap to the "
+        f"response {err:.2e})  ({gpu_line()})")
+
+
+def run_slo_study(torch, dev):
+    """``examples/slo_study.py`` at its defaults (``SLO_STUDY``): its two
+    arms as one ``run_batch``, each point's counters, alert counters and
+    alert rows equal to the JAX reference's (``SLO_PINS``), the burn arm's
+    SLO violation rate below the util arm's at no more replica-seconds,
+    as the example asserts, 0 synchronising calls a replayed batched tick
+    over a tick that flushes the ring and scales, and the wall."""
+    import dataclasses
+    from repro_torch.configs import sockshop
+    from repro_torch.core import batch_item, policies, qos
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.obs import export
+    tag = "slo study"
+    sim = sockshop.make_sim(placement_policy=policies.PLACE_SPREAD,
+                            host_zone=slo_zones(), device=dev, **SLO_STUDY)
+    points = [dataclasses.replace(sim.params, **arm) for _, arm in SLO_ARMS]
+    T = sim.params.n_ticks
+    torch.cuda.synchronize()
+    reset_counts()
+    with export.alert_collecting() as events, export.collecting() as rows:
+        res = sim.run_batch(points)
+    n = counts["cloudlet_finish"]
+    check(n == T, f"{tag}: cloudlet_finish launched {n} times in {T} "
+          "batched ticks")
+    export.validate_alert_rows(events.rows)
+    export.validate_rows(rows.rows)
+    check(len(SLO_PINS) == len(points), f"{tag}: no SLO_PINS")
+    table, rates, cost = [], [], []
+    for b, ((name, _), p) in enumerate(zip(SLO_ARMS, points)):
+        item = batch_item(res, b)
+        mine = [r for r in events.rows if int(r["tag"]) == b]
+        check_pins(f"{tag} arm {name}: counters, alert counters and alert "
+                   "rows", slo_summary(item.state, mine), SLO_PINS[b])
+        rep = qos.summarize(sim, item, params=p)
+        rs = float(_host(item.trace.active_instances).astype(
+            np.float64).sum()) * p.dt
+        rates.append(rep.slo_violation_rate)
+        cost.append(rs)
+        table.append(f"{name}: violation rate {rep.slo_violation_rate:.3f}"
+                     f" replica-s {rs:.0f} out {rep.scale_out} in "
+                     f"{rep.scale_in} fires {rep.alert_fires} firing "
+                     f"{rep.alert_firing_time_s:.1f} s ejections "
+                     f"{rep.ejections} p95 {rep.p95_response_ms:.0f} ms")
+    check(rates[1] < rates[0] and cost[1] <= cost[0] * 1.001,
+          f"{tag}: the burn arm (violation rate {rates[1]:.3f}, "
+          f"{cost[1]:.0f} replica-s) does not beat the util arm "
+          f"({rates[0]:.3f}, {cost[0]:.0f})")
+    log(f"{tag}: {len(points)} arms x {T} ticks as one run_batch  wall "
+        f"{res.wall_time_s:.3f} s  {T / res.wall_time_s:.1f} ticks/s  "
+        f"capture {res.compile_time_s:.3f} s  cloudlet_finish launches {n}"
+        f"  ({gpu_line()})")
+    log(f"{tag} table: " + "; ".join(table))
+    first = 95                  # ticks 95-104: tick 99 flushes and scales
+    per_tick, sites = sync_calls_per_tick(sim, torch, first_tick=first,
+                                          sweeps=points)
+    log(f"{tag}: synchronising calls per replayed batched tick "
+        f"{per_tick:.2f} (ticks {first}-{first + 9}) {sites}; "
+        f"{replay_figures(sim, torch, points)}")
+    check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
+
+
+def slo_zones() -> np.ndarray:
+    """The slo study's failure domains: 5 zones of 2 hosts."""
+    return (np.arange(CHAOS_HOSTS) // 2).astype(np.int32)
+
+
 FABRIC_SWEEP = (10, 25, 50, 100)
 
 
@@ -2477,12 +2858,13 @@ def run_serve(arch, torch, dev):
 CHAOS_CASES = ("case1b+faults", "case1b+chaos2", "case1b+net+chaos2")
 
 
-def chaos_overhead(figs):
-    """The chaos cases' replay figures beside case1b's from the same run:
-    their ratios are the port's chaos overhead."""
+def overhead(figs, tags):
+    """The replay figures of the cases ``tags`` beside case1b's from the
+    same run: their ratios are the port's chaos and observability
+    overheads."""
     base = figs["case1b"]
     fmt = lambda x: "not measured" if x is None else f"{x:.3f}"
-    for tag in CHAOS_CASES:
+    for tag in tags:
         f = figs[tag]
         log(f"{tag} against case1b: replayed {f['ms']:.3f} against "
             f"{base['ms']:.3f} ms/tick ({f['ms'] / base['ms']:.3f}x), "
@@ -2551,10 +2933,11 @@ def main() -> int:
         run_capacity("case2b", 1, torch, dev, launches)
         for tag in CHAOS_CASES:
             figs[tag] = run_capacity(tag, 1, torch, dev, launches)
-        chaos_overhead(figs)
+        overhead(figs, CHAOS_CASES)
         run_sockshop(launches)
         run_sweep8(launches)
         run_chaos_study(launches)
+        run_obs(figs, torch, dev, launches)
         run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
         for arch in SERVE_ARCHS:

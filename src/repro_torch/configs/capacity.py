@@ -5,8 +5,10 @@ The sizing is the reference's (``benchmarks/bench_capacity.py``
 mode, the fabric variant (``network=True``, tagged ``<case>+net``) and the
 chaos variants (``faults=True``, ``<case>+faults``: host crashes and
 retries; ``chaos2=True``, ``<case>+chaos2``: every gray-failure stream
-too, over 4 failure domains) are built here; the telemetry variants are
-not ported.
+too, over 4 failure domains) and the observability variants
+(``telemetry=True``, ``<case>+obs``: streamed metric rows and sampled
+spans; ``slo=True``, ``<case>+slo``: burn-rate alerting too) are built
+here.
 
 Case structure (paper's counts; topology interpretation in brackets):
   1: 1 service × 10³ instances, 10⁵/10⁶ requests → 1 cloudlet per request
@@ -45,7 +47,8 @@ def flat_services(n: int, mi: float):
 
 def build_case(n_requests: int, n_services: int, replicas: int,
                fanout: int = 1, device="cuda", network: bool = False,
-               faults: bool = False, chaos2: bool = False):
+               faults: bool = False, chaos2: bool = False,
+               telemetry: bool = False, slo: bool = False):
     """A capacity Simulation sized to the Table 2 object counts; returns
     (sim, meta) where meta records the sizing decisions.  ``network=True``
     runs the fabric's Transit phase on ample 10,000 Mbit/s host NICs (the
@@ -53,7 +56,11 @@ def build_case(n_requests: int, n_services: int, replicas: int,
     ``case1b+net`` record does.  ``faults=True`` turns the Disruption
     phase on with rare host crashes (MTBF twice the run) and retries;
     ``chaos2=True`` adds mild gray chaos, every stream of it sampled each
-    tick, with the hosts in 4 zones (the reference's ``fault_kw``)."""
+    tick, with the hosts in 4 zones (the reference's ``fault_kw``).
+    ``telemetry=True`` streams 16-tick windows and samples 1 request in
+    100 into a 4,096-span ring with a 64-span per-tick budget;
+    ``slo=True`` adds burn-rate alerting on a 5 % budget (the reference's
+    ``tel_kw``)."""
     mi = 50.0
     graph = flat_services(n_services, mi)
     api_entries = ([[f"s{i}" for i in range(n_services)]]
@@ -94,12 +101,18 @@ def build_case(n_requests: int, n_services: int, replicas: int,
             zone_partition_rate=1.0 / duration,
             zone_partition_mttr_s=4 * dt,
             eject_err_thresh=0.8, eject_cooldown_s=4 * dt)
+    tel_kw = dict(telemetry="stream", tel_window_ticks=16, tel_windows=8,
+                  tel_span_k=100, tel_span_cap=4096,
+                  tel_span_tick_cap=64) if (telemetry or slo) else {}
+    if slo:
+        tel_kw.update(alerting="burn", slo_budget=0.05, slo_short_wins=2,
+                      slo_long_wins=4, slo_for_ticks=2, slo_event_cap=256)
     params = SimParams(dt=dt, n_ticks=n_ticks, n_clients=nc,
                        spawn_rate=nc / 5.0, wait_lo=2.0, wait_hi=6.0,
                        num_limit=n_requests, seed=0,
                        network="fabric" if network else "uniform",
                        nic_egress_mbps=10_000.0, nic_ingress_mbps=10_000.0,
-                       **fault_kw)
+                       **fault_kw, **tel_kw)
     # Instance speed: each tick's per-instance batch drains in ~0.4 ticks.
     a_i = fire_rate * fanout / n_inst        # cloudlet arrivals/inst/tick
     mips = max(a_i, 0.4) * mi / (0.4 * dt)
@@ -123,12 +136,14 @@ VARIANTS = {
     "": {}, "net": dict(network=True), "faults": dict(faults=True),
     "chaos2": dict(chaos2=True), "net+chaos2": dict(network=True,
                                                     chaos2=True),
+    "obs": dict(telemetry=True), "slo": dict(slo=True),
 }
 
 
 def build_tagged(tag: str, scale: float = 1.0, device="cuda"):
     """The Table 2 case ``tag`` (``"case1b"``, or with a variant suffix:
-    ``"+net"``, ``"+faults"``, ``"+chaos2"``, ``"+net+chaos2"``) with its
+    ``"+net"``, ``"+faults"``, ``"+chaos2"``, ``"+net+chaos2"``, ``"+obs"``,
+    ``"+slo"``) with its
     request count scaled by ``scale`` (at least 100 requests), as the
     reference's perf records."""
     case, _, variant = tag.partition("+")

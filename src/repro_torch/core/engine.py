@@ -32,6 +32,8 @@ import torch
 from .. import kernels
 from .. import random as rnd
 from ..analysis import streams
+from ..obs import slo as slomod
+from ..obs import telemetry as telmod
 from . import batch as batchmod
 from . import faults as faultsmod
 from . import network as netmod
@@ -80,9 +82,11 @@ def make_tick(caps: SimCaps, params: SimParams,
     ``network="fabric"`` adds the Transit phase (core/network.py) between
     Generation and Dispatch; ``faults="chaos"`` adds the Disruption phase
     (core/faults.py) after Generation, drawing from the tick's last three
-    streams.  Modes the port does not have yet (``telemetry`` and
-    ``alerting`` other than their defaults, ``hs_mode="slo_burn"``) raise
-    ``NotImplementedError``.
+    streams.  ``telemetry="stream"`` adds the Telemetry ops (the span
+    pass after Execute, the window close after the Trace; obs/telemetry.py)
+    and ``alerting="burn"`` the Alerting stage after the span pass
+    (obs/slo.py), both before Derive, as the reference orders them; they
+    draw no key.
     ``key`` is the tick's root key (the role of ``state.rng``: a host key
     or a ``random.TableKey``), one for every point; the tick draws from
     its streams and leaves ``state.rng`` to the caller, who derives the
@@ -92,14 +96,17 @@ def make_tick(caps: SimCaps, params: SimParams,
     runs the scaling phase and keeps its result only at the points whose
     own interval ends at this tick (``(tick % interval) == interval - 1``
     on the device), every other point's state as it was.  ``probe``, when
-    given, is called with each phase name just before the phase runs and
-    with ``"end"`` after the last one — the hook behind the per-phase
-    CUDA-event timings.
+    given, is called with each phase name just before the phase runs (the
+    Disruption phase's stages as ``"Disruption/<stage>"``) and with
+    ``"end"`` after the last one — the hook behind the per-phase
+    CUDA-event timings (``obs/profile.py``).
     """
     check_main_path(params)
     scales = bool(params.scaling_policy or params.migration_enabled)
     network = params.network == "fabric"
     chaos = params.faults == "chaos"
+    telemetry = params.telemetry == "stream"
+    alerting = telemetry and params.alerting == "burn"
     names = key_names(params)
 
     def tick(state: SimState, dyn: DynParams, app: AppStatic, key,
@@ -122,7 +129,7 @@ def make_tick(caps: SimCaps, params: SimParams,
             mark("Disruption")
             state = faultsmod.disruption(
                 state, app, caps, params, dyn, keys[-3], keys[-2],
-                keys[-1] if network else None)
+                keys[-1] if network else None, probe=probe)
 
         if network:
             mark("Transit")
@@ -134,6 +141,15 @@ def make_tick(caps: SimCaps, params: SimParams,
 
         mark("Execute")
         state, fin_info = scheduler.execute(state, app, caps, params, dyn)
+
+        # the span pass reads the finished rows before Derive respawns
+        # over the freed slots
+        if telemetry:
+            mark("Telemetry")
+            state = telmod.record_spans(state, fin_info, params)
+        if alerting:
+            mark("Alerting")
+            state = slomod.alert_step(state, fin_info, params, dyn, app)
 
         if has_edges:  # edge-free graphs skip the spawn machinery
             mark("Derive")
@@ -166,6 +182,9 @@ def make_tick(caps: SimCaps, params: SimParams,
             active_instances=count(state.instances.status == INST_ON),
             active_clients=gen.n_active,
         )
+        if telemetry:
+            mark("Telemetry")
+            state = telmod.close_window(state, params, dyn, trace)
         state = state._replace(tick=state.tick + 1,
                                time=state.time + dyn.dt)
         mark("end")
@@ -366,14 +385,18 @@ class TickGraphs:
         self.compile_time_s = _time.perf_counter() - t0
 
     def run(self, state: SimState, roots: np.ndarray, due: list,
-            dyn: DynParams, app: AppStatic
+            dyn: DynParams, app: AppStatic, flush_at=(), flusher=None
             ) -> Tuple[SimState, TickTrace]:
-        """Replay one graph per tick (the variant ``due`` names)."""
+        """Replay one graph per tick (the variant ``due`` names), and
+        flush the metric ring after the ticks ``flush_at`` names (their
+        indices in ``due``) through ``flusher`` (``obs.telemetry``)."""
         self.loop.load(state, roots, dyn, app)
-        for d in due:
+        for i, d in enumerate(due):
             graph, launches = self.graphs[d]
             graph.replay()
             kernels.add_counts(launches)
+            if i in flush_at:
+                flusher.flush(self.loop.state.telemetry)
         return _clone(self.loop.state), self.loop.traces(len(due))
 
 
@@ -472,6 +495,7 @@ class Simulation:
         self._has_edges = bool(np.asarray(graph.n_succ).sum() > 0)
         self._tick = make_tick(self.caps, self.params, self._has_edges)
         self._graphs: dict = {}
+        self._flushes: list = []     # telemetry flushes still in flight
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> SimState:
@@ -604,16 +628,53 @@ class Simulation:
         roots, carry = rnd.chain(_root(state.rng), n,
                                  carry_path(self.params))
         due, variants = self._cadence(dyn.scale_interval, first_tick, n)
+        flush_at = telmod.flush_after(self.params, first_tick, n)
+        flusher = telmod.Flusher(self.params, len(flush_at), B,
+                                 self.device) if flush_at else None
+        flush_at = frozenset(flush_at)
+        self.deliver_rows(wait=False)
         if self.device.type == "cuda" and probe is None:
             graphs = self._graphs_for(state, B, variants, n, dyn, app)[0]
-            out, trace = graphs.run(state, roots, due, dyn, app)
+            out, trace = graphs.run(state, roots, due, dyn, app, flush_at,
+                                    flusher)
         else:
             loop = TickLoop(self._tick, dyn, app, state, max(n, 1))
             loop.keys.fill(roots)
-            for d in due:
+            for i, d in enumerate(due):
                 loop.step(d, probe)
+                if i in flush_at:
+                    flusher.flush(loop.state.telemetry)
             out, trace = loop.state, loop.traces(n)
+        if flusher is not None:
+            self._flushes.append(flusher)
+            self.deliver_rows(wait=False)
         return out._replace(rng=carry.expand(B, 2)), trace
+
+    def deliver_rows(self, wait: bool = True) -> None:
+        """Hand the metric rows flushed by earlier runs to the exporter
+        (``obs.export``), in the order they were flushed: those whose
+        copy to the host has completed, or with ``wait`` all of them,
+        waiting for the copies still in flight.  A run's flushes copy
+        asynchronously on the card; ``run`` and ``run_batch`` deliver
+        them all before they drain the ring's tail."""
+        while self._flushes:
+            f = self._flushes[0]
+            if wait:
+                f.finish()
+            else:
+                f.poll()
+            if f.pending:
+                return
+            self._flushes.pop(0)
+
+    def _export(self, state: SimState, tags: np.ndarray) -> None:
+        """The end of a run with telemetry on: every flushed row, then the
+        ring's sealed tail and the alert transitions, to the exporter."""
+        if self.params.telemetry != "stream":
+            return
+        self.deliver_rows()
+        telmod.drain_to_exporter(state, self.params)
+        slomod.drain_to_exporter(state, self.params, tags=tags)
 
     def run_state(self, state: SimState, n_ticks: Optional[int] = None,
                   probe: Optional[Callable[[str], None]] = None,
@@ -641,6 +702,7 @@ class Simulation:
         out_state, trace = self.run_state(state)
         self._sync()
         t2 = _time.perf_counter()
+        self._export(out_state, np.float32([self.params.tel_tag]))
         return SimResult(state=out_state, trace=trace, wall_time_s=t2 - t1,
                          compile_time_s=compile_s)
 
@@ -688,6 +750,10 @@ class Simulation:
                 for d in points)
         dyn = dyn_host(dyn_batch)
         B = len(dyn.dt)
+        if self.params.telemetry == "stream" and not dyn.tel_tag.any():
+            # the streamed rows tell the points apart by their tag: number
+            # them unless the caller tagged them
+            dyn = dyn._replace(tel_tag=np.arange(B, dtype=np.float32))
         if apps is None:
             return dyn, None
         apps = list(apps)
@@ -749,6 +815,7 @@ class Simulation:
                                    None)
         self._sync()
         t2 = _time.perf_counter()
+        self._export(out, dyn.tel_tag)
         return SimResult(state=out,
                          trace=TickTrace(*[t.t().contiguous()
                                            for t in trace]),

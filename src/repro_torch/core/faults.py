@@ -30,6 +30,7 @@ import torch
 
 from .. import random as rnd
 from ..analysis import streams
+from ..obs import slo as slomod
 from . import network as netmod
 from .app import AppStatic
 from .batch import solo_as_batch
@@ -50,6 +51,13 @@ _RATES = (("zone_fault_rate", "rate"), ("zone_slow_rate", "rate"),
           ("nic_degrade_rate", "rate"), ("nic_mttr_s", "mean"),
           ("zone_partition_rate", "rate"), ("zone_partition_mttr_s", "mean"),
           ("inst_kill_rate", "rate"), ("inst_mttr_s", "mean"))
+
+
+# The phase's stages in order, as the reference's profiler cuts them: a
+# probe passed to ``disruption`` is called with ``"Disruption/<stage>"``
+# as each stage after the first begins, and with ``"Disruption/ejection"``
+# before the outlier ejection that ends the phase (``obs/profile.py``).
+DISRUPTION_STAGES = ("schedule", "doom", "respawn", "breaker")
 
 
 def tick_probabilities(dyn: DynParams) -> dict:
@@ -95,10 +103,12 @@ def check_tables(state: SimState, app: AppStatic) -> None:
 @solo_as_batch("state")
 def disruption(state: SimState, app: AppStatic, caps: SimCaps,
                params: SimParams, dyn: DynParams, rng, rng_len,
-               rng_net=None) -> SimState:
+               rng_net=None, probe=None) -> SimState:
     """One Disruption tick (see the module docstring); ``rng`` is the
     tick's ``faults`` stream, ``rng_len`` its ``retry_len`` stream and
-    ``rng_net`` (fabric mode) its ``retry_net`` stream."""
+    ``rng_net`` (fabric mode) its ``retry_net`` stream.  ``probe``, when
+    given, marks the stages (``DISRUPTION_STAGES``)."""
+    mark = probe or (lambda name: None)
     check_tables(state, app)
     cl, inst, req = state.cloudlets, state.instances, state.requests
     fs, fst = state.fault, state.fstats
@@ -168,6 +178,7 @@ def disruption(state: SimState, app: AppStatic, caps: SimCaps,
     zone_cut_new = (cut_upper | cut_upper.transpose(1, 2)).to(i32)
 
     # --- instance transitions and VM release -----------------------------
+    mark("Disruption/doom")
     host_down = (inst.host >= 0) & ~take(up_new,
                                          torch.clamp_min(inst.host, 0))
     on = inst.status == INST_ON
@@ -260,6 +271,7 @@ def disruption(state: SimState, app: AppStatic, caps: SimCaps,
 
     # --- respawn the retries (each one's own slot was just freed and the
     # wave is capped at K_cap, so no retry is dropped) ---------------------
+    mark("Disruption/respawn")
     asg = assign_free_slots(cl2.status == CL_FREE, can_retry, k_static=K_cap)
     svc_new = take(cl.service, asg.src)
     req_new = take(cl.req, asg.src)
@@ -303,6 +315,7 @@ def disruption(state: SimState, app: AppStatic, caps: SimCaps,
 
     # --- per-edge circuit breakers (fail-fast failures stay out of the
     # EMA: they are the breaker's own doing) --------------------------------
+    mark("Disruption/breaker")
     alpha = dyn.cb_alpha[:, None]
     org_e = segment_sum(organic.to(i32), torch.where(organic, edge, -1), E)
     succ_e = fs.edge_succ
@@ -322,6 +335,7 @@ def disruption(state: SimState, app: AppStatic, caps: SimCaps,
     ema = torch.where(close, 0.0, ema)
 
     # --- per-replica outlier ejection ------------------------------------
+    mark("Disruption/ejection")
     org_i = segment_sum(organic.to(i32), torch.where(organic, c_inst, -1), I)
     succ_i = fs.inst_succ
     n_i = org_i + succ_i
@@ -346,15 +360,25 @@ def disruption(state: SimState, app: AppStatic, caps: SimCaps,
     lat_sum_s = segment_sum(torch.where(sig, lema, 0.0), sig_svc, S)
     lat_cnt_s = segment_sum(sig.to(i32), sig_svc, S)
     svc_lat = lat_sum_s / torch.clamp_min(lat_cnt_s.to(f32), 1.0)
-    # (the alert-driven tightening multiplies by 1 while alerting is off)
+    # alert-driven tightening: while a burn alert fires on a replica's
+    # service, its ejection thresholds are multiplied by
+    # slo_eject_tighten (1 multiplies exactly).  The alert state read here
+    # is one tick old (Disruption runs before Alerting).
     lat_factor = dyn.eject_lat_factor[:, None]
+    err_thresh = dyn.eject_err_thresh[:, None]
+    eff_lat_factor = lat_factor
+    if params.telemetry == "stream" and params.alerting == "burn":
+        firing_s = slomod.firing_mask(state.alerts)
+        tighten = torch.where(take(firing_s, isvc_safe) & (isvc >= 0),
+                              dyn.slo_eject_tighten[:, None], 1.0)
+        err_thresh = err_thresh * tighten
+        eff_lat_factor = lat_factor * tighten
     lat_trip = ((lat_factor > 0) & (take(lat_cnt_s, isvc_safe) >= 2)
-                & (lema > lat_factor * take(svc_lat, isvc_safe)))
+                & (lema > eff_lat_factor * take(svc_lat, isvc_safe)))
     ej_open = fs.inst_eject_until > t
     ej_half = (fs.inst_eject_until > 0) & ~ej_open
     ej_closed = fs.inst_eject_until <= 0
-    want = ej_closed & on_i & traffic_i & (
-        (iema > dyn.eject_err_thresh[:, None]) | lat_trip)
+    want = ej_closed & on_i & traffic_i & ((iema > err_thresh) | lat_trip)
     # last-replica guard: eject at most admissible − 1 replicas a service
     n_adm = segment_sum((on_i & ~ej_open).to(i32),
                         torch.where(isvc >= 0, isvc, -1), S)

@@ -29,7 +29,7 @@ SCALE_HYBRID = 3       # HS first, VS when replica cap reached (beyond-paper)
 
 # --- HS scale-out gate ------------------------------------------------------
 HS_UTIL = 0            # threshold on the service utilization EMA (Alg 4)
-HS_SLO_BURN = 1        # burn-rate alerting gate (not ported yet)
+HS_SLO_BURN = 1        # burn-rate alerting gate (obs/slo.py)
 
 # --- placement (paper §5.1 Alg 3) ------------------------------------------
 PLACE_MOST_AVAILABLE = 0   # sorted queue by descending free PEs (paper)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import random as rnd
+from ..obs import slo as slomod
 from . import policies
 from .app import AppStatic
 from .batch import solo_as_batch
@@ -49,13 +50,34 @@ def _onehot(n: int, i: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 
 def horizontal(state: SimState, app: AppStatic, caps: SimCaps,
-               dyn: DynParams) -> SimState:
+               dyn: DynParams, params: SimParams | None = None) -> SimState:
     S = app.n_services
     util = _service_util(state, S)
     reps = state.sched.svc_replicas
-    want_out = ((util > dyn.hs_util_hi[:, None]) & (reps >= 1)
-                & (reps < caps.max_replicas))
+    can_grow = (reps >= 1) & (reps < caps.max_replicas)
+    want_out = (util > dyn.hs_util_hi[:, None]) & can_grow
     want_in = (util < dyn.hs_util_lo[:, None]) & (reps > 1)
+    if params is not None and params.telemetry == "stream" \
+            and params.alerting == "burn":
+        # the burn-rate gate: at the points whose hs_mode is "slo_burn",
+        # scale out on a firing burn alert once the service's
+        # stabilization window has passed (not on the util EMA), and
+        # never scale in while an alert is pending or firing.  hs_mode is
+        # a swept value, so both gates are computed and selected per
+        # point; at "util" points the util masks pass unchanged.
+        al = state.alerts
+        firing = slomod.firing_mask(al)
+        burn = (dyn.hs_mode == policies.HS_SLO_BURN)[:, None]
+        t = state.time[:, None]
+        want_out_burn = firing & (t >= al.hold_until) & can_grow
+        want_out = torch.where(burn, want_out_burn, want_out)
+        want_in = torch.where(burn, want_in & ~slomod.active_mask(al),
+                              want_in)
+        # the stabilization clock arms on the scale-out attempt (the
+        # commit may still fail on capacity)
+        state = state._replace(alerts=al._replace(hold_until=torch.where(
+            burn & want_out, t + dyn.slo_stabilize_s[:, None],
+            al.hold_until)))
     for s in range(S):
         state = _scale_out(state, s, app, want_out[:, s])
         state = _scale_in(state, s, want_in[:, s])
@@ -213,10 +235,10 @@ def scaling_event(state: SimState, app: AppStatic, caps: SimCaps,
     if params.scaling_policy == policies.SCALE_NONE:
         return state
     if params.scaling_policy == policies.SCALE_HORIZONTAL:
-        return horizontal(state, app, caps, dyn)
+        return horizontal(state, app, caps, dyn, params)
     if params.scaling_policy == policies.SCALE_VERTICAL:
         return vertical(state, app, caps, dyn)
     if params.scaling_policy == policies.SCALE_HYBRID:
-        state = horizontal(state, app, caps, dyn)
+        state = horizontal(state, app, caps, dyn, params)
         return vertical(state, app, caps, dyn)
     raise ValueError(f"unknown scaling policy {params.scaling_policy}")

@@ -12,7 +12,8 @@ Conventions: int32 / float32 everywhere (the reference runs with x64 off);
 (``SimState.rng``) is the one leaf that always lives on the CPU — see
 ``repro_torch.random``.  Both network modes (``"uniform"`` and
 ``"fabric"``) and both fault modes (``"none"`` and ``"chaos"``) are
-ported, with ``telemetry="none"`` and ``alerting="none"``: the telemetry
+ported, and so are the observability modes (``telemetry="stream"``,
+``alerting="burn"``, ``hs_mode="slo_burn"``); with them off the telemetry
 and alert tables exist with zero width, as do the chaos tables with
 ``faults="none"``.
 """
@@ -24,6 +25,9 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .. import random as rnd
+from ..analysis import streams
 
 # Cloudlet status codes (paper §4.2: waiting / execution / finished queues).
 CL_FREE = 0       # slot unused (or folded into the "finished" aggregate)
@@ -236,6 +240,12 @@ class SimParams:
 # Horizontal scale-out gates (dyn.hs_mode encodes the index).
 HS_MODES = ("util", "slo_burn")
 
+# Burn-rate rules evaluated per service (axis 1 of AlertState.astate) and
+# the alert state machine's states; the names are the exported labels.
+ALERT_RULES = ("SLOFastBurn", "SLOSlowBurn")
+ALERT_STATES = ("inactive", "pending", "firing", "resolved")
+ALERT_INACTIVE, ALERT_PENDING, ALERT_FIRING, ALERT_RESOLVED = 0, 1, 2, 3
+
 # The chaos knobs of the Disruption phase (core/faults.py), in the
 # reference's DynParams order; all float32 but ``retry_budget``.
 _CHAOS_FIELDS = (
@@ -253,7 +263,9 @@ _F32_FIELDS = (
     "util_ema", "mig_vm_util_hi", "slo_ms", "net_latency",
     "idle_mips_frac", "vs_overhead_frac", "nic_egress_mbps",
     "nic_ingress_mbps") + tuple(f for f in _CHAOS_FIELDS
-                                if f != "retry_budget")
+                                if f != "retry_budget") + (
+    "slo_budget", "slo_fast_burn", "slo_slow_burn", "slo_stabilize_s",
+    "slo_eject_tighten", "tel_tag")
 _I32_FIELDS = ("n_clients", "num_limit", "max_concurrent", "scale_interval",
                "retry_budget", "hs_mode")
 
@@ -264,8 +276,8 @@ class DynParams(NamedTuple):
     float32/int32 scalars; ``engine.stack_dyn`` stacks points into
     ``[B]`` arrays; inside the tick they are ``[B]`` float32/int32 tensors
     on the device, in buffers a run fills (``engine.TickLoop``), so no
-    captured tick bakes a swept value.  Only the fields the ported phases
-    read are kept."""
+    captured tick bakes a swept value.  The fields and their order are
+    the reference's."""
 
     dt: np.float32
     n_clients: np.int32
@@ -313,6 +325,12 @@ class DynParams(NamedTuple):
     eject_lat_factor: np.float32
     eject_cooldown_s: np.float32
     hs_mode: np.int32
+    slo_budget: np.float32
+    slo_fast_burn: np.float32
+    slo_slow_burn: np.float32
+    slo_stabilize_s: np.float32
+    slo_eject_tighten: np.float32
+    tel_tag: np.float32
 
     @staticmethod
     def from_params(p: "SimParams") -> "DynParams":
@@ -665,37 +683,128 @@ class FaultStats(NamedTuple):
     slow_time_s: torch.Tensor
 
 
-class TelemetryState(NamedTuple):
-    """Observability buffers — zero-width with telemetry off."""
+# One metric row per closed window, in ring-storage order.
+TEL_METRIC_COLUMNS = (
+    "window",            # window index (monotone, 0-based)
+    "time_s",            # sim time at window close
+    "tag",               # sweep-point tag (dyn.tel_tag)
+    "completed",         # requests completed in the window (sum)
+    "generated",         # requests generated in the window (sum)
+    "n_waiting",         # gauges sampled at window close ↓
+    "n_exec",
+    "n_transit",
+    "used_mips",
+    "active_instances",
+    "net_mb_inflight",   # Σ rem_bytes in TRANSIT (fabric mode; else 0)
+    "failed_attempts",   # cumulative FaultStats at close (0 faults off)
+    "retries",           # cumulative FaultStats at close
+    "spans",             # spans recorded so far (cumulative)
+    "span_drops",        # spans dropped at ring capacity (cumulative)
+)
+# Window-summed accumulators (prefix of the row's sum section).
+TEL_ACC_COLUMNS = ("completed", "generated")
+# One span per sampled finished cloudlet (hop), split by block dtype.
+TEL_SPAN_I_COLUMNS = ("req", "service", "inst", "host", "src_host",
+                      "edge", "attempt", "wait_ticks")
+TEL_SPAN_F_COLUMNS = ("arrival", "start", "finish")
 
-    ring: torch.Tensor
-    acc: torch.Tensor
-    win: torch.Tensor
-    span_i: torch.Tensor
-    span_f: torch.Tensor
-    span_n: torch.Tensor
-    span_drops: torch.Tensor
-    sample: torch.Tensor
+
+class TelemetryState(NamedTuple):
+    """Observability buffers (``telemetry="stream"``; ``repro_torch.obs``),
+    zero-width with telemetry off.  The metric ring is flushed in halves:
+    while ticks seal rows into one half, the host copies the other,
+    just-completed half out.  The span ring is append-until-full: overflow
+    never overwrites, it counts every dropped span exactly."""
+
+    ring: torch.Tensor        # [W, K] f32 metric rows (K = TEL_METRIC_…)
+    acc: torch.Tensor         # [len(TEL_ACC_COLUMNS)] f32 open-window sums
+    win: torch.Tensor         # [1] i32 windows closed so far
+    span_i: torch.Tensor      # [SP, NSI] i32 span ints
+    span_f: torch.Tensor      # [SP, NSF] f32 span timestamps
+    span_n: torch.Tensor      # [1] i32 spans recorded (≤ SP)
+    span_drops: torch.Tensor  # [1] i32 spans dropped at capacity
+    sample: torch.Tensor      # [R] u8 1 = request is traced (seeded 1-in-k)
+
+
+def validate_telemetry(params: "SimParams") -> None:
+    if params.telemetry not in ("none", "stream"):
+        raise ValueError(
+            f"SimParams.telemetry must be 'none' or 'stream', "
+            f"got {params.telemetry!r}")
+    if params.telemetry == "stream":
+        if params.tel_windows < 2 or params.tel_windows % 2:
+            raise ValueError(
+                "SimParams.tel_windows must be an even int ≥ 2 (the ring "
+                f"flushes in halves), got {params.tel_windows!r}")
+        for f in ("tel_window_ticks", "tel_span_k", "tel_span_cap"):
+            v = getattr(params, f)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"SimParams.{f} must be an int ≥ 1, got {v!r}")
+        v = params.tel_span_tick_cap
+        if not isinstance(v, int) or v < 0:
+            raise ValueError(
+                "SimParams.tel_span_tick_cap must be an int ≥ 0 "
+                f"(0 = uncapped), got {v!r}")
 
 
 class AlertState(NamedTuple):
-    """Burn-rate alerting state — zero-width with alerting off."""
+    """Per-service SLO burn-rate alerting state (``alerting="burn"``;
+    ``obs/slo.py``), zero-width unless ``telemetry="stream"`` and
+    ``alerting="burn"``.  Axes: ``S`` services, ``NR = len(ALERT_RULES)``
+    burn rules, ``L`` closed SLI windows (``slo_long_wins``), ``AP``
+    event-ring rows (``slo_event_cap``).  The transition ring is
+    append-until-full with exact drop counting, as the span ring."""
 
-    sli_win: torch.Tensor
-    sli_acc: torch.Tensor
-    win: torch.Tensor
-    astate: torch.Tensor
-    pending: torch.Tensor
-    fires: torch.Tensor
-    resolves: torch.Tensor
-    firing_ticks: torch.Tensor
-    hold_until: torch.Tensor
-    ev_time: torch.Tensor
-    ev_service: torch.Tensor
-    ev_rule: torch.Tensor
-    ev_state: torch.Tensor
-    ev_n: torch.Tensor
-    ev_drops: torch.Tensor
+    sli_win: torch.Tensor      # [L, S, 2] f32 closed windows of (good, bad)
+    sli_acc: torch.Tensor      # [S, 2] f32 open-window (good, bad) sums
+    win: torch.Tensor          # [1] i32 SLI windows closed so far
+    astate: torch.Tensor       # [S, NR] i32 ALERT_INACTIVE..ALERT_RESOLVED
+    pending: torch.Tensor      # [S, NR] i32 consecutive ticks condition held
+    fires: torch.Tensor        # [S, NR] i32 pending→firing transitions
+    resolves: torch.Tensor     # [S, NR] i32 firing→resolved transitions
+    firing_ticks: torch.Tensor # [S, NR] i32 ticks spent firing
+    hold_until: torch.Tensor   # [S] f32 burn-mode scale-out stabilization
+    ev_time: torch.Tensor      # [AP] f32 transition timestamps
+    ev_service: torch.Tensor   # [AP] i32
+    ev_rule: torch.Tensor      # [AP] i32 index into ALERT_RULES
+    ev_state: torch.Tensor     # [AP] i32 new state (index into ALERT_STATES)
+    ev_n: torch.Tensor         # [1] i32 transitions recorded (≤ AP)
+    ev_drops: torch.Tensor     # [1] i32 transitions dropped at capacity
+
+
+def validate_alerting(params: "SimParams") -> None:
+    if params.alerting not in ("none", "burn"):
+        raise ValueError(
+            f"SimParams.alerting must be 'none' or 'burn', "
+            f"got {params.alerting!r}")
+    if params.hs_mode not in HS_MODES:
+        raise ValueError(
+            f"SimParams.hs_mode must be one of {HS_MODES}, "
+            f"got {params.hs_mode!r}")
+    if params.alerting == "burn":
+        if params.telemetry != "stream":
+            raise ValueError(
+                "alerting='burn' evaluates rules on the telemetry window "
+                "cadence and requires telemetry='stream'")
+        for f in ("slo_short_wins", "slo_long_wins", "slo_for_ticks",
+                  "slo_event_cap"):
+            v = getattr(params, f)
+            if not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"SimParams.{f} must be an int ≥ 1, got {v!r}")
+        if params.slo_long_wins < params.slo_short_wins:
+            raise ValueError(
+                "SimParams.slo_long_wins must be ≥ slo_short_wins "
+                f"(got {params.slo_long_wins} < {params.slo_short_wins})")
+        if not params.slo_eject_tighten > 0:
+            raise ValueError(
+                "SimParams.slo_eject_tighten must be > 0 (1 disables "
+                f"tightening), got {params.slo_eject_tighten!r}")
+    elif params.hs_mode == "slo_burn":
+        raise ValueError(
+            "hs_mode='slo_burn' gates scale-out on firing burn alerts and "
+            "requires alerting='burn'")
 
 
 class SchedState(NamedTuple):
@@ -773,9 +882,9 @@ def edge_table_size(n_services: int, d_max: int, n_apis: int) -> int:
 
 
 def check_main_path(params: SimParams) -> None:
-    """Raise for every mode knob whose phase the port does not have yet
-    (and, as the reference does, for a network or fault mode that does
-    not exist)."""
+    """Raise ``ValueError`` for a mode the reference rejects: a network,
+    fault, telemetry or alerting mode that does not exist, and the
+    telemetry and alerting knobs its validators refuse."""
     if params.network not in ("uniform", "fabric"):
         raise ValueError(
             f"SimParams.network must be 'uniform' or 'fabric', "
@@ -784,12 +893,8 @@ def check_main_path(params: SimParams) -> None:
         raise ValueError(
             f"SimParams.faults must be 'none' or 'chaos', "
             f"got {params.faults!r}")
-    for knob, want in (("telemetry", "none"), ("alerting", "none"),
-                       ("hs_mode", "util")):
-        if getattr(params, knob) != want:
-            raise NotImplementedError(
-                f"SimParams.{knob}={getattr(params, knob)!r} is not ported "
-                f"to repro_torch yet (only {knob}={want!r})")
+    validate_telemetry(params)
+    validate_alerting(params)
 
 
 def resolve_device(device) -> torch.device:
@@ -889,17 +994,59 @@ def zeros_state(caps: SimCaps, params: SimParams, rng: torch.Tensor,
         fstats=FaultStats(*([z((), i32) for _ in range(8)] + [z((), f32)]
                             + [z((), i32) for _ in range(5)]
                             + [z((), f32)])),
-        telemetry=TelemetryState(
-            ring=z((0, 15), f32), acc=z((0,), f32), win=z((0,), i32),
-            span_i=z((0, 8), i32), span_f=z((0, 3), f32),
-            span_n=z((0,), i32), span_drops=z((0,), i32),
-            sample=z((0,), torch.uint8)),
-        alerts=AlertState(
-            sli_win=z((0, 0, 2), f32), sli_acc=z((0, 2), f32),
-            win=z((0,), i32), astate=z((0, 2), i32), pending=z((0, 2), i32),
-            fires=z((0, 2), i32), resolves=z((0, 2), i32),
-            firing_ticks=z((0, 2), i32), hold_until=z((0,), f32),
-            ev_time=z((0,), f32), ev_service=z((0,), i32),
-            ev_rule=z((0,), i32), ev_state=z((0,), i32),
-            ev_n=z((0,), i32), ev_drops=z((0,), i32)),
+        telemetry=_zeros_telemetry(params, rng, R, dev),
+        alerts=_zeros_alerts(params, S, dev),
     )
+
+
+def _zeros_telemetry(params: SimParams, rng: torch.Tensor, R: int,
+                     dev) -> TelemetryState:
+    """Initial telemetry state: zero-width under ``telemetry="none"``,
+    sized from the tel_* knobs under ``"stream"``.  The 1-in-k span
+    sample is drawn once here from a key folded off the root under the
+    name ``"tel_sample"``: the fold leaves the root untouched, so every
+    simulation stream is the same with telemetry on or off."""
+    f32, i32 = torch.float32, torch.int32
+    on = params.telemetry == "stream"
+    K, NA = len(TEL_METRIC_COLUMNS), len(TEL_ACC_COLUMNS)
+    NSI, NSF = len(TEL_SPAN_I_COLUMNS), len(TEL_SPAN_F_COLUMNS)
+    W = params.tel_windows if on else 0
+    SP = params.tel_span_cap if on else 0
+    one = 1 if on else 0
+    if on:
+        k_sample = streams.fold_in(rng, 0, name="tel_sample")
+        # the reference compares against the Python double, which JAX's
+        # weak typing rounds to float32
+        thresh = float(np.float32(1.0 / params.tel_span_k))
+        sample = (rnd.uniform(k_sample, (R,), device=dev)
+                  < thresh).to(torch.uint8)
+    else:
+        sample = torch.zeros((0,), dtype=torch.uint8, device=dev)
+    z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev)
+    return TelemetryState(
+        ring=z((W, K), f32), acc=z((NA if on else 0,), f32),
+        win=z((one,), i32), span_i=z((SP, NSI), i32),
+        span_f=z((SP, NSF), f32), span_n=z((one,), i32),
+        span_drops=z((one,), i32), sample=sample)
+
+
+def _zeros_alerts(params: SimParams, S: int, dev) -> AlertState:
+    """Initial alert state: zero-width unless the Alerting stage runs
+    (``telemetry="stream"`` and ``alerting="burn"``).  Draws no key."""
+    f32, i32 = torch.float32, torch.int32
+    on = params.telemetry == "stream" and params.alerting == "burn"
+    NR = len(ALERT_RULES)
+    Sa = S if on else 0
+    L = params.slo_long_wins if on else 0
+    AP = params.slo_event_cap if on else 0
+    one = 1 if on else 0
+    z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev)
+    return AlertState(
+        sli_win=z((L, Sa, 2), f32), sli_acc=z((Sa, 2), f32),
+        win=z((one,), i32), astate=z((Sa, NR), i32),
+        pending=z((Sa, NR), i32), fires=z((Sa, NR), i32),
+        resolves=z((Sa, NR), i32), firing_ticks=z((Sa, NR), i32),
+        hold_until=z((Sa,), f32), ev_time=z((AP,), f32),
+        ev_service=z((AP,), i32), ev_rule=z((AP,), i32),
+        ev_state=z((AP,), i32), ev_n=z((one,), i32),
+        ev_drops=z((one,), i32))

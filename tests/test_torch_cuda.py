@@ -23,8 +23,10 @@ devices).  Both simulator kernels and both tropical kernels, captured in
 a CUDA graph and replayed, give the eager launches' bits (one block, and
 the cooperative grid at case2b's width).  ``Simulation.run``'s replayed
 tick graphs give the eager tick's bits in every leaf and trace (the
-golden, fabric and a scaling SockShop scenario), and ``DecodeGraph``'s
-logits the eager ``decode_step``'s.  The batch axis: both simulator
+golden, fabric and a scaling SockShop scenario, and the chaos combos with
+telemetry and alerting on, whose streamed rows equal the eager run's and
+the CPU run's too), and ``DecodeGraph``'s logits the eager
+``decode_step``'s.  The batch axis: both simulator
 kernels over B points in one launch (every route, the cooperative grids
 striding over points) bit-equal point by point to each point's unbatched
 launch and to the plain version; ``run_batch``'s replayed batched tick
@@ -631,6 +633,74 @@ def test_captured_run_is_the_eager_run(which, dev):
     _assert_same(_leaf_bits(again.state), _leaf_bits(res.state))
     if which == "scaling":
         assert int(res.state.counters.scale_out) > 0
+
+
+def _obs(device, network="uniform"):
+    """The golden chaos combo with telemetry and burn-rate alerting on,
+    every completion an SLO miss (alerts fire), latency ejection
+    tightened while they do."""
+    import dataclasses
+    sim = _chaos(device, network)
+    sim.params = dataclasses.replace(
+        sim.params, telemetry="stream", tel_window_ticks=16,
+        tel_windows=8, tel_span_k=4, tel_span_cap=256, alerting="burn",
+        slo_budget=0.05, slo_ms=1.0, slo_short_wins=2, slo_long_wins=4,
+        slo_for_ticks=2, eject_lat_factor=1.5, slo_eject_tighten=0.3)
+    return Simulation(sim.graph, caps=sim.caps, params=sim.params,
+                      default_template=InstanceTemplate(
+                          mips=8000.0, limit_mips=16000.0, replicas=2),
+                      vm_mips=np.full(4, 64000.0, np.float32),
+                      device=device)
+
+
+@pytest.mark.parametrize("network", ["uniform", "fabric"])
+def test_captured_obs_run_is_the_eager_and_the_cpu_run(network, dev):
+    """With telemetry and alerting on, ``run()`` replays the tick and
+    flushes the metric ring between replays: its final state, traces and
+    streamed metric and alert rows equal, bit for bit, the eager run's
+    on the card and the run on the CPU; every window streams once."""
+    from repro_torch.obs import export
+    runs = []
+    for device, probe in ((dev, None), (dev, lambda name: None),
+                          ("cpu", None)):
+        sim = _obs(device, network)
+        with export.collecting() as rows, export.alert_collecting() as ev:
+            if probe is None:
+                res = sim.run()
+                state, trace = res.state, res.trace
+            else:
+                state, trace = sim.run_state(sim.init_state(), probe=probe)
+                sim.deliver_rows()
+                from repro_torch.obs import slo, telemetry
+                telemetry.drain_to_exporter(state, sim.params)
+                slo.drain_to_exporter(state, sim.params, tags=[0.0])
+        runs.append((_leaf_bits(state), _leaf_bits(trace),
+                     sorted(tuple(r.values()) for r in rows.rows),
+                     ev.rows))
+    for other in runs[1:]:
+        for a, b in zip(runs[0][:2], other[:2]):
+            _assert_same(a, b)
+        assert runs[0][2:] == other[2:]
+    assert [r[0] for r in runs[0][2]] == list(range(300 // 16))
+    assert runs[0][3]
+
+
+def test_obs_replay_around_a_flush_makes_no_synchronising_call(dev):
+    """Replayed ticks 60-69 (the ring flushes after tick 63) under sync
+    debug mode "error": the flush's copy is asynchronous into pinned
+    memory, its rows handed over once its event has completed."""
+    from repro_torch.obs import export
+    sim = _obs(dev)
+    state, _ = sim.run_state(sim.init_state(), 60)
+    torch.cuda.synchronize()
+    with export.collecting() as rows:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sim.run_state(state, 10, first_tick=60)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sim.deliver_rows()
+    assert sorted(int(r["window"]) for r in rows.rows) == [0, 1, 2, 3]
 
 
 def test_tick_capture_makes_no_synchronising_call(dev):

@@ -108,6 +108,34 @@ def test_fabric_runs_with_jax_and_reference_unimportable():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_obs_runs_with_jax_and_reference_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        from repro_torch.configs import sockshop
+        from repro_torch.obs import export, profile, slo, spans
+        sim = sockshop.make_sim(20, 6.0, telemetry="stream",
+                                tel_window_ticks=10, tel_windows=4,
+                                tel_span_k=4, alerting="burn",
+                                slo_budget=0.05, device="cpu")
+        with export.collecting() as rows:
+            res = sim.run()
+        export.validate_rows(rows.rows)
+        assert len(rows.rows) == 6
+        spans.verify_traces(res.state, sim.graph, int(sim.app.succ.shape[1]))
+        slo.drain_events(res.state.alerts)
+        profile.phase_breakdown(sim, reps=1, n_ticks=3)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_default_device_is_the_gpu():
     from repro_torch.core import (SimCaps, SimParams, Simulation, diamond,
                                   response_times)
@@ -149,14 +177,23 @@ def test_unported_modes_raise():
         sim = Simulation(diamond(), caps=caps,
                          params=SimParams(n_ticks=2, **knob), device="cpu")
         assert int(sim.run().state.tick) == 2
+    # the observability modes are ported: they build and run, with and
+    # without chaos
     for knob in (dict(telemetry="stream"),
                  dict(telemetry="stream", alerting="burn"),
                  dict(telemetry="stream", alerting="burn",
                       hs_mode="slo_burn"),
-                 dict(hs_mode="slo_burn"),
                  dict(faults="chaos", telemetry="stream"),
                  dict(faults="chaos", telemetry="stream", alerting="burn")):
-        with pytest.raises(NotImplementedError):
+        sim = Simulation(diamond(), caps=caps,
+                         params=SimParams(n_ticks=2, **knob), device="cpu")
+        assert int(sim.run().state.tick) == 2
+    # ... and raise ValueError where the reference's validators do
+    for knob, match in ((dict(hs_mode="slo_burn"), "requires alerting"),
+                        (dict(alerting="burn"), "requires telemetry"),
+                        (dict(telemetry="sometimes"), "'none' or 'stream'"),
+                        (dict(telemetry="stream", tel_windows=3), "even")):
+        with pytest.raises(ValueError, match=match):
             Simulation(diamond(), caps=caps,
                        params=SimParams(n_ticks=1, **knob), device="cpu")
     with pytest.raises(ValueError, match="uniform.*fabric"):

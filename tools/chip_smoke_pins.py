@@ -64,7 +64,8 @@ import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-CAPACITY = ("case1b", "case1b+net", "case2b") + chip_smoke.CHAOS_CASES
+CAPACITY = ("case1b", "case1b+net", "case2b") + chip_smoke.CHAOS_CASES \
+    + chip_smoke.OBS_CASES
 
 
 def _reference():
@@ -72,11 +73,23 @@ def _reference():
     return jax_reference()
 
 
-def capacity_pins(tag, port):
+def _collect(export, run):
+    """``run()`` with the metric and alert rows ``export`` streams: the
+    result and the rows' summaries (``chip_smoke.rows_summary``,
+    ``alerts_summary``)."""
+    with export.collecting() as rows, export.alert_collecting() as ev:
+        out = run()
+    return out, dict(chip_smoke.rows_summary(rows.rows),
+                     **chip_smoke.alerts_summary(ev.rows))
+
+
+def capacity_pins(tag, port, row_pins):
     from benchmarks import bench_capacity
+    from repro.obs import export as jexport
     from repro_torch.configs import capacity
     from repro_torch.core import convert
     from repro_torch.core.types import resolve_layout
+    from repro_torch.obs import export as texport
     from test_torch_phases import jax_tree_np
     import dataclasses
     case, _, variant = tag.partition("+")
@@ -85,7 +98,10 @@ def capacity_pins(tag, port):
     with _reference():
         jsim, _ = bench_capacity.build_case(n_req, S, reps, fanout,
                                             **capacity.VARIANTS[variant])
-        jst = jsim.run().state
+        jres, rows = _collect(jexport, jsim.run)
+        jst = jres.state
+    if tag in chip_smoke.OBS_CASES:
+        row_pins[tag] = rows
     tree = jax_tree_np(jst)
     tsim = capacity.build_tagged(tag, device="cpu")[0]
     assert dataclasses.asdict(tsim.params) == \
@@ -101,8 +117,11 @@ def capacity_pins(tag, port):
     if port:
         t0 = time.perf_counter()
         tsim, _ = capacity.build_tagged(tag, device="cpu")
-        got = chip_smoke.leaf_digests(tsim.run().state)
+        tres, trows = _collect(texport, tsim.run)
+        got = chip_smoke.leaf_digests(tres.state)
         bad = [k for k in pins if got.get(k) != pins[k]]
+        if tag in chip_smoke.OBS_CASES and trows != rows:
+            bad.append(f"streamed rows {trows} != {rows}")
         print(f"# {tag}: port on the CPU {time.perf_counter() - t0:.1f} s, "
               f"{'matches' if not bad else f'differs first in {bad[0]}'}"
               f" ({len(bad)} of {len(pins)} leaves differ)", file=sys.stderr)
@@ -256,16 +275,140 @@ def chaos_pins(port):
     return pins
 
 
+def check_obs_copies():
+    """chip_smoke's copies of ``examples/telemetry_study.py``'s
+    ``TEL_KW`` and of the arguments ``examples/slo_study.py`` gives
+    ``sockshop.make_sim`` must be the examples' own."""
+    import importlib.util
+    mods = {}
+    for name in ("telemetry_study", "slo_study"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    assert mods["telemetry_study"].TEL_KW == chip_smoke.TEL_KW, \
+        "TEL_KW drifted"
+    study = mods["slo_study"]
+    args = {}
+    real = study.sockshop.make_sim
+    study.sockshop.make_sim = lambda **kw: args.update(kw)
+    try:
+        study.make_sim(240.0, 100)
+    finally:
+        study.sockshop.make_sim = real
+    assert (args.pop("host_zone") == chip_smoke.slo_zones()).all()
+    assert args.pop("placement_policy") == 3      # policies.PLACE_SPREAD
+    assert args == chip_smoke.SLO_STUDY, f"SLO_STUDY drifted: {args}"
+    # the arms and the example's defaults, from its source
+    import ast
+    tree = ast.parse(open(os.path.join(ROOT, "examples",
+                                       "slo_study.py")).read())
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)]
+    replaced = [{k.arg: ast.literal_eval(k.value) for k in n.keywords}
+                for n in calls if ast.unparse(n.func) == "dataclasses.replace"]
+    arms = [dict(arm) for _, arm in chip_smoke.SLO_ARMS]
+    shared = {"scale_interval": arms[0].pop("scale_interval")}
+    arms[1].pop("scale_interval")
+    assert replaced == [shared] + arms, f"SLO_ARMS drifted: {replaced}"
+    defaults = {n.args[0].value: ast.literal_eval(k.value) for n in calls
+                if ast.unparse(n.func) == "ap.add_argument"
+                for k in n.keywords if k.arg == "default"}
+    assert (defaults["--duration"], defaults["--clients"]) == (240.0, 100)
+
+
+def trace_pins(port):
+    """SockShop 100 clients HS over 600 s with ``TEL_KW``: the streamed
+    rows and ``verify_traces``'s checks (``chip_smoke.traces_summary``)."""
+    from repro.configs import sockshop as jsock
+    from repro.obs import export as jexport
+    from repro.obs import spans as jspans
+    check_obs_copies()
+    t0 = time.perf_counter()
+    with _reference():
+        jsim = jsock.make_sim(100, 600.0, scaling_policy=1,
+                              **chip_smoke.TEL_KW)
+        with jexport.collecting() as rows:
+            jres = jsim.run()
+        checks = jspans.verify_traces(jres.state, jsim.graph,
+                                      int(jsim.app.succ.shape[1]))
+    assert chip_smoke.sockshop_summary(jres.state) == sockshop_pins(
+        100, 600.0, 1, False), "telemetry changed the SockShop run"
+    pins = dict(chip_smoke.rows_summary(rows.rows),
+                **chip_smoke.traces_summary(checks))
+    print(f"# sockshop traces: reference {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if port:
+        from repro_torch.configs import sockshop as tsock
+        from repro_torch.obs import export as texport
+        from repro_torch.obs import spans as tspans
+        t0 = time.perf_counter()
+        tsim = tsock.make_sim(100, 600.0, scaling_policy=1, device="cpu",
+                              **chip_smoke.TEL_KW)
+        with texport.collecting() as trows:
+            tres = tsim.run()
+        got = dict(chip_smoke.rows_summary(trows.rows),
+                   **chip_smoke.traces_summary(tspans.verify_traces(
+                       tres.state, tsim.graph, int(tsim.app.succ.shape[1]))))
+        print(f"# ... port on the CPU {time.perf_counter() - t0:.1f} s, "
+              f"{'matches' if got == pins else f'differs: {got}'}",
+              file=sys.stderr)
+    return pins
+
+
+def slo_pins(port):
+    """``examples/slo_study.py``'s two arms as one ``run_batch``: each
+    arm's ``chip_smoke.slo_summary``."""
+    import dataclasses
+    from repro.configs import sockshop as jsock
+    from repro.core import batch_item
+    from repro.obs import export as jexport
+    cs = chip_smoke
+    check_obs_copies()
+
+    def sweep(sock, export, **kw):
+        sim = sock.make_sim(placement_policy=3, host_zone=cs.slo_zones(),
+                            **cs.SLO_STUDY, **kw)
+        points = [dataclasses.replace(sim.params, **arm)
+                  for _, arm in cs.SLO_ARMS]
+        with export.alert_collecting() as ev:
+            res = sim.run_batch(points)
+        return res, ev.rows
+
+    t0 = time.perf_counter()
+    with _reference():
+        res, rows = sweep(jsock, jexport)
+        pins = [cs.slo_summary(batch_item(res, b).state,
+                               [r for r in rows if int(r["tag"]) == b])
+                for b in range(len(cs.SLO_ARMS))]
+    print(f"# slo study: reference {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if port:
+        from repro_torch.configs import sockshop as tsock
+        from repro_torch.core import batch_item as titem
+        from repro_torch.obs import export as texport
+        t0 = time.perf_counter()
+        tres, trows = sweep(tsock, texport, device="cpu")
+        got = [cs.slo_summary(titem(tres, b).state,
+                              [r for r in trows if int(r["tag"]) == b])
+               for b in range(len(cs.SLO_ARMS))]
+        print(f"# ... port on the CPU {time.perf_counter() - t0:.1f} s, "
+              f"{'matches' if got == pins else f'differs: {got}'}",
+              file=sys.stderr)
+    return pins
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU and compare")
     ap.add_argument("--only", default="",
                     help="comma-separated subset of "
-                    f"{', '.join(CAPACITY)}, sockshop, sweep, chaos")
+                    f"{', '.join(CAPACITY)}, sockshop, sweep, chaos, "
+                    "traces, slo")
     args = ap.parse_args(argv)
     only = set(filter(None, args.only.split(",")))
-    cap = {tag: capacity_pins(tag, args.port) for tag in CAPACITY
+    rows = {}
+    cap = {tag: capacity_pins(tag, args.port, rows) for tag in CAPACITY
            if not only or tag in only}
     sock = {}
     if not only or "sockshop" in only:
@@ -274,11 +417,37 @@ def main(argv=None) -> int:
                 *case, args.port)
     sweep = sweep_pins(args.port) if not only or "sweep" in only else []
     chaos = chaos_pins(args.port) if not only or "chaos" in only else []
-    print(_source(cap, sock, sweep, chaos))
+    traces = trace_pins(args.port) if not only or "traces" in only else {}
+    slo = slo_pins(args.port) if not only or "slo" in only else []
+    print(_source(cap, sock, sweep, chaos, rows, traces, slo))
     return 0
 
 
-def _source(cap, sock, sweep=(), chaos=()) -> str:
+def _dicts(name, items, indent="    ") -> list:
+    """``name = (dict, ...)`` with the dictionaries' keys quoted."""
+    out = [f"{name} = ("]
+    for pin in items:
+        rows = _packed([f'"{k}": {v!r},' for k, v in sorted(pin.items())],
+                       indent + " ", " ")
+        out.append(indent + "{" + rows[0].rstrip())
+        out += [indent + " " + r.rstrip() for r in rows[1:]]
+        out[-1] = out[-1][:-1] + "},"
+    out.append(")")
+    return out
+
+
+def _packed(words, indent, sep):
+    rows, row = [], ""
+    for w in words:
+        if row and len(indent) + len(row) + len(w) + len(sep) > 77:
+            rows.append(row)
+            row = ""
+        row += w + sep
+    return rows + [row] if row else rows
+
+
+def _source(cap, sock, sweep=(), chaos=(), row_pins=None, traces=None,
+            slo=()) -> str:
     """The pins as chip_smoke's constants: the leaf names once
     (``PIN_LEAVES``, sorted), each capacity case's leaf digests in that
     order as one string, the SockShop summaries as dictionaries; lines of
@@ -328,6 +497,19 @@ def _source(cap, sock, sweep=(), chaos=()) -> str:
         out += ["     " + r.rstrip() for r in rows[1:]]
         out[-1] = out[-1][:-1] + "},"
     out.append(")")
+    out.append("ROW_PINS = {")
+    for tag, pin in sorted((row_pins or {}).items()):
+        out += [f'    "{tag}": ' + "{"] + [
+            "        " + r.rstrip() for r in _packed(
+                [f'"{k}": {v!r},' for k, v in sorted(pin.items())],
+                "        ", " ")] + ["    },"]
+    out.append("}")
+    out.append("TRACE_PINS = {")
+    out += ["    " + r.rstrip() for r in _packed(
+        [f'"{k}": {v!r},' for k, v in sorted((traces or {}).items())],
+        "    ", " ")]
+    out.append("}")
+    out += _dicts("SLO_PINS", slo)
     return "\n".join(out)
 
 
