@@ -142,7 +142,21 @@ Phases, in order (any failure exits non-zero):
    1024-service DAG (each service calls up to 4 higher-numbered ones, 4
    APIs) in 8 windows, through ⌈log₂ depth⌉ ``tropical_matmul`` launches,
    every (window, API) held against the DP critical path;
-10. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
+10. simcheck on the card (``repro_torch.analysis``): the op lint, the layout
+   check, the stream audit and the capture sentinel of ``python -m
+   repro_torch.analysis`` (every section clean, every stream digest
+   printed, the sentinel's counting pass with 0 captures and 0 kernel
+   builds); the lint and the layout replay at full size on one eager tick
+   of case1b and of case1b+net+chaos2, with the tick's operations by call
+   site counted on the card; case1b under ``REPRO_CHECKED=1``, every leaf
+   equal to its pin, 0 synchronising calls per replayed checked tick (the
+   error word read once after the loop), its ms per tick beside the
+   unchecked run's; and SockShop 100 clients HS over 600 s on two fresh
+   ``Simulation``s, the second replaying the first's capture (capture
+   time 0.000 s), both equal to ``SOCKSHOP_PINS``.  Each cell starts
+   with the capture cache cleared (``Simulation.clear_captures``), so its
+   peak memory is its own;
+11. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
    and mamba2-130m at full width and depth on seeded random weights, at
    ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
    last-position logits, 28 ``flash_attention`` and 24 ``ssd_chunk``
@@ -150,14 +164,14 @@ Phases, in order (any failure exits non-zero):
    device traces, the device busy share (device time over the
    unprofiled prefill's wall); and a 2-layer full-width model of each,
    whose card logits are held against its CPU logits;
-11. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
+12. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
    16 + 24 tokens), which replays ``serve.DecodeGraph`` once per token
    step, its tok/s, capture time and peak memory; the graph's logits
    bit-equal to the
    eager ``decode_step``'s over 8 steps, the device time, busy share and
    operations per replayed step, and the synchronising calls per
    replayed step;
-12. one JSON line with each kernel's launches, times and bound; then the
+13. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
@@ -193,7 +207,6 @@ import shutil
 import subprocess
 import time
 import traceback
-import warnings
 
 import numpy as np
 
@@ -1752,39 +1765,9 @@ def sync_calls_per_tick(sim, torch, n_ticks=10, first_tick=0, sweeps=None,
     else:
         run(state, 1, 0)                 # captures; state stays at tick 0
     torch.cuda.synchronize()
-    n, counts = sync_sites(lambda: run(state, n_ticks, first_tick), torch)
+    n, counts = op_lint().sync_sites(lambda: run(state, n_ticks,
+                                                  first_tick))
     return n / n_ticks, counts
-
-
-def sync_sites(fn, torch):
-    """Run ``fn()`` under sync debug mode "warn": the number of
-    synchronising CUDA calls it made, and the port's call sites that made
-    them."""
-    sites = []
-
-    def show(message, category, filename, lineno, file=None, line=None):
-        text = str(message)
-        # count the per-call warnings, not the mode's one-time notice
-        if "synchroniz" in text and "prototype" not in text:
-            stack = [f"{f.filename.rsplit('src/', 1)[-1]}:{f.lineno}"
-                     for f in traceback.extract_stack()
-                     if "repro_torch" in f.filename]
-            sites.append(" < ".join(reversed(stack[-3:])))
-
-    saved = warnings.showwarning
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            warnings.showwarning = saved
-    counts = {}
-    for site in sites:
-        counts[site] = counts.get(site, 0) + 1
-    return len(sites), counts
 
 
 def device_busy(sim, torch, n_ticks=20, sweeps=None, apps=None):
@@ -1856,53 +1839,28 @@ def _device_us(prof) -> float:
     return sum(_device_us_by_name(prof).values())
 
 
-def tick_ops_by_site(tag, torch, scale=0.005):
-    """The tensor operations one tick of ``tag`` dispatches (views
-    apart), by the port's function that issued them, counted on the CPU
-    at a small size: each becomes one device operation of the replayed
-    tick on the card, except the kernels' plain versions (``ref.py``),
-    which the card runs as one launch each.  "(random.py)" marks the
-    operations issued inside ``random.py`` (the draws, ``fma32``,
-    ``div32``) on that function's behalf."""
-    import collections
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from repro_torch import random as rnd
+def op_lint():
+    """``repro_torch.analysis.op_lint``: ``sync_sites`` and
+    ``tick_ops_by_site`` live there."""
+    from repro_torch.analysis import op_lint as mod
+    return mod
+
+
+def cpu_ops_by_site(tag, scale=0.005):
+    """``op_lint.tick_ops_by_site`` of one tick of ``tag`` on the CPU at
+    ``scale`` of its size (the kernels' plain versions there, which the
+    card runs as one launch each)."""
     from repro_torch.configs import capacity
-    from repro_torch.core import engine
-    from repro_torch.core.types import DynParams
-    views = {"view", "select", "slice", "expand", "reshape", "unsqueeze",
-             "t", "transpose", "alias", "_unsafe_view", "squeeze",
-             "permute", "as_strided", "detach", "lift_fresh"}
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.by_site = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.__name__.split(".")[0] not in views:
-                stack = [f for f in traceback.extract_stack()
-                         if "repro_torch" in f.filename]
-                own = [f for f in stack if not f.filename.endswith(
-                    ("random.py", "engine.py"))]
-                site = (f"{own[-1].filename.rsplit('/', 1)[-1]}:"
-                        f"{own[-1].name}" if own else "engine.py")
-                if any(f.filename.endswith("random.py") for f in stack):
-                    site += " (random.py)"
-                self.by_site[site] += 1
-            return func(*args, **(kwargs or {}))
-
     sim, _ = capacity.build_tagged(tag, scale=scale, device="cpu")
-    state = sim.init_state()
-    roots, _ = rnd.chain(state.rng, 3, engine.carry_path(sim.params))
-    loop = engine.TickLoop(sim._tick, DynParams.from_params(sim.params),
-                           sim.app, state, 3)
-    loop.keys.fill(roots)
-    loop.step(False)
-    loop.step(False)
-    with Count() as c:
-        loop.step(False)
-    return c.by_site
+    return op_lint().tick_ops_by_site(sim)
+
+
+def new_cell():
+    """Drop every captured tick: the capture cache is shared by every
+    ``Simulation`` (``Simulation._graphs``), and a cell's peak memory
+    holds only its own captures."""
+    from repro_torch.core import Simulation
+    Simulation.clear_captures()
 
 
 def obs_counts(state) -> str:
@@ -1922,6 +1880,7 @@ def run_capacity(tag, repeats, torch, dev, launches):
     """One Table 2 case at full size (see the module docstring, phase 3);
     returns its replay figures: the replayed ms per tick of the last run,
     and ``device_busy``'s."""
+    new_cell()
     from repro_torch.configs import capacity
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.obs import export, telemetry
@@ -2017,7 +1976,7 @@ def run_capacity(tag, repeats, torch, dev, launches):
         f"(ticks {first}-{first + 9}{where}) {sites}")
     check(per_tick == 0, f"{tag}: {per_tick} synchronising calls per tick")
     log(f"{tag}: {replay_figures(sim, torch, out=fig)}")
-    sites = tick_ops_by_site(tag, torch)
+    sites = cpu_ops_by_site(tag)
     fig["cpu_ops"] = sum(sites.values())
     log(f"{tag}: {sum(sites.values())} operations a tick by call site "
         "(the port's tick on the CPU at 1/200 of the size; plain kernels "
@@ -2044,6 +2003,7 @@ def sockshop_run(n_clients, duration, policy):
     ``tropical_closure`` launches of its Alg 2 call.  The HS run ends with
     the synchronising calls per tick over a window that holds a scaling
     tick."""
+    new_cell()
     import torch
     from repro_torch.configs import sockshop
     dev = torch.device("cuda")
@@ -2090,6 +2050,7 @@ def run_sockshop_fabric(launches):
 def sockshop_fabric_run(n_clients):
     """One fabric SockShop run; returns its log lines, its ``link_share``
     launches, its transit p95 and its final state's and traces' bits."""
+    new_cell()
     import dataclasses
     import torch
     from repro_torch.configs import sockshop
@@ -2159,7 +2120,7 @@ def run_sockshop_case(sim, n_clients, torch, dev, testbed, pins, say=log):
     prev_n = torch.zeros_like(state.svc_stats.finished)
     compile_s = sim.compile(state)
     # the host's key schedule for the whole run, as the windows build it
-    keys = next(iter(sim._graphs.values())).loop.keys
+    keys = sim.captured(state).loop.keys
     t0 = time.perf_counter()
     roots, _ = rnd.chain(state.rng, T, carry_path(sim.params))
     t1 = time.perf_counter()
@@ -2257,6 +2218,7 @@ def run_sweep8(launches):
     response digest and counters against the JAX reference's ``run_batch``
     (``SWEEP_PINS``), points 0 and 7 equal to their solo runs on the card,
     and 100 replayed batched ticks equal to the eager ones."""
+    new_cell()
     import dataclasses
     import torch
     from repro_torch.configs import sockshop
@@ -2370,6 +2332,7 @@ def run_chaos_study(launches):
     against the JAX reference's ``run_batch`` (``CHAOS_PINS``), one
     ``cloudlet_finish`` launch a batched tick, 0 synchronising calls a
     replayed batched tick, and the study's table."""
+    new_cell()
     import dataclasses
     import torch
     from repro_torch.configs import sockshop
@@ -2438,6 +2401,7 @@ def run_obs(figs, torch, dev, launches):
 def run_obs_profile(torch, dev):
     """``obs.profile.phase_breakdown`` of case1b+slo over 50 eager ticks
     (CUDA events at the phase probes), as a table."""
+    new_cell()
     from repro_torch.configs import capacity
     from repro_torch.obs import profile
     sim, _ = capacity.build_tagged("case1b+slo", device=dev)
@@ -2459,6 +2423,7 @@ def run_sockshop_traces(torch, dev, launches):
     reference's (``TRACE_PINS``), every completed, not failed, retry-free
     trace exact, and each graph-level Alg 2 one ``tropical_closure``
     launch."""
+    new_cell()
     from repro_torch.configs import sockshop
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.obs import export, spans
@@ -2509,6 +2474,7 @@ def run_slo_study(torch, dev):
     SLO violation rate below the util arm's at no more replica-seconds,
     as the example asserts, 0 synchronising calls a replayed batched tick
     over a tick that flushes the ring and scales, and the wall."""
+    new_cell()
     import dataclasses
     from repro_torch.configs import sockshop
     from repro_torch.core import batch_item, policies, qos
@@ -2577,6 +2543,7 @@ def run_fabric_sweep(solo_bits):
     spread placement, 120 s): one ``link_share`` launch a tick, the points
     at 10, 50 and 100 clients equal to phase 7's solo runs in every leaf
     and trace, the transit p95 rising with the load."""
+    new_cell()
     import dataclasses
     import torch
     from repro_torch.configs import sockshop
@@ -2613,6 +2580,92 @@ def run_fabric_sweep(solo_bits):
         f"{replay_figures(sim, torch, sweeps)}")
     check(all(b >= a for a, b in zip(p95, p95[1:])) and p95[-1] > p95[0],
           f"{tag}: transit p95 {p95} does not rise with the load")
+
+
+SIMCHECK_CASES = (("case1b", ("uniform", "none", False, False)),
+                  ("case1b+net+chaos2", ("fabric", "chaos", False, False)))
+
+
+def run_simcheck(figs, torch, dev):
+    """The simcheck phase (see the module docstring, phase 10): the four
+    sections of ``python -m repro_torch.analysis`` on the card, the lint
+    and the layout replay at full size, case1b in checked mode, and two
+    SockShop runs on fresh ``Simulation``s sharing one capture."""
+    from repro_torch.analysis import layout_check, simcheck
+    from repro_torch.configs import capacity, sockshop
+    t_phase = time.perf_counter()
+    new_cell()
+    t0 = time.perf_counter()
+    rep = simcheck.run_simcheck(device=dev)
+    for sec, probs in rep.sections.items():
+        log(f"simcheck {sec}: "
+            + ("clean" if not probs else f"{len(probs)} violation(s)"))
+    for combo, digest in rep.stream_digests.items():
+        log(f"simcheck stream topology {combo}: {digest}")
+    sen = rep.sentinel
+    log(f"simcheck sentinel: captures warm {sen.warm.captures} counting "
+        f"{sen.counting.captures}, kernel builds warm {sen.warm.builds} "
+        f"counting {sen.counting.builds}; the four sections in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rep.ok, f"simcheck on the card: {rep.problems[:5]}")
+    check(sen.counting.captures == 0 and sen.counting.builds == 0,
+          "simcheck: the sentinel's counting pass captured or built")
+    for tag, combo in SIMCHECK_CASES:
+        new_cell()
+        sim, _ = capacity.build_tagged(tag, device=dev)
+        t0 = time.perf_counter()
+        problems, ops = op_lint().lint_sim(sim)
+        check(not problems, f"{tag}: op lint at full size: {problems[:5]}")
+        bad = layout_check.replay_problems(layout_check.replay_sim(sim),
+                                           *combo)
+        check(not bad, f"{tag}: layout at full size: {bad[:5]}")
+        sites = op_lint().tick_ops_by_site(sim)
+        log(f"{tag}: op lint ({len(ops)} operations recorded) and "
+            f"layout replay clean at full size in "
+            f"{time.perf_counter() - t0:.1f} s; {sum(sites.values())} "
+            "operations a tick by call site (one eager tick on the card): "
+            + ", ".join(f"{k} {v}" for k, v in sites.most_common()))
+    # case1b under REPRO_CHECKED=1: the same leaves, no synchronising call
+    # inside the replayed loop (the run reads its error word once after)
+    new_cell()
+    os.environ["REPRO_CHECKED"] = "1"
+    try:
+        sim, meta = capacity.build_tagged("case1b", device=dev)
+        res = sim.run()
+        pins = dict(zip(PIN_LEAVES, CAPACITY_PINS["case1b"].split()))
+        check_pins("case1b checked final state", leaf_digests(res.state),
+                   pins)
+        state = sim.init_state()
+        n, sites = op_lint().sync_sites(lambda: sim.run_state(state, 10))
+        reads = sum(v for k, v in sites.items() if "annotate.py" in k)
+        check(reads == 1 and n == reads, f"case1b checked: {n} "
+              f"synchronising calls in 10 replayed ticks: {sites}")
+        ms = res.wall_time_s / meta["n_ticks"] * 1e3
+        log(f"case1b checked: every leaf equals CAPACITY_PINS; replayed "
+            f"{ms:.3f} ms/tick checked against {figs['case1b']['ms']:.3f} "
+            f"unchecked ({ms / figs['case1b']['ms']:.3f}x), capture "
+            f"{res.compile_time_s:.3f} s; synchronising calls per replayed "
+            f"checked tick {(n - reads) / 10:.2f} (ticks 0-9; the error "
+            f"word's one read after the loop apart) ({gpu_line()})")
+    finally:
+        del os.environ["REPRO_CHECKED"]
+    # two fresh Simulations of one structure: the second replays the
+    # first's capture
+    new_cell()
+    captures = []
+    for i in range(2):
+        sim = sockshop.make_sim(100, 600.0, scaling_policy=1, device=dev)
+        res = sim.run()
+        check_pins(f"sockshop 100 HS, Simulation {i + 1}",
+                   sockshop_summary(res.state), SOCKSHOP_PINS["100/600/1"])
+        captures.append(res.compile_time_s)
+        log(f"sockshop 100 HS, Simulation {i + 1}: capture "
+            f"{res.compile_time_s:.3f} s, wall {res.wall_time_s:.3f} s")
+    check(captures[1] == 0.0, "sockshop 100 HS: the second Simulation "
+          f"captured anew ({captures[1]:.3f} s)")
+    new_cell()
+    log(f"simcheck phase: {time.perf_counter() - t_phase:.1f} s "
+        f"({gpu_line()})")
 
 
 FLEET = dict(services=1024, max_calls=4, apis=4, windows=8, seed=23)
@@ -2846,7 +2899,7 @@ def run_serve(arch, torch, dev):
     steps(2)
     torch.cuda.synchronize()
     n_steps = 8
-    n, sites = sync_sites(lambda: steps(n_steps), torch)
+    n, sites = op_lint().sync_sites(lambda: steps(n_steps))
     log(f"{arch} decode: synchronising calls per replayed step "
         f"{n / n_steps:.2f} ({n_steps} steps) {sites}")
     check(n == 0, f"{arch} decode: {n} synchronising calls in {n_steps} "
@@ -2940,6 +2993,7 @@ def main() -> int:
         run_obs(figs, torch, dev, launches)
         run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
+        run_simcheck(figs, torch, dev)
         for arch in SERVE_ARCHS:
             run_prefill(arch, torch, dev, launches)
             check_two_layer(arch, torch, dev)

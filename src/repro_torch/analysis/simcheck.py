@@ -1,0 +1,141 @@
+"""simcheck orchestrator — run every analyzer, one report, one exit code;
+the counterpart of ``repro.analysis.simcheck``.
+
+``python -m repro_torch.analysis`` drives this module over the port's own
+tick: the op lint with its write-back rule per lint combo
+(:mod:`.op_lint`), the layout-access diff (:mod:`.layout_check`), the RNG
+stream audit with per-combo topology digests (:mod:`.streams`) and the
+capture sentinel (:mod:`.recompile`).  Each section returns a list of
+violation strings; the lint's findings carry a rule id and are filtered
+through ``analysis/waivers.toml`` first, and expired or unmatched waivers
+are themselves violations.  The reference's ``intervals`` and
+``shardability`` sections are not ported (:data:`NOT_PORTED`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Set
+
+from . import layout_check, op_lint, recompile, streams
+from .waivers import apply_waivers, load_waivers
+
+GOLDEN_COMBOS = recompile.GOLDEN_COMBOS
+# telemetry="stream" on the full mode: the Telemetry phase draws no tick
+# key (its sample mask is an init-time named fold_in), so its digest must
+# equal fabric+chaos's
+TELEMETRY_COMBO = ("fabric", "chaos", "stream")
+# alerting="burn" on top: pure arithmetic over sealed SLI windows, the
+# same rule
+ALERTING_COMBO = ("fabric", "chaos", "alert")
+# the reference's lint combos
+LINT_COMBOS = [(*c, "none") for c in GOLDEN_COMBOS] + [TELEMETRY_COMBO,
+                                                       ALERTING_COMBO]
+SECTIONS = ("lint", "layout", "streams", "recompile")
+# the reference's sections the port lacks: what each would analyse is in
+# ROADMAP.md (Queue 1, item 14)
+NOT_PORTED = ("intervals", "shardability")
+
+
+def record_tick_streams(network: str, faults: str,
+                        telemetry: bool | str = False, device="cuda"
+                        ) -> streams.StreamRecorder:
+    """Replay one eager step of the combo's tiny sim with stream recording;
+    the step's root key (``KeyTable.root()``) is registered as ``"tick"``,
+    so every wrapped derivation resolves a path."""
+    sim = layout_check._tiny_sim(network, faults, False, telemetry, device)
+    loop = layout_check.eager_loop(sim, cap=1)
+    with streams.recording() as rec:
+        rec.register(loop.keys.root(), "tick")
+        loop.step(True)
+    return rec
+
+
+def check_streams(device="cuda") -> Dict[str, object]:
+    """Audit all six combos; returns ``{'problems': [...], 'digests':
+    {...}}``."""
+    problems: List[str] = []
+    digests: Dict[str, str] = {}
+
+    def audit(combo: str, rec) -> None:
+        digests[combo] = streams.topology_digest(rec)
+        for p in streams.audit_events(rec):
+            problems.append(f"[{combo}] {p}")
+        if not rec.events:
+            problems.append(
+                f"[{combo}] no stream derivations recorded — the engine "
+                "bypassed analysis.streams entirely")
+
+    for net, fl in GOLDEN_COMBOS:
+        audit(f"{net}+{fl}", record_tick_streams(net, fl, device=device))
+    for (net, fl, tel), name, why in (
+            (TELEMETRY_COMBO, "telemetry",
+             "the Telemetry phase must not consume tick RNG (its sample "
+             "mask is an init-time named fold_in)"),
+            (ALERTING_COMBO, "alerting",
+             "the Alerting phase must not consume tick RNG (burn-rate "
+             "rules are pure arithmetic over sealed SLI windows)")):
+        combo = f"{net}+{fl}+{name}"
+        audit(combo, record_tick_streams(
+            net, fl, True if tel == "stream" else tel, device))
+        if digests[combo] != digests[f"{net}+{fl}"]:
+            problems.append(f"[{combo}] tick stream topology differs from "
+                            f"{net}+{fl} — {why}")
+    return {"problems": problems, "digests": digests}
+
+
+@dataclasses.dataclass
+class SimcheckReport:
+    sections: Dict[str, List[str]]
+    stream_digests: Dict[str, str]
+    sentinel: Optional[recompile.SentinelReport]
+
+    @property
+    def problems(self) -> List[str]:
+        return [f"{sec}: {p}" for sec, ps in self.sections.items()
+                for p in ps]
+
+    @property
+    def ok(self) -> bool:
+        return not self.problems
+
+
+def run_simcheck(only: Optional[Set[str]] = None, sweep_points: int = 8,
+                 device="cuda") -> SimcheckReport:
+    """Run the requested analyzer sections (default: all four) on
+    ``device``.  ``only`` limits to a subset of :data:`SECTIONS`; naming a
+    section of :data:`NOT_PORTED` raises ``ValueError``.  Rule waivers
+    come from ``analysis/waivers.toml``, not from arguments."""
+    for name in sorted(set(only or ()) - set(SECTIONS)):
+        raise ValueError(
+            f"section {name!r} is "
+            + ("not ported to repro_torch (ROADMAP.md, Queue 1 item 14)"
+               if name in NOT_PORTED
+               else f"unknown (sections: {', '.join(SECTIONS)})"))
+    run = lambda name: only is None or name in only
+    sections: Dict[str, List[str]] = {}
+    digests: Dict[str, str] = {}
+    sentinel = None
+
+    if run("lint"):
+        # lint findings are "rule: detail" — the prefix is the rule id
+        # (f64, sync, transfer, writeback) waivers.toml matches; the
+        # other sections' findings are structural and unwaivable
+        tags = {"stream": "+telemetry", "alert": "+alerting", "none": ""}
+        findings = [(p.split(":", 1)[0], f"[{net}+{fl}{tags[tel]}] {p}")
+                    for net, fl, tel in LINT_COMBOS
+                    for p in op_lint.lint_combo(net, fl, tel, device)]
+        sections["lint"], sections["waivers"] = apply_waivers(
+            findings, load_waivers())
+    if run("layout"):
+        sections["layout"] = layout_check.check_layout_access(device=device)
+    if run("streams"):
+        res = check_streams(device)
+        sections["streams"] = res["problems"]
+        digests = res["digests"]
+    if run("recompile"):
+        sentinel = recompile.run_sentinel(n_points=sweep_points,
+                                          device=device)
+        sections["recompile"] = sentinel.problems
+
+    return SimcheckReport(sections=sections, stream_digests=digests,
+                          sentinel=sentinel)

@@ -31,7 +31,7 @@ import torch
 
 from .. import kernels
 from .. import random as rnd
-from ..analysis import streams
+from ..analysis import annotate, streams
 from ..obs import slo as slomod
 from ..obs import telemetry as telmod
 from . import batch as batchmod
@@ -69,6 +69,12 @@ def carry_path(params: SimParams) -> tuple:
     ``random.chain`` takes it."""
     names = key_names(params)
     return ((len(names), names.index("carry")),)
+
+
+# Observers of the capture-cache key of every run (``Simulation._advance``
+# calls each with it): the recompile sentinel's hook on the CPU, where
+# nothing is captured (``analysis.recompile``).
+KEY_WATCHERS: list = []
 
 
 def make_tick(caps: SimCaps, params: SimParams,
@@ -273,7 +279,10 @@ class TickLoop:
     bakes no swept value and serves every sweep of ``B`` points.  ``load``
     starts a run: it copies the start state in (a solo state broadcast
     over the batch) and fills the key table with the run's root keys,
-    and the swept values and application where given."""
+    and the swept values and application where given.  ``err`` is the
+    checked mode's error word (``analysis.annotate``): each step's checks
+    OR into it, ``load`` clears it, and the run reads it after its
+    loop."""
 
     def __init__(self, tick: Callable, dyn: DynParams, app: AppStatic,
                  state: SimState, cap: int):
@@ -294,6 +303,7 @@ class TickLoop:
             state = batchmod.lift(state, B)
         self.state = _clone(state._replace(rng=_root(state.rng)))
         self.keys = rnd.KeyTable(cap, dev)
+        self.err = annotate.new_word(dev)
         self.trace: Optional[TickTrace] = None
         self.set_dyn(host)
         self.set_app(app)
@@ -315,6 +325,7 @@ class TickLoop:
              app: Optional[AppStatic] = None) -> None:
         _write_back(self.state, state._replace(rng=_root(state.rng)))
         self.keys.fill(roots)
+        self.err.zero_()
         if dyn is not None:
             self.set_dyn(dyn)
         if app is not None:
@@ -322,8 +333,9 @@ class TickLoop:
 
     def step(self, scale_due=False,
              probe: Optional[Callable[[str], None]] = None) -> None:
-        out, tr = self.tick(self.state, self.dyn, self.app,
-                            self.keys.root(), scale_due, probe)
+        with annotate.collecting(self.err):
+            out, tr = self.tick(self.state, self.dyn, self.app,
+                                self.keys.root(), scale_due, probe)
         if self.trace is None:
             self.trace = TickTrace(*[
                 torch.empty((self.cap, self.B), dtype=v.dtype,
@@ -358,11 +370,16 @@ class TickGraphs:
     cuBLAS state, and adding every key stream to the table), then
     captures it.  Launches made while compiling go to a tally: each
     graph's own are added to ``kernels.counts`` at every replay.
-    ``compile_time_s`` is the warm-up and capture time."""
+    ``compile_time_s`` is the warm-up and capture time.  ``captures``
+    counts the captures made in this process (the recompile sentinel's
+    counter, ``analysis.recompile``)."""
+
+    captures = 0
 
     def __init__(self, loop: TickLoop, variants: tuple, state: SimState,
                  roots: np.ndarray):
         dev = loop.state.tick.device
+        TickGraphs.captures += 1
         t0 = _time.perf_counter()
         self.loop = loop
         loop.load(state, roots)
@@ -434,10 +451,25 @@ class Simulation:
 
     ``device`` defaults to ``"cuda"``; without a GPU that raises unless
     the caller asks for ``device="cpu"``.  On the card, runs replay the
-    tick's CUDA graphs, captured at the first run and kept per
-    ``Simulation`` for what they bake in (caps, params and with them the
-    ``DynParams`` values, the state's shapes); a failed capture raises.
+    tick's CUDA graphs, captured at the first run of a structure and kept
+    in a cache of the class, ``Simulation._graphs``, as the reference
+    keeps its compiled programs: every ``Simulation`` of the same
+    structure (caps, the knobs of ``_STATIC_FIELDS``, the device, the
+    number of points, the scaling cadence's variants, the state's and the
+    application's leaf shapes, checked mode) replays the same graphs, its
+    own swept values and application loaded into their buffers; a failed
+    capture raises.
+
+    Memory: a cached capture holds its loop's buffers (a state, the
+    traces of ``n_ticks`` ticks, the key table) and its graphs' pool on
+    the device for as long as it stays in the cache, whether or not a
+    ``Simulation`` of its structure is alive; a structure keeps one
+    capture (a longer run's replaces a shorter one's).  Call
+    :meth:`clear_captures` to free them all.
     """
+
+    # the capture cache, shared by every Simulation (see above)
+    _graphs: dict = {}
 
     def __init__(self, graph: ServiceGraph,
                  caps: SimCaps | None = None,
@@ -494,7 +526,6 @@ class Simulation:
                                  else placement_policy)
         self._has_edges = bool(np.asarray(graph.n_succ).sum() > 0)
         self._tick = make_tick(self.caps, self.params, self._has_edges)
-        self._graphs: dict = {}
         self._flushes: list = []     # telemetry flushes still in flight
 
     # ------------------------------------------------------------------
@@ -571,28 +602,51 @@ class Simulation:
             return [bool(d) for d in due[:, 0]], (False, True)
         return ["mask" if d.any() else False for d in due], (False, "mask")
 
-    def _graphs_for(self, state: SimState, B: int, variants: tuple,
+    def _capture_key(self, state: SimState, B: int, variants: tuple,
+                     app: Optional[AppStatic] = None) -> tuple:
+        """The capture cache's key of a run of ``B`` points from states
+        shaped as ``state`` in the cadence ``variants`` (with a sweep's
+        stacked ``app``): the structure only, as the reference's compile
+        key — the swept values and the application's values live in the
+        loop's buffers."""
+        app = self.app if app is None else app
+        solo = state if state.tick.dim() == 0 else batchmod.item(state, 0)
+        lead = app.succ.dim() - 2          # 1 for a batched app
+        return (self._static_key(), annotate.checked_mode(),
+                str(self.device), B, variants,
+                self._shape_key(_leaves(solo)),
+                tuple((tuple(t.shape[lead:]), t.dtype) for t in app))
+
+    def _graphs_for(self, key: tuple, state: SimState, variants: tuple,
                     n: int, dyn: DynParams, app: AppStatic
                     ) -> Tuple[TickGraphs, float]:
-        """The captured tick for ``B`` points from states shaped as
-        ``state``, in the cadence ``variants``, holding at least ``n``
-        ticks of keys and traces, and the capture time (0.0 when cached).
-        The key is the structure only: swept values and the application
-        live in the loop's buffers."""
-        solo = state if state.tick.dim() == 0 else batchmod.item(state, 0)
-        key = (self._static_key(), B, variants,
-               tuple((tuple(t.shape), t.dtype) for t in _leaves(solo)))
-        hit = self._graphs.get(key)
+        """The captured tick of ``key`` (``_capture_key``) holding at
+        least ``n`` ticks of keys and traces, and the capture time (0.0
+        when cached)."""
+        hit = Simulation._graphs.get(key)
         if hit is not None and hit.loop.cap >= n:
             return hit, 0.0
-        self._graphs.pop(key, None)    # free a smaller capture first
+        Simulation._graphs.pop(key, None)    # free a smaller capture first
         del hit
         cap = max(n, int(self.params.n_ticks), 2)
         loop = TickLoop(self._tick, dyn, app, state, cap)
         roots, _ = rnd.chain(_root(state.rng), 1, carry_path(self.params))
         graphs = TickGraphs(loop, variants, state, roots)
-        self._graphs[key] = graphs
+        Simulation._graphs[key] = graphs
         return graphs, graphs.compile_time_s
+
+    @classmethod
+    def clear_captures(cls) -> None:
+        """Drop every cached capture (their device memory goes back to
+        PyTorch's allocator)."""
+        cls._graphs.clear()
+
+    def captured(self, state: SimState) -> Optional[TickGraphs]:
+        """The cached capture of this Simulation's solo runs from states
+        shaped as ``state``, or None."""
+        dyn = dyn_host(DynParams.from_params(self.params))
+        variants = self._cadence(dyn.scale_interval, 0, 1)[1]
+        return Simulation._graphs.get(self._capture_key(state, 1, variants))
 
     @property
     def _scales(self) -> bool:
@@ -613,8 +667,9 @@ class Simulation:
             return 0.0
         n = self.params.n_ticks if n_ticks is None else n_ticks
         variants = self._cadence(dyn.scale_interval, 0, 1)[1]
-        return self._graphs_for(state, len(dyn.dt), variants, n, dyn,
-                                self.app if app is None else app)[1]
+        app = self.app if app is None else app
+        key = self._capture_key(state, len(dyn.dt), variants, app)
+        return self._graphs_for(key, state, variants, n, dyn, app)[1]
 
     def _advance(self, state: SimState, dyn: DynParams,
                  app: Optional[AppStatic], n: int, first_tick: int,
@@ -633,8 +688,12 @@ class Simulation:
                                  self.device) if flush_at else None
         flush_at = frozenset(flush_at)
         self.deliver_rows(wait=False)
+        key = self._capture_key(state, B, variants, app)
+        for watch in KEY_WATCHERS:
+            watch(key)
         if self.device.type == "cuda" and probe is None:
-            graphs = self._graphs_for(state, B, variants, n, dyn, app)[0]
+            graphs = self._graphs_for(key, state, variants, n, dyn, app)[0]
+            loop = graphs.loop
             out, trace = graphs.run(state, roots, due, dyn, app, flush_at,
                                     flusher)
         else:
@@ -645,6 +704,9 @@ class Simulation:
                 if i in flush_at:
                     flusher.flush(loop.state.telemetry)
             out, trace = loop.state, loop.traces(n)
+        if key[1]:
+            # checked mode: the loop's error word, read once after it
+            annotate.throw(loop.err)
         if flusher is not None:
             self._flushes.append(flusher)
             self.deliver_rows(wait=False)

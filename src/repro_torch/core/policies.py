@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from .. import random as rnd
+from ..analysis.annotate import check, checked_mode
 from .pool import take
 from .types import INST_ON
 
@@ -86,8 +87,24 @@ def eject_view(sched, eject_until: torch.Tensor, time: torch.Tensor
     keep = in_rank & ~ejected
     pos = torch.cumsum(keep, 2, dtype=i32) - 1
     n_ok = torch.amax(torch.where(keep, pos + 1, 0), dim=2)
-    # within a row the kept positions are a prefix ranking: distinct
-    # targets; a dropped lane lands in the spare column Rm
-    out = torch.full((B, S, Rm + 1), -1, dtype=i32, device=iof.device)
-    out.scatter_(2, torch.where(keep, pos, Rm).long(), iof)
-    return out[:, :, :Rm], n_ok
+    return compact_rows(iof, keep, pos), n_ok
+
+
+def compact_rows(iof: torch.Tensor, keep: torch.Tensor, pos: torch.Tensor
+                 ) -> torch.Tensor:
+    """``iof``'s kept entries (``[B, S, R]``) moved to their positions
+    ``pos`` in each row, -1 elsewhere.  Within a row the kept positions
+    are a prefix ranking, so the targets are distinct (checked under
+    ``REPRO_CHECKED=1``); a dropped lane lands in the spare column R."""
+    Rm = iof.shape[2]
+    cols = torch.where(keep, pos, Rm).long()
+    if checked_mode():
+        hits = torch.zeros(iof.shape[:2] + (Rm + 1,), dtype=torch.int32,
+                           device=iof.device)
+        hits.scatter_add_(2, cols, keep.to(torch.int32))
+        check(hits[:, :, :Rm] <= 1,
+              "eject_view: duplicate compaction target")
+    out = torch.full(iof.shape[:2] + (Rm + 1,), -1, dtype=torch.int32,
+                     device=iof.device)
+    out.scatter_(2, cols, iof)
+    return out[:, :, :Rm]

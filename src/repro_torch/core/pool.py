@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..analysis.annotate import check, checked_mode
+
 
 def scatter_add(out: torch.Tensor, idx: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
@@ -221,6 +223,17 @@ def scatter_pool(cl, asg: SlotAssignment, **cols):
             f"{layout.columns}; missing {sorted(missing)}, "
             f"unknown {unknown}")
     shape = tuple(asg.dst.shape)
+    if checked_mode():
+        # the disjointness free-slot compaction guarantees (live lanes
+        # carry distinct free slots, dead lanes are dropped), checked
+        # under REPRO_CHECKED=1 without a read back
+        C = cl.ints.shape[1]
+        hits = add_drop(torch.zeros((shape[0], C), dtype=torch.int32,
+                                    device=asg.dst.device),
+                        asg.dst, 1, asg.live)
+        check(hits <= 1, "scatter_pool: duplicate destination slot")
+        check(~asg.live | ((asg.dst >= 0) & (asg.dst < C)),
+              "scatter_pool: live destination out of range")
 
     def stacked(names, like):
         return torch.stack([fill(cols[n], shape, like.dtype, like.device)

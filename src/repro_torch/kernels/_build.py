@@ -41,6 +41,9 @@ SOURCE_FLAGS = {"cloudlet_finish": NVCC_FLAGS + ("-Xptxas=-v",),
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# nvcc runs started in this process (the recompile sentinel's counter,
+# ``analysis.recompile``)
+builds = 0
 
 
 def _nvcc() -> str:
@@ -69,6 +72,8 @@ def _start(name: str):
     out = library(name)
     if out.exists():
         return None
+    global builds
+    builds += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]

@@ -44,7 +44,10 @@ class FinishOut(NamedTuple):
 def lane_math(status, rem, inst, arrival, start, rate, time, dt):
     """The elementwise core, shared with the kernel's tests: returns
     (new_rem, fin, tfin, consumed, rows [C,5] of the inst_acc terms)."""
-    dt = float(np.float32(dt))     # a float32 scalar, as in the kernel
+    # a float32 scalar, as in the kernel (a 0-d tensor stays one: no read
+    # back)
+    dt = (dt.to(torch.float32) if isinstance(dt, torch.Tensor)
+          else float(np.float32(dt)))
     execm = status == CL_EXEC
     prog = rate * dt
     fin = execm & (rem <= prog) & (rate > 0)
@@ -69,7 +72,8 @@ def lane_math(status, rem, inst, arrival, start, rate, time, dt):
 def cloudlet_finish(status, rem, inst, req, arrival, start, depth, rate,
                     time, dt, req_finish, req_crit, req_out,
                     n_inst: int) -> FinishOut:
-    """All [C] inputs are 1-D; ``time`` a 0-d tensor, ``dt`` a number.
+    """All [C] inputs are 1-D; ``time`` a 0-d tensor, ``dt`` a number or
+    a 0-d float32 tensor.
     Returns new request arrays (the inputs are not modified)."""
     n_req = req_finish.shape[0]
     execm = status == CL_EXEC
@@ -110,7 +114,7 @@ def cloudlet_finish_batched(status, rem, inst, req, arrival, start, depth,
     the comparisons'."""
     outs = []
     for b in range(rate.shape[0]):
-        d = float(dt[b]) if isinstance(dt, torch.Tensor) else dt
+        d = dt[b] if isinstance(dt, torch.Tensor) else dt
         outs.append(cloudlet_finish(
             status[b], rem[b], inst[b], req[b], arrival[b], start[b],
             depth[b], rate[b], time[b], d, req_finish[b], req_crit[b],

@@ -480,19 +480,23 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+def _sqrt32(w: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, through float64 (torch's vectorised
+    CPU sqrt is not always correctly rounded; XLA's and CUDA's are)."""
+    return torch.sqrt(w.double()).float()
+
+
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function (Giles' polynomial, as XLA: Horner
     steps contracted into FMAs)."""
     w = -log1p(x * -x)
     lt = w < 5.0
-    # correctly rounded f32 sqrt via f64 (torch's vectorised CPU sqrt is
-    # not always correctly rounded; XLA's and CUDA's are)
-    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt32(w) - 3.0)
     c = lambda i: torch.where(lt, float(np.float32(_ERFINV_LT5[i])),
                               float(np.float32(_ERFINV_GE5[i])))
     p = c(0)
     for i in range(1, len(_ERFINV_LT5)):
-        p = _fma32_poly(p, w, c(i).double())
+        p = _fma32_poly(p, w, c(i))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
@@ -539,3 +543,11 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     mult = ((mult * mult) & M32) % span
     off = ((((higher % span) * mult) & M32) + (lower % span)) & M32
     return (off % span + int(minval)).to(torch.int32)
+
+
+# The float64 sites above are the port's declared widenings: simcheck's op
+# lint (``analysis.op_lint``) allows float64 inside them and nowhere else
+# in the tick.
+from .analysis import op_lint as _op_lint  # noqa: E402
+
+_op_lint.declare_wide(fma32, _fma32_poly, _sqrt32)

@@ -615,6 +615,7 @@ def test_captured_run_is_the_eager_run(which, dev):
     sim = {"golden": _golden, "fabric": _fabric, "scaling": _scaling,
            "chaos": _chaos,
            "fabric_chaos": lambda d: _chaos(d, "fabric")}[which](dev)
+    Simulation.clear_captures()          # the cache is the class's
     n = sim.params.n_ticks
     reset_counts()
     res = sim.run()
@@ -836,7 +837,8 @@ def test_batched_capture_makes_no_synchronising_call(dev):
         sim.run_batch_state(state, sweeps, 20)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    (graphs,) = [g for k, g in sim._graphs.items() if k[1] == len(sweeps)]
+    graphs = Simulation._graphs[sim._capture_key(state, len(sweeps),
+                                                 (False, "mask"))]
     assert sorted(map(str, graphs.graphs)) == ["False", "mask"]
 
 
@@ -1053,3 +1055,84 @@ def test_two_layer_full_width_model_on_card_matches_cpu(arch, dev):
     assert counts[name] == before + 2
     torch.testing.assert_close(got.cpu(), want, rtol=MODEL_TOL,
                                atol=MODEL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# simcheck on the card: the shared capture cache, the sentinel, checked mode
+# ---------------------------------------------------------------------------
+
+def test_capture_cache_is_shared_and_replays_each_instance(dev):
+    """Two ``Simulation``s of one structure that differ in every swept
+    value and in the application's values: the second replays the first's
+    capture (no capture time), and its run equals its own eager run."""
+    import dataclasses
+    from repro_torch.analysis.layout_check import _tiny_sim
+    from repro_torch.core.types import DynParams
+    Simulation.clear_captures()
+    a = _tiny_sim("fabric", "chaos", False, device=dev)
+    a.params = dataclasses.replace(a.params, n_ticks=120)
+    a = Simulation(a.graph, caps=a.caps, params=a.params, device=dev)
+    first = a.run()
+    assert first.compile_time_s > 0.0
+    floats = {f: getattr(a.params, f) * 1.25 + 0.01
+              for f in DynParams._fields if f not in ("hs_mode", "tel_tag")
+              and hasattr(a.params, f)
+              and isinstance(getattr(a.params, f), float)}
+    floats.update(n_clients=a.params.n_clients + 1,
+                  num_limit=a.params.num_limit - 1,
+                  retry_budget=a.params.retry_budget + 1,
+                  net_latency_s=a.params.net_latency_s * 1.25 + 0.01,
+                  scale_interval=a.params.scale_interval + 1)
+    pb = dataclasses.replace(a.params, **floats)
+    b = Simulation(diamond(mi=350.0), caps=a.caps, params=pb, device=dev)
+    assert b._capture_key(b.init_state(), 1, (False, True)) == \
+        a._capture_key(a.init_state(), 1, (False, True))
+    res = b.run()
+    assert res.compile_time_s == 0.0 and len(Simulation._graphs) == 1
+    assert int(res.state.counters.finished) > 0
+    assert not torch.equal(res.state.requests.arrival,
+                           first.state.requests.arrival)
+    state, trace = b.run_state(b.init_state(), probe=lambda name: None)
+    _assert_same(_leaf_bits(res.state), _leaf_bits(state))
+    _assert_same(_leaf_bits(res.trace), _leaf_bits(trace))
+
+
+def test_sentinel_counting_pass_captures_nothing(dev):
+    from repro_torch.analysis import recompile
+    Simulation.clear_captures()
+    rep = recompile.run_sentinel(n_points=2, device=dev)
+    assert rep.warm.captures == 8
+    assert rep.counting.captures == 0 and rep.counting.builds == 0
+    assert rep.problems == []
+
+
+def test_checked_replayed_run_raises_after_the_loop(dev, monkeypatch):
+    """Under ``REPRO_CHECKED=1`` a forged spawn wave (every lane live on
+    slot 0) replays without a synchronising call and raises when the run
+    reads its error word, once, after the loop."""
+    from repro_torch.analysis import annotate, op_lint
+    from repro_torch.core import scheduler
+    monkeypatch.setenv("REPRO_CHECKED", "1")
+    assign = scheduler.assign_free_slots
+    monkeypatch.setattr(scheduler, "assign_free_slots", lambda *a, **k: (
+        lambda asg: asg._replace(dst=torch.zeros_like(asg.dst),
+                                 live=torch.ones_like(asg.live)))(
+            assign(*a, **k)))
+    sim = _golden(dev)
+    state = sim.init_state()
+    sim.compile(state)
+    torch.cuda.synchronize()
+
+    def replay():
+        with pytest.raises(annotate.CheckError,
+                           match="duplicate destination slot"):
+            sim.run_state(state, 10)
+
+    n, sites = op_lint.sync_sites(replay)
+    assert n == 1 and all("annotate.py" in k for k in sites), sites
+
+
+def test_simcheck_sections_clean_on_card(dev):
+    from repro_torch.analysis.simcheck import run_simcheck
+    rep = run_simcheck(only={"lint", "layout", "streams"}, device=dev)
+    assert rep.ok, rep.problems
