@@ -44,10 +44,12 @@ Phases, in order (any failure exits non-zero):
    unbatched launch and to the plain version on a CPU copy;
    ``flash_attention`` at qwen3-0.6b's prefill heads
    (B=1, Hq=16, Hkv=8, D=128, bfloat16: the tensor-core kernel) at
-   T=4096 and at the prefill's own T=32,768, each element within one
-   bfloat16 rounding of the plain version (run in query blocks at
-   32,768), with its TFLOP/s, share of the bound and ratio to SDPA, and
-   PyTorch's ``scaled_dot_product_attention`` timed beside it as its
+   T=4096 and at the prefill's own T=32,768, at the moe family's
+   (qwen3-moe-30b-a3b: Hq=32, Hkv=4; qwen2-moe-a2.7b: Hq=Hkv=16) at
+   32,768 and at granite-20b's MQA (Hq=48, Hkv=1) at 4096, each element
+   within one bfloat16 rounding of the plain version (run in query
+   blocks at 32,768), with its TFLOP/s, share of the bound and ratio to
+   SDPA, and PyTorch's ``scaled_dot_product_attention`` timed beside it as its
    yardstick (never on the port's path); and ``ssd_chunk`` at
    mamba2-130m's heads (M=24, P=64, N=128) in chunks of 16 (the reduced
    configs' chunk: the CUDA-core kernel) at K=8, and of 128 (the
@@ -156,21 +158,24 @@ Phases, in order (any failure exits non-zero):
    time 0.000 s), both equal to ``SOCKSHOP_PINS``.  Each cell starts
    with the capture cache cleared (``Simulation.clear_captures``), so its
    peak memory is its own;
-11. the model zoo's prefill program (``serve.prefill_step``) of qwen3-0.6b
-   and mamba2-130m at full width and depth on seeded random weights, at
-   ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
-   last-position logits, 28 ``flash_attention`` and 24 ``ssd_chunk``
-   launches per prefill, ``flash_fwd_sm90`` and ``ssd_chunk_sm90`` in the
-   device traces, the device busy share (device time over the
-   unprofiled prefill's wall); and a 2-layer full-width model of each,
-   whose card logits are held against its CPU logits;
-12. ``serve.main`` for both models with its defaults (8 requests, 4 slots,
-   16 + 24 tokens), which replays ``serve.DecodeGraph`` once per token
-   step, its tok/s, capture time and peak memory; the graph's logits
-   bit-equal to the
-   eager ``decode_step``'s over 8 steps, the device time, busy share and
-   operations per replayed step, and the synchronising calls per
-   replayed step;
+11. the model zoo's prefill program (``serve.prefill_step``) of
+   qwen3-0.6b, mamba2-130m, qwen3-moe-30b-a3b and qwen2-moe-a2.7b at full
+   width and depth on seeded random weights, one model's weights on the
+   card at a time, at ``prefill_32k``'s T = 32,768 with the batch cut
+   from 32 to 1: finite last-position logits, one launch of the mixer's
+   kernel a layer (28, 24, 48 and 24: ``ssd_chunk`` for mamba2,
+   ``flash_attention`` for the others), ``flash_fwd_sm90`` and
+   ``ssd_chunk_sm90`` in the device traces, the device busy share (device
+   time over the unprofiled prefill's wall), the peak memory; and a
+   2-layer full-width model of each and of granite-20b (MQA: 48 query
+   heads on one KV head), whose card logits are held against its CPU
+   logits, with the share of the MoE routing choices the two make alike;
+12. ``serve.main`` for the four models with its defaults (8 requests, 4
+   slots, 16 + 24 tokens), which replays ``serve.DecodeGraph`` once per
+   token step, its tok/s, capture time and peak memory; the graph's
+   logits bit-equal to the eager ``decode_step``'s over 8 steps, the
+   device time, busy share, operations and top kernels per replayed
+   step, and the synchronising calls per replayed step;
 13. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
@@ -226,7 +231,11 @@ FLASH_ATOL = 1e-4              # ... plus the float32 sums' own error
 FLASH_PLAIN_ROWS = 1024        # query rows per block of the plain version
 SSD_TOL = 2e-5                 # float32, sums in another order
 MODEL_TOL = 5e-2               # 2-layer bf16 logits, card against CPU
-SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m")
+SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "qwen3-moe-30b-a3b",
+               "qwen2-moe-a2.7b")
+# 2-layer full-width card-against-CPU checks: the served archs, and
+# granite-20b's MQA (48 query heads on one KV head in flash_fwd_sm90)
+TWO_LAYER_ARCHS = SERVE_ARCHS + ("granite-20b",)
 GOLDEN = dict(completed=157, spawned=794, finished=789,
               resp_digest=1306795296637)
 GOLDEN_FABRIC = dict(completed=163, spawned=830, finished=822,
@@ -1227,7 +1236,7 @@ def flash_plain(q, k, v, rows):
 
 
 def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
-    """The flash kernel at qwen3-0.6b's prefill heads against its plain
+    """The flash kernel at a model's prefill heads against its plain
     version (and SDPA timed beside it as the yardstick).  Each output
     element must lie within one bfloat16 rounding of the plain version's
     (``FLASH_RTOL`` of its magnitude) plus ``FLASH_ATOL``."""
@@ -2776,7 +2785,7 @@ def run_prefill(arch, torch, dev, launches):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = counts[kern]
-    launches.setdefault(kern, n)
+    launches[kern] = launches.get(kern, 0) + n
     check(n == cfg.n_layers, f"{arch} prefill: {kern} launched {n} times "
           f"for {cfg.n_layers} layers")
     check(tuple(out.shape) == (1, 1, cfg.vocab) and out.dtype ==
@@ -2809,31 +2818,79 @@ def run_prefill(arch, torch, dev, launches):
         f"{sum(v for k, v in by_name.items() if symbol in k) / 1e6:.3f} s; "
         "top kernels: "
         + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
-    del params, out, batch
+    del params, out, batch, prof
     torch.cuda.empty_cache()
+
+
+class routing_record:
+    """Within the block, each call of the LM's ``moe_apply`` appends its
+    tokens' top-K expert sets (sorted, on the host) to ``self.sets``."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        from repro_torch.models.moe import route
+        self.sets, self.mod = [], transformer
+        self.inner = transformer.moe_apply
+
+        def recorded(p, x, cfg):
+            top_e = route(p, x.reshape(-1, x.shape[-1]), cfg)[1]
+            self.sets.append(top_e.sort(dim=-1).values.cpu())
+            return self.inner(p, x, cfg)
+        transformer.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_apply = self.inner
+
+
+def routing_agreement(a, b):
+    """The share of (token, k) routing choices of one run (``a``, a list of
+    ``[n, K]`` expert sets a layer) that the other run (``b``) also made."""
+    same = total = 0
+    for x, y in zip(a, b):
+        hit = (x[:, :, None] == y[:, None, :]).any(-1)
+        same += int(hit.sum())
+        total += hit.numel()
+    return same, total
 
 
 def check_two_layer(arch, torch, dev):
     """A 2-layer model at the architecture's full width: the card's
-    prefill logits (through the kernels) against the CPU's."""
+    prefill logits (through the kernels) against the CPU's; for the moe
+    family also the share of routing choices the two make alike."""
     import dataclasses
+    import gc
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prefill_step
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_to
     cfg = dataclasses.replace(get_config(arch), n_layers=2)
     model = build_model(cfg)
+    t0 = time.perf_counter()
     params = model.init_params(torch.Generator().manual_seed(2), "cpu")
     tok = torch.randint(0, cfg.vocab, (1, 300),
                         generator=torch.Generator().manual_seed(3))
-    want = prefill_step(model, params, {"tokens": tok})
-    got = prefill_step(model, tree_to(params, dev), {"tokens": tok.to(dev)})
+    with routing_record() as cpu_rec:
+        want = prefill_step(model, params, {"tokens": tok})
+    on_card = tree_to(params, dev)
+    del params
+    with routing_record() as card_rec:
+        got = prefill_step(model, on_card, {"tokens": tok.to(dev)})
     err = float((got.cpu() - want).abs().max())
+    routed = ""
+    if cfg.moe is not None:
+        same, total = routing_agreement(card_rec.sets, cpu_rec.sets)
+        routed = (f"; routing choices alike on card and CPU {same} of "
+                  f"{total} ({same / total:.5f})")
     log(f"{arch} 2-layer full width, T=300: card logits against CPU "
         f"logits max|err| {err:.4g} (|logits| max "
-        f"{float(want.abs().max()):.3f}, tolerance {MODEL_TOL})")
+        f"{float(want.abs().max()):.3f}, tolerance {MODEL_TOL}){routed}  "
+        f"({time.perf_counter() - t0:.1f} s)")
     check(err <= MODEL_TOL, f"{arch} 2-layer: card logits differ from the "
-          f"CPU's by {err}")
+          f"CPU's by {err}{routed}")
+    del on_card, got
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def run_serve(arch, torch, dev):
@@ -2843,6 +2900,7 @@ def run_serve(arch, torch, dev):
     its device time per step and the synchronising calls per replayed
     step."""
     import contextlib
+    import gc
     import io
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2857,6 +2915,10 @@ def run_serve(arch, torch, dev):
         log(f"{arch} serve: {line}")
     log(f"{arch} serve: peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # serve.main's weights and graph are garbage now: one model's weights
+    # on the card at a time
+    gc.collect()
+    torch.cuda.empty_cache()
     check(len(outputs) == 8 and all(len(o) == 24 for o in outputs)
           and all(0 <= t < cfg.vocab for o in outputs for t in o),
           f"{arch} serve: malformed outputs")
@@ -2891,10 +2953,13 @@ def run_serve(arch, torch, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = _device_us(prof) / 1e6
+    top = sorted(_device_us_by_name(prof).items(),
+                 key=lambda kv: -kv[1])[:4]
     log(f"{arch} decode graph: {wall / n_steps * 1e3:.3f} ms/step under "
         f"the profiler, device {busy / n_steps * 1e3:.3f} ms/step, busy "
         f"share {busy / wall:.3f}, {_device_ops(prof) / n_steps:.1f} device "
-        f"operations per step")
+        f"operations per step; top kernels a step: "
+        + "; ".join(f"{k[:60]} {v / n_steps / 1e3:.3f} ms" for k, v in top))
     graph.reset()
     steps(2)
     torch.cuda.synchronize()
@@ -2904,7 +2969,8 @@ def run_serve(arch, torch, dev):
         f"{n / n_steps:.2f} ({n_steps} steps) {sites}")
     check(n == 0, f"{arch} decode: {n} synchronising calls in {n_steps} "
           "steps")
-    del params, state, box, graph
+    del params, state, box, graph, want, got
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2974,6 +3040,14 @@ def main() -> int:
         check_flash("T=4096", 1, 16, 8, 4096, 128, torch, dev, 20)
         results["flash_attention"] = check_flash(
             "prefill_32k", 1, 16, 8, prefill_len(), 128, torch, dev, 3)
+        # the moe family's prefill heads: qwen3-moe-30b-a3b (GQA group 8)
+        # and qwen2-moe-a2.7b (MHA); granite-20b's MQA at T=4096
+        check_flash("qwen3-moe prefill_32k", 1, 32, 4, prefill_len(), 128,
+                    torch, dev, 3)
+        check_flash("qwen2-moe prefill_32k", 1, 16, 16, prefill_len(), 128,
+                    torch, dev, 3)
+        check_flash("granite MQA T=4096", 1, 48, 1, 4096, 128, torch, dev,
+                    20)
         check_ssd("CUDA cores, L=16", 24, 8, 16, 64, 128, torch, dev)
         check_ssd("K=32", 24, 32, 128, 64, 128, torch, dev)
         results["ssd_chunk"] = check_ssd(
@@ -2996,6 +3070,7 @@ def main() -> int:
         run_simcheck(figs, torch, dev)
         for arch in SERVE_ARCHS:
             run_prefill(arch, torch, dev, launches)
+        for arch in TWO_LAYER_ARCHS:
             check_two_layer(arch, torch, dev)
         for arch in SERVE_ARCHS:
             run_serve(arch, torch, dev)

@@ -3,6 +3,8 @@ the Table 2 capacity cases (``capacity``, ``sockshop``), and the model-zoo
 architectures that are ported (``get_config``)."""
 from __future__ import annotations
 
+import importlib
+
 from .base import SHAPES, ArchConfig, ShapeCfg  # noqa: F401
 
 ARCH_IDS = (
@@ -10,17 +12,21 @@ ARCH_IDS = (
     "whisper-base", "mamba2-130m", "jamba-1.5-large-398b", "qwen2-vl-7b",
     "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
 )
-PORTED = ("qwen3-0.6b", "mamba2-130m")
+# ported architecture → its module in this package
+_MODULES = {
+    "qwen3-0.6b": "qwen3_0_6b", "granite-20b": "granite_20b",
+    "phi3-medium-14b": "phi3_medium_14b", "internlm2-1.8b": "internlm2_1_8b",
+    "mamba2-130m": "mamba2_130m", "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+}
+PORTED = tuple(a for a in ARCH_IDS if a in _MODULES)
 
 
 def get_config(name: str) -> ArchConfig:
     """The ``ArchConfig`` of a ported architecture; the others raise."""
-    if name == "qwen3-0.6b":
-        from .qwen3_0_6b import CONFIG
-        return CONFIG
-    if name == "mamba2-130m":
-        from .mamba2_130m import CONFIG
-        return CONFIG
+    if name in _MODULES:
+        return importlib.import_module(f".{_MODULES[name]}",
+                                       __name__).CONFIG
     if name in ARCH_IDS:
         raise NotImplementedError(
             f"{name} is not ported to repro_torch yet (ported: "

@@ -39,9 +39,9 @@ class ArchConfig:
     kv_dtype: str = "bf16"
 
     def reduced(self, **kw) -> "ArchConfig":
-        """Tiny same-family config for CPU smoke tests (the ported dense
-        and ssm families; the others raise)."""
-        if self.family not in ("dense", "ssm"):
+        """Tiny same-family config for CPU smoke tests (the ported dense,
+        moe and ssm families; the others raise)."""
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"reduced() of the {self.family} family is not yet ported")
         base = dict(
@@ -53,6 +53,15 @@ class ArchConfig:
             tie_embeddings=self.tie_embeddings,
             sub_quadratic=self.sub_quadratic,
         )
+        if self.moe is not None:
+            base["moe"] = MoECfg(
+                n_experts=min(self.moe.n_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=32,
+                n_shared=min(self.moe.n_shared, 1),
+                d_shared=64 if self.moe.n_shared else 0,
+                capacity_factor=self.moe.capacity_factor,
+                norm_topk=self.moe.norm_topk)
         if self.mamba is not None:
             base["mamba"] = MambaDims.make(64, headdim=16, d_state=16,
                                            n_groups=1, d_conv=4)

@@ -3,8 +3,8 @@ from __future__ import annotations
 
 
 def build_model(cfg):
-    """The model of ``cfg.family``: the decoder-only ``LM`` for ``dense``
-    and ``ssm`` (``moe``/``vlm`` raise when built); ``hybrid`` and
+    """The model of ``cfg.family``: the decoder-only ``LM`` for ``dense``,
+    ``moe`` and ``ssm`` (``vlm`` raises when built); ``hybrid`` and
     ``encdec`` are not ported yet."""
     if cfg.family in ("hybrid", "encdec"):
         raise NotImplementedError(

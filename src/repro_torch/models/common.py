@@ -59,24 +59,34 @@ def initialize(schema, generator: torch.Generator, device) -> Any:
     """Materialise ``schema`` on ``device``, drawn from ``generator`` on the
     generator's own device.  Leaves are drawn in the schema's order:
     normal leaves ~ N(0, scale²) with scale ``shape[-1] ** -0.5`` unless
-    given (0.02 for ``small_normal``), ``alog`` = log U[1, 16]."""
+    given (0.02 for ``small_normal``), ``alog`` = log U[1, 16].  A leaf
+    stacked over layers is drawn one layer at a time into the finished
+    tensor, so no float32 copy of a whole stack is ever alive (a
+    qwen3-moe-30b-a3b expert stack would be 38.7 GB)."""
     device = torch.device(device)
+
+    def draw(p: P, shape):
+        if p.init == "alog":       # mamba A_log: log of uniform [1, 16]
+            u = torch.rand(shape, generator=generator,
+                           device=generator.device) * 15.0 + 1.0
+            return torch.log(u)
+        scale = p.scale if p.scale is not None else p.shape[-1] ** -0.5
+        if p.init == "small_normal":
+            scale = 0.02
+        return torch.randn(shape, generator=generator,
+                           device=generator.device) * scale
 
     def one(p: P):
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=p.dtype, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=p.dtype, device=device)
-        if p.init == "alog":       # mamba A_log: log of uniform [1, 16]
-            u = torch.rand(p.shape, generator=generator,
-                           device=generator.device) * 15.0 + 1.0
-            return torch.log(u).to(device=device, dtype=p.dtype)
-        scale = p.scale if p.scale is not None else p.shape[-1] ** -0.5
-        if p.init == "small_normal":
-            scale = 0.02
-        x = torch.randn(p.shape, generator=generator,
-                        device=generator.device) * scale
-        return x.to(device=device, dtype=p.dtype)
+        if p.axes[0] != "layers":
+            return draw(p, p.shape).to(device=device, dtype=p.dtype)
+        out = torch.empty(p.shape, dtype=p.dtype, device=device)
+        for i in range(p.shape[0]):
+            out[i] = draw(p, p.shape[1:])
+        return out
 
     return map_schema(one, schema)
 

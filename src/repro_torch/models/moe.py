@@ -1,8 +1,36 @@
-"""Mixture-of-Experts configuration.  The port holds the type only (so
-``ArchConfig`` can name it); the MoE layer itself is not ported yet."""
+"""Mixture-of-Experts MLP: top-k routing and the reference's sort-based
+dispatch with fixed capacity (``repro.models.moe``).
+
+The (token, k) assignments are sorted by expert id (stable), each
+expert's segment fills a buffer of ``cap`` slots, one batched product per
+projection runs every expert over its ``[cap, d]`` block, and the
+weighted outputs come back to their tokens.  Assignments beyond an
+expert's capacity are dropped: their router weight contributes nothing.
+
+Three choices keep the layer the reference's and keep a decode step
+capturable as a CUDA graph (no host read, no data-dependent shape):
+
+* top-k is a stable descending sort, so among equal probabilities the
+  lower expert index comes first, as ``jax.lax.top_k`` orders them
+  (``torch.topk`` promises no order among ties);
+* the per-expert counts are a scatter-add of ones into ``[E]``
+  (``torch.bincount`` reads its maximum back to the host on CUDA);
+* the combine is a fold, not a scatter-add: each assignment finds its
+  slot through the inverse of the sort, each token's K assignments are
+  taken in ascending expert id and added one after another to zero.
+  That is the order of the reference's serial scatter on the CPU (slots
+  ascend with the expert id), and it is the same on every run on the
+  card, where an atomic ``index_add_`` is not.
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from .common import P, apply_mlp, mlp_schema
 
 
 @dataclasses.dataclass(frozen=True)
@@ -14,3 +42,101 @@ class MoECfg:
     d_shared: int = 0          # shared-expert FFN width (total)
     capacity_factor: float = 1.25
     norm_topk: bool = True
+
+
+def moe_schema(d: int, cfg: MoECfg, dtype=torch.bfloat16) -> Dict[str, P]:
+    E, f = cfg.n_experts, cfg.d_expert
+    s = {
+        "router": P((d, E), ("embed", None), init="small_normal",
+                    dtype=torch.float32),
+        "gate": P((E, d, f), ("experts", "embed", "mlp"), dtype=dtype),
+        "up": P((E, d, f), ("experts", "embed", "mlp"), dtype=dtype),
+        "down": P((E, f, d), ("experts", "mlp", "embed"), dtype=dtype),
+    }
+    if cfg.n_shared:
+        s["shared"] = mlp_schema(d, cfg.d_shared, dtype)
+        s["shared_gate"] = P((d, 1), ("embed", None), init="small_normal",
+                             dtype=torch.float32)
+    return s
+
+
+def capacity(n_tok: int, cfg: MoECfg) -> int:
+    """Slots per expert: the reference's host arithmetic, floats and all."""
+    E, K = cfg.n_experts, cfg.top_k
+    return int(max(1, -(-n_tok * K * cfg.capacity_factor // E)))
+
+
+def route(p, xf: torch.Tensor, cfg: MoECfg):
+    """Router probabilities → (top_p [n, K] float32, top_e [n, K] int64),
+    experts by descending probability, the lower index first among ties."""
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :cfg.top_k], top_e[:, :cfg.top_k]
+    if cfg.norm_topk:
+        top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    return top_p, top_e
+
+
+def dispatch(top_e: torch.Tensor, cap: int, n_experts: int):
+    """The reference's dispatch tables for the flat assignments
+    ``top_e.reshape(-1)`` (assignment ``i`` is token ``i // K``'s k-th
+    choice): ``order`` (stable sort by expert), ``keep`` (sorted
+    assignment within capacity), ``slot`` (its slot, ``E*cap`` when
+    dropped), ``tok_of_slot`` and ``live`` (the ``[E*cap]`` slot tables,
+    token 0 and False in an empty slot)."""
+    n_tok, K = top_e.shape
+    E = n_experts
+    dev = top_e.device
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(n_tok * K, device=dev) - offsets[se]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, se * cap + pos_in_e, E * cap)
+    # slot E*cap is the reference's sentinel row: every dropped assignment
+    # writes there, and the row is thrown away
+    tok_of_slot = torch.zeros(E * cap + 1, dtype=torch.int64,
+                              device=dev).scatter_(0, slot, order // K)
+    live = torch.zeros(E * cap + 1, dtype=torch.bool, device=dev).scatter_(
+        0, slot, keep)
+    return order, keep, slot, tok_of_slot[:-1], live[:-1]
+
+
+def moe_apply(p, x: torch.Tensor, cfg: MoECfg) -> torch.Tensor:
+    """x [B, T, d] → [B, T, d]."""
+    B, T, d = x.shape
+    n_tok = B * T
+    E, K = cfg.n_experts, cfg.top_k
+    xf = x.reshape(n_tok, d)
+    top_p, top_e = route(p, xf, cfg)
+
+    cap = capacity(n_tok, cfg)
+    order, _, slot, tok_of_slot, live = dispatch(top_e, cap, E)
+    xe = xf.index_select(0, tok_of_slot)
+    xe.masked_fill_(~live[:, None], 0)
+    xe = xe.reshape(E, cap, d)
+
+    h = F.silu(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
+    ye = torch.bmm(h, p["down"]).reshape(E * cap, d)
+
+    # each assignment's slot (the sort's inverse), each token's K in
+    # ascending expert id, folded into zero
+    slot_of = torch.empty_like(slot).scatter_(0, order, slot)
+    slot_of = slot_of.reshape(n_tok, K)
+    by_e = torch.argsort(top_e, dim=-1)
+    slot_of = torch.gather(slot_of, 1, by_e)
+    w = torch.gather(top_p, 1, by_e)
+    dropped = slot_of == E * cap
+    rows = torch.where(dropped, 0, slot_of)
+    out = torch.zeros((n_tok, d), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        c = ye.index_select(0, rows[:, k]).float() * w[:, k, None]
+        out = out + torch.where(dropped[:, k, None], 0.0, c)
+
+    if cfg.n_shared:
+        sg = torch.sigmoid(xf.float() @ p["shared_gate"])
+        out = out + sg * apply_mlp(p["shared"], xf).float()
+    return out.reshape(B, T, d).to(x.dtype)

@@ -1,16 +1,17 @@
-"""Decoder-only LM of the ``dense`` and ``ssm`` families (the reference's
-``repro.models.transformer.LM``).
+"""Decoder-only LM of the ``dense``, ``moe`` and ``ssm`` families (the
+reference's ``repro.models.transformer.LM``).
 
 Layer structure: pre-norm mixer (attention or Mamba-2) + for attention
-a pre-norm SwiGLU FFN.  Parameters are stacked over a leading
-``[n_layers, ...]`` axis as in the reference, and a Python loop over the
-layers takes the place of its ``lax.scan``; serving runs no remat.  In
-decode the cache position is a 0-d int32 tensor on the model's device, as
-the reference's ``cache.pos``, and ``decode_step`` writes the whole decode
-state in place: every step reads and writes the same buffers, so the step
-can be captured as a CUDA graph and replayed (``launch/serve.py``), and
-no layer reads anything back from the device.  ``moe`` and ``vlm``
-raise.
+a pre-norm FFN, SwiGLU or (``cfg.moe``) the MoE layer of ``models.moe``.
+Parameters are stacked over a leading ``[n_layers, ...]`` axis as in
+the reference, and a Python loop over the layers takes the place of its
+``lax.scan``; serving runs no remat.  In decode the cache position is a
+0-d int32 tensor on the model's device, as the reference's
+``cache.pos``, and ``decode_step`` writes the whole decode state in
+place: every step reads and writes the same buffers, so the step can be
+captured as a CUDA graph and replayed (``launch/serve.py``), and no
+layer reads anything back from the device.  ``hybrid``, ``encdec`` and
+``vlm`` raise.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from .common import (P, apply_mlp, initialize, map_schema, mlp_schema,
                      rmsnorm, unembed)
 from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
                      mamba_state_zeros)
+from .moe import moe_apply, moe_schema
 
 
 def _stack_schema(schema, n: int):
@@ -49,15 +51,16 @@ class LM:
     """Decoder-only language model (family chosen by ArchConfig)."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "ssm") or cfg.moe is not None:
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"the {cfg.family} family ({cfg.name}) is not ported to "
-                "repro_torch yet (dense and ssm only)")
+                "repro_torch yet (dense, moe and ssm only)")
         if cfg.kv_dtype != "bf16":
             raise NotImplementedError("the int8 KV cache is not ported to "
                                       "repro_torch yet")
         self.cfg = cfg
         self.is_mamba = cfg.family == "ssm"
+        self.is_moe = cfg.moe is not None
 
     # ---------------- schema -------------------------------------------
     def layer_schema(self) -> Dict[str, Any]:
@@ -72,7 +75,10 @@ class LM:
                                     cfg.head_dim, cfg.qk_norm)
             s["mlp_norm"] = P((cfg.d_model,), ("embed",), init="ones",
                               dtype=f32)
-            s["mlp"] = mlp_schema(cfg.d_model, cfg.d_ff)
+            if self.is_moe:
+                s["moe"] = moe_schema(cfg.d_model, cfg.moe)
+            else:
+                s["mlp"] = mlp_schema(cfg.d_model, cfg.d_ff)
         return s
 
     def schema(self) -> Dict[str, Any]:
@@ -105,7 +111,12 @@ class LM:
             head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, positions=positions,
             mrope_sections=cfg.mrope_sections, rope_theta=cfg.rope_theta,
             attn_impl=cfg.attn_impl)
-        return x + apply_mlp(lp["mlp"], rmsnorm(x, lp["mlp_norm"]))
+        return x + self._ffn(lp, rmsnorm(x, lp["mlp_norm"]))
+
+    def _ffn(self, lp, h):
+        if self.is_moe:
+            return moe_apply(lp["moe"], h, self.cfg.moe)
+        return apply_mlp(lp["mlp"], h)
 
     def hidden_states(self, params, tokens=None, embeds=None,
                       positions=None, remat=False):
@@ -166,7 +177,7 @@ class LM:
                     n_kv=cfg.n_kv, head_dim=cfg.head_dim,
                     qk_norm=cfg.qk_norm, mrope_sections=cfg.mrope_sections,
                     rope_theta=cfg.rope_theta)[0]
-                x = x + apply_mlp(lp["mlp"], rmsnorm(x, lp["mlp_norm"]))
+                x = x + self._ffn(lp, rmsnorm(x, lp["mlp_norm"]))
         h = rmsnorm(x, params["final_norm"])
         state.pos.add_(1)
         return self.logits(params, h), state

@@ -45,7 +45,10 @@ decay exp(cum_i - cum_j) of a cumsum that rounds differently; chunks of
 kernel in three TF32 passes, about 2^-21 of each product, the rest the
 CUDA-core one); two launches bit-identical.  A 2-layer full-width model's card logits against
 its CPU logits within ``MODEL_TOL`` (bf16 weights and activations: a few
-bf16 rounding steps of logits of magnitude ~1).
+bf16 rounding steps of logits of magnitude ~1).  The MoE layer on the
+card against the CPU within ``MOE_TOL`` (relative, absolute), the CPU
+tests' bf16 hidden-state tolerance: the experts' bf16 products rounded
+after sums in another order; the routing equal, two calls bit-identical.
 """
 import numpy as np
 import pytest
@@ -72,6 +75,7 @@ NET_ULPS = 0
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
 SSD_TOL = 2e-5
 MODEL_TOL = 5e-2
+MOE_TOL = (2.5e-2, 5e-2)
 
 NAMES = ("new_rem", "fin", "tfin", "consumed", "inst_acc", "req_finish",
          "req_crit", "req_out")
@@ -842,7 +846,8 @@ def test_batched_capture_makes_no_synchronising_call(dev):
     assert sorted(map(str, graphs.graphs)) == ["False", "mask"]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m",
+                                  "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"])
 def test_decode_graph_is_the_eager_decode_step(arch, dev):
     """``serve.DecodeGraph`` at 2 layers of the architecture's full width:
     40 replayed steps give the eager ``decode_step``'s logits bit for bit,
@@ -867,6 +872,37 @@ def test_decode_graph_is_the_eager_decode_step(arch, dev):
             got = graph.step(tok[:, t:t + 1])
             assert torch.equal(got, want), (wave, t)
         assert int(graph.state.pos) == int(state.pos)
+
+
+@pytest.mark.parametrize("n_tok", [4, 600], ids=["decode", "prefill"])
+def test_moe_layer_on_card_matches_cpu_and_repeats(n_tok, dev):
+    """``moe_apply`` at qwen3-moe-30b-a3b's routing (128 experts, top 8,
+    capacity factor 1.25: 1 slot an expert at 4 tokens, most collisions
+    dropped) on narrowed widths: the card's result within the bf16
+    tolerance of the CPU's, the same routing, and two calls on the card
+    bit-identical (the combine is a fold, no atomics)."""
+    from repro_torch.models.common import initialize, tree_to
+    from repro_torch.models.moe import (MoECfg, capacity, dispatch,
+                                        moe_apply, moe_schema, route)
+    cfg = MoECfg(n_experts=128, top_k=8, d_expert=128)
+    d = 512
+    params = initialize(moe_schema(d, cfg), torch.Generator().manual_seed(0),
+                        "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, n_tok, d)).astype(np.float32)).to(torch.bfloat16)
+    want = moe_apply(params, x, cfg)
+    on_card = tree_to(params, dev)
+    a = moe_apply(on_card, x.to(dev), cfg)
+    b = moe_apply(on_card, x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    e_cpu = route(params, x.reshape(-1, d), cfg)[1]
+    e_card = route(on_card, x.to(dev).reshape(-1, d), cfg)[1]
+    assert torch.equal(e_card.cpu(), e_cpu)
+    keep = dispatch(e_cpu, capacity(n_tok, cfg), cfg.n_experts)[1]
+    assert not bool(keep.all())
+    torch.testing.assert_close(a.cpu().float(), want.float(),
+                               rtol=MOE_TOL[0], atol=MOE_TOL[1])
 
 
 # ---------------------------------------------------------------------------
@@ -895,6 +931,8 @@ def _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev, seed=0):
     (2, 8, 4, 333, 333, 128, True),        # B = 2, ragged
     (2, 8, 8, 257, 150, 128, False),       # non-causal, MHA
     (1, 8, 8, 129, 129, 128, True),        # one row past a query tile
+    (1, 32, 4, 333, 333, 128, True),       # qwen3-moe heads: group 8
+    (1, 48, 1, 257, 257, 128, True),       # granite-20b: MQA, group 48
 ])
 def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
                                               dtype, dev):

@@ -1,10 +1,11 @@
 """The port's model-zoo serving path (``repro_torch.models``,
 ``repro_torch.launch.serve``) on the CPU against the JAX package, for the
-``dense`` (qwen3-0.6b) and ``ssm`` (mamba2-130m) families at their
-``reduced()`` sizes, with the reference's parameters carried across by
-``models.convert``.  The reference's Mamba forward runs its SSD Pallas
-kernel in interpret mode; its attention runs its jnp reference (as its
-own model tests do on the CPU).
+``dense`` (qwen3-0.6b, granite-20b, phi3-medium-14b, internlm2-1.8b) and
+``ssm`` (mamba2-130m) families at their ``reduced()`` sizes (the ``moe``
+family: ``test_torch_moe.py``), with the reference's parameters carried
+across by ``models.convert``.  The reference's Mamba forward runs its SSD
+Pallas kernel in interpret mode; its attention runs its jnp reference
+(as its own model tests do on the CPU).
 
 Tolerances (measured on this path, max abs error over the outputs):
   * float32 (the reference's parameters cast to float32 on both sides, so
@@ -39,7 +40,7 @@ from repro.models.common import rmsnorm as jrmsnorm
 from repro.models.mamba2 import mamba_apply as jmamba_apply
 
 from repro_torch import random as trnd
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, PORTED, get_config
 from repro_torch.kernels import counts
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model
@@ -50,7 +51,8 @@ from repro_torch.models.mamba2 import mamba_apply
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen3-0.6b", "mamba2-130m"]
+ARCHS = ["qwen3-0.6b", "mamba2-130m", "granite-20b", "phi3-medium-14b",
+         "internlm2-1.8b"]
 F32_TOL = 1e-5
 MIXER_BF16_TOL = dict(rtol=2e-2, atol=4e-2)
 BF16_LOGITS_TOL = 2e-2
@@ -275,10 +277,11 @@ def _gumbel_case():
         np.argmax(got + logits / 0.7, axis=-1))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m"])
 def test_decode_matches_forward_on_the_port(arch):
     """The twin of ``test_model_semantics.test_decode_matches_forward`` on
-    the port alone, with its bounds."""
+    the port alone, with its bounds, for its dense and ssm archs (the moe
+    one: ``test_torch_moe.py``)."""
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
     params = model.init_params(torch.Generator().manual_seed(0), "cpu")
@@ -300,20 +303,30 @@ def test_decode_matches_forward_on_the_port(arch):
 
 
 def test_unported_parts_raise():
+    """The ported architectures (the dense and ssm ones of ``ARCHS`` and
+    the two of the moe family) build; the other families, the int8 cache
+    and the sharded attention formulations raise."""
+    assert set(PORTED) == set(ARCHS) | {"qwen3-moe-30b-a3b",
+                                         "qwen2-moe-a2.7b"}
     for name in ARCH_IDS:
-        if name in ARCHS:
+        if name in PORTED:
             assert get_config(name).name == name
+            assert build_model(get_config(name)).cfg.name == name
             continue
         with pytest.raises(NotImplementedError, match=name):
             get_config(name)
     with pytest.raises(KeyError):
         get_config("gpt-2")
     base = get_config("qwen3-0.6b").reduced()
-    for family in ("hybrid", "encdec", "moe", "vlm"):
+    for family in ("hybrid", "encdec", "vlm"):
         with pytest.raises(NotImplementedError):
             build_model(dc.replace(base, family=family))
+    moe = get_config("qwen3-moe-30b-a3b").reduced()
+    assert build_model(moe).is_moe
     with pytest.raises(NotImplementedError):
         build_model(dc.replace(base, kv_dtype="int8"))
+    with pytest.raises(NotImplementedError):
+        build_model(dc.replace(moe, kv_dtype="int8"))
     m = build_model(dc.replace(base, attn_impl="flat"))
     params = m.init_params(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError):
