@@ -159,23 +159,39 @@ Phases, in order (any failure exits non-zero):
    with the capture cache cleared (``Simulation.clear_captures``), so its
    peak memory is its own;
 11. the model zoo's prefill program (``serve.prefill_step``) of
-   qwen3-0.6b, mamba2-130m, qwen3-moe-30b-a3b and qwen2-moe-a2.7b at full
-   width and depth on seeded random weights, one model's weights on the
-   card at a time, at ``prefill_32k``'s T = 32,768 with the batch cut
-   from 32 to 1: finite last-position logits, one launch of the mixer's
-   kernel a layer (28, 24, 48 and 24: ``ssd_chunk`` for mamba2,
-   ``flash_attention`` for the others), ``flash_fwd_sm90`` and
-   ``ssd_chunk_sm90`` in the device traces, the device busy share (device
-   time over the unprofiled prefill's wall), the peak memory; and a
-   2-layer full-width model of each and of granite-20b (MQA: 48 query
-   heads on one KV head), whose card logits are held against its CPU
-   logits, with the share of the MoE routing choices the two make alike;
-12. ``serve.main`` for the four models with its defaults (8 requests, 4
-   slots, 16 + 24 tokens), which replays ``serve.DecodeGraph`` once per
-   token step, its tok/s, capture time and peak memory; the graph's
-   logits bit-equal to the eager ``decode_step``'s over 8 steps, the
-   device time, busy share, operations and top kernels per replayed
-   step, and the synchronising calls per replayed step;
+   qwen3-0.6b, mamba2-130m, qwen3-moe-30b-a3b, qwen2-moe-a2.7b,
+   whisper-base (the encoder over 1,500 seeded frames, then the decoder)
+   and qwen2-vl-7b (seeded embeddings, M-RoPE positions of a prompt that
+   holds a 64 x 64 image) at full width and depth on seeded random
+   weights, one model's weights on the card at a time, at
+   ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
+   last-position logits, the mixer kernel's launches (one a layer: 28,
+   24, 48, 24 and 28; whisper 18, six each for the encoder, the
+   decoder's self-attention and its cross-attention; ``ssd_chunk`` for
+   mamba2, ``flash_attention`` for the others), ``flash_fwd_sm90`` and
+   ``ssd_chunk_sm90`` in the device traces, the device busy share
+   (device time over the unprofiled prefill's wall), the peak memory;
+   and a 2-layer full-width model of each served arch (whisper with 2
+   encoder layers), of granite-20b (MQA: 48 query heads on one KV head)
+   and of phi3-medium-14b at ``attn_impl="flat"`` (K/V repeated to its
+   40 heads), whose card logits are held against its CPU logits, with
+   the share of the MoE routing choices the two make alike, and the flat
+   model's logits bit-equal to its ``"grouped"`` logits on the card;
+   flash is first held against its plain version at qwen2-vl's heads
+   (group 7) and at whisper's (D = 64: the encoder, non-causal over
+   1,500 frames; the decoder's causal self-attention; the cross-
+   attention, 32,768 queries on 1,500 keys);
+12. ``serve.main`` for the six models with its defaults (8 requests, 4
+   slots, 16 + 24 tokens; whisper against the zero cross K/V its decode
+   state starts from, as the reference's server), and for qwen3-0.6b
+   with the int8 KV cache (a variant of its config), which replays
+   ``serve.DecodeGraph`` once per token step, its tok/s, capture time
+   and peak memory; the graph's logits bit-equal to the eager
+   ``decode_step``'s over 8 steps, the device time, busy share,
+   operations and top kernels per replayed step, and the synchronising
+   calls per replayed step; the int8 cache's next-token probabilities
+   within 1e-2 of the bf16 cache's over 8 steps
+   (``tests/test_quant_kv.py``'s rule);
 13. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
@@ -205,7 +221,8 @@ GOLDEN_CHAOS_FLAG = "--golden-chaos"
 if GOLDEN_CHAOS_FLAG not in sys.argv:
     os.environ["NPY_DISABLE_CPU_FEATURES"] = NUMPY_BASELINE
 
-import json  # noqa: E402
+import dataclasses  # noqa: E402
+import json
 import math
 import re
 import shutil
@@ -232,10 +249,16 @@ FLASH_PLAIN_ROWS = 1024        # query rows per block of the plain version
 SSD_TOL = 2e-5                 # float32, sums in another order
 MODEL_TOL = 5e-2               # 2-layer bf16 logits, card against CPU
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "qwen3-moe-30b-a3b",
-               "qwen2-moe-a2.7b")
-# 2-layer full-width card-against-CPU checks: the served archs, and
-# granite-20b's MQA (48 query heads on one KV head in flash_fwd_sm90)
-TWO_LAYER_ARCHS = SERVE_ARCHS + ("granite-20b",)
+               "qwen2-moe-a2.7b", "whisper-base", "qwen2-vl-7b")
+# served with the int8 KV cache (a variant of the arch's config)
+INT8_SERVE_ARCHS = ("qwen3-0.6b",)
+# 2-layer full-width card-against-CPU checks (arch, other config fields):
+# the served archs (whisper with 2 encoder layers over its 1,500 frames),
+# granite-20b's MQA (48 query heads on one KV head in flash_fwd_sm90) and
+# phi3-medium-14b's flat formulation (K/V repeated to its 40 heads)
+TWO_LAYER_CASES = tuple((a, dict(n_enc_layers=2) if a == "whisper-base"
+                         else {}) for a in SERVE_ARCHS) + (
+    ("granite-20b", {}), ("phi3-medium-14b", dict(attn_impl="flat")))
 GOLDEN = dict(completed=157, spawned=794, finished=789,
               resp_digest=1306795296637)
 GOLDEN_FABRIC = dict(completed=163, spawned=830, finished=822,
@@ -1210,44 +1233,50 @@ def check_link_share_cut(tag, C, H, torch, dev, iters=2):
         f"{p_ev:.4f} ms per call")
 
 
-def flash_inputs(B, Hq, Hkv, T, D, torch, dev, seed=17):
+def flash_inputs(B, Hq, Hkv, T, D, torch, dev, seed=17, Tk=None):
     g = torch.Generator(device=dev).manual_seed(seed)
-    mk = lambda H: torch.randn((B, H, T, D), generator=g, device=dev) \
+    mk = lambda H, n: torch.randn((B, H, n, D), generator=g, device=dev) \
         .to(torch.bfloat16)
-    return mk(Hq), mk(Hkv), mk(Hkv)
+    Tk = T if Tk is None else Tk
+    return mk(Hq, T), mk(Hkv, Tk), mk(Hkv, Tk)
 
 
-def flash_plain(q, k, v, rows):
+def flash_plain(q, k, v, rows, causal=True):
     """The plain version over query blocks of ``rows`` rows: block
-    [q0, q1) against keys [0, q1) is ``ref.attention``'s end-aligned
-    causal rule for those rows, so the result is the plain version's,
-    with one block's float32 logits (not T x T of them) alive at a
-    time."""
+    [q0, q1) against keys [0, q1 + Tk - Tq) is ``ref.attention``'s
+    end-aligned causal rule for those rows (against every key when not
+    causal), so the result is the plain version's, with one block's
+    float32 logits (not Tq x Tk of them) alive at a time."""
     from repro_torch.kernels.flash_attention import ref
-    T = q.shape[2]
-    if rows >= T:
-        return ref.attention(q, k, v, causal=True)
+    Tq, Tk = q.shape[2], k.shape[2]
+    if rows >= Tq:
+        return ref.attention(q, k, v, causal=causal)
+    assert not causal or Tq == Tk, (Tq, Tk)
     out = q.new_empty(q.shape)
-    for q0 in range(0, T, rows):
-        q1 = min(q0 + rows, T)
-        out[:, :, q0:q1] = ref.attention(q[:, :, q0:q1], k[:, :, :q1],
-                                         v[:, :, :q1], causal=True)
+    for q0 in range(0, Tq, rows):
+        q1 = min(q0 + rows, Tq)
+        k1 = q1 if causal else Tk
+        out[:, :, q0:q1] = ref.attention(q[:, :, q0:q1], k[:, :, :k1],
+                                         v[:, :, :k1], causal=causal)
     return out
 
 
-def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
+def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time, causal=True,
+                Tk=None):
     """The flash kernel at a model's prefill heads against its plain
-    version (and SDPA timed beside it as the yardstick).  Each output
-    element must lie within one bfloat16 rounding of the plain version's
+    version (and SDPA timed beside it as the yardstick), causal or not,
+    T query rows on ``Tk`` keys (T unless given).  Each output element
+    must lie within one bfloat16 rounding of the plain version's
     (``FLASH_RTOL`` of its magnitude) plus ``FLASH_ATOL``."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.flash_attention import ops
-    q, k, v = flash_inputs(B, Hq, Hkv, T, D, torch, dev)
+    Tk = T if Tk is None else Tk
+    q, k, v = flash_inputs(B, Hq, Hkv, T, D, torch, dev, Tk=Tk)
     rows = FLASH_PLAIN_ROWS
     saved = dict(counts)
-    k1 = ops.attention(q, k, v, causal=True)
-    k2 = ops.attention(q, k, v, causal=True)
-    p = flash_plain(q, k, v, rows)
+    k1 = ops.attention(q, k, v, causal=causal)
+    k2 = ops.attention(q, k, v, causal=causal)
+    p = flash_plain(q, k, v, rows, causal)
     torch.cuda.synchronize()
     check(torch.equal(k1, k2), f"flash_attention {tag}: two launches differ")
     diff = (k1.float() - p.float()).abs()
@@ -1257,27 +1286,31 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time):
           f"flash_attention {tag}: max|err| {err}, an element off by "
           f"{excess} beyond {FLASH_RTOL}·|plain| (tolerance {FLASH_ATOL})")
     del diff
-    k_ev, k_dev = cuda_ms(lambda: ops.attention(q, k, v), n_time, torch)
-    p_ev, p_dev = cuda_ms(lambda: flash_plain(q, k, v, rows), 1, torch)
+    k_ev, k_dev = cuda_ms(lambda: ops.attention(q, k, v, causal=causal),
+                          n_time, torch)
+    p_ev, p_dev = cuda_ms(lambda: flash_plain(q, k, v, rows, causal), 1,
+                          torch)
     counts.update(saved)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
     torch.cuda.synchronize()
     lib_err = float((lib.float() - p.float()).abs().max())
     del lib
-    l_ev, l_dev = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+    l_ev, l_dev = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                        enable_gqa=True), 5, torch)
     lib_ms = l_dev or l_ev
-    # operations: QK and PV over the visible (causal) pairs, 2 per
-    # multiply-add, at the bf16 tensor-core peak of the inputs' type;
-    # bytes: q, k, v read once and the output written once (bf16)
-    pairs = T * (T + 1) // 2
+    # operations: QK and PV over the visible pairs (causal: the end-
+    # aligned triangle, T = Tk), 2 per multiply-add, at the bf16
+    # tensor-core peak of the inputs' type; bytes: q, k, v read once and
+    # the output written once (bf16)
+    pairs = T * (T + 1) // 2 if causal else T * Tk
     ops_n = 4.0 * B * Hq * pairs * D
-    nbytes = 2.0 * B * D * T * (2 * Hq + 2 * Hkv)
+    nbytes = 2.0 * B * D * (2 * Hq * T + 2 * Hkv * Tk)
     bound_ms, by = max((ops_n / BF16_OPS_PER_S * 1e3, "operations"),
                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     k_ms = k_dev or k_ev
-    log(f"flash_attention {tag}: B={B} Hq={Hq} Hkv={Hkv} T={T} D={D} bf16  "
+    log(f"flash_attention {tag}: B={B} Hq={Hq} Hkv={Hkv} Tq={T} Tk={Tk} "
+        f"D={D} {'causal' if causal else 'non-causal'} bf16  "
         f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  "
         f"{ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
         f"{bound_ms / k_ms:.3f} of the bound  {k_ms / lib_ms:.3f}x SDPA  "
@@ -2753,12 +2786,59 @@ def prefill_len() -> int:
     return next(s.seq_len for s in SHAPES if s.name == "prefill_32k")
 
 
+def mrope_positions(T):
+    """``[3, 1, T]`` int32 M-RoPE positions of a prompt that holds an
+    image: T/32 text tokens (t = h = w), a square grid of about T/8
+    patches (t held at the image's start, h and w counting its rows and
+    columns from there, as Qwen2-VL numbers them; 64 x 64 at T = 32,768),
+    then text again from one past the image's largest position."""
+    text = T // 32
+    h = w = math.isqrt(T // 8)
+    pos = np.zeros((3, T), np.int32)
+    pos[:, :text] = np.arange(text)
+    n_img = min(h * w, T - text)
+    r, c = np.divmod(np.arange(n_img), w)
+    pos[0, text:text + n_img] = text
+    pos[1, text:text + n_img] = text + r
+    pos[2, text:text + n_img] = text + c
+    pos[:, text + n_img:] = text + max(h, w) + np.arange(T - text - n_img)
+    return pos[:, None]
+
+
+def prefill_batch(cfg, T, torch, dev, seed):
+    """The prefill program's inputs for one sequence of T tokens, from
+    ``seed``: ``tokens`` (and for encdec ``frames`` [1, n_frames, d]), or
+    for vlm ``embeds`` [1, T, d] and ``positions`` [3, 1, T] whose rows
+    differ (``mrope_positions``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "vlm":
+        return {"embeds": torch.randn((1, T, cfg.d_model), generator=g,
+                                      device=dev).to(torch.bfloat16),
+                "positions": torch.from_numpy(mrope_positions(T)).to(dev)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, T), generator=g,
+                                     device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((1, cfg.n_frames, cfg.d_model),
+                                      generator=g, device=dev) \
+            .to(torch.bfloat16)
+    return batch
+
+
+def mixer_launches(cfg) -> int:
+    """Launches of the mixer's kernel in one prefill: one a layer, and
+    for encdec one an encoder layer and two (self, cross) a decoder
+    layer."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def run_prefill(arch, torch, dev, launches):
     """``serve.prefill_step`` at full width and depth, at ``prefill_32k``'s
     sequence length with its batch of 32 cut to 1, on seeded random
-    weights: finite logits, one launch of the mixer's kernel per layer,
-    the time of one prefill, and where its device time goes
-    (torch.profiler over a second one)."""
+    weights: finite logits, the mixer kernel's launches
+    (``mixer_launches``), the time of one prefill, and where its device
+    time goes (torch.profiler over a second one)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import counts, reset_counts
@@ -2773,9 +2853,7 @@ def run_prefill(arch, torch, dev, launches):
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dev)
     n_params = n_params_of(model.schema())
-    g = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab, (1, T),
-                                     generator=g, device=dev)}
+    batch = prefill_batch(cfg, T, torch, dev, 1)
     prefill_step(model, params, batch)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2786,8 +2864,8 @@ def run_prefill(arch, torch, dev, launches):
     wall = time.perf_counter() - t0
     n = counts[kern]
     launches[kern] = launches.get(kern, 0) + n
-    check(n == cfg.n_layers, f"{arch} prefill: {kern} launched {n} times "
-          f"for {cfg.n_layers} layers")
+    check(n == mixer_launches(cfg), f"{arch} prefill: {kern} launched {n} "
+          f"times, not {mixer_launches(cfg)}")
     check(tuple(out.shape) == (1, 1, cfg.vocab) and out.dtype ==
           torch.float32 and bool(torch.isfinite(out).all()),
           f"{arch} prefill: logits {tuple(out.shape)} {out.dtype} not "
@@ -2806,7 +2884,10 @@ def run_prefill(arch, torch, dev, launches):
           f"{arch} prefill: no {symbol} kernel in the device trace")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     log(f"{arch} prefill_step: {n_params / 1e6:.1f} M parameters, "
-        f"{cfg.n_layers} layers, T={T} B=1  wall {wall:.3f} s "
+        f"{cfg.n_layers} layers"
+        + (f" (+{cfg.n_enc_layers} encoder layers over {cfg.n_frames} "
+           "frames)" if cfg.family == "encdec" else "")
+        + f", T={T} B=1  wall {wall:.3f} s "
         f"({T / wall:.0f} tok/s)  {kern} launches {n}  peak "
         f"memory {peak:.2f} GiB  logits |max| "
         f"{float(out.abs().max()):.4f}")
@@ -2854,51 +2935,103 @@ def routing_agreement(a, b):
     return same, total
 
 
-def check_two_layer(arch, torch, dev):
-    """A 2-layer model at the architecture's full width: the card's
-    prefill logits (through the kernels) against the CPU's; for the moe
-    family also the share of routing choices the two make alike."""
-    import dataclasses
+def check_two_layer(arch, torch, dev, **over):
+    """A 2-layer model at the architecture's full width (``over``: other
+    fields of its config): the card's prefill logits (through the
+    kernels) against the CPU's; for the moe family also the share of
+    routing choices the two make alike; at ``attn_impl="flat"`` the card's
+    logits bit-equal to the same model's ``"grouped"`` logits on the card
+    (the kernel's arithmetic for one query head does not depend on
+    Hkv)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import prefill_step
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_to
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, **over)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator().manual_seed(2), "cpu")
-    tok = torch.randint(0, cfg.vocab, (1, 300),
-                        generator=torch.Generator().manual_seed(3))
+    batch = prefill_batch(cfg, 300, torch, torch.device("cpu"), 3)
     with routing_record() as cpu_rec:
-        want = prefill_step(model, params, {"tokens": tok})
+        want = prefill_step(model, params, batch)
     on_card = tree_to(params, dev)
     del params
+    batch = tree_to(batch, dev)
     with routing_record() as card_rec:
-        got = prefill_step(model, on_card, {"tokens": tok.to(dev)})
+        got = prefill_step(model, on_card, batch)
     err = float((got.cpu() - want).abs().max())
     routed = ""
     if cfg.moe is not None:
         same, total = routing_agreement(card_rec.sets, cpu_rec.sets)
         routed = (f"; routing choices alike on card and CPU {same} of "
                   f"{total} ({same / total:.5f})")
-    log(f"{arch} 2-layer full width, T=300: card logits against CPU "
+    if cfg.attn_impl != "grouped":
+        grouped = prefill_step(build_model(dataclasses.replace(
+            cfg, attn_impl="grouped")), on_card, batch)
+        check(torch.equal(got, grouped), f"{arch} 2-layer: attn_impl "
+              f"{cfg.attn_impl!r} logits differ from 'grouped' on the card "
+              f"by {float((got - grouped).abs().max())}")
+        routed += (f"; attn_impl {cfg.attn_impl!r} bit-equal to 'grouped' "
+                   "on the card")
+    what = "".join(f" {k}={v}" for k, v in over.items())
+    log(f"{arch} 2-layer{what} full width, T=300: card logits against CPU "
         f"logits max|err| {err:.4g} (|logits| max "
         f"{float(want.abs().max()):.3f}, tolerance {MODEL_TOL}){routed}  "
         f"({time.perf_counter() - t0:.1f} s)")
     check(err <= MODEL_TOL, f"{arch} 2-layer: card logits differ from the "
           f"CPU's by {err}{routed}")
-    del on_card, got
+    del on_card, got, batch
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def run_serve(arch, torch, dev):
+QTOL = 1e-2       # int8 against bf16 cache: next-token probabilities
+
+
+def check_int8_tracks_bf16(tag, model, params, dev, torch, steps=8):
+    """``tests/test_quant_kv.py``'s rule on the card: the int8 cache's
+    next-token probabilities within ``QTOL`` of the bf16 cache's each
+    step, the bf16 argmax kept where it leads by more than 2·QTOL and
+    near-maximal elsewhere (same weights, same tokens)."""
+    from repro_torch.models import build_model
+    bf16 = build_model(dataclasses.replace(model.cfg, kv_dtype="bf16"))
+    st = bf16.init_decode_state(4, 64, device=dev)
+    st_q = model.init_decode_state(4, 64, device=dev)
+    tok = torch.randint(0, model.cfg.vocab, (4, steps), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(4))
+    worst, n_decisive = 0.0, 0
+    for t in range(steps):
+        a = torch.softmax(bf16.decode_step(params, tok[:, t:t + 1], st)[0]
+                          [:, 0], -1).cpu().numpy()
+        b = torch.softmax(model.decode_step(params, tok[:, t:t + 1], st_q)[0]
+                          [:, 0], -1).cpu().numpy()
+        worst = max(worst, float(np.abs(a - b).max()))
+        srt = np.sort(a, axis=-1)
+        for i in range(a.shape[0]):
+            if srt[i, -1] - srt[i, -2] > 2 * QTOL:
+                n_decisive += 1
+                check(a[i].argmax() == b[i].argmax(), f"{tag}: step {t} "
+                      f"slot {i}: the int8 cache changed a decisive argmax")
+            else:
+                check(b[i, a[i].argmax()] >= b[i].max() - 2 * QTOL,
+                      f"{tag}: step {t} slot {i}: the bf16 winner is not "
+                      "near-maximal under the int8 cache")
+    check(worst < QTOL, f"{tag}: next-token probabilities {worst} apart "
+          f"from the bf16 cache's (tolerance {QTOL})")
+    log(f"{tag}: {steps} steps, next-token probabilities within {worst:.3g} "
+        f"of the bf16 cache's (tolerance {QTOL}); {n_decisive} decisive "
+        "argmaxes kept")
+
+
+def run_serve(arch, torch, dev, cfg=None):
     """``serve.main`` with its defaults (8 requests, 4 slots, 16 + 24
-    tokens) on the card, which replays the decode graph; then the graph
+    tokens) on the card, which replays the decode graph (``cfg``, where
+    given, in place of the arch's: its int8 KV cache); then the graph
     against the eager ``decode_step`` (logits bit-equal over 8 steps),
     its device time per step and the synchronising calls per replayed
-    step."""
+    step; for the int8 cache, its probabilities against the bf16
+    cache's (``check_int8_tracks_bf16``)."""
     import contextlib
     import gc
     import io
@@ -2906,11 +3039,14 @@ def run_serve(arch, torch, dev):
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config(arch)
+    if cfg is None:
+        cfg = get_config(arch)
+    else:
+        arch = f"{arch} kv_dtype={cfg.kv_dtype}"
     buf = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
-        outputs = serve.main(["--arch", arch])
+        outputs = serve.main(["--arch", cfg.name], cfg=cfg)
     for line in buf.getvalue().splitlines():
         log(f"{arch} serve: {line}")
     log(f"{arch} serve: peak memory "
@@ -2936,6 +3072,8 @@ def run_serve(arch, torch, dev):
               "logits differ from the eager decode_step's")
     log(f"{arch} decode graph: captured in {graph.compile_time_s:.3f} s; "
         "8 replayed steps' logits bit-equal to the eager decode_step's")
+    if cfg.kv_dtype == "int8":
+        check_int8_tracks_bf16(f"{arch} decode", model, params, dev, torch)
     box = [tok[:, :1]]
 
     def steps(n):
@@ -3048,6 +3186,17 @@ def main() -> int:
                     torch, dev, 3)
         check_flash("granite MQA T=4096", 1, 48, 1, 4096, 128, torch, dev,
                     20)
+        # the vlm and encdec prefills' heads: qwen2-vl-7b (GQA group 7);
+        # whisper-base's encoder (1,500 frames, ragged against the 128-key
+        # tile), its decoder's self-attention and its cross-attention
+        check_flash("qwen2-vl prefill_32k", 1, 28, 4, prefill_len(), 128,
+                    torch, dev, 3)
+        check_flash("whisper encoder", 1, 8, 8, 1500, 64, torch, dev, 20,
+                    causal=False)
+        check_flash("whisper decoder self", 1, 8, 8, prefill_len(), 64,
+                    torch, dev, 3)
+        check_flash("whisper cross", 1, 8, 8, prefill_len(), 64, torch,
+                    dev, 3, causal=False, Tk=1500)
         check_ssd("CUDA cores, L=16", 24, 8, 16, 64, 128, torch, dev)
         check_ssd("K=32", 24, 32, 128, 64, 128, torch, dev)
         results["ssd_chunk"] = check_ssd(
@@ -3070,10 +3219,14 @@ def main() -> int:
         run_simcheck(figs, torch, dev)
         for arch in SERVE_ARCHS:
             run_prefill(arch, torch, dev, launches)
-        for arch in TWO_LAYER_ARCHS:
-            check_two_layer(arch, torch, dev)
+        for arch, over in TWO_LAYER_CASES:
+            check_two_layer(arch, torch, dev, **over)
         for arch in SERVE_ARCHS:
             run_serve(arch, torch, dev)
+        from repro_torch.configs import get_config
+        for arch in INT8_SERVE_ARCHS:
+            run_serve(arch, torch, dev, cfg=dataclasses.replace(
+                get_config(arch), kv_dtype="int8"))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

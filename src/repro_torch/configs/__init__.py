@@ -18,6 +18,7 @@ _MODULES = {
     "phi3-medium-14b": "phi3_medium_14b", "internlm2-1.8b": "internlm2_1_8b",
     "mamba2-130m": "mamba2_130m", "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "whisper-base": "whisper_base", "qwen2-vl-7b": "qwen2_vl_7b",
 }
 PORTED = tuple(a for a in ARCH_IDS if a in _MODULES)
 

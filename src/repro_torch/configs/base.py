@@ -32,16 +32,21 @@ class ArchConfig:
     n_frames: int = 0            # audio/vision stub frontend length
     tie_embeddings: bool = False
     sub_quadratic: bool = False  # True → long_500k cell applies
-    # attention formulation; the port runs "grouped" (the GQA kernel reads
-    # KV head h // group), the sharding variants raise
+    # attention formulation:
+    #   grouped       : the GQA kernel reads KV head h // group in place
+    #   flat          : K/V repeated to Hq heads (the reference's head-
+    #                   sharding formulation), the kernel at Hkv = Hq
+    #   flat_seqshard : flat plus the reference's query-sequence sharding
+    #                   constraint, which one device has no use for: on
+    #                   the port it computes what flat computes
     attn_impl: str = "grouped"
-    # decode KV cache precision; the port holds "bf16" ("int8" raises)
+    # decode KV cache precision: "bf16" | "int8" (per-position f32 scales)
     kv_dtype: str = "bf16"
 
     def reduced(self, **kw) -> "ArchConfig":
-        """Tiny same-family config for CPU smoke tests (the ported dense,
-        moe and ssm families; the others raise)."""
-        if self.family not in ("dense", "moe", "ssm"):
+        """Tiny same-family config for CPU smoke tests, as the
+        reference's (the hybrid family is not ported and raises)."""
+        if self.family == "hybrid":
             raise NotImplementedError(
                 f"reduced() of the {self.family} family is not yet ported")
         base = dict(
@@ -50,9 +55,13 @@ class ArchConfig:
             n_heads=4, n_kv=max(1, min(self.n_kv, 2)), head_dim=16,
             d_ff=128, vocab=256, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, ssd_chunk=16,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            n_frames=min(self.n_frames, 8) if self.n_frames else 0,
             tie_embeddings=self.tie_embeddings,
             sub_quadratic=self.sub_quadratic,
         )
+        if self.mrope_sections is not None:
+            base["mrope_sections"] = (2, 3, 3)   # sums to head_dim/2 = 8
         if self.moe is not None:
             base["moe"] = MoECfg(
                 n_experts=min(self.moe.n_experts, 8),

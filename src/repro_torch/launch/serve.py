@@ -11,9 +11,13 @@ during a wave; the host reads them back once per wave.  On the card each
 token step replays ``DecodeGraph``, ``LM.decode_step`` captured once as
 a CUDA graph (the reference's ``jax.jit(model.decode_step)``); sampling
 stays outside the graph, as the reference jits only the decode step.  On
-the CPU the step runs eagerly.
+the CPU the step runs eagerly.  The encdec family (whisper-base) decodes
+against the zero cross K/V of ``init_decode_state``, and the vlm family
+(qwen2-vl-7b) feeds its tokens through the embedding table, as the
+reference's server does.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b          # on the GPU
+  python -m repro_torch.launch.serve --arch whisper-base
   python -m repro_torch.launch.serve --preset tiny --device cpu
 """
 from __future__ import annotations
@@ -47,8 +51,16 @@ _TINY = float(np.finfo(np.float32).tiny)
 
 def prefill_step(model, params, batch):
     """The prefill program: the full-sequence forward without remat, then
-    the logits of the last position, [B, 1, V] float32."""
-    h = model.hidden_states(params, tokens=batch["tokens"],
+    the logits of the last position, [B, 1, V] float32.  ``batch`` holds
+    ``tokens`` (and ``frames`` [B, F, d] for the encdec family: the
+    encoder, then the decoder against its output), or for the vlm family
+    ``embeds`` [B, T, d] and ``positions`` [3, B, T]."""
+    if model.cfg.family == "encdec":
+        enc = model.encode(params, batch["frames"])
+        h = model.decode_train(params, batch["tokens"], enc)
+        return model.logits(params, h[:, -1:])
+    h = model.hidden_states(params, tokens=batch.get("tokens"),
+                            embeds=batch.get("embeds"),
                             positions=batch.get("positions"), remat=False)
     return model.logits(params, h[:, -1:])
 
@@ -101,6 +113,8 @@ class DecodeGraph:
 def _leaves(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
     return [t for v in tree for t in _leaves(v)]
 
 
@@ -164,7 +178,10 @@ def serve_waves(model, params, prompts: List[np.ndarray], *,
     return outputs, tokens_out
 
 
-def main(argv=None):
+def main(argv=None, cfg: Optional[ArchConfig] = None):
+    """The server's command line; ``cfg``, where given, takes the place of
+    ``--arch``'s or ``--preset``'s config (a variant of it, such as its
+    int8 KV cache)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
     ap.add_argument("--arch", choices=ARCH_IDS)
@@ -180,7 +197,8 @@ def main(argv=None):
     assert args.prompt_len + args.gen_len < args.max_seq
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.arch else PRESETS[args.preset]
+    if cfg is None:
+        cfg = get_config(args.arch) if args.arch else PRESETS[args.preset]
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init_params(gen, dev)

@@ -1,18 +1,25 @@
-"""GQA attention block: qk-norm, RoPE, the flash kernel, the KV cache.
+"""GQA attention block: qk-norm, RoPE or M-RoPE, the flash kernel, the KV
+cache (bfloat16, or int8 with per-position scales), as the reference's
+``repro.models.attention``.
 
-The port runs the reference's ``attn_impl="grouped"`` formulation (the
-kernel reads KV head h // group in place) with the bfloat16 KV cache.
-The int8 cache, the ``flat``/``flat_seqshard`` formulations, cross-
-attention (``kv=``) and M-RoPE are not ported and raise.
+Full-sequence attention (prefill) runs the flash kernel, self-attention
+or cross-attention (``kv=``: K/V from a source sequence, Tq ≠ Tk).  The
+``attn_impl`` formulations: ``grouped`` (the kernel reads KV head
+h // group in place), ``flat`` (K/V repeated to Hq heads, the kernel at
+Hkv = Hq) and ``flat_seqshard`` (on one device what ``flat`` computes;
+the reference's query-sequence sharding constraint has no counterpart
+until the port shards).  Decode reads the cache through float32 einsums
+and writes it in place at slot ``pos``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..kernels.flash_attention import attention as flash_attention
-from .common import P, apply_rope, rmsnorm
+from .common import P, apply_mrope, apply_rope, rmsnorm
 
 
 def attn_schema(d: int, n_heads: int, n_kv: int, head_dim: int,
@@ -36,68 +43,126 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _unported(mrope_sections=None, kv=None, attn_impl="grouped"):
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported to repro_torch yet")
-    if kv is not None:
-        raise NotImplementedError("cross-attention (kv=) is not ported to "
-                                  "repro_torch yet")
-    if attn_impl != "grouped":
-        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported "
-                                  "to repro_torch yet (grouped only)")
+class QuantKVCache(NamedTuple):
+    """int8 KV cache: decode is cache-read-bound, and one byte an element
+    plus a float32 scale a position halves the bytes read.  Per-position
+    symmetric scales keep the quantization error local."""
+
+    k: torch.Tensor        # [B, Hkv, S, Dh] int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # [B, Hkv, S] f32
+    v_scale: torch.Tensor
+
+
+# XLA's compiled reference divides by 127 as a multiply by float32(1/127)
+# (its simplifier's rewrite of a division by a constant): the same
+# multiply gives the reference's scales bit for bit
+_RCP127 = float(np.float32(1.0 / 127.0))
+
+
+def _quant(x: torch.Tensor):
+    """[..., Dh] bf16/f32 → (int8, f32 scale over the last dim).  The
+    values' division by the floored scale is one IEEE division (a tensor
+    by a tensor) on every device."""
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) * _RCP127
+    q = torch.round(xf / scale.clamp_min(1e-9)[..., None])
+    return q.to(torch.int8), scale
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's type promotion: a bfloat16 input against
+    float32 weights (the reference's encoder input in a float32 model)
+    runs in float32."""
+    t = torch.promote_types(x.dtype, w.dtype)
+    return x.to(t) @ w.to(t)
 
 
 def _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
-             rope_theta=1e6):
+             mrope_sections=None, rope_theta=1e6, kv=None):
+    """Q from x, K and V from ``kv`` (cross-attention: no RoPE on them)
+    or from x."""
     B, T, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, T, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(B, T, n_kv, head_dim)
-    v = (x @ p["wv"]).reshape(B, T, n_kv, head_dim)
+    src = x if kv is None else kv
+    Tk = src.shape[1]
+    q = _mm(x, p["wq"]).reshape(B, T, n_heads, head_dim)
+    k = _mm(src, p["wk"]).reshape(B, Tk, n_kv, head_dim)
+    v = _mm(src, p["wv"]).reshape(B, Tk, n_kv, head_dim)
     if qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     if positions is not None:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if mrope_sections is not None:
+            rope = lambda t: apply_mrope(t, positions, mrope_sections,
+                                         rope_theta)
+        else:
+            rope = lambda t: apply_rope(t, positions, rope_theta)
+        q = rope(q)
+        if kv is None:
+            k = rope(k)
     return q, k, v
 
 
 def attn_apply(p, x, *, n_heads, n_kv, head_dim, qk_norm=False,
                positions=None, mrope_sections=None, rope_theta=1e6,
-               causal=True, kv=None, attn_impl: str = "grouped"):
-    """Full-sequence attention (prefill), x [B, T, d] → [B, T, d]."""
-    _unported(mrope_sections, kv, attn_impl)
+               causal=True, kv: Optional[torch.Tensor] = None,
+               attn_impl: str = "grouped"):
+    """Full-sequence attention (prefill), x [B, T, d] → [B, T, d].
+
+    ``kv``: an external K/V source sequence [B, Tkv, d] (cross-attention),
+    projected with this block's ``wk``/``wv``; no RoPE on it, and the
+    attention is not causal.  ``attn_impl``: ``ArchConfig.attn_impl``."""
     B, T, _ = x.shape
     q, k, v = _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
-                       rope_theta)
+                       mrope_sections, rope_theta, kv)
+    if kv is not None:
+        causal = False
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
+    if attn_impl in ("flat", "flat_seqshard") and n_kv < n_heads:
+        # jnp.repeat(..., g, axis=1): each KV head g times in a row
+        g = n_heads // n_kv
+        kt = kt.repeat_interleave(g, dim=1)
+        vt = vt.repeat_interleave(g, dim=1)
     out = flash_attention(qt, kt, vt, causal=causal)
     out = out.transpose(1, 2).reshape(B, T, n_heads * head_dim)
     return out @ p["wo"]
 
 
-def attn_decode(p, x, cache: KVCache, pos: torch.Tensor, *, n_heads, n_kv,
+def attn_decode(p, x, cache, pos: torch.Tensor, *, n_heads, n_kv,
                 head_dim, qk_norm=False, mrope_sections=None,
                 rope_theta=1e6):
-    """One-token decode against a fixed-capacity KV cache of S slots, of
-    which ``pos`` (a 0-d int32 tensor on the cache's device, the
-    reference's ``cache.pos``) hold tokens.  x [B, 1, d].  The cache is
-    written in place at slot ``pos``.  Returns (out [B, 1, d], cache).
+    """One-token decode against a fixed-capacity cache of S slots
+    (``KVCache`` or ``QuantKVCache``), of which ``pos`` (a 0-d int32
+    tensor on the cache's device, the reference's ``cache.pos``) hold
+    tokens.  x [B, 1, d].  The cache is written in place at slot ``pos``
+    (the int8 cache: values and scales).  Returns (out [B, 1, d], cache).
     """
-    _unported(mrope_sections)
     B, T, _ = x.shape
     assert T == 1
     S = cache.k.shape[2]
     positions = pos.view(1, 1).expand(B, 1)
+    if mrope_sections is not None:
+        positions = positions[None].expand(3, B, 1)
     q, k, v = _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
-                       rope_theta)
+                       mrope_sections, rope_theta)
     slot = pos.view(1).long()
-    cache.k.index_copy_(2, slot, k.transpose(1, 2).to(cache.k.dtype))
-    cache.v.index_copy_(2, slot, v.transpose(1, 2).to(cache.v.dtype))
-    k_read = cache.k.float()
-    v_read = cache.v.float()
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # [B, Hkv, 1, Dh]
+    if isinstance(cache, QuantKVCache):
+        kq, ks = _quant(kt)
+        vq, vs = _quant(vt)
+        cache.k.index_copy_(2, slot, kq)
+        cache.v.index_copy_(2, slot, vq)
+        cache.k_scale.index_copy_(2, slot, ks)
+        cache.v_scale.index_copy_(2, slot, vs)
+        k_read = cache.k.float() * cache.k_scale[..., None]
+        v_read = cache.v.float() * cache.v_scale[..., None]
+    else:
+        cache.k.index_copy_(2, slot, kt.to(cache.k.dtype))
+        cache.v.index_copy_(2, slot, vt.to(cache.v.dtype))
+        k_read = cache.k.float()
+        v_read = cache.v.float()
     g = n_heads // n_kv
     qg = q.transpose(1, 2).reshape(B, n_kv, g, 1, head_dim).float()
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k_read) \

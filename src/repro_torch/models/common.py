@@ -150,6 +150,56 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+_MROPE_SEL: dict = {}
+
+
+def _mrope_sel(sections, head_dim: int, device) -> torch.Tensor:
+    """M-RoPE's band selector on ``device``: entry j of the Dh/2 frequency
+    bands names the position row (t, h or w) that drives it.  Built on
+    the host from the static ``sections`` and copied once per device."""
+    key = (tuple(sections), head_dim, device)
+    sel = _MROPE_SEL.get(key)
+    if sel is None:
+        host = np.zeros((head_dim // 2,), np.int64)
+        off = 0
+        for i, s in enumerate(sections):
+            host[off:off + s] = i
+            off += s
+        assert off == head_dim // 2, (sections, head_dim)
+        sel = torch.from_numpy(host).to(device)
+        _MROPE_SEL[key] = sel
+    return sel
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x [B, T, H, Dh]; positions3 [3, B, T] (t/h/w);
+    ``sections`` splits the Dh/2 frequency bands among the three rows
+    (e.g. (16, 24, 24)).  Band j turns by row sel[j]'s position times
+    inv[j], the reference's product, so the angles are its bits."""
+    Dh = x.shape[-1]
+    inv = _rope_inv(Dh, theta, x.device)
+    sel = _mrope_sel(sections, Dh, x.device)
+    pos = positions3.float().index_select(0, sel)            # [Dh/2,B,T]
+    ang = pos.permute(1, 2, 0) * inv                         # [B,T,Dh/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def sinusoid_positions(t: int, d: int) -> np.ndarray:
+    """Whisper's sinusoidal positions [t, d] float32, on the host."""
+    pos = np.arange(t)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / (10000 ** (dim / d))
+    out = np.zeros((t, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
 def unembed(x: torch.Tensor, emb_or_head: torch.Tensor) -> torch.Tensor:
     """Logits in f32."""
     return x.float() @ emb_or_head.float()

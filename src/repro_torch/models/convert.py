@@ -1,6 +1,7 @@
-"""Carry the reference's parameter tree across: ``params_from_numpy``
-turns nested dicts of numpy arrays (the JAX package's parameters, each
-leaf through ``np.asarray``) into the port's tree of tensors.
+"""Carry the reference's trees across: ``params_from_numpy`` turns nested
+dicts of numpy arrays (the JAX package's parameters, each leaf through
+``np.asarray``) into the port's tree of tensors, ``decode_state_from_numpy``
+a decode state of the reference into the port's.
 
 A JAX bfloat16 array comes to numpy as the ``ml_dtypes`` bfloat16 type,
 which ``torch.from_numpy`` refuses; such a leaf (found by its dtype's
@@ -15,6 +16,10 @@ import numpy as np
 import torch
 
 from ..core.types import resolve_device
+from .attention import KVCache, QuantKVCache
+from .encdec import EncDecState
+from .mamba2 import MambaState
+from .transformer import DecodeState
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -33,3 +38,27 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+_CACHES = {c.__name__: c for c in (KVCache, QuantKVCache, MambaState)}
+
+
+def decode_state_from_numpy(state, device="cuda"):
+    """The port's decode state on ``device`` from the reference's (its
+    leaves through ``np.asarray``, its named tuples kept): an
+    ``EncDecState`` as it is, a ``DecodeState``'s stacked layer caches
+    (``KVCache``, ``QuantKVCache``, ``MambaState``) cut into the port's
+    per-layer list.  The reference's per-layer ``pos`` leaves, zeros it
+    overwrites every step, are dropped."""
+    t = lambda a: tensor_from_numpy(a, device)
+    if type(state).__name__ == "EncDecState":
+        return EncDecState(
+            self_kv=KVCache(k=t(state.self_kv.k), v=t(state.self_kv.v)),
+            cross_kv={n: t(state.cross_kv[n]) for n in ("k", "v")},
+            pos=t(state.pos))
+    cls = _CACHES[type(state.layers).__name__]
+    stacked = {f: getattr(state.layers, f) for f in cls._fields}
+    n_layers = len(stacked[cls._fields[0]])
+    layers = [cls(**{f: t(a[i]) for f, a in stacked.items()})
+              for i in range(n_layers)]
+    return DecodeState(layers=layers, pos=t(state.pos))

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the ``dense``, ``moe`` and ``ssm`` families (the
-reference's ``repro.models.transformer.LM``).
+"""Decoder-only LM of the ``dense``, ``moe``, ``ssm`` and ``vlm`` families
+(the reference's ``repro.models.transformer.LM``).
 
 Layer structure: pre-norm mixer (attention or Mamba-2) + for attention
 a pre-norm FFN, SwiGLU or (``cfg.moe``) the MoE layer of ``models.moe``.
@@ -10,8 +10,12 @@ the reference, and a Python loop over the layers takes the place of its
 ``cache.pos``, and ``decode_step`` writes the whole decode state in
 place: every step reads and writes the same buffers, so the step can be
 captured as a CUDA graph and replayed (``launch/serve.py``), and no
-layer reads anything back from the device.  ``hybrid``, ``encdec`` and
-``vlm`` raise.
+layer reads anything back from the device.  The ``vlm`` family takes
+precomputed embeddings (its patch frontend is stubbed, as in the
+reference) and M-RoPE positions ``[3, B, T]``; its decode feeds tokens
+through the embedding table.  With ``cfg.kv_dtype == "int8"`` the decode
+state holds ``QuantKVCache`` leaves.  ``hybrid`` raises (``encdec`` is
+``models.encdec``).
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
-from .attention import KVCache, attn_apply, attn_decode, attn_schema
+from .attention import (KVCache, QuantKVCache, attn_apply, attn_decode,
+                        attn_schema)
 from .common import (P, apply_mlp, initialize, map_schema, mlp_schema,
                      rmsnorm, unembed)
 from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
@@ -43,7 +48,7 @@ def _layer(tree, i: int):
 
 
 class DecodeState(NamedTuple):
-    layers: List[Any]        # per-layer KVCache or MambaState
+    layers: List[Any]        # per-layer KVCache, QuantKVCache or MambaState
     pos: torch.Tensor        # 0-d int32: tokens already decoded
 
 
@@ -51,13 +56,11 @@ class LM:
     """Decoder-only language model (family chosen by ArchConfig)."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm", "vlm"):
             raise NotImplementedError(
                 f"the {cfg.family} family ({cfg.name}) is not ported to "
-                "repro_torch yet (dense, moe and ssm only)")
-        if cfg.kv_dtype != "bf16":
-            raise NotImplementedError("the int8 KV cache is not ported to "
-                                      "repro_torch yet")
+                "repro_torch's LM (dense, moe, ssm and vlm; encdec is "
+                "models.encdec.EncDec)")
         self.cfg = cfg
         self.is_mamba = cfg.family == "ssm"
         self.is_moe = cfg.moe is not None
@@ -120,18 +123,22 @@ class LM:
 
     def hidden_states(self, params, tokens=None, embeds=None,
                       positions=None, remat=False):
-        """Full-sequence forward: tokens [B, T] → final-norm hidden
-        states [B, T, d]."""
+        """Full-sequence forward: tokens [B, T] (or, for the vlm family,
+        embeds [B, T, d] cast to the embedding's type) → final-norm hidden
+        states [B, T, d].  Positions default to 0..T-1, as ``[3, B, T]``
+        under M-RoPE."""
         if remat:
             raise NotImplementedError("repro_torch serves without remat")
-        if embeds is not None:
-            raise NotImplementedError("embedding inputs (vlm) are not "
-                                      "ported to repro_torch yet")
-        x = params["embed"][tokens]
+        if embeds is None:
+            x = params["embed"][tokens]
+        else:
+            x = embeds.to(params["embed"].dtype)
         B, T = x.shape[:2]
         if positions is None:
             positions = torch.arange(T, dtype=torch.int32,
                                      device=x.device).expand(B, T)
+            if self.cfg.mrope_sections is not None:
+                positions = positions[None].expand(3, B, T)
         for i in range(self.cfg.n_layers):
             x = self._block(_layer(params["layers"], i), x, positions)
         return rmsnorm(x, params["final_norm"])
@@ -147,17 +154,20 @@ class LM:
                           device="cuda") -> DecodeState:
         cfg = self.cfg
         device = resolve_device(device)
+        shape = (batch, cfg.n_kv, seq, cfg.head_dim)
+        z = lambda sh, dt: torch.zeros(sh, dtype=dt, device=device)
         layers = []
         for _ in range(cfg.n_layers):
             if self.is_mamba:
                 layers.append(mamba_state_zeros(batch, cfg.mamba, device))
+            elif cfg.kv_dtype == "int8":
+                layers.append(QuantKVCache(
+                    k=z(shape, torch.int8), v=z(shape, torch.int8),
+                    k_scale=z(shape[:3], torch.float32),
+                    v_scale=z(shape[:3], torch.float32)))
             else:
-                shape = (batch, cfg.n_kv, seq, cfg.head_dim)
-                layers.append(KVCache(
-                    k=torch.zeros(shape, dtype=torch.bfloat16,
-                                  device=device),
-                    v=torch.zeros(shape, dtype=torch.bfloat16,
-                                  device=device)))
+                layers.append(KVCache(k=z(shape, torch.bfloat16),
+                                      v=z(shape, torch.bfloat16)))
         return DecodeState(layers=layers, pos=torch.zeros(
             (), dtype=torch.int32, device=device))
 

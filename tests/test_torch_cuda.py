@@ -49,6 +49,8 @@ bf16 rounding steps of logits of magnitude ~1).  The MoE layer on the
 card against the CPU within ``MOE_TOL`` (relative, absolute), the CPU
 tests' bf16 hidden-state tolerance: the experts' bf16 products rounded
 after sums in another order; the routing equal, two calls bit-identical.
+The int8 cache's ``_quant`` on the card bit-equal to the CPU's (one
+multiply, one IEEE division, round half to even on both).
 """
 import numpy as np
 import pytest
@@ -847,7 +849,8 @@ def test_batched_capture_makes_no_synchronising_call(dev):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-130m",
-                                  "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"])
+                                  "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b",
+                                  "qwen2-vl-7b"])
 def test_decode_graph_is_the_eager_decode_step(arch, dev):
     """``serve.DecodeGraph`` at 2 layers of the architecture's full width:
     40 replayed steps give the eager ``decode_step``'s logits bit for bit,
@@ -872,6 +875,60 @@ def test_decode_graph_is_the_eager_decode_step(arch, dev):
             got = graph.step(tok[:, t:t + 1])
             assert torch.equal(got, want), (wave, t)
         assert int(graph.state.pos) == int(state.pos)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("whisper-base", {}),                            # encdec, cross K/V
+    ("qwen3-0.6b", dict(kv_dtype="int8")),           # the int8 cache
+    ("phi3-medium-14b", dict(kv_dtype="int8")),
+], ids=["whisper-base", "qwen3-0.6b-int8", "phi3-medium-14b-int8"])
+def test_decode_graph_variants_are_the_eager_decode_step(arch, over, dev):
+    """``serve.DecodeGraph`` of whisper-base's decoder (from the same
+    non-zero cross K/V in the graph's state and the eager one) and of the
+    int8 KV cache, at 2 layers of full width: 20 replayed steps give the
+    eager ``decode_step``'s logits and state bit for bit, across a reset
+    that zeroes every leaf."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import DecodeGraph, _leaves
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, **over)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    graph = DecodeGraph(model, params, 4, 32, dev)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 20))).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for wave in range(2):
+        state = model.init_decode_state(4, 32, device=dev)
+        graph.reset()
+        assert not any(bool(t.any()) for t in _leaves(graph.state))
+        if cfg.family == "encdec":
+            for name in ("k", "v"):
+                x = torch.randn(state.cross_kv[name].shape, generator=g,
+                                device=dev).to(torch.bfloat16)
+                state.cross_kv[name].copy_(x)
+                graph.state.cross_kv[name].copy_(x)
+        for t in range(20 if wave == 0 else 5):
+            want, state = model.decode_step(params, tok[:, t:t + 1], state)
+            got = graph.step(tok[:, t:t + 1])
+            assert torch.equal(got, want), (wave, t)
+        for a, b in zip(_leaves(graph.state), _leaves(state)):
+            assert torch.equal(a, b), wave
+
+
+def test_quant_on_card_is_the_cpu_bits(dev):
+    from repro_torch.models.attention import _quant
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 8, 33, 128)).astype(np.float32) * 3.0)
+    x[0, 0, 0] = 0.0
+    for src in (x, x.to(torch.bfloat16)):
+        q_cpu, s_cpu = _quant(src)
+        q, s = _quant(src.to(dev))
+        assert torch.equal(q.cpu(), q_cpu)
+        assert torch.equal(s.cpu().view(torch.int32),
+                           s_cpu.view(torch.int32))
 
 
 @pytest.mark.parametrize("n_tok", [4, 600], ids=["decode", "prefill"])
@@ -933,6 +990,10 @@ def _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev, seed=0):
     (1, 8, 8, 129, 129, 128, True),        # one row past a query tile
     (1, 32, 4, 333, 333, 128, True),       # qwen3-moe heads: group 8
     (1, 48, 1, 257, 257, 128, True),       # granite-20b: MQA, group 48
+    (1, 28, 4, 333, 333, 128, True),       # qwen2-vl heads: group 7
+    (1, 8, 8, 1500, 1500, 64, False),      # whisper's encoder
+    (1, 8, 8, 777, 1500, 64, False),       # whisper's cross, Tq < Tk
+    (1, 8, 8, 2000, 1500, 64, False),      # cross, Tq > Tk, not causal
 ])
 def test_flash_attention_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
                                               dtype, dev):

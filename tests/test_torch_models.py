@@ -303,34 +303,45 @@ def test_decode_matches_forward_on_the_port(arch):
 
 
 def test_unported_parts_raise():
-    """The ported architectures (the dense and ssm ones of ``ARCHS`` and
-    the two of the moe family) build; the other families, the int8 cache
-    and the sharded attention formulations raise."""
-    assert set(PORTED) == set(ARCHS) | {"qwen3-moe-30b-a3b",
-                                         "qwen2-moe-a2.7b"}
-    for name in ARCH_IDS:
-        if name in PORTED:
-            assert get_config(name).name == name
-            assert build_model(get_config(name)).cfg.name == name
-            continue
-        with pytest.raises(NotImplementedError, match=name):
-            get_config(name)
+    """Every architecture but jamba builds (the dense and ssm ones of
+    ``ARCHS``, the moe pair, whisper-base's encdec and qwen2-vl-7b's
+    vlm); jamba's config and the ``hybrid`` family raise.  The int8 cache
+    and the flat formulations, unported before, now build and run."""
+    assert set(PORTED) == set(ARCHS) | {
+        "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "whisper-base",
+        "qwen2-vl-7b"}
+    assert set(ARCH_IDS) - set(PORTED) == {"jamba-1.5-large-398b"}
+    for name in PORTED:
+        assert get_config(name).name == name
+        assert build_model(get_config(name)).cfg.name == name
+    with pytest.raises(NotImplementedError, match="jamba-1.5-large-398b"):
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError):
         get_config("gpt-2")
     base = get_config("qwen3-0.6b").reduced()
-    for family in ("hybrid", "encdec", "vlm"):
-        with pytest.raises(NotImplementedError):
-            build_model(dc.replace(base, family=family))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        build_model(dc.replace(base, family="hybrid"))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        dc.replace(base, family="hybrid").reduced()
+    assert type(build_model(get_config("whisper-base"))).__name__ == "EncDec"
+    assert build_model(get_config("qwen2-vl-7b")).cfg.mrope_sections == \
+        (16, 24, 24)
     moe = get_config("qwen3-moe-30b-a3b").reduced()
     assert build_model(moe).is_moe
+    for cfg in (dc.replace(base, kv_dtype="int8"),
+                dc.replace(moe, kv_dtype="int8"),
+                dc.replace(base, attn_impl="flat"),
+                dc.replace(base, attn_impl="flat_seqshard")):
+        m = build_model(cfg)
+        params = m.init_params(torch.Generator().manual_seed(0), "cpu")
+        h = m.hidden_states(params, tokens=torch.zeros((1, 4),
+                                                       dtype=torch.long))
+        assert bool(torch.isfinite(h).all())
+        lg, _ = m.decode_step(params, torch.zeros((1, 1), dtype=torch.long),
+                              m.init_decode_state(1, 4, device="cpu"))
+        assert bool(torch.isfinite(lg).all())
     with pytest.raises(NotImplementedError):
-        build_model(dc.replace(base, kv_dtype="int8"))
-    with pytest.raises(NotImplementedError):
-        build_model(dc.replace(moe, kv_dtype="int8"))
-    m = build_model(dc.replace(base, attn_impl="flat"))
-    params = m.init_params(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        m.hidden_states(params, tokens=torch.zeros((1, 4), dtype=torch.long))
+        build_model(base).hidden_states(None, remat=True)
 
 
 def test_entry_points_default_to_the_gpu():
