@@ -8,7 +8,7 @@ NVIDIA GPU and the CUDA toolkit:
 
 Phases, in order (any failure exits non-zero):
 
-1. device and build: the card's name and power limit, then the five CUDA
+1. device and build: the card's name and power limit, then the six CUDA
    sources built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel); the ``ptxas`` registers and spills per kernel of the
    simulator's ``tropical``, ``cloudlet_finish`` and ``link_share`` builds
@@ -192,7 +192,26 @@ Phases, in order (any failure exits non-zero):
    calls per replayed step; the int8 cache's next-token probabilities
    within 1e-2 of the bf16 cache's over 8 steps
    (``tests/test_quant_kv.py``'s rule);
-13. one JSON line with each kernel's launches, times and bound; then the
+13. training (the dense family, ``repro_torch.train``): the flash
+   backward kernels (``csrc/flash_attention_bwd.cu``; their ``ptxas``
+   report, checked for spills, in phase 1) against autograd through the
+   plain version (``ref.attention_bwd``, ``BWD_TOL``) and the forward's
+   log-sum-exp output against the plain one, at qwen3-0.6b's training
+   heads (B 2, Hq 16, Hkv 8, T 4096, D 128, bf16; timed beside the bound,
+   the plain version and the SDPA backward), the presets' D 64, float32
+   (timed), a ragged T, a non-causal Tq < Tk and a group of 7, two
+   launches bit-identical; ``launch.train.main`` for qwen3-0.6b at full
+   width and depth, T 4096 (``train_4k``), B 2 (cut from 256), remat on,
+   ``TRAIN_STEPS`` steps twice from one seed: finite losses and norms,
+   per step 2 x 28 ``flash_attention`` and 28 x 2 ``flash_attention_bwd``
+   launches, the two runs bit-equal in every parameter and moment, the
+   step wall, tok/s and peak memory, then one profiled step: busy share,
+   device time by kernel and the flash backward's share; a 2-layer
+   full-width qwen3-0.6b's train-step gradients on the card against the
+   CPU (the ``SyntheticLM`` batch bit-equal, the loss, norm and every
+   leaf within ``TRAIN_*_TOL``); the ``tiny`` preset's loss drop over
+   100 steps and a checkpoint resume bit-equal to a straight run;
+14. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
@@ -3112,6 +3131,327 @@ def run_serve(arch, torch, dev, cfg=None):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training (the dense family)
+# ---------------------------------------------------------------------------
+
+# the backward kernel against autograd through the plain version: each
+# output element within rtol·|plain| + frac·max|plain| (float32: the sums in
+# another order; bfloat16: the outputs' own bf16 rounding, 2^-8, and
+# Δ = Σ dO·O from the forward's bf16 output, whose rounding reaches dS
+# where dP - Δ cancels)
+BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2       # train_4k's T; its batch 256 cut to 2
+TRAIN_STEPS = 4                        # step 0 warms up; 1-3 are timed
+# 2-layer full-width train step, card against CPU (bf16 weights: the
+# activations and the bf16 gradients round at other places): the loss
+# within TRAIN_LOSS_TOL, the global norm within TRAIN_NORM_RTOL of its
+# value, each gradient leaf within TRAIN_GRAD_TOL of its own max |grad|
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_NORM_RTOL = 2e-2
+TRAIN_GRAD_TOL = 2.0 ** -4
+
+
+def check_flash_bwd(tag, B, Hq, Hkv, Tq, Tk, D, dtype, causal, torch, dev,
+                    n_time=0):
+    """The backward kernels (``flash_bwd_dq``, ``flash_bwd_dkdv``) against
+    ``ref.attention_bwd`` on the same inputs; with ``n_time``, their time
+    beside the plain version's, the SDPA backward's at the same shape (the
+    yardstick, never on the path) and the bound."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.flash_attention import ops, ref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(29)
+    mk = lambda H, n: torch.randn((B, H, n, D), generator=g, device=dev) \
+        .to(dt)
+    q, k, v, dout = mk(Hq, Tq), mk(Hkv, Tk), mk(Hkv, Tk), mk(Hq, Tq)
+    saved = dict(counts)
+    out, lse = ops.launch(q, k, v, causal, None, with_lse=True)
+    a = ops.launch_bwd(q, k, v, out, dout, lse, causal, None)
+    b = ops.launch_bwd(q, k, v, out, dout, lse, causal, None)
+    want = ref.attention_bwd(q, k, v, dout, causal=causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"flash_attention_bwd {tag}: two launches differ")
+    rtol, frac = BWD_TOL[dtype]
+    errs = []
+    for name, x, w in zip(("dq", "dk", "dv"), a, want):
+        check(x.dtype == w.dtype and bool(torch.isfinite(x).all()),
+              f"flash_attention_bwd {tag}: {name} not finite or mistyped")
+        scale = float(w.float().abs().max())
+        diff = (x.float() - w.float()).abs()
+        excess = float((diff - rtol * w.float().abs()).max())
+        errs.append(float(diff.max()))
+        check(excess <= frac * scale, f"flash_attention_bwd {tag}: {name} "
+              f"max|err| {errs[-1]}, an element off by {excess} beyond "
+              f"{rtol}·|plain| (tolerance {frac}·{scale:.4g})")
+    lse_err = float((lse - ref.logsumexp(q, k, causal=causal)).abs().max())
+    check(lse_err <= 1e-4, f"flash_attention {tag}: log-sum-exp off by "
+          f"{lse_err}")
+    line = (f"flash_attention_bwd {tag}: B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} "
+            f"Tk={Tk} D={D} {'causal' if causal else 'non-causal'} {dtype}"
+            f"  max|err| dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
+            f"{errs[2]:.3g}  lse max|err| {lse_err:.3g}")
+    res = dict(max_abs_err=max(errs))
+    if n_time:
+        k_ev, k_dev = cuda_ms(lambda: ops.launch_bwd(
+            q, k, v, out, dout, lse, causal, None), n_time, torch)
+        p_ev, p_dev = cuda_ms(lambda: ref.attention_bwd(
+            q, k, v, dout, causal=causal), 1, torch)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, enable_gqa=True)
+        l_ev, l_dev = cuda_ms(lambda: torch.autograd.grad(
+            lib, (qs, ks, vs), dout, retain_graph=True), 5, torch)
+        del lib, qs, ks, vs
+        # the least work: the five products of the backward (S again,
+        # dP = dO·Vᵀ, dS·K, dSᵀ·Q, Pᵀ·dO) over the visible pairs, 2
+        # operations a multiply-add, at the peak of the inputs' type;
+        # bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once
+        pairs = Tq * (Tq + 1) // 2 + Tq * (Tk - Tq) if causal else Tq * Tk
+        ops_n = 10.0 * B * Hq * pairs * D
+        peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+        esz = 2 if dtype == "bfloat16" else 4
+        nbytes = esz * B * D * (6 * Hq * Tq + 4 * Hkv * Tk) + 4 * B * Hq * Tq
+        bound_ms, by = max((ops_n / peak * 1e3, "operations"),
+                           (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        k_ms = k_dev or k_ev
+        lib_ms = l_dev or l_ev
+        line += (f"  kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call"
+                 f"  {ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
+                 f"{bound_ms / k_ms:.4f} of the bound  {k_ms / lib_ms:.2f}x "
+                 f"the SDPA backward  plain {_ms(p_dev)} ms device / "
+                 f"{p_ev:.4f} ms per call  SDPA backward {_ms(lib_ms)} ms  "
+                 f"bound {bound_ms:.4f} ms ({by})")
+        res.update(ms=k_ms, plain_ms=p_dev or p_ev, bound_ms=bound_ms,
+                   bound_by=by, library_ms=lib_ms)
+    counts.update(saved)
+    log(line)
+    del q, k, v, dout, out, lse, a, b, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_bwd_build():
+    """The backward build's ``ptxas`` registers and spills per kernel;
+    none may spill."""
+    report = ptxas_report("flash_attention_bwd")
+    log("flash_attention_bwd ptxas: " + (" | ".join(
+        f"{k}: {v.get('registers', '?')} registers, "
+        f"{v.get('spills', '?')} bytes spilled"
+        for k, v in report.items()) or "no report"))
+    check(report and all(v.get("spills") == 0 for v in report.values()),
+          "flash_attention_bwd: no ptxas report, or a kernel that spills")
+
+
+def run_train_full(torch, dev, launches):
+    """``launch.train.main`` for qwen3-0.6b at full width and depth, T =
+    4096, B = 2, twice from the same seed: finite losses and gradient
+    norms, per step 2 x 28 ``flash_attention`` launches (forward and the
+    remat recompute) and 28 x ``BWD_LAUNCHES`` ``flash_attention_bwd``
+    launches, the two runs bit-equal in every parameter and moment; the
+    step wall, tokens/s, peak memory; then one more step under the
+    profiler: busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L,
+            "flash_attention_bwd": L * ops.BWD_LAUNCHES}
+    argv = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--log-every",
+            "1"]
+    runs = []
+    for r in range(2):
+        state, walls, per_step = {}, [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t_last = [time.perf_counter()]
+        seen = [dict(counts)]
+
+        def on_step(step, params, opt, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append(now - t_last[0])
+            per_step.append({k: counts[k] - seen[0][k] for k in want})
+            seen[0] = dict(counts)
+            state.update(params=params, opt=opt, metrics=metrics)
+            check(bool(torch.isfinite(metrics["grad_norm"])),
+                  f"{TRAIN_ARCH} train step {step}: grad norm not finite")
+            t_last[0] = time.perf_counter()
+        losses = train.main(argv, on_step=on_step)
+        for k in want:
+            launches[k] = launches.get(k, 0) + counts[k]
+        check(len(losses) == TRAIN_STEPS and all(
+            math.isfinite(x) for x in losses),
+            f"{TRAIN_ARCH} training: losses {losses}")
+        for s, n in enumerate(per_step):
+            check(n == want, f"{TRAIN_ARCH} train step {s}: launches {n}, "
+                  f"not {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs.append((losses, state, walls, peak))
+    (la, sa, walls, peak), (lb, sb, _, _) = runs
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves((sa["params"], sa["opt"])),
+        tree_leaves((sb["params"], sb["opt"]))))
+    check(same and la == lb, f"{TRAIN_ARCH} training: two runs from one "
+          "seed differ")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    tok_s = TRAIN_SEQ * TRAIN_BATCH / step_s
+    log(f"{TRAIN_ARCH} training, full width and depth ({L} layers), "
+        f"T={TRAIN_SEQ} B={TRAIN_BATCH}, remat, AdamW: losses "
+        f"{[round(x, 4) for x in la]}  step wall {step_s:.3f} s (steps 1-"
+        f"{TRAIN_STEPS - 1}; step 0 {walls[0]:.3f} s)  {tok_s:.0f} tok/s  "
+        f"peak memory {peak:.2f} GiB  per step {want}  two runs bit-equal "
+        "in every parameter and moment")
+    del sb, runs
+    # one more step under the profiler, from run A's state
+    model = build_model(cfg)
+    step_fn = make_train_step(model, AdamWCfg(
+        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    batch = data.batch(TRAIN_STEPS, device=dev)
+    params, opt = sa["params"], sa["opt"]
+    del sa
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step_fn(params, opt, batch)
+    float(m["loss"])
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, m = step_fn(params, opt, batch)
+        float(m["loss"])
+    by_name = _device_us_by_name(prof)
+    busy = sum(by_name.values()) / 1e6
+    check(busy > 0, f"{TRAIN_ARCH} training: the profiler recorded no "
+          "device time")
+    bwd = sum(v for k, v in by_name.items() if "flash_bwd" in k) / 1e6
+    fwd = sum(v for k, v in by_name.items() if "flash_fwd" in k) / 1e6
+    check(bwd > 0 and fwd > 0, f"{TRAIN_ARCH} training: no flash_bwd or "
+          "flash_fwd kernel in the device trace")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"{TRAIN_ARCH} train step device time {busy:.3f} s; busy share "
+        f"{busy / wall:.3f} of the unprofiled {wall:.3f} s wall; flash "
+        f"backward {bwd:.3f} s ({bwd / busy:.3f} of the device time), "
+        f"flash forward {fwd:.3f} s ({fwd / busy:.3f}); top kernels: "
+        + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
+    del params, opt, m, prof
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, tok_s=tok_s, peak_gib=peak, busy=busy / wall,
+                bwd_share=bwd / busy)
+
+
+def check_train_two_layer(torch, dev):
+    """One train step's gradients of a 2-layer qwen3-0.6b at full width,
+    the card (through both flash kernels) against the CPU (the plain
+    versions), same weights and batch: the batch from ``SyntheticLM`` on
+    the card bit-equal to the CPU's; the loss, the global gradient norm and
+    every gradient leaf within their tolerances."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_to
+    from repro_torch.train.optimizer import clip_by_global_norm
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import leaves_with_path
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator().manual_seed(4), "cpu")
+    data = SyntheticLM(cfg.vocab, 256, 2, seed=5)
+    batch = data.batch(3, device="cpu")
+    on_card = data.batch(3, device=dev)
+    check(all(torch.equal(batch[k], on_card[k].cpu()) for k in batch),
+          "SyntheticLM: the card's batch differs from the CPU's")
+    loss_c, g_c = value_and_grad(model, params, batch)
+    norm_c = clip_by_global_norm(g_c, 1.0)[1]
+    loss_d, g_d = value_and_grad(model, tree_to(params, dev), on_card)
+    norm_d = clip_by_global_norm(g_d, 1.0)[1]
+    loss_err = abs(float(loss_d) - float(loss_c))
+    norm_err = abs(float(norm_d) - float(norm_c)) / float(norm_c)
+    worst = (0.0, "")
+    for (path, a), (_, b) in zip(leaves_with_path(g_c),
+                                 leaves_with_path(g_d)):
+        rel = float((b.cpu().float() - a.float()).abs().max()) / max(
+            float(a.float().abs().max()), 1e-30)
+        worst = max(worst, (rel, path))
+    log(f"{TRAIN_ARCH} 2-layer full width, T=256 B=2: SyntheticLM batch on "
+        f"the card bit-equal to the CPU's; loss {float(loss_c):.5f} (card "
+        f"off by {loss_err:.3g}, tolerance {TRAIN_LOSS_TOL}), grad norm "
+        f"{float(norm_c):.5f} (relative error {norm_err:.3g}, tolerance "
+        f"{TRAIN_NORM_RTOL}), worst gradient leaf {worst[1]} off by "
+        f"{worst[0]:.3g} of its max |grad| (tolerance {TRAIN_GRAD_TOL})  "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_NORM_RTOL
+          and worst[0] <= TRAIN_GRAD_TOL,
+          f"{TRAIN_ARCH} 2-layer train step: the card differs from the CPU")
+    del params, g_c, g_d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_tiny(torch, dev):
+    """The reference's two driver checks on the card with the ``tiny``
+    preset: the loss drops by 0.2 over 100 steps
+    (``tests/test_launch_tools.py``), and 3 steps, a checkpoint, a restore
+    and 3 more steps equal 6 straight steps bit for bit
+    (``tests/test_substrate.py``)."""
+    import tempfile
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import PRESETS
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, adamw_init, make_train_step
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    losses = train.main(["--preset", "tiny", "--steps", "100", "--batch",
+                         "4", "--seq", "64", "--lr", "3e-3", "--log-every",
+                         "100"])
+    drop = float(np.mean(losses[:10]) - np.mean(losses[-10:]))
+    t1 = time.perf_counter()
+    cfg = PRESETS["tiny"]
+    model = build_model(cfg)
+    step_fn = make_train_step(model, AdamWCfg(lr=1e-3, warmup_steps=2,
+                                              total_steps=10))
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=2)
+
+    def run(params, opt, start, end):
+        for s in range(start, end):
+            params, opt, _ = step_fn(params, opt, data.batch(s, device=dev))
+        return params, opt
+
+    p0 = model.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    o0 = adamw_init(p0)
+    pa, oa = run(p0, o0, 0, 6)
+    pb, ob = run(p0, o0, 0, 3)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save({"p": pb, "o": ob}, 2, blocking=True)
+        restored, step = mgr.restore_latest({"p": pb, "o": ob})
+    pc, oc = run(restored["p"], restored["o"], step + 1, 6)
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves((pa, oa)),
+                                                 tree_leaves((pc, oc))))
+    log(f"tiny preset on the card: loss {np.mean(losses[:10]):.4f} -> "
+        f"{np.mean(losses[-10:]):.4f} over 100 steps (drop {drop:.4f}, "
+        f"needs 0.2; {t1 - t0:.1f} s); 3 steps + checkpoint + restore + 3 "
+        f"steps {'bit-equal' if same else 'DIFFER from'} 6 straight steps "
+        f"({time.perf_counter() - t1:.1f} s)")
+    check(drop > 0.2, f"tiny preset: the loss dropped by {drop}, not 0.2")
+    check(same, "tiny preset: a resumed run differs from a straight one")
+
+
 CHAOS_CASES = ("case1b+faults", "case1b+chaos2", "case1b+net+chaos2")
 
 
@@ -3153,6 +3493,7 @@ def main() -> int:
         log(f"kernels built in {time.perf_counter() - t0:.1f} s "
             f"({', '.join(_build_names())})")
         check_builds()
+        check_bwd_build()
 
         check_launch_floor(torch, dev)
         results["cloudlet_finish"] = check_cloudlet_finish(
@@ -3227,6 +3568,24 @@ def main() -> int:
         for arch in INT8_SERVE_ARCHS:
             run_serve(arch, torch, dev, cfg=dataclasses.replace(
                 get_config(arch), kv_dtype="int8"))
+        t_train = time.perf_counter()
+        results["flash_attention_bwd"] = check_flash_bwd(
+            "qwen3-0.6b train_4k", TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ,
+            128, "bfloat16", True, torch, dev, n_time=5)
+        check_flash_bwd("presets' heads", 4, 4, 2, 1024, 1024, 64,
+                        "bfloat16", True, torch, dev)
+        check_flash_bwd("float32", 1, 16, 8, 1024, 1024, 128, "float32",
+                        True, torch, dev, n_time=3)
+        check_flash_bwd("ragged", 2, 16, 8, 1000, 1000, 128, "bfloat16",
+                        True, torch, dev)
+        check_flash_bwd("non-causal", 1, 8, 8, 777, 1500, 64, "bfloat16",
+                        False, torch, dev)
+        check_flash_bwd("group 7", 1, 28, 4, 1000, 1000, 128, "bfloat16",
+                        True, torch, dev)
+        run_train_full(torch, dev, launches)
+        check_train_two_layer(torch, dev)
+        run_train_tiny(torch, dev)
+        log(f"training phases {time.perf_counter() - t_train:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3243,7 +3602,10 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:78"),
         "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
-                      "src/repro/kernels/ssd_scan/kernel.py:60")}
+                      "src/repro/kernels/ssd_scan/kernel.py:60"),
+        # the reference's backward is a recompute VJP, no Pallas kernel
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention/ops.py:56")}
     kernels = []
     for name, (path, replaces) in src.items():
         r = results[name]

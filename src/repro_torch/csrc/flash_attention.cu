@@ -60,6 +60,11 @@
 // key has weight 1 (score 0 here) and the sum of V is divided by
 // `masked_den` (Tk rounded up to a multiple of 128) instead of the weight
 // sum.  A block that holds such rows sweeps every key tile.
+//
+// Given a non-null `lse` ([B, Hq, Tq] float32), both kernels also write
+// each row's log-sum-exp of its scaled logits, in natural-log units (the
+// backward kernels of csrc/flash_attention_bwd.cu rebuild P from it);
+// `flash_fwd_sm90` converts its log2-domain maximum.  Serving passes null.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,8 +95,9 @@ constexpr int smem_floats() {
 template <int D, typename T>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-          int Tq, int Tk, int causal, int masked_den, float scale) {
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ lse, int Hq, int Hkv, int Tq, int Tk,
+          int causal, int masked_den, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [BQ][D + 1]
   float* Ks = Qs + BQ * (D + 1);           // [BK][D + 1]
@@ -233,6 +239,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * 4 + i;
     if (qi >= Tq) continue;
     const float den = dead[i] ? (float)masked_den : (lt == 0.0f ? 1.0f : lt);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * Hq + h) * Tq + qi] = m[i] + logf(lt);
     T* orow = out + qbase + (long long)qi * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) store(orow + tx + 16 * c, o[i][c] / den);
@@ -240,9 +248,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Tq, int Tk, int causal, int masked_den,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+           int masked_den, float scale, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_fwd<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -251,40 +259,40 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
   kern<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Tq, Tk,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Hq, Hkv, Tq, Tk,
       causal, masked_den, scale);
   return (int)cudaGetLastError();
 }
 
 // float32 at every head width
 int launch_f32(int D, const void* q, const void* k, const void* v, void* out,
-               int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+               float* lse, int B, int Hq, int Hkv, int Tq, int Tk, int causal,
                int masked_den, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                      causal, masked_den, scale, s);
-    case 32: return launch<32, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                      causal, masked_den, scale, s);
-    case 64: return launch<64, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                      causal, masked_den, scale, s);
-    case 128: return launch<128, float>(q, k, v, out, B, Hq, Hkv, Tq, Tk,
-                                        causal, masked_den, scale, s);
+    case 16: return launch<16, float>(q, k, v, out, lse, B, Hq, Hkv, Tq,
+                                      Tk, causal, masked_den, scale, s);
+    case 32: return launch<32, float>(q, k, v, out, lse, B, Hq, Hkv, Tq,
+                                      Tk, causal, masked_den, scale, s);
+    case 64: return launch<64, float>(q, k, v, out, lse, B, Hq, Hkv, Tq,
+                                      Tk, causal, masked_den, scale, s);
+    case 128: return launch<128, float>(q, k, v, out, lse, B, Hq, Hkv, Tq,
+                                        Tk, causal, masked_den, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // bfloat16 at 16 or 32 (wider bfloat16 heads take `flash_fwd_sm90`)
 int launch_bf16_narrow(int D, const void* q, const void* k, const void* v,
-                       void* out, int B, int Hq, int Hkv, int Tq, int Tk,
-                       int causal, int masked_den, float scale,
+                       void* out, float* lse, int B, int Hq, int Hkv, int Tq,
+                       int Tk, int causal, int masked_den, float scale,
                        cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16, __nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Tq,
-                                              Tk, causal, masked_den, scale,
-                                              s);
-    case 32: return launch<32, __nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Tq,
-                                              Tk, causal, masked_den, scale,
-                                              s);
+    case 16: return launch<16, __nv_bfloat16>(q, k, v, out, lse, B, Hq, Hkv,
+                                              Tq, Tk, causal, masked_den,
+                                              scale, s);
+    case 32: return launch<32, __nv_bfloat16>(q, k, v, out, lse, B, Hq, Hkv,
+                                              Tq, Tk, causal, masked_den,
+                                              scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -406,9 +414,9 @@ __global__ void __launch_bounds__(NT, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
-               const __grid_constant__ CUtensorMap tm_o, int Hq, int group,
-               int Tq, int Tk, int causal, int masked_den,
-               float scale_log2) {
+               const __grid_constant__ CUtensorMap tm_o,
+               float* __restrict__ lse, int Hq, int group, int Tq, int Tk,
+               int causal, int masked_den, float scale_log2) {
   constexpr int HALVES = D / 64;           // 64-column boxes per row
   constexpr int Q_BYTES = BQ * D * 2;
   constexpr int KV_BYTES = BK * D * 2;     // one of K or V
@@ -599,6 +607,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     }
     const float r0 = 1.0f / (dead0 ? (float)masked_den : l0);
     const float r1 = 1.0f / (dead1 ? (float)masked_den : l1);
+    if (lse != nullptr && lane % 4 == 0) {
+      // 2^m · l in natural-log units
+      constexpr float LN2 = 0.69314718055994531f;
+      float* row = lse + (long long)bh * Tq;
+      if (qi0 < Tq) row[qi0] = m0 * LN2 + logf(l0);
+      if (qi1 < Tq) row[qi1] = m1 * LN2 + logf(l1);
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const uint32_t at = sq + (j / 8) * BQ * ROW + rr * ROW +
@@ -632,9 +647,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int T, int D,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Tq, int Tk, int causal, int masked_den,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+           int masked_den, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   if (!tensor_map(&mq, q, B * Hq, Tq, D, BQ) ||
       !tensor_map(&mk, k, B * Hkv, Tk, D, BK) ||
@@ -649,19 +664,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hq, (Tq + BQ - 1) / BQ, B);
   kern<<<grid, NT, bytes, stream>>>(
-      mq, mk, mv, mo, Hq, Hq / Hkv, Tq, Tk, causal, masked_den,
+      mq, mk, mv, mo, lse, Hq, Hq / Hkv, Tq, Tk, causal, masked_den,
       (float)(scale * 1.4426950408889634));
   return (int)cudaGetLastError();
 }
 
 int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+             float* lse, int B, int Hq, int Hkv, int Tq, int Tk, int causal,
              int masked_den, float scale, cudaStream_t s) {
   switch (D) {
-    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
-                               masked_den, scale, s);
-    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
-                                 masked_den, scale, s);
+    case 64: return launch<64>(q, k, v, out, lse, B, Hq, Hkv, Tq, Tk,
+                               causal, masked_den, scale, s);
+    case 128: return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Tq, Tk,
+                                 causal, masked_den, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -669,22 +684,24 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 }  // namespace sm90
 
 // dtype: 0 float32, 1 bfloat16.  bfloat16 at D 64 or 128 runs
-// `flash_fwd_sm90`, everything else `flash_fwd`.  Returns a cudaError_t
-// (0 on success).
+// `flash_fwd_sm90`, everything else `flash_fwd`.  `lse` is null or a
+// float32 [B, Hq, Tq] buffer for the rows' log-sum-exp.  Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Hq, int Hkv, int Tq, int Tk, int D,
                                       int causal, int masked_den, float scale,
-                                      int dtype, void* stream) {
+                                      void* lse, int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Tq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_f32(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+    return launch_f32(D, q, k, v, out, l, B, Hq, Hkv, Tq, Tk, causal,
                       masked_den, scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (D == 64 || D == 128)
-    return sm90::launch_d(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+    return sm90::launch_d(D, q, k, v, out, l, B, Hq, Hkv, Tq, Tk, causal,
                           masked_den, scale, s);
-  return launch_bf16_narrow(D, q, k, v, out, B, Hq, Hkv, Tq, Tk, causal,
+  return launch_bf16_narrow(D, q, k, v, out, l, B, Hq, Hkv, Tq, Tk, causal,
                             masked_den, scale, s);
 }

@@ -13,6 +13,17 @@ The reference pads ragged lengths to its (128, 128) blocks and masks with
 the original lengths; the kernel masks the ragged edges itself, so no
 padding is made here.  Fully masked rows (Tq > Tk) come out as the
 reference's Pallas kernel gives them (``ref.py`` states the rule).
+
+Gradients: on the card, when grad mode is on and q, k or v requires a
+gradient, ``attention`` runs through ``FlashAttention`` (an
+``autograd.Function``): its forward is the same launch with the rows'
+log-sum-exp written beside the output, its backward the two kernels of
+``csrc/flash_attention_bwd.cu`` (``launch_bwd``: dq, then dk and dv, no
+atomics), counted as ``flash_attention_bwd``.  The backward takes what
+the reference's recompute VJP gives a finite gradient for: every causal
+row sees a key (Tq <= Tk); it raises on the rest.  On the CPU gradients
+come from autograd through ``ref.attention``.  Serving (no gradient)
+launches the forward alone, as before.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CUDA_CORES = 0        # ``flash_fwd``
 TENSOR_CORES = 1      # ``flash_fwd_sm90``, P = bf16 hi + bf16 lo
 SM90_HEAD_DIMS = (64, 128)
+BWD_LAUNCHES = 2      # kernel launches per backward call (dq; dk and dv)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> int:
@@ -42,6 +54,16 @@ def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_bwd():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -70,12 +92,41 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"q, k, v on {q.device}, {k.device}, "
                              f"{v.device}")
         return ref.attention(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
     return launch(q, k, v, causal, scale)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention on the card with the hand-written backward: the forward
+    saves q, k, v, the output and the rows' log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if causal and q.shape[2] > k.shape[2]:
+            raise ValueError(
+                f"the attention backward takes causal rows that see a key "
+                f"(Tq <= Tk), got Tq {q.shape[2]} > Tk {k.shape[2]}")
+        out, lse = launch(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = launch_bwd(q, k, v, out, dout.contiguous(), lse,
+                                ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           scale: float | None) -> torch.Tensor:
-    """``attention`` on the card: one launch of ``route``'s kernel."""
+           scale: float | None, with_lse: bool = False):
+    """``attention`` on the card: one launch of ``route``'s kernel.  With
+    ``with_lse`` also the rows' log-sum-exp (float32 ``[B, Hq, Tq]``,
+    natural log of the sum of exp(scale·q·k) over the visible keys):
+    returns ``(out, lse)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu, not {dev}")
@@ -104,12 +155,71 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                    for t in (q, k, v))
     scale = (D ** -0.5) if scale is None else float(scale)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev) \
+        if with_lse else None
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, Hkv, Tq, Tk, D, int(bool(causal)),
-                 ref.masked_row_denominator(Tk), scale, _DTYPES[q.dtype],
+                 ref.masked_row_denominator(Tk), scale,
+                 None if lse is None else lse.data_ptr(), _DTYPES[q.dtype],
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err}")
     launched("flash_attention")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+               causal: bool, scale: float | None):
+    """dq, dk, dv of ``attention`` on the card (``flash_bwd_dq``, then
+    ``flash_bwd_dkdv``), in q's type, from the forward's ``out`` and
+    ``lse`` (``launch(..., with_lse=True)``) and the gradient ``dout``."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the attention backward runs on cuda, not {dev}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"attention takes float32 or bfloat16, not "
+                        f"{q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (dout, "dout")):
+        _check(t, name, q.dtype, dev)
+    if lse.device != dev or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous float32 tensor on "
+                         f"{dev}")
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if tuple(out.shape) != tuple(q.shape) \
+            or tuple(dout.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (B, Hq, Tq) \
+            or tuple(v.shape) != tuple(k.shape) or k.shape[0] != B \
+            or k.shape[3] != D:
+        raise ValueError(f"backward shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)}")
+    if Hkv < 1 or Hq % Hkv or D not in HEAD_DIMS:
+        raise ValueError(f"{Hq} query heads over {Hkv} KV heads at head "
+                         f"width {D}")
+    if causal and Tq > Tk:
+        raise ValueError(f"causal rows without a visible key (Tq {Tq} > "
+                         f"Tk {Tk}) have no finite gradient")
+    if B > 65535 or Hq > 65535:
+        raise ValueError(f"oversized attention {tuple(q.shape)}")
+    scale = (D ** -0.5) if scale is None else float(scale)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, Hq, Tq), dtype=torch.float32, device=dev)
+    err = _lib_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     delta.data_ptr(), B, Hq, Hkv, Tq, Tk, D,
+                     int(bool(causal)), scale, _DTYPES[q.dtype],
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    for _ in range(BWD_LAUNCHES):
+        launched("flash_attention_bwd")
+    return dq, dk, dv

@@ -56,3 +56,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             / float(masked_row_denominator(Tk))
         out = torch.where(live[:, None], out, dead)
     return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor, causal: bool = True,
+                  scale: float | None = None):
+    """dq, dk, dv of ``attention`` by autograd through it (the VJP the
+    reference's ``_flash_bwd`` recomputes): the yardstick of the backward
+    kernel (``csrc/flash_attention_bwd.cu``)."""
+    with torch.enable_grad():
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attention(qs, ks, vs, causal=causal, scale=scale)
+        return torch.autograd.grad(out, (qs, ks, vs), dout)
+
+
+def logsumexp(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+              scale: float | None = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled logits over the visible keys
+    (float32 ``[B, Hq, Tq]``): the yardstick of the forward kernels'
+    ``lse`` output.  Rows must see a key."""
+    B, Hq, Tq, D = q.shape
+    _, Hkv, Tk, _ = k.shape
+    g = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qf = q.float().reshape(B, Hkv, g, Tq, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    if causal:
+        qi = torch.arange(Tq, device=q.device)[:, None]
+        kj = torch.arange(Tk, device=q.device)[None, :]
+        logits = torch.where(kj <= qi + (Tk - Tq), logits, float("-inf"))
+    return torch.logsumexp(logits, dim=-1).reshape(B, Hq, Tq)

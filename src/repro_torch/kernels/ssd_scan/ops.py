@@ -11,7 +11,8 @@ L = N = 128) go to the tensor-core kernel ``ssd_chunk_sm90`` (3xTF32
 wgmma, C·Bᵀ once per chunk and B/C group), every other shape (ragged or
 short chunks, other widths) to the CUDA-core ``ssd_chunk_kernel``.  One
 launch a call; a failed build or launch raises, and nothing retries the
-other kernel.
+other kernel.  The kernels have no backward yet: on the card, a call in
+grad mode with an input that requires a gradient raises.
 """
 from __future__ import annotations
 
@@ -92,6 +93,13 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
         return ref.ssd_chunk(x, dt, la, b, c, group)
     if dev.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cuda or cpu, not {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, la, b, c)):
+        # the kernel's outputs carry no grad_fn: a gradient would stop here
+        raise NotImplementedError(
+            "ssd_chunk has no backward kernel yet: training the ssm family "
+            "(mamba2-130m) on the card comes with the ssd_chunk backward "
+            "slice; the CPU path differentiates through ref.ssd_chunk")
     if x.dim() != 4 or b.dim() != 4:
         raise ValueError(f"x and b must be 4-d, got {tuple(x.shape)} and "
                          f"{tuple(b.shape)}")

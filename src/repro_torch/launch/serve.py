@@ -35,6 +35,7 @@ from ..configs.base import ArchConfig
 from ..core.types import resolve_device
 from ..models import build_model
 
+# the presets of this driver and of launch/train.py (defined here once)
 PRESETS = {
     # ~8M-param decoder (runs a few steps/s on one CPU core)
     "tiny": ArchConfig(name="tiny", family="dense", n_layers=4,

@@ -1,7 +1,10 @@
 """Carry the reference's trees across: ``params_from_numpy`` turns nested
 dicts of numpy arrays (the JAX package's parameters, each leaf through
 ``np.asarray``) into the port's tree of tensors, ``decode_state_from_numpy``
-a decode state of the reference into the port's.
+a decode state of the reference into the port's, ``opt_state_from_numpy``
+an ``AdamWState``; ``tree_to_numpy`` takes a port tree back to numpy
+(bfloat16 leaves as the ``ml_dtypes`` type when the caller names it,
+else as their uint16 view), for comparison with the reference's.
 
 A JAX bfloat16 array comes to numpy as the ``ml_dtypes`` bfloat16 type,
 which ``torch.from_numpy`` refuses; such a leaf (found by its dtype's
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.types import resolve_device
+from ..tree import tree_map
 from .attention import KVCache, QuantKVCache
 from .encdec import EncDecState
 from .mamba2 import MambaState
@@ -30,6 +34,28 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(a, copy=True))
     return t.to(resolve_device(device))
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's ``AdamWState`` from the reference's (its leaves through
+    ``np.asarray``; the same field names)."""
+    from ..train.optimizer import AdamWState
+    return AdamWState(step=tensor_from_numpy(state.step, device),
+                      mu=params_from_numpy(state.mu, device),
+                      nu=params_from_numpy(state.nu, device))
+
+
+def tree_to_numpy(tree: Any, bf16_dtype=None) -> Any:
+    """A port tree (dicts, named tuples, tensors) as numpy on the host;
+    a bfloat16 leaf as ``bf16_dtype`` (e.g. ``ml_dtypes.bfloat16``, bit
+    for bit) or, without one, as its uint16 view."""
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            u16 = t.view(torch.int16).numpy().view(np.uint16)
+            return u16 if bf16_dtype is None else u16.view(bf16_dtype)
+        return t.numpy()
+    return tree_map(one, tree)
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

@@ -127,6 +127,12 @@ class EncDec:
     def logits(self, params, hidden):
         return unembed(hidden, params["embed"].T)
 
+    def loss_fn(self, params, batch, remat=True):
+        raise NotImplementedError(
+            f"training the encdec family ({self.cfg.name}) is not ported "
+            "yet: it comes with the vlm/moe/encdec training slice (the "
+            "flash backward's cross-attention, bfloat16 frames)")
+
     # ---------------- serving ------------------------------------------
     def init_decode_state(self, batch: int, seq: int,
                           device="cuda") -> EncDecState:

@@ -5,7 +5,14 @@ Layer structure: pre-norm mixer (attention or Mamba-2) + for attention
 a pre-norm FFN, SwiGLU or (``cfg.moe``) the MoE layer of ``models.moe``.
 Parameters are stacked over a leading ``[n_layers, ...]`` axis as in
 the reference, and a Python loop over the layers takes the place of its
-``lax.scan``; serving runs no remat.  In decode the cache position is a
+``lax.scan``: the full-sequence forward unbinds the stacked leaves once
+(``unbind_layers``), so a backward through it stacks each leaf's
+gradient once instead of building a full-size zero gradient per layer.
+``hidden_states(remat=True)`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
+serving runs no remat.  ``loss_fn`` is the reference's masked-mean cross
+entropy; training is ported for the ``dense`` family (the others raise,
+naming the slice that brings them).  In decode the cache position is a
 0-d int32 tensor on the model's device, as the reference's
 ``cache.pos``, and ``decode_step`` writes the whole decode state in
 place: every step reads and writes the same buffers, so the step can be
@@ -22,6 +29,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
@@ -45,6 +54,30 @@ def _layer(tree, i: int):
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def unbind_layers(tree, n: int) -> List[Any]:
+    """The per-layer trees of a stacked parameter tree, each leaf unbound
+    once along its layer axis (views)."""
+    def cut(t):
+        if isinstance(t, torch.Tensor):
+            return t.unbind(0)
+        return {k: cut(v) for k, v in t.items()}
+
+    def pick(t, i):
+        if isinstance(t, tuple):
+            return t[i]
+        return {k: pick(v, i) for k, v in t.items()}
+    parts = cut(tree)
+    return [pick(parts, i) for i in range(n)]
+
+
+# the slice of the port that brings training to each family that has none
+_TRAIN_SLICE = {
+    "ssm": "the ssm training slice (an ssd_chunk backward kernel)",
+    "moe": "the vlm/moe/encdec training slice",
+    "vlm": "the vlm/moe/encdec training slice",
+}
 
 
 class DecodeState(NamedTuple):
@@ -127,8 +160,6 @@ class LM:
         embeds [B, T, d] cast to the embedding's type) → final-norm hidden
         states [B, T, d].  Positions default to 0..T-1, as ``[3, B, T]``
         under M-RoPE."""
-        if remat:
-            raise NotImplementedError("repro_torch serves without remat")
         if embeds is None:
             x = params["embed"][tokens]
         else:
@@ -139,8 +170,13 @@ class LM:
                                      device=x.device).expand(B, T)
             if self.cfg.mrope_sections is not None:
                 positions = positions[None].expand(3, B, T)
-        for i in range(self.cfg.n_layers):
-            x = self._block(_layer(params["layers"], i), x, positions)
+        for lp in unbind_layers(params["layers"], self.cfg.n_layers):
+            if remat:
+                x = checkpoint(self._block, lp, x, positions,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(lp, x, positions)
         return rmsnorm(x, params["final_norm"])
 
     def logits(self, params, hidden):
@@ -148,6 +184,23 @@ class LM:
         if head is None:
             return unembed(hidden, params["embed"].T)
         return unembed(hidden, head)
+
+    def loss_fn(self, params, batch, remat=True):
+        """Causal-LM cross entropy over float32 logits, the mean over the
+        positions whose label is not negative (0-d float32)."""
+        family = self.cfg.family
+        if family != "dense":
+            raise NotImplementedError(
+                f"training the {family} family ({self.cfg.name}) is not "
+                f"ported yet: it comes with {_TRAIN_SLICE[family]}")
+        h = self.hidden_states(params, tokens=batch["tokens"], remat=remat)
+        logits = self.logits(params, h)                     # f32 [B, T, V]
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              labels.clamp_min(0).reshape(-1).long(),
+                              reduction="none").reshape(labels.shape)
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
     # ---------------- decode -------------------------------------------
     def init_decode_state(self, batch: int, seq: int,

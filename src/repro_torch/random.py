@@ -1,7 +1,9 @@
 """Threefry-2x32 counter-based random numbers, bit for bit with the
 non-partitionable derivation of ``jax.random`` (``jax_threefry_partitionable
 = False``): ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``, ``uniform``,
-``normal`` and ``randint``.
+``normal`` and ``randint``; ``split``, ``uniform`` and the bits also in
+the partitionable derivation (JAX's default, which the synthetic data
+pipeline's reference draws under).
 
 Keys are derived on the host: the simulation's key schedule is a pure
 function of the seed and the tick (it never reads simulation data), so
@@ -99,9 +101,15 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, s & M32], dtype=torch.int64)
 
 
-def split(key, num: int = 2):
+def split(key, num: int = 2, partitionable: bool = False):
     """``jax.random.split`` → ``[num, 2]`` keys; of a ``TableKey``, its
-    ``num`` child streams (a list)."""
+    ``num`` child streams (a list).  ``partitionable``: the derivation of
+    ``jax_threefry_partitionable = True`` (JAX's default from 0.5), where
+    key i is the hash of the count pair (0, i)."""
+    if partitionable:
+        k1, k2 = _host_words(key)
+        return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                            dtype=torch.int64)
     if isinstance(key, TableKey):
         return [TableKey(key.table, key.path + ((num, i),))
                 for i in range(num)]
@@ -265,6 +273,20 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
     return _hash_counts(key, counts).reshape(shape)
 
 
+def random_bits_partitionable(key: torch.Tensor, shape: Sequence[int],
+                              device=None) -> torch.Tensor:
+    """``random_bits`` under ``jax_threefry_partitionable = True``: element
+    i is the xor of the two words of the hash of the count pair (0, i)."""
+    shape = tuple(int(s) for s in shape)
+    size = math.prod(shape)
+    if size >= M32:
+        raise NotImplementedError("more than 2**32 - 1 random words")
+    counts = torch.arange(size, dtype=torch.int64, device=device)
+    k1, k2 = _host_words(key)
+    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+    return (y0 ^ y1).reshape(shape)
+
+
 def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
     """Mantissa trick: [1, 2) from the top 23 bits, minus 1 → [0, 1)."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
@@ -272,11 +294,13 @@ def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0, device=None) -> torch.Tensor:
+            maxval: float = 1.0, device=None,
+            partitionable: bool = False) -> torch.Tensor:
     """``jax.random.uniform`` (float32)."""
     lo = np.float32(minval)
     hi = np.float32(maxval)
-    f = _unit_floats(random_bits(key, shape, device))
+    draw = random_bits_partitionable if partitionable else random_bits
+    f = _unit_floats(draw(key, shape, device))
     span = float(np.float32(hi - lo))
     return torch.clamp_min(f * span + float(lo), float(lo))
 

@@ -1,0 +1,186 @@
+"""AdamW from scratch with mixed precision (the reference's
+``repro.train.optimizer``): bfloat16 (or float32) parameters, float32
+moments, the update in float32 cast back to each parameter's type.
+
+The arithmetic is that of the reference's jitted step (``jax.jit`` of
+``adamw_update`` on the CPU), so that the same gradients give the same
+bits.  XLA rewrites the program before it runs it, and the port writes
+the rewritten form:
+
+* a division by a constant is a multiply by its float32 reciprocal
+  (``step / warmup`` → ``step · f32(1/warmup)``), and constant factors
+  fold (``0.9 · (0.5 · x)`` → ``x · 0.45``);
+* ``mhat / (sqrt(vhat) + eps)`` with ``mhat = mu / bc1`` is
+  ``mu / (bc1 · (sqrt(nu / bc2) + eps))``;
+* multiply-add pairs are fused (``numerics.fma32``): ``mu·b1 + (1-b1)·g``,
+  ``nu·b2 + ((1-b2)·g)·g``, ``pf·wd + d`` and ``pf - lr·t``, and the
+  schedule's ``(cos + 1)·K + min_lr_frac``;
+* ``b ** step`` and ``cos`` are the C library's ``powf`` and ``cosf``
+  (``numerics.pow32``, ``numerics.cos32``).
+
+``clip_by_global_norm`` sums the leaves in ``jax.tree_util`` order
+(sorted dict keys).  On the CPU each leaf's sum of squares follows XLA's
+tree reduction (windows of 32 along every dimension longer than 32,
+summed in row-major order, until no dimension is; then the rest in
+row-major order): that is the reference's order for every 1-d leaf and
+wherever LLVM keeps the loops' order; for some multi-dimensional shapes
+(a minor extent of 4 or 8, small final reductions) its vectoriser
+re-associates a reduction loop, and a leaf's sum moves by a few ulp
+(``tests/test_torch_train_opt.py`` lists shapes of both kinds).  On the
+card the sums are ``torch.sum``'s (float32, deterministic).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ..numerics import cos32, fma32, pow32
+from ..random import _sqrt32
+from ..tree import tree_leaves, tree_map, tree_unzip
+
+# the elementwise update runs over flat chunks of this many elements, so
+# its float64 temporaries (``fma32``) stay small beside a large leaf
+CHUNK = 1 << 24
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor      # 0-d int32
+    mu: Any                 # float32 tree like params
+    nu: Any                 # float32 tree like params
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWCfg:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    clip_norm: float = 1.0
+
+
+def adamw_init(params) -> AdamWState:
+    """Zero moments (float32) beside every parameter, step 0 on the
+    parameters' device."""
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+
+def _rcp(c: float) -> float:
+    """float32 1 / c, as XLA folds a division by the constant c."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def lr_schedule(step: torch.Tensor, cfg: AdamWCfg) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_frac`` (0-d float32 on
+    the step's device)."""
+    s = step.float()
+    warm = torch.clamp_max(s * _rcp(max(cfg.warmup_steps, 1)), 1.0)
+    prog = (s - _f32(cfg.warmup_steps)) \
+        * _rcp(max(cfg.total_steps - cfg.warmup_steps, 1))
+    prog = torch.clamp_max(torch.clamp_min(prog, 0.0), 1.0)
+    cos = cos32(prog * _f32(math.pi))
+    half = _f32(1 - cfg.min_lr_frac) * 0.5
+    frac = fma32(cos + 1.0, half, _f32(cfg.min_lr_frac))
+    return (warm * _f32(cfg.lr)) * frac
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of every element of a CPU tensor in the order of XLA's
+    CPU tree reduction (see the module's docstring).  Each window is
+    summed left to right by numpy's ``add.accumulate`` (a sequential
+    float32 loop); the zero padding adds exactly 0."""
+    a = x.detach().numpy()
+    while any(d > 32 for d in a.shape):
+        pads, outer, inner = [], [], []
+        for d in a.shape:
+            m = -(-d // 32) if d > 32 else 1
+            p = 32 * m - d if d > 32 else 0
+            pads.append((p // 2, p - p // 2))
+            outer.append(m)
+            inner.append(32 if d > 32 else d)
+        nd = a.ndim
+        a = np.pad(a, pads).reshape(
+            [n for pair in zip(outer, inner) for n in pair])
+        a = a.transpose(*range(0, 2 * nd, 2), *range(1, 2 * nd, 2)) \
+            .reshape(math.prod(outer), math.prod(inner))
+        a = np.add.accumulate(a, axis=1)[:, -1].reshape(outer)
+    return torch.from_numpy(np.add.accumulate(a.reshape(-1))[-1:].copy()) \
+        .reshape(())
+
+
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    sq = leaf.float() * leaf.float()
+    if sq.device.type == "cpu":
+        return xla_sum(sq)
+    return torch.sum(sq)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale every leaf by min(1, max_norm / |grads|) (float32 math, the
+    leaf's type kept); returns (clipped tree, global norm)."""
+    sq = None
+    for leaf in tree_leaves(grads):
+        s = _sum_squares(leaf)
+        sq = s if sq is None else sq + s
+    gnorm = _sqrt32(sq)
+    # a tensor numerator: ``number / tensor`` is a reciprocal and a
+    # multiply in PyTorch, two roundings
+    num = torch.full((), _f32(max_norm), device=gnorm.device)
+    scale = torch.clamp_max(num / torch.clamp_min(gnorm, _f32(1e-9)), 1.0)
+    clipped = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
+    return clipped, gnorm
+
+
+def _update_chunk(p, g, mu, nu, cfg, lr, bc1, bc2):
+    gf = g.float()
+    mu_n = fma32(mu, _f32(cfg.b1), gf * _f32(1 - cfg.b1))
+    nu_n = fma32(nu, _f32(cfg.b2), (gf * _f32(1 - cfg.b2)) * gf)
+    d = mu_n / (bc1 * (_sqrt32(nu_n / bc2) + _f32(cfg.eps)))
+    pf = p.float()
+    t = fma32(pf, _f32(cfg.weight_decay), d)
+    return fma32(t, -lr, pf).to(p.dtype), mu_n, nu_n
+
+
+def adamw_update(params, grads, state: AdamWState, cfg: AdamWCfg):
+    """One AdamW step: returns (params, state, {"lr", "grad_norm"}), the
+    metrics as 0-d float32 tensors on the device (no host read)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    step = state.step + 1
+    lr = lr_schedule(step, cfg)
+    s = step.float()
+    one = torch.ones((), dtype=torch.float32, device=s.device)
+    bc1 = 1.0 - pow32(one * _f32(cfg.b1), s)
+    bc2 = 1.0 - pow32(one * _f32(cfg.b2), s)
+
+    def upd(p, g, mu, nu):
+        out = torch.empty_like(p)
+        mu_o, nu_o = torch.empty_like(mu), torch.empty_like(nu)
+        flat = [t.reshape(-1) for t in (p, g, mu, nu, out, mu_o, nu_o)]
+        for a in range(0, p.numel(), CHUNK):
+            pc, gc, mc, nc, oc, mo, no = (t[a:a + CHUNK] for t in flat)
+            r = _update_chunk(pc, gc, mc, nc, cfg, lr, bc1, bc2)
+            oc.copy_(r[0])
+            mo.copy_(r[1])
+            no.copy_(r[2])
+        return out, mu_o, nu_o
+
+    new_p, mu, nu = tree_unzip(
+        tree_map(upd, params, grads, state.mu, state.nu), 3)
+    return new_p, AdamWState(step=step, mu=mu, nu=nu), \
+        {"lr": lr, "grad_norm": gnorm}

@@ -1235,3 +1235,141 @@ def test_simcheck_sections_clean_on_card(dev):
     from repro_torch.analysis.simcheck import run_simcheck
     rep = run_simcheck(only={"lint", "layout", "streams"}, device=dev)
     assert rep.ok, rep.problems
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the flash backward kernel, the log-sum-exp output,
+# the train step
+# ---------------------------------------------------------------------------
+
+# the backward kernel against autograd through the plain version
+# (relative, absolute as a fraction of the output's max magnitude): float32
+# sums in another order; bfloat16: the outputs' own bf16 rounding (2^-8),
+# and Δ = Σ dO·O taken from the forward's bf16 output, whose rounding
+# reaches dS where dP - Δ cancels
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -6,
+                                                          2.0 ** -7)}
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+def _bwd_close(got, want, dtype):
+    rtol, afrac = BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
+        atol = afrac * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (1, 16, 8, 512, 512, 128, True),       # qwen3-0.6b heads (group 2)
+    (2, 4, 2, 256, 256, 64, True),         # the presets' heads
+    (2, 4, 4, 100, 100, 64, True),         # MHA, ragged
+    (1, 8, 1, 77, 333, 32, True),          # MQA, Tq < Tk, ragged
+    (1, 4, 2, 200, 70, 16, False),         # non-causal, Tq > Tk
+    (2, 4, 2, 90, 150, 64, False),         # non-causal
+    (1, 14, 2, 129, 129, 128, True),       # group 7, one row past a tile
+])
+def test_flash_bwd_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
+                                        dtype, dev):
+    q, k, v = _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    out, lse = tflash.launch(q, k, v, causal, None, with_lse=True)
+    before = counts["flash_attention_bwd"]
+    a = tflash.launch_bwd(q, k, v, out, dout, lse, causal, None)
+    b = tflash.launch_bwd(q, k, v, out, dout, lse, causal, None)
+    assert counts["flash_attention_bwd"] == before + 2 * tflash.BWD_LAUNCHES
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = tflash_ref.attention_bwd(q, k, v, dout, causal=causal)
+    torch.cuda.synchronize()
+    _bwd_close(a, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (1, 16, 8, 300, 300, 128, True),       # flash_fwd_sm90 in bf16
+    (2, 4, 2, 100, 100, 64, True),
+    (1, 8, 1, 77, 333, 32, True),          # flash_fwd, Tq < Tk
+    (2, 4, 2, 90, 150, 16, False),
+])
+def test_flash_lse_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal, dtype, dev):
+    """The forward kernels' log-sum-exp output; the output itself is the
+    launch without it, bit for bit."""
+    q, k, v = _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev)
+    out, lse = tflash.launch(q, k, v, causal, None, with_lse=True)
+    assert torch.equal(out, tflash.launch(q, k, v, causal, None))
+    want = tflash_ref.logsumexp(q, k, causal=causal)
+    torch.testing.assert_close(lse, want, rtol=LSE_TOL[dtype],
+                               atol=LSE_TOL[dtype])
+
+
+def test_flash_autograd_runs_the_kernels(dev):
+    """``attention`` under grad: one forward launch with the log-sum-exp,
+    the backward kernels in backward, the same gradients as
+    ``launch_bwd``; without grad the serving launch alone."""
+    q, k, v = _qkv(2, 4, 2, 200, 200, 64, torch.bfloat16, dev)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = dict(counts)
+    out = tflash.attention(qs, ks, vs)
+    dout = torch.randn_like(out)
+    out.backward(dout)
+    assert counts["flash_attention"] == before["flash_attention"] + 1
+    assert counts["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + tflash.BWD_LAUNCHES
+    o, lse = tflash.launch(q, k, v, True, None, with_lse=True)
+    want = tflash.launch_bwd(q, k, v, o, dout, lse, True, None)
+    for g, w in zip((qs.grad, ks.grad, vs.grad), want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="Tq <= Tk"):
+        tflash.attention(qs[:, :, :100], ks[:, :, :50], vs[:, :, :50])
+
+
+def test_ssd_chunk_raises_under_grad(dev):
+    x, dt, la, b, c = _ssd_inputs(4, 2, 16, 16, 16, 1, dev)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tssd.ssd_chunk(x.requires_grad_(True), dt, la, b, c)
+    with torch.no_grad():
+        tssd.ssd_chunk(x, dt, la, b, c)
+
+
+def _tiny_run(dev, steps=3, seed=0):
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.serve import PRESETS
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, adamw_init, make_train_step
+    cfg = PRESETS["tiny"]
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               dev)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWCfg(lr=1e-3, warmup_steps=2,
+                                           total_steps=10))
+    data = SyntheticLM(cfg.vocab, 64, 2)
+    losses = []
+    for s in range(steps):
+        params, opt, m = step(params, opt, data.batch(s, device=dev))
+        losses.append(m["loss"])
+    return params, opt, losses
+
+
+def test_train_step_on_card_repeats_bit_for_bit(dev):
+    """Two runs of the tiny preset from the same seed: every parameter
+    and moment bit-equal (no atomics on the path), the flash kernels in
+    both directions on it."""
+    from repro_torch.tree import tree_leaves
+    before = dict(counts)
+    pa, oa, la = _tiny_run(dev)
+    n_layers = 4
+    assert counts["flash_attention"] - before["flash_attention"] == \
+        3 * 2 * n_layers                       # forward + remat recompute
+    assert counts["flash_attention_bwd"] - before["flash_attention_bwd"] \
+        == 3 * n_layers * tflash.BWD_LAUNCHES
+    pb, ob, lb = _tiny_run(dev)
+    for x, y in zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))):
+        assert torch.equal(x, y)
+    assert all(bool(torch.isfinite(x)) for x in la)

@@ -136,6 +136,32 @@ def test_obs_runs_with_jax_and_reference_unimportable():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_train_runs_with_jax_and_reference_unimportable(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.launch import train
+        losses = train.main(["--preset", "tiny", "--steps", "3", "--batch",
+                             "2", "--seq", "16", "--ckpt-dir",
+                             {str(tmp_path / "ck")!r}, "--ckpt-every", "2",
+                             "--compress-grads", "--device", "cpu"])
+        assert len(losses) == 3 and all(x == x for x in losses)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "step_00000001.json", "step_00000001.npz", "step_00000002.json",
+        "step_00000002.npz"]
+
+
 def test_default_device_is_the_gpu():
     from repro_torch.core import (SimCaps, SimParams, Simulation, diamond,
                                   response_times)
@@ -165,6 +191,13 @@ def test_default_device_is_the_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.state_from_numpy(convert.state_to_numpy(st),
                                  resolve_layout(params))
+    # training too: the driver and the data pipeline
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--preset", "tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLM(64, 8, 1).batch(0)
 
 
 def test_unported_modes_raise():

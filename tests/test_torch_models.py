@@ -305,8 +305,9 @@ def test_decode_matches_forward_on_the_port(arch):
 def test_unported_parts_raise():
     """Every architecture but jamba builds (the dense and ssm ones of
     ``ARCHS``, the moe pair, whisper-base's encdec and qwen2-vl-7b's
-    vlm); jamba's config and the ``hybrid`` family raise.  The int8 cache
-    and the flat formulations, unported before, now build and run."""
+    vlm); jamba's config and the ``hybrid`` family raise.  The int8 cache,
+    the flat formulations and remat, unported before, now build and
+    run."""
     assert set(PORTED) == set(ARCHS) | {
         "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "whisper-base",
         "qwen2-vl-7b"}
@@ -340,8 +341,12 @@ def test_unported_parts_raise():
         lg, _ = m.decode_step(params, torch.zeros((1, 1), dtype=torch.long),
                               m.init_decode_state(1, 4, device="cpu"))
         assert bool(torch.isfinite(lg).all())
-    with pytest.raises(NotImplementedError):
-        build_model(base).hidden_states(None, remat=True)
+    # remat, unported before, now runs: the same hidden states
+    m = build_model(base)
+    params = m.init_params(torch.Generator().manual_seed(0), "cpu")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    assert torch.equal(m.hidden_states(params, tokens=tok, remat=True),
+                       m.hidden_states(params, tokens=tok))
 
 
 def test_entry_points_default_to_the_gpu():
