@@ -12,12 +12,15 @@ Phases, in order (any failure exits non-zero):
    sources built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel); the ``ptxas`` registers and spills per kernel of the
    simulator's ``tropical``, ``cloudlet_finish`` and ``link_share`` builds
-   and of each model-zoo build (flash attention, the SSD chunk), where the
-   two tropical kernels and the tensor-core kernels (``flash_fwd_sm90``,
-   ``ssd_chunk_sm90``) must spill nothing; the tropical kernels' SASS
-   (``cuobjdump --dump-sass``) counts of FADD and FMNMX, which must be
-   equal (one max instruction a term), and the model-zoo builds' SASS,
-   which must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads);
+   and of each model-zoo build (flash attention, its backward, the SSD
+   chunk), where the two tropical kernels, the tensor-core kernels
+   (``flash_fwd_sm90``, ``ssd_chunk_sm90``) and every kernel of the
+   backward build (its four: ``flash_bwd_dq_sm90``,
+   ``flash_bwd_dkdv_sm90``, ``flash_bwd_dq``, ``flash_bwd_dkdv``) must
+   spill nothing; the tropical kernels' SASS (``cuobjdump --dump-sass``)
+   counts of FADD and FMNMX, which must be equal (one max instruction a
+   term), and the model-zoo builds' SASS, which must hold ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA loads);
 2. an empty kernel's launch (device and per call), the floor of the
    launch-bound simulator kernels; then each kernel against its plain
    PyTorch version on the card, at the main paths' shapes, with the route
@@ -192,21 +195,28 @@ Phases, in order (any failure exits non-zero):
    calls per replayed step; the int8 cache's next-token probabilities
    within 1e-2 of the bf16 cache's over 8 steps
    (``tests/test_quant_kv.py``'s rule);
-13. training (the dense family, ``repro_torch.train``): the flash
-   backward kernels (``csrc/flash_attention_bwd.cu``; their ``ptxas``
-   report, checked for spills, in phase 1) against autograd through the
-   plain version (``ref.attention_bwd``, ``BWD_TOL``) and the forward's
-   log-sum-exp output against the plain one, at qwen3-0.6b's training
-   heads (B 2, Hq 16, Hkv 8, T 4096, D 128, bf16; timed beside the bound,
-   the plain version and the SDPA backward), the presets' D 64, float32
-   (timed), a ragged T, a non-causal Tq < Tk and a group of 7, two
-   launches bit-identical; ``launch.train.main`` for qwen3-0.6b at full
+13. training (the dense family, ``repro_torch.train``): the training
+   forward (``launch(..., with_lse=True)``) at qwen3-0.6b's training
+   heads, timed beside its bound and SDPA; the flash backward kernels
+   (``csrc/flash_attention_bwd.cu``, the pair ``ops.route_bwd`` names on
+   each line; their ``ptxas`` report, which must hold the four kernels
+   and no spill, and SASS in phase 1) against autograd through the plain
+   version (``ref.attention_bwd``, ``BWD_TOL``) and the forward's
+   log-sum-exp output against the plain one: on the tensor-core kernels
+   at qwen3-0.6b's training heads (B 2, Hq 16, Hkv 8, T 4096, D 128,
+   bf16) and whisper-base's cross-attention (non-causal, Tq 4096 over Tk
+   1500, D 64), both timed beside the bound, the plain version and the
+   SDPA backward, the presets' D 64, a ragged T, a non-causal Tq < Tk, a
+   group of 7 and granite-20b's MQA (48/1, T 4096); on the CUDA-core
+   kernels float32 and bf16 at D 32 (timed); two launches bit-identical;
+   ``launch.train.main`` for qwen3-0.6b at full
    width and depth, T 4096 (``train_4k``), B 2 (cut from 256), remat on,
    ``TRAIN_STEPS`` steps twice from one seed: finite losses and norms,
    per step 2 x 28 ``flash_attention`` and 28 x 2 ``flash_attention_bwd``
    launches, the two runs bit-equal in every parameter and moment, the
    step wall, tok/s and peak memory, then one profiled step: busy share,
-   device time by kernel and the flash backward's share; a 2-layer
+   device time by kernel and the flash backward's share, the trace
+   naming ``flash_bwd_dq_sm90`` and ``flash_bwd_dkdv_sm90``; a 2-layer
    full-width qwen3-0.6b's train-step gradients on the card against the
    CPU (the ``SyntheticLM`` batch bit-equal, the loss, norm and every
    leaf within ``TRAIN_*_TOL``); the ``tiny`` preset's loss drop over
@@ -785,8 +795,11 @@ def gpu_line() -> str:
 def cuda_ms(fn, n, torch):
     """Milliseconds per call of ``fn()``: (CUDA events around ``n`` calls
     after two warm-ups, the device time torch.profiler attributes to the
-    kernels of ``n`` calls).  The first includes any host launch gap;
-    the second is None when the profiler sees no device time."""
+    kernels of ``n`` calls, traced with the CPU and CUDA activities, as
+    ``run_train_full``'s profile: with CUDA alone it recorded no kernel
+    launched through ctypes by an autograd-free call of the backward).
+    The first includes any host launch gap; the second is None when three
+    profiles in a row see no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
@@ -799,11 +812,17 @@ def cuda_ms(fn, n, torch):
     b.record()
     torch.cuda.synchronize()
     event_ms = a.elapsed_time(b) / n
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = _device_us(prof)
+    # late in a full run of this script the profiler now and then records
+    # no device event for a whole session; profile again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = _device_us(prof)
+        if dev_us > 0:
+            break
     return event_ms, (dev_us / n / 1e3 if dev_us > 0 else None)
 
 
@@ -1281,12 +1300,16 @@ def flash_plain(q, k, v, rows, causal=True):
 
 
 def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time, causal=True,
-                Tk=None):
+                Tk=None, lse=False):
     """The flash kernel at a model's prefill heads against its plain
     version (and SDPA timed beside it as the yardstick), causal or not,
     T query rows on ``Tk`` keys (T unless given).  Each output element
     must lie within one bfloat16 rounding of the plain version's
-    (``FLASH_RTOL`` of its magnitude) plus ``FLASH_ATOL``."""
+    (``FLASH_RTOL`` of its magnitude) plus ``FLASH_ATOL``.  With ``lse``
+    the timed call is the training forward, ``launch(..., with_lse=True)``
+    (its output bit-equal to the serving launch's, its log-sum-exp within
+    1e-4 of ``ref.logsumexp``), and the bound counts the rows' log-sum-exp
+    written."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.flash_attention import ops
     Tk = T if Tk is None else Tk
@@ -1298,6 +1321,18 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time, causal=True,
     p = flash_plain(q, k, v, rows, causal)
     torch.cuda.synchronize()
     check(torch.equal(k1, k2), f"flash_attention {tag}: two launches differ")
+    call = lambda: ops.attention(q, k, v, causal=causal)
+    if lse:
+        from repro_torch.kernels.flash_attention import ref
+        call = lambda: ops.launch(q, k, v, causal, None, with_lse=True)
+        out, rows_lse = call()
+        lse_err = float((rows_lse - ref.logsumexp(q, k, causal=causal))
+                        .abs().max())
+        check(torch.equal(out, k1) and lse_err <= 1e-4,
+              f"flash_attention {tag}: the output with the log-sum-exp "
+              f"differs from the serving launch's, or its lse is off by "
+              f"{lse_err}")
+        del out, rows_lse
     diff = (k1.float() - p.float()).abs()
     err = float(diff.max())
     excess = float((diff - FLASH_RTOL * p.float().abs()).max())
@@ -1305,8 +1340,7 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time, causal=True,
           f"flash_attention {tag}: max|err| {err}, an element off by "
           f"{excess} beyond {FLASH_RTOL}·|plain| (tolerance {FLASH_ATOL})")
     del diff
-    k_ev, k_dev = cuda_ms(lambda: ops.attention(q, k, v, causal=causal),
-                          n_time, torch)
+    k_ev, k_dev = cuda_ms(call, n_time, torch)
     p_ev, p_dev = cuda_ms(lambda: flash_plain(q, k, v, rows, causal), 1,
                           torch)
     counts.update(saved)
@@ -1324,12 +1358,14 @@ def check_flash(tag, B, Hq, Hkv, T, D, torch, dev, n_time, causal=True,
     # the output written once (bf16)
     pairs = T * (T + 1) // 2 if causal else T * Tk
     ops_n = 4.0 * B * Hq * pairs * D
-    nbytes = 2.0 * B * D * (2 * Hq * T + 2 * Hkv * Tk)
+    nbytes = 2.0 * B * D * (2 * Hq * T + 2 * Hkv * Tk) \
+        + (4.0 * B * Hq * T if lse else 0.0)
     bound_ms, by = max((ops_n / BF16_OPS_PER_S * 1e3, "operations"),
                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     k_ms = k_dev or k_ev
     log(f"flash_attention {tag}: B={B} Hq={Hq} Hkv={Hkv} Tq={T} Tk={Tk} "
-        f"D={D} {'causal' if causal else 'non-causal'} bf16  "
+        f"D={D} {'causal' if causal else 'non-causal'} bf16"
+        f"{' with the log-sum-exp' if lse else ''}  "
         f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  "
         f"{ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
         f"{bound_ms / k_ms:.3f} of the bound  {k_ms / lib_ms:.3f}x SDPA  "
@@ -3155,13 +3191,18 @@ TRAIN_GRAD_TOL = 2.0 ** -4
 
 def check_flash_bwd(tag, B, Hq, Hkv, Tq, Tk, D, dtype, causal, torch, dev,
                     n_time=0):
-    """The backward kernels (``flash_bwd_dq``, ``flash_bwd_dkdv``) against
+    """The backward kernels of ``ops.route_bwd``'s pair (bf16 at D 64 or
+    128: ``flash_bwd_dq_sm90``, ``flash_bwd_dkdv_sm90``; float32 and bf16
+    at 16 or 32: ``flash_bwd_dq``, ``flash_bwd_dkdv``) against
     ``ref.attention_bwd`` on the same inputs; with ``n_time``, their time
     beside the plain version's, the SDPA backward's at the same shape (the
     yardstick, never on the path) and the bound."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.flash_attention import ops, ref
     dt = getattr(torch, dtype)
+    kernels = ("flash_bwd_dq_sm90 + flash_bwd_dkdv_sm90"
+               if ops.route_bwd(dt, D) == ops.TENSOR_CORES
+               else "flash_bwd_dq + flash_bwd_dkdv")
     g = torch.Generator(device=dev).manual_seed(29)
     mk = lambda H, n: torch.randn((B, H, n, D), generator=g, device=dev) \
         .to(dt)
@@ -3189,8 +3230,9 @@ def check_flash_bwd(tag, B, Hq, Hkv, Tq, Tk, D, dtype, causal, torch, dev,
     lse_err = float((lse - ref.logsumexp(q, k, causal=causal)).abs().max())
     check(lse_err <= 1e-4, f"flash_attention {tag}: log-sum-exp off by "
           f"{lse_err}")
-    line = (f"flash_attention_bwd {tag}: B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} "
-            f"Tk={Tk} D={D} {'causal' if causal else 'non-causal'} {dtype}"
+    line = (f"flash_attention_bwd {tag} ({kernels}): B={B} Hq={Hq} "
+            f"Hkv={Hkv} Tq={Tq} Tk={Tk} D={D} "
+            f"{'causal' if causal else 'non-causal'} {dtype}"
             f"  max|err| dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
             f"{errs[2]:.3g}  lse max|err| {lse_err:.3g}")
     res = dict(max_abs_err=max(errs))
@@ -3233,16 +3275,37 @@ def check_flash_bwd(tag, B, Hq, Hkv, Tq, Tk, D, dtype, causal, torch, dev,
     return res
 
 
+BWD_KERNELS = ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90", "flash_bwd_dq",
+               "flash_bwd_dkdv")
+
+
 def check_bwd_build():
-    """The backward build's ``ptxas`` registers and spills per kernel;
-    none may spill."""
+    """The backward build's ``ptxas`` registers and spills per kernel: the
+    report must hold each of ``BWD_KERNELS`` and no kernel may spill; its
+    SASS must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    from repro_torch.kernels import _build
     report = ptxas_report("flash_attention_bwd")
     log("flash_attention_bwd ptxas: " + (" | ".join(
         f"{k}: {v.get('registers', '?')} registers, "
         f"{v.get('spills', '?')} bytes spilled"
         for k, v in report.items()) or "no report"))
-    check(report and all(v.get("spills") == 0 for v in report.values()),
-          "flash_attention_bwd: no ptxas report, or a kernel that spills")
+    # mangled names carry the name's length: 17flash_bwd_dq_sm90I...
+    missing = [n for n in BWD_KERNELS
+               if not any(f"{len(n)}{n}I" in k for k in report)]
+    check(report and not missing
+          and all(v.get("spills") == 0 for v in report.values()),
+          f"flash_attention_bwd: kernels missing from the ptxas report "
+          f"{missing}, or a kernel that spills")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(_build.library("flash_attention_bwd"))],
+        capture_output=True, text=True, timeout=300).stdout
+    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    log("flash_attention_bwd SASS: " + "  ".join(f"{k} {v}"
+                                                 for k, v in n.items()))
+    check(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
+          "flash_attention_bwd: the built library holds no wgmma (HGMMA) or "
+          "no TMA load (UTMALDG)")
 
 
 def run_train_full(torch, dev, launches):
@@ -3337,12 +3400,16 @@ def run_train_full(torch, dev, launches):
           "device time")
     bwd = sum(v for k, v in by_name.items() if "flash_bwd" in k) / 1e6
     fwd = sum(v for k, v in by_name.items() if "flash_fwd" in k) / 1e6
-    check(bwd > 0 and fwd > 0, f"{TRAIN_ARCH} training: no flash_bwd or "
-          "flash_fwd kernel in the device trace")
+    passes = {n: sum(v for k, v in by_name.items() if n in k) / 1e6
+              for n in ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")}
+    check(all(passes.values()) and fwd > 0, f"{TRAIN_ARCH} training: the "
+          f"device trace lacks flash_bwd_dq_sm90, flash_bwd_dkdv_sm90 or "
+          f"flash_fwd ({passes}, flash_fwd {fwd})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"{TRAIN_ARCH} train step device time {busy:.3f} s; busy share "
         f"{busy / wall:.3f} of the unprofiled {wall:.3f} s wall; flash "
-        f"backward {bwd:.3f} s ({bwd / busy:.3f} of the device time), "
+        f"backward {bwd:.3f} s ({bwd / busy:.3f} of the device time: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in passes.items()) + "), "
         f"flash forward {fwd:.3f} s ({fwd / busy:.3f}); top kernels: "
         + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
     del params, opt, m, prof
@@ -3569,19 +3636,30 @@ def main() -> int:
             run_serve(arch, torch, dev, cfg=dataclasses.replace(
                 get_config(arch), kv_dtype="int8"))
         t_train = time.perf_counter()
+        # the training forward (with the rows' log-sum-exp) at train_4k
+        check_flash("qwen3-0.6b train_4k forward", TRAIN_BATCH, 16, 8,
+                    TRAIN_SEQ, 128, torch, dev, 20, lse=True)
+        # the backward: bf16 at D 64 and 128 on the tensor-core kernels,
+        # float32 and bf16 at D 32 on the CUDA-core ones
         results["flash_attention_bwd"] = check_flash_bwd(
             "qwen3-0.6b train_4k", TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ,
             128, "bfloat16", True, torch, dev, n_time=5)
+        check_flash_bwd("whisper cross", 1, 8, 8, TRAIN_SEQ, 1500, 64,
+                        "bfloat16", False, torch, dev, n_time=5)
         check_flash_bwd("presets' heads", 4, 4, 2, 1024, 1024, 64,
                         "bfloat16", True, torch, dev)
-        check_flash_bwd("float32", 1, 16, 8, 1024, 1024, 128, "float32",
-                        True, torch, dev, n_time=3)
         check_flash_bwd("ragged", 2, 16, 8, 1000, 1000, 128, "bfloat16",
                         True, torch, dev)
         check_flash_bwd("non-causal", 1, 8, 8, 777, 1500, 64, "bfloat16",
                         False, torch, dev)
         check_flash_bwd("group 7", 1, 28, 4, 1000, 1000, 128, "bfloat16",
                         True, torch, dev)
+        check_flash_bwd("granite-20b MQA", 1, 48, 1, TRAIN_SEQ, TRAIN_SEQ,
+                        128, "bfloat16", True, torch, dev)
+        check_flash_bwd("float32", 1, 16, 8, 1024, 1024, 128, "float32",
+                        True, torch, dev, n_time=3)
+        check_flash_bwd("D=32", 1, 16, 8, 1024, 1024, 32, "bfloat16",
+                        True, torch, dev, n_time=3)
         run_train_full(torch, dev, launches)
         check_train_two_layer(torch, dev)
         run_train_tiny(torch, dev)

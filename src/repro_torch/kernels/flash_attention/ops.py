@@ -17,9 +17,13 @@ reference's Pallas kernel gives them (``ref.py`` states the rule).
 Gradients: on the card, when grad mode is on and q, k or v requires a
 gradient, ``attention`` runs through ``FlashAttention`` (an
 ``autograd.Function``): its forward is the same launch with the rows'
-log-sum-exp written beside the output, its backward the two kernels of
+log-sum-exp written beside the output, its backward two kernels of
 ``csrc/flash_attention_bwd.cu`` (``launch_bwd``: dq, then dk and dv, no
-atomics), counted as ``flash_attention_bwd``.  The backward takes what
+atomics), counted as ``flash_attention_bwd``, picked by the rule
+``route_bwd`` states: bfloat16 at head width 64 or 128 goes to the
+tensor-core kernels ``flash_bwd_dq_sm90`` and ``flash_bwd_dkdv_sm90``
+(wgmma, TMA), float32 and bfloat16 at 16 or 32 to the CUDA-core
+``flash_bwd_dq`` and ``flash_bwd_dkdv``.  The backward takes what
 the reference's recompute VJP gives a finite gradient for: every causal
 row sees a key (Tq <= Tk); it raises on the rest.  On the CPU gradients
 come from autograd through ``ref.attention``.  Serving (no gradient)
@@ -36,8 +40,9 @@ from . import ref
 
 HEAD_DIMS = (16, 32, 64, 128)      # the kernels' compiled head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CUDA_CORES = 0        # ``flash_fwd``
-TENSOR_CORES = 1      # ``flash_fwd_sm90``, P = bf16 hi + bf16 lo
+CUDA_CORES = 0        # ``flash_fwd``; ``flash_bwd_dq``, ``flash_bwd_dkdv``
+TENSOR_CORES = 1      # ``flash_fwd_sm90`` (P = bf16 hi + bf16 lo);
+#                       ``flash_bwd_dq_sm90``, ``flash_bwd_dkdv_sm90``
 SM90_HEAD_DIMS = (64, 128)
 BWD_LAUNCHES = 2      # kernel launches per backward call (dq; dk and dv)
 
@@ -48,6 +53,13 @@ def route(dtype: torch.dtype, head_dim: int) -> int:
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return TENSOR_CORES
     return CUDA_CORES
+
+
+def route_bwd(dtype: torch.dtype, head_dim: int) -> int:
+    """The backward kernels that the C entry point runs for inputs of this
+    type and head width: the forward's rule, for the same reason (TF32
+    would break the float32 tolerance)."""
+    return route(dtype, head_dim)
 
 
 def _lib():
@@ -172,9 +184,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
                causal: bool, scale: float | None):
-    """dq, dk, dv of ``attention`` on the card (``flash_bwd_dq``, then
-    ``flash_bwd_dkdv``), in q's type, from the forward's ``out`` and
-    ``lse`` (``launch(..., with_lse=True)``) and the gradient ``dout``."""
+    """dq, dk, dv of ``attention`` on the card (the dq kernel, then the
+    dk/dv kernel of ``route_bwd``'s pair), in q's type, from the forward's
+    ``out`` and ``lse`` (``launch(..., with_lse=True)``) and the gradient
+    ``dout``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the attention backward runs on cuda, not {dev}")
@@ -206,6 +219,12 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Tk {Tk}) have no finite gradient")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"oversized attention {tuple(q.shape)}")
+    if route_bwd(q.dtype, D) == TENSOR_CORES:
+        if max(Tq, Tk) > 65535 * 128:
+            raise ValueError(f"{max(Tq, Tk)} rows exceed the grid")
+        # TMA and the Δ prologue read from 16-byte aligned addresses
+        q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (q, k, v, out, dout))
     scale = (D ** -0.5) if scale is None else float(scale)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -1272,9 +1272,23 @@ def _bwd_close(got, want, dtype):
     (1, 4, 2, 200, 70, 16, False),         # non-causal, Tq > Tk
     (2, 4, 2, 90, 150, 64, False),         # non-causal
     (1, 14, 2, 129, 129, 128, True),       # group 7, one row past a tile
+    # bf16 below: the tensor-core kernels' edges (f32: the CUDA cores')
+    (2, 2, 2, 384, 384, 128, True),        # MHA, T a multiple of 128
+    (1, 4, 2, 1000, 1000, 128, True),      # ragged 1000
+    (1, 4, 2, 1000, 1000, 64, True),
+    (1, 7, 1, 129, 129, 64, True),         # group 7, one row past a tile
+    (1, 16, 1, 256, 256, 128, True),       # MQA 16/1
+    (1, 16, 1, 200, 200, 64, True),
+    (1, 4, 2, 300, 700, 128, True),        # causal Tq < Tk
+    (1, 4, 1, 77, 333, 64, True),
+    (1, 4, 4, 600, 1500, 64, False),       # non-causal Tq < Tk
+    (1, 4, 2, 1500, 600, 64, False),       # non-causal Tq > Tk
+    (1, 4, 2, 300, 129, 128, False),
 ])
 def test_flash_bwd_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
                                         dtype, dev):
+    """Each route's kernels (``ops.route_bwd``) against autograd through
+    the plain version, two calls bit-equal."""
     q, k, v = _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, dev)
     g = torch.Generator(device=dev).manual_seed(7)
     dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
@@ -1287,6 +1301,30 @@ def test_flash_bwd_kernel_matches_plain(B, Hq, Hkv, Tq, Tk, D, causal,
     want = tflash_ref.attention_bwd(q, k, v, dout, causal=causal)
     torch.cuda.synchronize()
     _bwd_close(a, want, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_unaligned_views_give_the_aligned_bits(D, dev):
+    """The tensor-core backward reads by TMA from 16-byte aligned addresses:
+    views one element off (``launch_bwd`` copies them) give the aligned
+    inputs' bits."""
+    assert tflash.route_bwd(torch.bfloat16, D) == tflash.TENSOR_CORES
+    q, k, v = _qkv(1, 4, 2, 200, 200, D, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    out, lse = tflash.launch(q, k, v, True, None, with_lse=True)
+    want = tflash.launch_bwd(q, k, v, out, dout, lse, True, None)
+
+    def off_by_one(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+    got = tflash.launch_bwd(*(off_by_one(t) for t in (q, k, v, out, dout)),
+                            lse, True, None)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1313,6 +1351,7 @@ def test_flash_autograd_runs_the_kernels(dev):
     the backward kernels in backward, the same gradients as
     ``launch_bwd``; without grad the serving launch alone."""
     q, k, v = _qkv(2, 4, 2, 200, 200, 64, torch.bfloat16, dev)
+    assert tflash.route_bwd(q.dtype, 64) == tflash.TENSOR_CORES
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     before = dict(counts)
     out = tflash.attention(qs, ks, vs)
@@ -1361,7 +1400,11 @@ def test_train_step_on_card_repeats_bit_for_bit(dev):
     """Two runs of the tiny preset from the same seed: every parameter
     and moment bit-equal (no atomics on the path), the flash kernels in
     both directions on it."""
+    from repro_torch.launch.serve import PRESETS
     from repro_torch.tree import tree_leaves
+    # bf16 at head width 64: the tensor-core backward
+    assert tflash.route_bwd(torch.bfloat16, PRESETS["tiny"].head_dim) == \
+        tflash.TENSOR_CORES
     before = dict(counts)
     pa, oa, la = _tiny_run(dev)
     n_layers = 4

@@ -124,6 +124,19 @@ def test_route_sends_bf16_at_64_and_128_to_the_tensor_cores(dtype, D):
     assert tflash.route(dtype, D) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", tflash.HEAD_DIMS)
+def test_route_bwd_sends_bf16_at_64_and_128_to_the_tensor_cores(dtype, D):
+    """The backward's rule: bfloat16 at head width 64 or 128 takes
+    ``flash_bwd_dq_sm90`` and ``flash_bwd_dkdv_sm90``; float32 and bf16 at
+    16 or 32 take the CUDA-core ``flash_bwd_dq`` and ``flash_bwd_dkdv``.
+    The C entry point applies the same rule."""
+    want = (tflash.TENSOR_CORES if dtype == torch.bfloat16 and D in (64, 128)
+            else tflash.CUDA_CORES)
+    assert tflash.route_bwd(dtype, D) == want
+
+
 def test_launch_runs_only_on_the_card():
     q, k, v = (_t(a, torch.bfloat16) for a in _mk(0, 1, 2, 1, 8, 8, 64))
     with pytest.raises(ValueError, match="cuda"):
