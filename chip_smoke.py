@@ -8,19 +8,21 @@ NVIDIA GPU and the CUDA toolkit:
 
 Phases, in order (any failure exits non-zero):
 
-1. device and build: the card's name and power limit, then the six CUDA
-   sources built from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel); the ``ptxas`` registers and spills per kernel of the
-   simulator's ``tropical``, ``cloudlet_finish`` and ``link_share`` builds
-   and of each model-zoo build (flash attention, its backward, the SSD
-   chunk), where the two tropical kernels, the tensor-core kernels
-   (``flash_fwd_sm90``, ``ssd_chunk_sm90``) and every kernel of the
-   backward build (its four: ``flash_bwd_dq_sm90``,
-   ``flash_bwd_dkdv_sm90``, ``flash_bwd_dq``, ``flash_bwd_dkdv``) must
-   spill nothing; the tropical kernels' SASS (``cuobjdump --dump-sass``)
-   counts of FADD and FMNMX, which must be equal (one max instruction a
-   term), and the model-zoo builds' SASS, which must hold ``HGMMA``
-   (wgmma) and ``UTMALDG`` (TMA loads);
+1. device and build: the card's name and power limit, then the seven
+   CUDA sources built from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, in parallel); the ``ptxas`` registers and spills per kernel of
+   the simulator's ``tropical``, ``cloudlet_finish`` and ``link_share``
+   builds and of each model-zoo build (flash attention, its backward, the
+   SSD chunk, its backward), where the two tropical kernels, the
+   tensor-core kernels (``flash_fwd_sm90``, ``ssd_chunk_sm90``) and every
+   kernel of the two backward builds (the flash backward's four:
+   ``flash_bwd_dq_sm90``, ``flash_bwd_dkdv_sm90``, ``flash_bwd_dq``,
+   ``flash_bwd_dkdv``; the SSD backward's two: ``ssd_bwd_heads``,
+   ``ssd_bwd_groups``) must be in the report and spill nothing; the
+   tropical kernels' SASS (``cuobjdump --dump-sass``) counts of FADD and
+   FMNMX, which must be equal (one max instruction a term), and the
+   model-zoo builds' SASS, which must hold ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA loads);
 2. an empty kernel's launch (device and per call), the floor of the
    launch-bound simulator kernels; then each kernel against its plain
    PyTorch version on the card, at the main paths' shapes, with the route
@@ -56,8 +58,10 @@ Phases, in order (any failure exits non-zero):
    yardstick (never on the port's path); and ``ssd_chunk`` at
    mamba2-130m's heads (M=24, P=64, N=128) in chunks of 16 (the reduced
    configs' chunk: the CUDA-core kernel) at K=8, and of 128 (the
-   tensor-core kernel) at K=32 and at the prefill's K=256, within its
-   stated tolerance, with its TFLOP/s, share of the bound and the
+   tensor-core kernel) at K=32 and at the prefill's K=256, and at
+   jamba-1.5-large's prefill heads (M=128, K=256, L=N=P=128: the
+   CUDA-core kernel, the head width staged 64 columns at a time), within
+   its stated tolerance, with its TFLOP/s, share of the bound and the
    float32-pipe figure beside the bound; two launches bit-identical.
    Then the golden small scenarios of both network modes, whose integer
    counters and response digests are pinned, and their chaos combos
@@ -165,29 +169,36 @@ Phases, in order (any failure exits non-zero):
    qwen3-0.6b, mamba2-130m, qwen3-moe-30b-a3b, qwen2-moe-a2.7b,
    whisper-base (the encoder over 1,500 seeded frames, then the decoder)
    and qwen2-vl-7b (seeded embeddings, M-RoPE positions of a prompt that
-   holds a 64 x 64 image) at full width and depth on seeded random
-   weights, one model's weights on the card at a time, at
-   ``prefill_32k``'s T = 32,768 with the batch cut from 32 to 1: finite
-   last-position logits, the mixer kernel's launches (one a layer: 28,
-   24, 48, 24 and 28; whisper 18, six each for the encoder, the
-   decoder's self-attention and its cross-attention; ``ssd_chunk`` for
-   mamba2, ``flash_attention`` for the others), ``flash_fwd_sm90`` and
-   ``ssd_chunk_sm90`` in the device traces, the device busy share
+   holds a 64 x 64 image) at full width and depth, and of one period of
+   jamba-1.5-large at full width (8 of its 72 layers, 4 of its 16
+   experts, top-2 kept: ``jamba_period``), on seeded random weights, one
+   model's weights on the card at a time, at ``prefill_32k``'s T =
+   32,768 with the batch cut from 32 to 1: finite last-position logits,
+   the mixer kernels' launches (one a layer: 28, 24, 48, 24 and 28;
+   whisper 18, six each for the encoder, the decoder's self-attention and
+   its cross-attention; ``ssd_chunk`` for mamba2, ``flash_attention``
+   for the others; the jamba period 1 ``flash_attention`` and 7
+   ``ssd_chunk``), ``flash_fwd_sm90``, ``ssd_chunk_sm90`` and (jamba)
+   ``ssd_chunk_kernel`` in the device traces, the device busy share
    (device time over the unprofiled prefill's wall), the peak memory;
    and a 2-layer full-width model of each served arch (whisper with 2
-   encoder layers), of granite-20b (MQA: 48 query heads on one KV head)
-   and of phi3-medium-14b at ``attn_impl="flat"`` (K/V repeated to its
-   40 heads), whose card logits are held against its CPU logits, with
-   the share of the MoE routing choices the two make alike, and the flat
-   model's logits bit-equal to its ``"grouped"`` logits on the card;
+   encoder layers), of granite-20b (MQA: 48 query heads on one KV head),
+   of phi3-medium-14b at ``attn_impl="flat"`` (K/V repeated to its 40
+   heads) and of jamba-1.5-large (period 2: attention, then a Mamba
+   layer with the MoE FFN of 2 experts; T = 256, two chunks, so the carry
+   crosses one), its weights drawn on the card and copied to the CPU,
+   whose card logits are held against its CPU logits, with the share of
+   the MoE routing choices the two make alike, and the flat model's
+   logits bit-equal to its ``"grouped"`` logits on the card;
    flash is first held against its plain version at qwen2-vl's heads
    (group 7) and at whisper's (D = 64: the encoder, non-causal over
    1,500 frames; the decoder's causal self-attention; the cross-
    attention, 32,768 queries on 1,500 keys);
-12. ``serve.main`` for the six models with its defaults (8 requests, 4
-   slots, 16 + 24 tokens; whisper against the zero cross K/V its decode
-   state starts from, as the reference's server), and for qwen3-0.6b
-   with the int8 KV cache (a variant of its config), which replays
+12. ``serve.main`` for the six models and the jamba period with its
+   defaults (8 requests, 4 slots, 16 + 24 tokens; whisper against the
+   zero cross K/V its decode state starts from, as the reference's
+   server), and for qwen3-0.6b with the int8 KV cache (a variant of its
+   config), which replays
    ``serve.DecodeGraph`` once per token step, its tok/s, capture time
    and peak memory; the graph's logits bit-equal to the eager
    ``decode_step``'s over 8 steps, the device time, busy share,
@@ -195,7 +206,8 @@ Phases, in order (any failure exits non-zero):
    calls per replayed step; the int8 cache's next-token probabilities
    within 1e-2 of the bf16 cache's over 8 steps
    (``tests/test_quant_kv.py``'s rule);
-13. training (the dense family, ``repro_torch.train``): the training
+13. training (the dense and ssm families, ``repro_torch.train``): the
+   training
    forward (``launch(..., with_lse=True)``) at qwen3-0.6b's training
    heads, timed beside its bound and SDPA; the flash backward kernels
    (``csrc/flash_attention_bwd.cu``, the pair ``ops.route_bwd`` names on
@@ -219,8 +231,21 @@ Phases, in order (any failure exits non-zero):
    naming ``flash_bwd_dq_sm90`` and ``flash_bwd_dkdv_sm90``; a 2-layer
    full-width qwen3-0.6b's train-step gradients on the card against the
    CPU (the ``SyntheticLM`` batch bit-equal, the loss, norm and every
-   leaf within ``TRAIN_*_TOL``); the ``tiny`` preset's loss drop over
-   100 steps and a checkpoint resume bit-equal to a straight run;
+   leaf within ``TRAIN_*_TOL``); the SSD backward kernels
+   (``csrc/ssd_chunk_bwd.cu``: ``ssd_bwd_heads`` then
+   ``ssd_bwd_groups``, no atomics) against autograd through the plain
+   version (``ref.ssd_chunk_bwd``, each output within ``SSD_BWD_TOL`` of
+   its own max |value|), two launches bit-identical, at mamba2-130m's
+   training shape (B 8, T 4096: M 192, K 32, L = N = 128, P 64, 24 heads
+   a B/C row; timed beside the bound and the plain version), at four B/C
+   rows of 4 heads and at L = N = P = 16; ``launch.train.main`` for
+   mamba2-130m at full width and depth, T 4096, B 8 (cut from 256), as
+   for qwen3-0.6b: per step 2 x 24 ``ssd_chunk`` and 24 x 2
+   ``ssd_chunk_bwd`` launches, two runs bit-equal, the trace naming
+   ``ssd_bwd_heads`` and ``ssd_bwd_groups``; a 2-layer full-width
+   mamba2-130m's train step on the card against the CPU; the ``tiny``
+   preset's loss drop over 100 steps and a checkpoint resume bit-equal
+   to a straight run;
 14. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
@@ -276,6 +301,12 @@ FLASH_RTOL = 2.0 ** -7         # bf16 output: one bf16 rounding of |plain|
 FLASH_ATOL = 1e-4              # ... plus the float32 sums' own error
 FLASH_PLAIN_ROWS = 1024        # query rows per block of the plain version
 SSD_TOL = 2e-5                 # float32, sums in another order
+# the SSD backward against autograd through the plain version: each output
+# within SSD_BWD_TOL of its own max |value| (float32, the sums in another
+# order, the group's heads summed in ascending order)
+SSD_BWD_TOL = 1e-4
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_EXPERTS = 8              # of 16: one full-width period fits one card
 MODEL_TOL = 5e-2               # 2-layer bf16 logits, card against CPU
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "qwen3-moe-30b-a3b",
                "qwen2-moe-a2.7b", "whisper-base", "qwen2-vl-7b")
@@ -1481,50 +1512,59 @@ def check_builds():
               "TMA load (UTMALDG)")
 
 
-def check_ssd(tag, M, K, L, P, N, torch, dev):
-    """The SSD-chunk kernel at mamba2-130m's prefill heads (one B/C group
-    for all M heads) against its plain version; ``ops.route`` names the
-    kernel the shape takes."""
+def check_ssd(tag, M, K, L, P, N, torch, dev, group=None):
+    """The SSD-chunk kernel against its plain version, ``group`` heads to
+    a B/C row (all M heads, one row, unless given: mamba2-130m's prefill);
+    ``ops.route`` names the kernel the shape takes."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.ssd_scan import ops, ref
     g = torch.Generator(device=dev).manual_seed(19)
     r = lambda *s: torch.rand(s, generator=g, device=dev)
     n = lambda *s: torch.randn(s, generator=g, device=dev)
     dt = r(M, K, L, 1) * 0.25 + 0.05
+    group = group or M
+    G = M // group
     args = (n(M, K, L, P), dt, dt * -(r(M, 1, 1, 1) * 15.0 + 1.0),
-            n(1, K, L, N) / N ** 0.5, n(1, K, L, N) / N ** 0.5)
+            n(G, K, L, N) / N ** 0.5, n(G, K, L, N) / N ** 0.5)
     saved = dict(counts)
-    k1 = ops.ssd_chunk(*args, group=M)
-    k2 = ops.ssd_chunk(*args, group=M)
-    p = ref.ssd_chunk(*args, group=M)
+    k1 = ops.ssd_chunk(*args, group=group)
+    k2 = ops.ssd_chunk(*args, group=group)
+    p = ref.ssd_chunk(*args, group=group)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
           f"ssd_chunk {tag}: two launches differ")
     err = max(float((a - b).abs().max()) for a, b in zip(k1, p))
     check(err <= SSD_TOL, f"ssd_chunk {tag}: max|err| {err} against the "
           f"plain version (tolerance {SSD_TOL})")
-    k_ev, k_dev = cuda_ms(lambda: ops.ssd_chunk(*args, group=M), 50, torch)
-    p_ev, p_dev = cuda_ms(lambda: ref.ssd_chunk(*args, group=M), 5, torch)
+    k_ev, k_dev = cuda_ms(lambda: ops.ssd_chunk(*args, group=group), 50,
+                          torch)
+    p_ev, p_dev = cuda_ms(lambda: ref.ssd_chunk(*args, group=group), 5,
+                          torch)
     counts.update(saved)
     # the function's least operations: C·Bᵀ once per chunk and B/C group
-    # (here one group) over its causal half, S·(Δ⊙X) over the causal half
+    # (G groups) over its causal half, S·(Δ⊙X) over the causal half
     # and the state product per head, 2 per multiply-add, at the TF32
     # tensor-core peak; bytes: x, Δ, log a, the group's B and C read, y,
     # state, in_decay and total written (float32).  The float32-pipe
     # figure (C·Bᵀ per head at the float32 peak) was this row's bound
     # before the tensor-core kernel and is printed beside it.
     tri = L * (L + 1) // 2
-    ops_n = 2.0 * (K * tri * N + M * K * (tri * P + N * P * L))
-    nbytes = 4.0 * (M * K * L * (P + 2) + 2 * K * L * N
+    ops_n = 2.0 * (G * K * tri * N + M * K * (tri * P + N * P * L))
+    nbytes = 4.0 * (M * K * L * (P + 2) + 2 * G * K * L * N
                     + M * K * (L * P + N * P + L + 1))
     bound_ms, by = max((ops_n / TF32_OPS_PER_S * 1e3, "operations"),
                        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
     f32_ms = max(2.0 * M * K * (tri * (N + P) + N * P * L)
                  / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     k_ms = k_dev or k_ev
-    kernel = ("ssd_chunk_sm90" if ops.route(L, N, P) == ops.TENSOR_CORES
-              else "ssd_chunk_kernel")
-    log(f"ssd_chunk {tag}: M={M} K={K} L={L} P={P} N={N} ({kernel})  "
+    if ops.route(L, N, P) == ops.TENSOR_CORES:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        kernel = (f"ssd_chunk_sm90, "
+                  f"{ops.heads_per_block(K, G, group, sms)} heads a block")
+    else:
+        kernel = "ssd_chunk_kernel"
+    log(f"ssd_chunk {tag}: M={M} K={K} L={L} P={P} N={N} group={group} "
+        f"({kernel})  "
         f"kernel {_ms(k_dev)} ms device / {k_ev:.4f} ms per call  "
         f"{ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
         f"{bound_ms / k_ms:.3f} of the bound  plain {_ms(p_dev)} ms device "
@@ -1907,6 +1947,35 @@ def _device_us_by_name(prof) -> dict:
         if v > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + v
     return by_name
+
+
+def traced(fn, symbols, torch, tries=3):
+    """``fn()`` under torch.profiler (CPU and CUDA activities), again up
+    to ``tries`` times while the device trace lacks one of ``symbols``.
+    Each session first runs 64 short ``torch.cuda._sleep`` kernels and
+    synchronises: a session's first device events can go unrecorded (a
+    kernel launched through ctypes first in a session was missing from
+    its trace, and late in a full run of this script the jamba prefill's
+    one flash launch, some twenty kernels in, was missing from every try
+    without the warm-up).  Returns the device microseconds by kernel name,
+    the warm-up's ``spin_kernel`` left out, and the traced call's
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {k: v for k, v in _device_us_by_name(prof).items()
+                   if "spin_kernel" not in k}
+        if all(any(s in k for k in by_name) for s in symbols):
+            break
+    return by_name, wall
 
 
 def replay_figures(sim, torch, sweeps=None, apps=None, out=None) -> str:
@@ -2879,32 +2948,58 @@ def prefill_batch(cfg, T, torch, dev, seed):
     return batch
 
 
-def mixer_launches(cfg) -> int:
-    """Launches of the mixer's kernel in one prefill: one a layer, and
-    for encdec one an encoder layer and two (self, cross) a decoder
-    layer."""
+def mixer_launches(cfg) -> dict:
+    """Launches of the mixers' kernels in one prefill, and the kernel
+    symbol each must show in the device trace: one a layer (flash, or the
+    SSD kernel for ssm), for encdec one an encoder layer and two (self,
+    cross) a decoder layer, for the hybrid one flash and attn_period - 1
+    SSD launches a period (jamba's head width 128 on the CUDA-core
+    ``ssd_chunk_kernel``)."""
+    if cfg.family == "ssm":
+        return {"ssd_chunk": (cfg.n_layers, "ssd_chunk_sm90")}
+    if cfg.family == "hybrid":
+        periods = cfg.n_layers // cfg.attn_period
+        from repro_torch.kernels.ssd_scan import ops
+        dims = cfg.mamba
+        symbol = ("ssd_chunk_sm90" if ops.route(
+            cfg.ssd_chunk, dims.d_state, dims.headdim) == ops.TENSOR_CORES
+            else "ssd_chunk_kernel")
+        return {"flash_attention": (periods, "flash_fwd_sm90"),
+                "ssd_chunk": (periods * (cfg.attn_period - 1), symbol)}
+    n = cfg.n_layers
     if cfg.family == "encdec":
-        return cfg.n_enc_layers + 2 * cfg.n_layers
-    return cfg.n_layers
+        n = cfg.n_enc_layers + 2 * cfg.n_layers
+    return {"flash_attention": (n, "flash_fwd_sm90")}
 
 
-def run_prefill(arch, torch, dev, launches):
-    """``serve.prefill_step`` at full width and depth, at ``prefill_32k``'s
-    sequence length with its batch of 32 cut to 1, on seeded random
-    weights: finite logits, the mixer kernel's launches
+def jamba_period():
+    """jamba-1.5-large at full width, cut to one period (8 of its 72
+    layers) and ``JAMBA_EXPERTS`` of its 16 experts (top-2 kept): 51.6 GB
+    of bf16 weights, which one card holds beside a 32,768-token prefill
+    (16 experts would be 90 GB)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA)
+    return dataclasses.replace(
+        cfg, n_layers=cfg.attn_period,
+        moe=dataclasses.replace(cfg.moe, n_experts=JAMBA_EXPERTS))
+
+
+def run_prefill(arch, torch, dev, launches, cfg=None):
+    """``serve.prefill_step`` at full width and depth (``cfg``, where
+    given, in place of the arch's: the jamba period), at
+    ``prefill_32k``'s sequence length with its batch of 32 cut to 1, on
+    seeded random weights: finite logits, the mixer kernels' launches
     (``mixer_launches``), the time of one prefill, and where its device
     time goes (torch.profiler over a second one)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch.serve import prefill_step
     from repro_torch.models import build_model
     from repro_torch.models.common import n_params as n_params_of
     T = prefill_len()
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     model = build_model(cfg)
-    kern, symbol = (("ssd_chunk", "ssd_chunk_sm90") if cfg.family == "ssm"
-                    else ("flash_attention", "flash_fwd_sm90"))
+    want = mixer_launches(cfg)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dev)
     n_params = n_params_of(model.schema())
@@ -2917,66 +3012,70 @@ def run_prefill(arch, torch, dev, launches):
     out = prefill_step(model, params, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = counts[kern]
-    launches[kern] = launches.get(kern, 0) + n
-    check(n == mixer_launches(cfg), f"{arch} prefill: {kern} launched {n} "
-          f"times, not {mixer_launches(cfg)}")
+    got = {k: counts[k] for k in want}
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    check(got == {k: v[0] for k, v in want.items()},
+          f"{arch} prefill: kernel launches {got}, not {want}")
     check(tuple(out.shape) == (1, 1, cfg.vocab) and out.dtype ==
           torch.float32 and bool(torch.isfinite(out).all()),
           f"{arch} prefill: logits {tuple(out.shape)} {out.dtype} not "
           "finite or malformed")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        prefill_step(model, params, batch)
-        torch.cuda.synchronize()
-        wall_p = time.perf_counter() - t1
-    by_name = _device_us_by_name(prof)
+    by_name, wall_p = traced(lambda: prefill_step(model, params, batch),
+                             [sym for _, sym in want.values()], torch)
     busy = sum(by_name.values()) / 1e6
     check(busy > 0, f"{arch} prefill: the profiler recorded no device time")
-    check(any(symbol in k for k in by_name),
-          f"{arch} prefill: no {symbol} kernel in the device trace")
+    for _, symbol in want.values():
+        check(any(symbol in k for k in by_name),
+              f"{arch} prefill: no {symbol} kernel in the device trace "
+              f"(its {len(by_name)} kernels: "
+              + "; ".join(k[:50] for k in sorted(by_name)) + ")")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    dev_s = lambda sym: sum(v for k, v in by_name.items() if sym in k) / 1e6
     log(f"{arch} prefill_step: {n_params / 1e6:.1f} M parameters, "
         f"{cfg.n_layers} layers"
         + (f" (+{cfg.n_enc_layers} encoder layers over {cfg.n_frames} "
            "frames)" if cfg.family == "encdec" else "")
+        + (f" ({cfg.moe.n_experts} experts)" if cfg.moe else "")
         + f", T={T} B=1  wall {wall:.3f} s "
-        f"({T / wall:.0f} tok/s)  {kern} launches {n}  peak "
+        f"({T / wall:.0f} tok/s)  launches {got}  peak "
         f"memory {peak:.2f} GiB  logits |max| "
         f"{float(out.abs().max()):.4f}")
     # the busy share divides by the unprofiled prefill's wall: the
     # profiler's own host cost stretches the profiled run's wall
     log(f"{arch} prefill device time {busy:.3f} s (profiled run, "
         f"{wall_p:.3f} s wall); busy share {busy / wall:.3f} of the "
-        f"unprofiled {wall:.3f} s wall; {kern} "
-        f"{sum(v for k, v in by_name.items() if symbol in k) / 1e6:.3f} s; "
-        "top kernels: "
+        f"unprofiled {wall:.3f} s wall; "
+        + "; ".join(f"{sym} {dev_s(sym):.3f} s" for _, sym in want.values())
+        + "; top kernels: "
         + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
-    del params, out, batch, prof
+    del params, out, batch
     torch.cuda.empty_cache()
 
 
 class routing_record:
-    """Within the block, each call of the LM's ``moe_apply`` appends its
-    tokens' top-K expert sets (sorted, on the host) to ``self.sets``."""
+    """Within the block, each call of the LM's or the hybrid's
+    ``moe_apply`` appends its tokens' top-K expert sets (sorted, on the
+    host) to ``self.sets``."""
 
     def __enter__(self):
-        from repro_torch.models import transformer
+        from repro_torch.models import hybrid, transformer
         from repro_torch.models.moe import route
-        self.sets, self.mod = [], transformer
+        self.sets, self.mods = [], (transformer, hybrid)
         self.inner = transformer.moe_apply
 
         def recorded(p, x, cfg):
             top_e = route(p, x.reshape(-1, x.shape[-1]), cfg)[1]
             self.sets.append(top_e.sort(dim=-1).values.cpu())
             return self.inner(p, x, cfg)
-        transformer.moe_apply = recorded
+        for mod in self.mods:
+            mod.moe_apply = recorded
         return self
 
     def __exit__(self, *exc):
-        self.mod.moe_apply = self.inner
+        for mod in self.mods:
+            mod.moe_apply = self.inner
 
 
 def routing_agreement(a, b):
@@ -2990,7 +3089,7 @@ def routing_agreement(a, b):
     return same, total
 
 
-def check_two_layer(arch, torch, dev, **over):
+def check_two_layer(arch, torch, dev, T=300, **over):
     """A 2-layer model at the architecture's full width (``over``: other
     fields of its config): the card's prefill logits (through the
     kernels) against the CPU's; for the moe family also the share of
@@ -3006,11 +3105,13 @@ def check_two_layer(arch, torch, dev, **over):
     cfg = dataclasses.replace(get_config(arch), n_layers=2, **over)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init_params(torch.Generator().manual_seed(2), "cpu")
-    batch = prefill_batch(cfg, 300, torch, torch.device("cpu"), 3)
+    # drawn on the card (the CPU's generator takes seconds a GB), copied
+    on_card = model.init_params(torch.Generator(device=dev).manual_seed(2),
+                                dev)
+    params = tree_to(on_card, "cpu")
+    batch = prefill_batch(cfg, T, torch, torch.device("cpu"), 3)
     with routing_record() as cpu_rec:
         want = prefill_step(model, params, batch)
-    on_card = tree_to(params, dev)
     del params
     batch = tree_to(batch, dev)
     with routing_record() as card_rec:
@@ -3029,8 +3130,10 @@ def check_two_layer(arch, torch, dev, **over):
               f"by {float((got - grouped).abs().max())}")
         routed += (f"; attn_impl {cfg.attn_impl!r} bit-equal to 'grouped' "
                    "on the card")
-    what = "".join(f" {k}={v}" for k, v in over.items())
-    log(f"{arch} 2-layer{what} full width, T=300: card logits against CPU "
+    what = "".join(f" {k}={getattr(v, 'n_experts', v)}"
+                   + (" experts" if k == "moe" else "")
+                   for k, v in over.items())
+    log(f"{arch} 2-layer{what} full width, T={T}: card logits against CPU "
         f"logits max|err| {err:.4g} (|logits| max "
         f"{float(want.abs().max()):.3f}, tolerance {MODEL_TOL}){routed}  "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -3079,10 +3182,11 @@ def check_int8_tracks_bf16(tag, model, params, dev, torch, steps=8):
         "argmaxes kept")
 
 
-def run_serve(arch, torch, dev, cfg=None):
+def run_serve(arch, torch, dev, cfg=None, tag=None):
     """``serve.main`` with its defaults (8 requests, 4 slots, 16 + 24
     tokens) on the card, which replays the decode graph (``cfg``, where
-    given, in place of the arch's: its int8 KV cache); then the graph
+    given, in place of the arch's: its int8 KV cache, the jamba period;
+    ``tag`` names it in the log); then the graph
     against the eager ``decode_step`` (logits bit-equal over 8 steps),
     its device time per step and the synchronising calls per replayed
     step; for the int8 cache, its probabilities against the bf16
@@ -3094,10 +3198,8 @@ def run_serve(arch, torch, dev, cfg=None):
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from torch.profiler import ProfilerActivity, profile
-    if cfg is None:
-        cfg = get_config(arch)
-    else:
-        arch = f"{arch} kv_dtype={cfg.kv_dtype}"
+    cfg = cfg or get_config(arch)
+    arch = tag or arch
     buf = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(buf):
@@ -3277,6 +3379,104 @@ def check_flash_bwd(tag, B, Hq, Hkv, Tq, Tk, D, dtype, causal, torch, dev,
 
 BWD_KERNELS = ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90", "flash_bwd_dq",
                "flash_bwd_dkdv")
+SSD_BWD_KERNELS = ("ssd_bwd_heads", "ssd_bwd_groups")
+# mamba2-130m at train_4k's T = 4,096, the batch of 256 cut to 8 (one
+# card: the float32 logits alone are 6.6 GB)
+SSM_TRAIN_ARCH = "mamba2-130m"
+SSM_TRAIN_BATCH = 8
+
+
+def check_ssd_bwd(tag, M, K, L, P, N, group, torch, dev, n_time=0):
+    """The SSD backward kernels (``csrc/ssd_chunk_bwd.cu``) against
+    autograd through the plain version (``ref.ssd_chunk_bwd``) on the
+    same inputs and output gradients, each output within ``SSD_BWD_TOL``
+    of its own max |value|, two launches bit-identical; with ``n_time``,
+    their time beside the plain version's and the bound (no PyTorch call
+    computes the SSD backward)."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.ssd_scan import ops, ref
+    G = M // group
+    g = torch.Generator(device=dev).manual_seed(31)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    dt = r(M, K, L, 1) * 0.25 + 0.05
+    args = (n(M, K, L, P), dt, dt * -(r(M, 1, 1, 1) * 15.0 + 1.0),
+            n(G, K, L, N) / N ** 0.5, n(G, K, L, N) / N ** 0.5)
+    grads = (n(M, K, L, P), n(M, K, N, P), n(M, K, L, 1), n(M, K, 1, 1))
+    saved = dict(counts)
+    a = ops.launch_bwd(*args, *grads, group)
+    b = ops.launch_bwd(*args, *grads, group)
+    want = ref.ssd_chunk_bwd(*args, *grads, group=group)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          f"ssd_chunk_bwd {tag}: two launches differ")
+    errs, rels = [], []
+    for name, x, w in zip(("dx", "ddt", "dla", "db", "dc"), a, want):
+        check(bool(torch.isfinite(x).all()),
+              f"ssd_chunk_bwd {tag}: {name} not finite")
+        errs.append(float((x - w).abs().max()))
+        rels.append(errs[-1] / float(w.abs().max()))
+        check(rels[-1] <= SSD_BWD_TOL, f"ssd_chunk_bwd {tag}: {name} off by "
+              f"{errs[-1]}, {rels[-1]:.3g} of its max |value| (tolerance "
+              f"{SSD_BWD_TOL})")
+    line = (f"ssd_chunk_bwd {tag} (ssd_bwd_heads + ssd_bwd_groups): M={M} "
+            f"K={K} L={L} P={P} N={N} group={group}  max|err| / max|value| "
+            + " ".join(f"{k} {v:.3g}" for k, v in zip(
+                ("dx", "ddt", "dla", "db", "dc"), rels)))
+    res = dict(max_abs_err=max(errs))
+    if n_time:
+        k_ev, k_dev = cuda_ms(lambda: ops.launch_bwd(*args, *grads, group),
+                              n_time, torch)
+        p_ev, p_dev = cuda_ms(lambda: ref.ssd_chunk_bwd(
+            *args, *grads, group=group), 1, torch)
+        # the least work: the causal half of dM and dU and the whole of R
+        # and dX's state term per head, the causal half of C·Bᵀ, dC and
+        # dB once per chunk and B/C row, 2 operations a multiply-add, at
+        # the TF32 tensor-core peak; bytes: x, dy, dstate, Δ, log a,
+        # ddec, dtot and the rows' B and C read once, dx, dΔ, dla, dB and
+        # dC written once (float32)
+        tri = L * (L + 1) // 2
+        ops_n = 2.0 * (M * K * (2 * tri * P + 2 * L * N * P)
+                       + G * K * 3 * tri * N)
+        nbytes = 4.0 * (M * K * L * (3 * P + 5) + M * K * N * P + M * K
+                        + 4 * G * K * L * N)
+        bound_ms, by = max((ops_n / TF32_OPS_PER_S * 1e3, "operations"),
+                           (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        f32_ms = max(ops_n / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        k_ms = k_dev or k_ev
+        # the plain version is a chain of some fifty PyTorch kernels, whose
+        # profile late in a full run lost most of its device events (0.553
+        # ms device against 12.06 ms per call on an H100): its time is the
+        # per-call events'
+        line += (f"  kernels {_ms(k_dev)} ms device / {k_ev:.4f} ms per "
+                 f"call  {ops_n / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s  "
+                 f"{bound_ms / k_ms:.4f} of the bound  plain {_ms(p_dev)} "
+                 f"ms device / {p_ev:.4f} ms per call  bound "
+                 f"{bound_ms:.4f} ms ({by}; float32-pipe figure "
+                 f"{f32_ms:.4f} ms)")
+        res.update(ms=k_ms, plain_ms=p_ev, bound_ms=bound_ms,
+                   bound_by=by, library_ms=None)
+    counts.update(saved)
+    log(line)
+    del args, grads, a, b, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_ssd_bwd_build():
+    """The SSD backward build's ``ptxas`` report must hold both of
+    ``SSD_BWD_KERNELS`` and no kernel may spill."""
+    report = ptxas_report("ssd_chunk_bwd")
+    log("ssd_chunk_bwd ptxas: " + (" | ".join(
+        f"{k}: {v.get('registers', '?')} registers, "
+        f"{v.get('spills', '?')} bytes spilled"
+        for k, v in report.items()) or "no report"))
+    missing = [n for n in SSD_BWD_KERNELS
+               if not any(f"{len(n)}{n}E" in k for k in report)]
+    check(report and not missing
+          and all(v.get("spills") == 0 for v in report.values()),
+          f"ssd_chunk_bwd: kernels missing from the ptxas report {missing}, "
+          "or a kernel that spills")
 
 
 def check_bwd_build():
@@ -3308,29 +3508,46 @@ def check_bwd_build():
           "no TMA load (UTMALDG)")
 
 
-def run_train_full(torch, dev, launches):
-    """``launch.train.main`` for qwen3-0.6b at full width and depth, T =
-    4096, B = 2, twice from the same seed: finite losses and gradient
-    norms, per step 2 x 28 ``flash_attention`` launches (forward and the
-    remat recompute) and 28 x ``BWD_LAUNCHES`` ``flash_attention_bwd``
-    launches, the two runs bit-equal in every parameter and moment; the
-    step wall, tokens/s, peak memory; then one more step under the
-    profiler: busy share and device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
+def train_kernels(cfg):
+    """The mixer's kernels of a train step: each one's launches a step
+    (the forward twice, for the remat recompute; the backward's launches
+    once a layer), and the device-trace symbols of its forward and of its
+    backward's passes."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        from repro_torch.kernels.ssd_scan import ops
+        return ({"ssd_chunk": 2 * L, "ssd_chunk_bwd": L * ops.BWD_LAUNCHES},
+                "ssd_chunk_sm90", SSD_BWD_KERNELS)
+    from repro_torch.kernels.flash_attention import ops
+    return ({"flash_attention": 2 * L,
+             "flash_attention_bwd": L * ops.BWD_LAUNCHES},
+            "flash_fwd", ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"))
+
+
+def run_train_full(torch, dev, launches, arch=TRAIN_ARCH,
+                   batch_size=TRAIN_BATCH):
+    """``launch.train.main`` for ``arch`` at full width and depth, T =
+    4096, B = ``batch_size``, twice from the same seed: finite losses and
+    gradient norms, per step the mixer kernels' launches
+    (``train_kernels``: for qwen3-0.6b 2 x 28 ``flash_attention`` launches,
+    the forward and the remat recompute, and 28 x ``BWD_LAUNCHES``
+    ``flash_attention_bwd``; for mamba2-130m 2 x 24 ``ssd_chunk`` and 24 x
+    its ``BWD_LAUNCHES`` ``ssd_chunk_bwd``), the two runs bit-equal in
+    every parameter and moment; the step wall, tokens/s, peak memory;
+    then one more step under the profiler: busy share, device time by
+    kernel, the backward kernels' share."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import counts, reset_counts
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.train import AdamWCfg, make_train_step
     from repro_torch.tree import tree_leaves
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     L = cfg.n_layers
-    want = {"flash_attention": 2 * L,
-            "flash_attention_bwd": L * ops.BWD_LAUNCHES}
-    argv = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
-            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--log-every",
+    want, fwd_name, bwd_names = train_kernels(cfg)
+    argv = ["--arch", arch, "--seq", str(TRAIN_SEQ), "--batch",
+            str(batch_size), "--steps", str(TRAIN_STEPS), "--log-every",
             "1"]
     runs = []
     for r in range(2):
@@ -3349,16 +3566,16 @@ def run_train_full(torch, dev, launches):
             seen[0] = dict(counts)
             state.update(params=params, opt=opt, metrics=metrics)
             check(bool(torch.isfinite(metrics["grad_norm"])),
-                  f"{TRAIN_ARCH} train step {step}: grad norm not finite")
+                  f"{arch} train step {step}: grad norm not finite")
             t_last[0] = time.perf_counter()
         losses = train.main(argv, on_step=on_step)
         for k in want:
             launches[k] = launches.get(k, 0) + counts[k]
         check(len(losses) == TRAIN_STEPS and all(
             math.isfinite(x) for x in losses),
-            f"{TRAIN_ARCH} training: losses {losses}")
+            f"{arch} training: losses {losses}")
         for s, n in enumerate(per_step):
-            check(n == want, f"{TRAIN_ARCH} train step {s}: launches {n}, "
+            check(n == want, f"{arch} train step {s}: launches {n}, "
                   f"not {want}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         runs.append((losses, state, walls, peak))
@@ -3366,12 +3583,12 @@ def run_train_full(torch, dev, launches):
     same = all(torch.equal(x, y) for x, y in zip(
         tree_leaves((sa["params"], sa["opt"])),
         tree_leaves((sb["params"], sb["opt"]))))
-    check(same and la == lb, f"{TRAIN_ARCH} training: two runs from one "
+    check(same and la == lb, f"{arch} training: two runs from one "
           "seed differ")
     step_s = sum(walls[1:]) / len(walls[1:])
-    tok_s = TRAIN_SEQ * TRAIN_BATCH / step_s
-    log(f"{TRAIN_ARCH} training, full width and depth ({L} layers), "
-        f"T={TRAIN_SEQ} B={TRAIN_BATCH}, remat, AdamW: losses "
+    tok_s = TRAIN_SEQ * batch_size / step_s
+    log(f"{arch} training, full width and depth ({L} layers), "
+        f"T={TRAIN_SEQ} B={batch_size}, remat, AdamW: losses "
         f"{[round(x, 4) for x in la]}  step wall {step_s:.3f} s (steps 1-"
         f"{TRAIN_STEPS - 1}; step 0 {walls[0]:.3f} s)  {tok_s:.0f} tok/s  "
         f"peak memory {peak:.2f} GiB  per step {want}  two runs bit-equal "
@@ -3381,7 +3598,7 @@ def run_train_full(torch, dev, launches):
     model = build_model(cfg)
     step_fn = make_train_step(model, AdamWCfg(
         lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
-    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, batch_size)
     batch = data.batch(TRAIN_STEPS, device=dev)
     params, opt = sa["params"], sa["opt"]
     del sa
@@ -3390,49 +3607,54 @@ def run_train_full(torch, dev, launches):
     params, opt, m = step_fn(params, opt, batch)
     float(m["loss"])
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        params, opt, m = step_fn(params, opt, batch)
+    box = [params, opt]
+
+    def one_step():
+        box[0], box[1], m = step_fn(box[0], box[1], batch)
         float(m["loss"])
-    by_name = _device_us_by_name(prof)
+    by_name, _ = traced(one_step, (fwd_name,) + tuple(bwd_names), torch)
     busy = sum(by_name.values()) / 1e6
-    check(busy > 0, f"{TRAIN_ARCH} training: the profiler recorded no "
+    check(busy > 0, f"{arch} training: the profiler recorded no "
           "device time")
-    bwd = sum(v for k, v in by_name.items() if "flash_bwd" in k) / 1e6
-    fwd = sum(v for k, v in by_name.items() if "flash_fwd" in k) / 1e6
+    fwd = sum(v for k, v in by_name.items() if fwd_name in k) / 1e6
     passes = {n: sum(v for k, v in by_name.items() if n in k) / 1e6
-              for n in ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")}
-    check(all(passes.values()) and fwd > 0, f"{TRAIN_ARCH} training: the "
-          f"device trace lacks flash_bwd_dq_sm90, flash_bwd_dkdv_sm90 or "
-          f"flash_fwd ({passes}, flash_fwd {fwd})")
+              for n in bwd_names}
+    bwd = sum(passes.values())
+    check(all(passes.values()) and fwd > 0, f"{arch} training: the "
+          f"device trace lacks {', '.join(bwd_names)} or {fwd_name} "
+          f"({passes}, {fwd_name} {fwd})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{TRAIN_ARCH} train step device time {busy:.3f} s; busy share "
-        f"{busy / wall:.3f} of the unprofiled {wall:.3f} s wall; flash "
-        f"backward {bwd:.3f} s ({bwd / busy:.3f} of the device time: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in passes.items()) + "), "
-        f"flash forward {fwd:.3f} s ({fwd / busy:.3f}); top kernels: "
+    log(f"{arch} train step device time {busy:.3f} s; busy share "
+        f"{busy / wall:.3f} of the unprofiled {wall:.3f} s wall; the "
+        f"backward kernels {bwd:.3f} s ({bwd / busy:.3f} of the device "
+        "time: " + ", ".join(f"{k} {v:.3f} s" for k, v in passes.items())
+        + f"), the forward kernel {fwd_name} {fwd:.3f} s "
+        f"({fwd / busy:.3f}); top kernels: "
         + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
-    del params, opt, m, prof
+    del params, opt, m, box
     torch.cuda.empty_cache()
     return dict(step_s=step_s, tok_s=tok_s, peak_gib=peak, busy=busy / wall,
                 bwd_share=bwd / busy)
 
 
-def check_train_two_layer(torch, dev):
-    """One train step's gradients of a 2-layer qwen3-0.6b at full width,
-    the card (through both flash kernels) against the CPU (the plain
-    versions), same weights and batch: the batch from ``SyntheticLM`` on
-    the card bit-equal to the CPU's; the loss, the global gradient norm and
-    every gradient leaf within their tolerances."""
+def check_train_two_layer(torch, dev, arch=TRAIN_ARCH):
+    """One train step's gradients of a 2-layer ``arch`` at full width, the
+    card (through the mixer's kernels in both directions: flash for
+    qwen3-0.6b, the SSD kernels for mamba2-130m) against the CPU (the
+    plain versions), same weights and batch: the batch from
+    ``SyntheticLM`` on the card bit-equal to the CPU's; the loss, the
+    global gradient norm and every gradient leaf within their
+    tolerances."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import counts
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_to
     from repro_torch.train.optimizer import clip_by_global_norm
     from repro_torch.train.train_step import value_and_grad
     from repro_torch.tree import leaves_with_path
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator().manual_seed(4), "cpu")
@@ -3443,8 +3665,14 @@ def check_train_two_layer(torch, dev):
           "SyntheticLM: the card's batch differs from the CPU's")
     loss_c, g_c = value_and_grad(model, params, batch)
     norm_c = clip_by_global_norm(g_c, 1.0)[1]
+    before = dict(counts)
     loss_d, g_d = value_and_grad(model, tree_to(params, dev), on_card)
     norm_d = clip_by_global_norm(g_d, 1.0)[1]
+    # one step's launches (the counts are restored: not the main path)
+    got = {k: counts[k] - before[k] for k in train_kernels(cfg)[0]}
+    counts.update(before)
+    check(got == train_kernels(cfg)[0], f"{arch} 2-layer train step: "
+          f"launches {got}, not {train_kernels(cfg)[0]}")
     loss_err = abs(float(loss_d) - float(loss_c))
     norm_err = abs(float(norm_d) - float(norm_c)) / float(norm_c)
     worst = (0.0, "")
@@ -3453,7 +3681,7 @@ def check_train_two_layer(torch, dev):
         rel = float((b.cpu().float() - a.float()).abs().max()) / max(
             float(a.float().abs().max()), 1e-30)
         worst = max(worst, (rel, path))
-    log(f"{TRAIN_ARCH} 2-layer full width, T=256 B=2: SyntheticLM batch on "
+    log(f"{arch} 2-layer full width, T=256 B=2: SyntheticLM batch on "
         f"the card bit-equal to the CPU's; loss {float(loss_c):.5f} (card "
         f"off by {loss_err:.3g}, tolerance {TRAIN_LOSS_TOL}), grad norm "
         f"{float(norm_c):.5f} (relative error {norm_err:.3g}, tolerance "
@@ -3462,7 +3690,7 @@ def check_train_two_layer(torch, dev):
         f"({time.perf_counter() - t0:.1f} s)")
     check(loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_NORM_RTOL
           and worst[0] <= TRAIN_GRAD_TOL,
-          f"{TRAIN_ARCH} 2-layer train step: the card differs from the CPU")
+          f"{arch} 2-layer train step: the card differs from the CPU")
     del params, g_c, g_d
     gc.collect()
     torch.cuda.empty_cache()
@@ -3561,6 +3789,7 @@ def main() -> int:
             f"({', '.join(_build_names())})")
         check_builds()
         check_bwd_build()
+        check_ssd_bwd_build()
 
         check_launch_floor(torch, dev)
         results["cloudlet_finish"] = check_cloudlet_finish(
@@ -3599,6 +3828,9 @@ def main() -> int:
         # tile), its decoder's self-attention and its cross-attention
         check_flash("qwen2-vl prefill_32k", 1, 28, 4, prefill_len(), 128,
                     torch, dev, 3)
+        # jamba-1.5-large's attention layer: 64/8 heads (GQA group 8)
+        check_flash("jamba prefill_32k", 1, 64, 8, prefill_len(), 128,
+                    torch, dev, 3)
         check_flash("whisper encoder", 1, 8, 8, 1500, 64, torch, dev, 20,
                     causal=False)
         check_flash("whisper decoder self", 1, 8, 8, prefill_len(), 64,
@@ -3609,6 +3841,14 @@ def main() -> int:
         check_ssd("K=32", 24, 32, 128, 64, 128, torch, dev)
         results["ssd_chunk"] = check_ssd(
             "prefill_32k", 24, prefill_len() // 128, 128, 64, 128, torch, dev)
+        # mamba2-130m's training forward (B 8, T 4096): 8 B/C rows of 24
+        # heads, 24 heads a block
+        check_ssd("mamba2-130m train_4k forward", 24 * SSM_TRAIN_BATCH,
+                  TRAIN_SEQ // 128, 128, 64, 128, torch, dev,
+                  group=24)
+        # jamba-1.5-large's prefill: 128 heads of width 128, one B/C group
+        check_ssd("jamba prefill_32k, P=128", 128, prefill_len() // 128,
+                  128, 128, 128, torch, dev)
         check_golden(torch, dev)
         run_golden_chaos()
 
@@ -3627,14 +3867,23 @@ def main() -> int:
         run_simcheck(figs, torch, dev)
         for arch in SERVE_ARCHS:
             run_prefill(arch, torch, dev, launches)
+        run_prefill(JAMBA, torch, dev, launches, cfg=jamba_period())
         for arch, over in TWO_LAYER_CASES:
             check_two_layer(arch, torch, dev, **over)
+        # jamba: attention, then a Mamba layer with the MoE FFN (2 of its
+        # experts); T = 256 spans two chunks, so the carry crosses one
+        check_two_layer(JAMBA, torch, dev, T=256, attn_period=2,
+                        moe=dataclasses.replace(jamba_period().moe,
+                                                n_experts=2))
         for arch in SERVE_ARCHS:
             run_serve(arch, torch, dev)
+        run_serve(JAMBA, torch, dev, cfg=jamba_period(),
+                  tag=f"{JAMBA} (one period, {JAMBA_EXPERTS} experts)")
         from repro_torch.configs import get_config
         for arch in INT8_SERVE_ARCHS:
             run_serve(arch, torch, dev, cfg=dataclasses.replace(
-                get_config(arch), kv_dtype="int8"))
+                get_config(arch), kv_dtype="int8"),
+                tag=f"{arch} kv_dtype=int8")
         t_train = time.perf_counter()
         # the training forward (with the rows' log-sum-exp) at train_4k
         check_flash("qwen3-0.6b train_4k forward", TRAIN_BATCH, 16, 8,
@@ -3662,6 +3911,17 @@ def main() -> int:
                         True, torch, dev, n_time=3)
         run_train_full(torch, dev, launches)
         check_train_two_layer(torch, dev)
+        # the SSD backward: mamba2-130m's training shape (B 8, T 4096: one
+        # B/C row for 24 heads a sequence), four rows of 4 heads, and the
+        # reduced configs' chunk of 16
+        results["ssd_chunk_bwd"] = check_ssd_bwd(
+            "mamba2-130m train_4k", 24 * SSM_TRAIN_BATCH, TRAIN_SEQ // 128,
+            128, 64, 128, 24, torch, dev, n_time=5)
+        check_ssd_bwd("group 4", 16, 8, 128, 64, 128, 4, torch, dev)
+        check_ssd_bwd("L=N=P=16", 48, 8, 16, 16, 16, 24, torch, dev)
+        run_train_full(torch, dev, launches, arch=SSM_TRAIN_ARCH,
+                       batch_size=SSM_TRAIN_BATCH)
+        check_train_two_layer(torch, dev, arch=SSM_TRAIN_ARCH)
         run_train_tiny(torch, dev)
         log(f"training phases {time.perf_counter() - t_train:.1f} s")
     except Exception:
@@ -3681,9 +3941,11 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/kernel.py:78"),
         "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                       "src/repro/kernels/ssd_scan/kernel.py:60"),
-        # the reference's backward is a recompute VJP, no Pallas kernel
+        # the reference's backwards are recompute VJPs, no Pallas kernels
         "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
-                                "src/repro/kernels/flash_attention/ops.py:56")}
+                                "src/repro/kernels/flash_attention/ops.py:56"),
+        "ssd_chunk_bwd": ("src/repro_torch/csrc/ssd_chunk_bwd.cu",
+                          "src/repro/kernels/ssd_scan/ops.py:76")}
     kernels = []
     for name, (path, replaces) in src.items():
         r = results[name]

@@ -45,16 +45,15 @@ class ArchConfig:
 
     def reduced(self, **kw) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests, as the
-        reference's (the hybrid family is not ported and raises)."""
-        if self.family == "hybrid":
-            raise NotImplementedError(
-                f"reduced() of the {self.family} family is not yet ported")
+        reference's: a hybrid keeps 4 layers in one period of 4."""
         base = dict(
             name=self.name + "-smoke", family=self.family,
-            n_layers=min(self.n_layers, 2), d_model=64,
+            n_layers=4 if self.attn_period else min(self.n_layers, 2),
+            d_model=64,
             n_heads=4, n_kv=max(1, min(self.n_kv, 2)), head_dim=16,
             d_ff=128, vocab=256, qk_norm=self.qk_norm,
-            rope_theta=self.rope_theta, ssd_chunk=16,
+            rope_theta=self.rope_theta, attn_period=self.attn_period and 4,
+            ssd_chunk=16,
             n_enc_layers=min(self.n_enc_layers, 2),
             n_frames=min(self.n_frames, 8) if self.n_frames else 0,
             tie_embeddings=self.tie_embeddings,

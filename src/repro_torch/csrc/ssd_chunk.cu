@@ -73,14 +73,17 @@
 //
 // `ssd_chunk_kernel` (every other shape: ragged or short chunks, other
 // state and head widths) runs on the float32 pipes.  One block of 256
-// threads per (chunk, batch·head) stages X, Δ⊙X, B and C of its chunk in
-// shared memory (B and C read from their group with no per-head copy;
-// 200 KB at L = N = 128, P = 64), scans log a in order on one thread, and
-// runs three small products from shared memory, each thread holding a 4x4
-// register micro-tile (rows ty + 16a, columns tx + 16b, so a warp's reads
-// are conflict-free).  The scores are kept in registers until C is no
-// longer read, then overwrite C's buffer; B is scaled in place by
-// exp(cum_L - cum)·Δ for the state.  The mask is applied before exp
+// threads per (chunk, batch·head) stages B and C of its chunk in shared
+// memory (read from their group with no per-head copy), scans log a in
+// order on one thread, and runs three small products from shared memory
+// (`ssd_tile.cuh`: each thread holds a 4x4 register micro-tile, rows
+// ty + 16a, columns tx + 16b, so a warp's reads are conflict-free).  The
+// scores are kept in registers until C is no longer read, then overwrite
+// C's buffer; B is scaled in place by exp(cum_L - cum)·Δ for the state.
+// X and Δ⊙X are staged 64 columns of the head width at a time, and each
+// slice gives its columns of y and of the state: 200,192 bytes at
+// L = N = 128 for any P from 64 up (jamba-1.5-large's P = 128 included;
+// staged whole, P = 128 would need 265,728).  The mask is applied before exp
 // (j > i gives 0), and tiles wholly above the diagonal are skipped.
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -88,58 +91,28 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "ssd_tile.cuh"
 
 namespace {
 
+using ssd_tile::mm;
+using ssd_tile::zero;
+
 constexpr int NT = 256;     // 16 x 16 threads
 constexpr int MAX_L = 128;  // the scores of a chunk fit 2 x 2 passes
-
-// acc[a][b] += Σ_k A(i0 + ty + 16a, k) · B(k, j0 + tx + 16b), k < kend;
-// A(i, k) = A[i·sai + k·sak], B(k, j) = B[k·sbk + j·sbj].  Rows and
-// columns past ni / nj read row or column 0 and are never stored.
-__device__ __forceinline__ void mm(const float* A, int sai, int sak,
-                                   const float* B, int sbk, int sbj, int i0,
-                                   int j0, int ni, int nj, int kend,
-                                   float acc[4][4], int ty, int tx) {
-  int ia[4], jb[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-    ia[a] = (i < ni ? i : 0) * sai;
-  }
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int j = j0 + tx + 16 * b;
-    jb[b] = (j < nj ? j : 0) * sbj;
-  }
-#pragma unroll 4
-  for (int kk = 0; kk < kend; ++kk) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[ia[a] + kk * sak];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = B[kk * sbk + jb[b]];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] += av[a] * bv[b];
-  }
-}
-
-__device__ __forceinline__ void zero(float acc[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-}
+constexpr int P_SLICE = 64; // X and Δ⊙X are staged 64 columns at a time
 
 __host__ __device__ inline int ld_c(int L, int N) {
   return (N > L ? N : L) + 1;
 }
 
+__host__ __device__ inline int ld_x(int P) {
+  return (P < P_SLICE ? P : P_SLICE) + 1;
+}
+
 __host__ __device__ inline long long smem_floats(int L, int N, int P) {
   return (long long)L * (N + 1) + (long long)L * ld_c(L, N) +
-         2LL * L * (P + 1) + 3LL * L;
+         2LL * L * ld_x(P) + 3LL * L;
 }
 
 __global__ void __launch_bounds__(NT)
@@ -150,11 +123,11 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  float* __restrict__ tot, int K, int L, int P, int N,
                  int group) {
   extern __shared__ float smem[];
-  const int ldb = N + 1, ldc = ld_c(L, N), ldx = P + 1;
+  const int ldb = N + 1, ldc = ld_c(L, N), ldx = ld_x(P);
   float* Bs = smem;                    // [L][N + 1], later w·Δ·B
   float* Cs = Bs + L * ldb;            // [L][ldc], later the scores S
-  float* Xs = Cs + L * ldc;            // [L][P + 1]
-  float* DXs = Xs + L * ldx;           // [L][P + 1] Δ ⊙ X
+  float* Xs = Cs + L * ldc;            // [L][ldx] a slice of X
+  float* DXs = Xs + L * ldx;           // [L][ldx] the slice of Δ ⊙ X
   float* dts = DXs + L * ldx;          // [L]
   float* cum = dts + L;                // [L]
   float* wl = cum + L;                 // [L] exp(cum_L - cum)
@@ -169,18 +142,12 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     dts[l] = dt[cmk * L + l];
     cum[l] = la[cmk * L + l];
   }
-  __syncthreads();
-  for (int e = tid; e < L * P; e += NT) {
-    const int l = e / P, p = e % P;
-    const float xv = x[cmk * L * P + e];
-    Xs[l * ldx + p] = xv;
-    DXs[l * ldx + p] = dts[l] * xv;
-  }
   for (int e = tid; e < L * N; e += NT) {
     const int l = e / N, n = e % N;
     Bs[l * ldb + n] = bm[cgk * L * N + e];
     Cs[l * ldc + n] = cm_[cgk * L * N + e];
   }
+  __syncthreads();
   if (tid == 0) {                       // cumsum in order
     float acc = 0.0f;
     for (int l = 0; l < L; ++l) {
@@ -204,8 +171,8 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int pj = 0; pj < 2; ++pj) {
       zero(sc[pi][pj]);
       if (pj <= pi && pi * 64 < L)
-        mm(Cs, ldc, 1, Bs, 1, ldb, pi * 64, pj * 64, L, L, N, sc[pi][pj],
-           ty, tx);
+        mm(Cs, ldc, 1, Bs, 1, ldb, pi * 64, pj * 64, L, L, 0, N,
+           sc[pi][pj], ty, tx);
     }
   __syncthreads();   // C and B are read; S overwrites C, B is rescaled
 
@@ -228,39 +195,48 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const int l = e / N, n = e % N;
     Bs[l * ldb + n] = wl[l] * dts[l] * Bs[l * ldb + n];
   }
-  __syncthreads();
 
-  // y = S (Δ ⊙ X): row i reads columns j <= i only
-  for (int i0 = 0; i0 < L; i0 += 64)
-    for (int j0 = 0; j0 < P; j0 += 64) {
+  // the head width in slices of P_SLICE columns: y = S (Δ ⊙ X) and
+  // state = (w·Δ·B)ᵀ X of each slice from its X and Δ ⊙ X
+  for (int p0 = 0; p0 < P; p0 += P_SLICE) {
+    const int pw = min(P_SLICE, P - p0);
+    __syncthreads();   // S and w·Δ·B are written; the last slice is read
+    for (int e = tid; e < L * pw; e += NT) {
+      const int l = e / pw, q = e % pw;
+      const float xv = x[cmk * L * P + (long long)l * P + p0 + q];
+      Xs[l * ldx + q] = xv;
+      DXs[l * ldx + q] = dts[l] * xv;
+    }
+    __syncthreads();
+    // y: row i reads columns j <= i only
+    for (int i0 = 0; i0 < L; i0 += 64) {
       float acc[4][4];
       zero(acc);
-      const int kend = min(L, i0 + 64);
-      mm(Cs, ldc, 1, DXs, ldx, 1, i0, j0, L, P, kend, acc, ty, tx);
+      mm(Cs, ldc, 1, DXs, ldx, 1, i0, 0, L, pw, 0, min(L, i0 + 64), acc,
+         ty, tx);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          const int i = i0 + ty + 16 * a, p = j0 + tx + 16 * b;
-          if (i < L && p < P) y[cmk * L * P + (long long)i * P + p] =
-              acc[a][b];
+          const int i = i0 + ty + 16 * a, p = tx + 16 * b;
+          if (i < L && p < pw)
+            y[cmk * L * P + (long long)i * P + p0 + p] = acc[a][b];
         }
     }
-  // state = (w·Δ·B)ᵀ X
-  for (int i0 = 0; i0 < N; i0 += 64)
-    for (int j0 = 0; j0 < P; j0 += 64) {
+    for (int i0 = 0; i0 < N; i0 += 64) {
       float acc[4][4];
       zero(acc);
-      mm(Bs, 1, ldb, Xs, ldx, 1, i0, j0, N, P, L, acc, ty, tx);
+      mm(Bs, 1, ldb, Xs, ldx, 1, i0, 0, N, pw, 0, L, acc, ty, tx);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          const int n = i0 + ty + 16 * a, p = j0 + tx + 16 * b;
-          if (n < N && p < P) st[cmk * N * P + (long long)n * P + p] =
-              acc[a][b];
+          const int n = i0 + ty + 16 * a, p = tx + 16 * b;
+          if (n < N && p < pw)
+            st[cmk * N * P + (long long)n * P + p0 + p] = acc[a][b];
         }
     }
+  }
 }
 
 }  // namespace

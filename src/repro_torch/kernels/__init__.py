@@ -12,10 +12,10 @@ launches there, and each replay adds them with ``add_counts``, so that
 import contextlib
 
 KERNELS = ("cloudlet_finish", "tropical", "link_share", "flash_attention",
-           "ssd_chunk", "flash_attention_bwd")
+           "ssd_chunk", "flash_attention_bwd", "ssd_chunk_bwd")
 counts = {"cloudlet_finish": 0, "tropical_matmul": 0, "tropical_closure": 0,
           "link_share": 0, "flash_attention": 0, "ssd_chunk": 0,
-          "flash_attention_bwd": 0}
+          "flash_attention_bwd": 0, "ssd_chunk_bwd": 0}
 _TALLIES: list = []
 
 

@@ -38,7 +38,8 @@ SOURCE_FLAGS = {"cloudlet_finish": NVCC_FLAGS + ("-Xptxas=-v",),
                 "link_share": NVCC_FLAGS + ("-Xptxas=-v",),
                 "flash_attention": FMAD_FLAGS + ("-Xptxas=-v",),
                 "ssd_chunk": FMAD_FLAGS + ("-Xptxas=-v",),
-                "flash_attention_bwd": FMAD_FLAGS + ("-Xptxas=-v",)}
+                "flash_attention_bwd": FMAD_FLAGS + ("-Xptxas=-v",),
+                "ssd_chunk_bwd": FMAD_FLAGS + ("-Xptxas=-v",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -9,10 +9,22 @@ width N and the head width P, by the rule ``route`` states: L 64 or 128,
 N 64 or 128 and P 64 (Mamba-2's head width; mamba2-130m's prefill is
 L = N = 128) go to the tensor-core kernel ``ssd_chunk_sm90`` (3xTF32
 wgmma, C·Bᵀ once per chunk and B/C group), every other shape (ragged or
-short chunks, other widths) to the CUDA-core ``ssd_chunk_kernel``.  One
-launch a call; a failed build or launch raises, and nothing retries the
-other kernel.  The kernels have no backward yet: on the card, a call in
-grad mode with an input that requires a gradient raises.
+short chunks, other widths, jamba-1.5-large's P = 128) to the CUDA-core
+``ssd_chunk_kernel``.  One launch a call; a failed build or launch
+raises, and nothing retries the other kernel.
+
+Gradients: on the card, when grad mode is on and an input requires a
+gradient, ``ssd_chunk`` runs through ``SSDChunk`` (an
+``autograd.Function``): its forward is the same launch, its backward the
+two kernels of ``csrc/ssd_chunk_bwd.cu`` (``launch_bwd``, counted as
+``ssd_chunk_bwd``, ``BWD_LAUNCHES`` a call, no atomics), which take
+chunks, state widths up to 128 and head widths up to 64 (``route_bwd``;
+the shapes beyond raise when the forward is called under grad).  The reference has
+no backward kernel: its VJP recomputes through its plain version.  On
+the CPU gradients come from autograd through ``ref.ssd_chunk``.  The
+carry over chunks and the carried-state term stay plain PyTorch under
+autograd on both devices, as the reference keeps them outside its
+kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +41,10 @@ TENSOR_CORES = 1    # ``ssd_chunk_sm90``
 SM90_CHUNKS = (64, 128)
 SM90_STATES = (64, 128)
 SM90_HEAD_DIMS = (64,)
+BWD_LAUNCHES = 2    # ``ssd_bwd_heads``, then ``ssd_bwd_groups``
+BWD_MAX_L = 128     # the backward's chunk, state- and head-width limits
+BWD_MAX_N = 128
+BWD_MAX_P = 64
 
 
 def route(L: int, N: int, P: int) -> int:
@@ -36,6 +52,22 @@ def route(L: int, N: int, P: int) -> int:
     N and head width P."""
     if L in SM90_CHUNKS and N in SM90_STATES and P in SM90_HEAD_DIMS:
         return TENSOR_CORES
+    return CUDA_CORES
+
+
+def route_bwd(L: int, N: int, P: int) -> int:
+    """The backward kernels a shape takes: the CUDA-core pair of
+    ``csrc/ssd_chunk_bwd.cu`` for chunks of 1 to ``BWD_MAX_L``, state
+    widths up to ``BWD_MAX_N`` and head widths up to ``BWD_MAX_P`` (at
+    all three limits both kernels' shared memory fits a block, as the C
+    library's ``ssd_chunk_bwd_smem_bytes`` states); any other shape
+    raises, with its reason."""
+    if not (1 <= L <= BWD_MAX_L and 1 <= N <= BWD_MAX_N
+            and 1 <= P <= BWD_MAX_P):
+        raise ValueError(
+            f"the ssd_chunk backward takes chunks of 1 to {BWD_MAX_L}, "
+            f"state widths up to {BWD_MAX_N} and head widths up to "
+            f"{BWD_MAX_P}, got L={L}, N={N}, P={P}")
     return CUDA_CORES
 
 
@@ -71,6 +103,18 @@ def _lib():
     return lib
 
 
+def _lib_bwd():
+    lib = _build.load("ssd_chunk_bwd")
+    fn = lib.ssd_chunk_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.ssd_chunk_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.ssd_chunk_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _check(t: torch.Tensor, name: str, shape, dev) -> None:
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -83,11 +127,34 @@ def _check(t: torch.Tensor, name: str, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+class SSDChunk(torch.autograd.Function):
+    """``ssd_chunk`` on the card with the hand-written backward: the
+    forward saves its five inputs; the backward gets the four outputs'
+    gradients (zeros where an output was not used, as PyTorch
+    materialises them), made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x, dt, la, b, c, group):
+        outs = launch(x, dt, la, b, c, group)
+        ctx.save_for_backward(x, dt, la, b, c)
+        ctx.group = group
+        return outs
+
+    @staticmethod
+    def backward(ctx, dy, dstate, ddec, dtot):
+        x, dt, la, b, c = ctx.saved_tensors
+        grads = launch_bwd(x, dt, la, b, c, dy.contiguous(),
+                           dstate.contiguous(), ddec.contiguous(),
+                           dtot.contiguous(), ctx.group)
+        return (*grads, None)
+
+
 def ssd_chunk(x, dt, la, b, c, group: int = 1):
     """Intra-chunk SSD over every (batch·head, chunk): x [M, K, L, P];
     dt, la [M, K, L, 1]; b, c [M / group, K, L, N], all float32 (row m
     reads B/C row m // group).  Returns (y [M,K,L,P], state [M,K,N,P],
-    in_decay [M,K,L,1], total_decay [M,K,1,1])."""
+    in_decay [M,K,L,1], total_decay [M,K,1,1]); differentiable in its
+    five inputs."""
     dev = x.device
     if dev.type == "cpu":
         return ref.ssd_chunk(x, dt, la, b, c, group)
@@ -95,11 +162,17 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
         raise ValueError(f"ssd_chunk runs on cuda or cpu, not {dev}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, la, b, c)):
-        # the kernel's outputs carry no grad_fn: a gradient would stop here
-        raise NotImplementedError(
-            "ssd_chunk has no backward kernel yet: training the ssm family "
-            "(mamba2-130m) on the card comes with the ssd_chunk backward "
-            "slice; the CPU path differentiates through ref.ssd_chunk")
+        if x.dim() == 4 and b.dim() == 4:     # else launch raises
+            route_bwd(x.shape[2], b.shape[-1], x.shape[3])
+        return SSDChunk.apply(x, dt, la, b, c, group)
+    return launch(x, dt, la, b, c, group)
+
+
+def launch(x, dt, la, b, c, group: int):
+    """``ssd_chunk`` on the card: one launch of ``route``'s kernel."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_chunk runs on cuda or cpu, not {dev}")
     if x.dim() != 4 or b.dim() != 4:
         raise ValueError(f"x and b must be 4-d, got {tuple(x.shape)} and "
                          f"{tuple(b.shape)}")
@@ -136,6 +209,58 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
         raise RuntimeError(f"ssd_chunk launch failed: CUDA error {err}")
     launched("ssd_chunk")
     return y, st, dec, tot
+
+
+def launch_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int):
+    """dx, ddt, dla, db, dc of ``ssd_chunk`` on the card (the two kernels
+    of ``csrc/ssd_chunk_bwd.cu``), for the gradients dy [M,K,L,P], dstate
+    [M,K,N,P], ddec [M,K,L,1] and dtot [M,K,1,1] of its outputs; db and
+    dc [M / group, K, L, N] summed over the group's heads in ascending
+    order."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the ssd_chunk backward runs on cuda, not {dev}")
+    if x.dim() != 4 or b.dim() != 4:
+        raise ValueError(f"x and b must be 4-d, got {tuple(x.shape)} and "
+                         f"{tuple(b.shape)}")
+    M, K, L, P = x.shape
+    N = b.shape[-1]
+    if group < 1 or M % group or M > 65535:
+        raise ValueError(f"ssd_chunk takes M <= 65535 rows in groups of "
+                         f"{group}, got {tuple(x.shape)}")
+    route_bwd(L, N, P)
+    G = M // group
+    for t, name, shape in ((x, "x", (M, K, L, P)), (dt, "dt", (M, K, L, 1)),
+                           (la, "la", (M, K, L, 1)), (b, "b", (G, K, L, N)),
+                           (c, "c", (G, K, L, N)),
+                           (dy, "dy", (M, K, L, P)),
+                           (dstate, "dstate", (M, K, N, P)),
+                           (ddec, "ddec", (M, K, L, 1)),
+                           (dtot, "dtot", (M, K, 1, 1))):
+        _check(t, name, shape, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((M, K, L, P), **f32)
+    ddt = torch.empty((M, K, L, 1), **f32)
+    dla = torch.empty((M, K, L, 1), **f32)
+    db = torch.empty((G, K, L, N), **f32)
+    dc = torch.empty((G, K, L, N), **f32)
+    # each head's dS and w ⊙ R, which the second kernel sums per group
+    ds = torch.empty((M, K, L, L), **f32)
+    wr = torch.empty((M, K, L, N), **f32)
+    lib = _lib_bwd()
+    if lib.ssd_chunk_bwd_smem_bytes(L, N, P) > _SMEM_BYTES:
+        raise ValueError(f"the ssd_chunk backward holds L={L}, N={N}, "
+                         f"P={P} in more than {_SMEM_BYTES} bytes of "
+                         f"shared memory")
+    err = lib.ssd_chunk_bwd_launch(
+        *(t.data_ptr() for t in (x, dt, la, b, c, dy, dstate, ddec, dtot,
+                                 dx, ddt, dla, db, dc, ds, wr)),
+        M, K, L, P, N, group, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd launch failed: CUDA error {err}")
+    for _ in range(BWD_LAUNCHES):
+        launched("ssd_chunk_bwd")
+    return dx, ddt, dla, db, dc
 
 
 def _chunked(x, dt, A, B, C, D, chunk):

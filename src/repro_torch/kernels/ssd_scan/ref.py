@@ -1,6 +1,6 @@
 """Plain PyTorch Mamba-2 SSD (state-space duality) scan: the CPU path of
-``ops.ssd_chunk`` and the yardstick the CUDA kernel (``csrc/ssd_chunk.cu``)
-is held against on the card.
+``ops.ssd_chunk`` and the yardstick the CUDA kernels (``csrc/ssd_chunk.cu``
+and ``csrc/ssd_chunk_bwd.cu``) are held against on the card.
 
 Semantics (per batch b, head h; arXiv:2405.21060 §6):
 
@@ -10,7 +10,9 @@ Semantics (per batch b, head h; arXiv:2405.21060 §6):
 with a_t = exp(Δ_t · A_h).  ``ssd_ref`` is the sequential scan;
 ``ssd_chunked_ref`` the chunked form the kernel implements (intra-chunk
 quadratic part + inter-chunk state recurrence); ``ssd_chunk`` the
-kernel's own function over every (batch·head, chunk).
+kernel's own function over every (batch·head, chunk); ``ssd_chunk_bwd``
+its gradients, the yardstick of the backward kernel
+(``csrc/ssd_chunk_bwd.cu``).
 
 Shapes: x [B, T, H, P], dt [B, T, H], A [H], B/C [B, T, G, N] with
 H % G == 0, D [H].  Output [B, T, H, P].
@@ -83,6 +85,19 @@ def ssd_chunk(x, dt, la, b, c, group: int = 1):
         c = torch.repeat_interleave(c, group, dim=0)
     y, st, tot, dec = chunk_intra(x, dt[..., 0], la[..., 0], b, c)
     return y, st, dec[..., None], tot[..., None, None]
+
+
+def ssd_chunk_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int = 1):
+    """dx, ddt, dla, db, dc of ``ssd_chunk`` by autograd through it (the
+    VJP the reference's ``_bwd`` recomputes), for the gradients dy
+    [M,K,L,P], dstate [M,K,N,P], ddec [M,K,L,1] and dtot [M,K,1,1] of its
+    four outputs: the yardstick of the backward kernel
+    (``csrc/ssd_chunk_bwd.cu``).  db and dc are per B/C row
+    ([M / group, K, L, N]), summed over the group's heads."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, la, b, c)]
+        outs = ssd_chunk(*ins, group=group)
+        return torch.autograd.grad(outs, ins, (dy, dstate, ddec, dtot))
 
 
 def carry(states, total):

@@ -14,7 +14,9 @@ stays outside the graph, as the reference jits only the decode step.  On
 the CPU the step runs eagerly.  The encdec family (whisper-base) decodes
 against the zero cross K/V of ``init_decode_state``, and the vlm family
 (qwen2-vl-7b) feeds its tokens through the embedding table, as the
-reference's server does.
+reference's server does.  The hybrid (jamba-1.5-large) decodes its
+periods' KV caches and Mamba states in place; at full width it needs
+more than one card, so it is served cut (``main(argv, cfg=)``).
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b          # on the GPU
   python -m repro_torch.launch.serve --arch whisper-base

@@ -5,11 +5,14 @@ thanks to the step-indexed pipeline.
 
   python -m repro_torch.launch.train --preset tiny --device cpu
   python -m repro_torch.launch.train --arch qwen3-0.6b --seq 4096 --batch 2
+  python -m repro_torch.launch.train --arch mamba2-130m --seq 4096 --batch 8
 
 On the card (the default) the forward runs the flash kernel and the
-backward ``csrc/flash_attention_bwd.cu``; ``--device cpu`` runs the plain
-versions.  Training is ported for the dense family (the presets,
-qwen3-0.6b, internlm2-1.8b, ...); the other families raise.  Parameters
+backward ``csrc/flash_attention_bwd.cu``, or for the ssm family the SSD
+kernel and its backward ``csrc/ssd_chunk_bwd.cu``; ``--device cpu`` runs
+the plain versions.  Training is ported for the dense family (the
+presets, qwen3-0.6b, internlm2-1.8b, ...) and the ssm family
+(mamba2-130m); the others raise, naming the slice that brings them.  Parameters
 come from the port's own ``init_params`` (a ``torch.Generator`` seeded
 with ``--seed``); the batches are the reference's bits.
 """
@@ -30,10 +33,12 @@ from ..train.train_step import make_train_step
 from .serve import PRESETS
 
 
-def main(argv=None, on_step=None):
+def main(argv=None, on_step=None, cfg=None):
     """Train; returns the per-step losses (one host read of the loss a
     step).  ``on_step(step, params, opt, metrics)``, if given, is called
-    after every step (chip_smoke times and counts through it)."""
+    after every step (chip_smoke times and counts through it); ``cfg``,
+    where given, takes the place of ``--arch``'s or ``--preset``'s config
+    (a variant of it, such as its ``reduced()`` config)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
     ap.add_argument("--arch", choices=ARCH_IDS)
@@ -50,7 +55,8 @@ def main(argv=None, on_step=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.arch else PRESETS[args.preset]
+    if cfg is None:
+        cfg = get_config(args.arch) if args.arch else PRESETS[args.preset]
     model = build_model(cfg)
     opt_cfg = AdamWCfg(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                        total_steps=args.steps)

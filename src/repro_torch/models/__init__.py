@@ -1,19 +1,18 @@
-"""Model zoo of the port: ``build_model(cfg)`` for the ported families."""
+"""Model zoo of the port: ``build_model(cfg)`` for every family."""
 from __future__ import annotations
 
 
 def build_model(cfg):
-    """The model of ``cfg.family``: ``EncDec`` for ``encdec``, the
-    decoder-only ``LM`` for ``dense``, ``moe``, ``ssm`` and ``vlm``;
-    ``hybrid`` is not ported yet and raises."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported to "
-            "repro_torch yet")
+    """The model of ``cfg.family``: ``EncDec`` for ``encdec``,
+    ``HybridLM`` for ``hybrid``, the decoder-only ``LM`` for ``dense``,
+    ``moe``, ``ssm`` and ``vlm``."""
     # local imports: configs.base imports models.mamba2/moe for the dims
     # dataclasses, so the model modules load lazily here
     if cfg.family == "encdec":
         from .encdec import EncDec
         return EncDec(cfg)
+    if cfg.family == "hybrid":
+        from .hybrid import HybridLM
+        return HybridLM(cfg)
     from .transformer import LM
     return LM(cfg)

@@ -60,9 +60,10 @@ def initialize(schema, generator: torch.Generator, device) -> Any:
     generator's own device.  Leaves are drawn in the schema's order:
     normal leaves ~ N(0, scale²) with scale ``shape[-1] ** -0.5`` unless
     given (0.02 for ``small_normal``), ``alog`` = log U[1, 16].  A leaf
-    stacked over layers is drawn one layer at a time into the finished
-    tensor, so no float32 copy of a whole stack is ever alive (a
-    qwen3-moe-30b-a3b expert stack would be 38.7 GB)."""
+    stacked over layers (once, or twice as the hybrid's layers inside
+    its periods) is drawn one layer at a time into the finished tensor,
+    so no float32 copy of a whole stack is ever alive (a qwen3-moe-30b-a3b
+    expert stack would be 38.7 GB)."""
     device = torch.device(device)
 
     def draw(p: P, shape):
@@ -84,8 +85,12 @@ def initialize(schema, generator: torch.Generator, device) -> Any:
         if p.axes[0] != "layers":
             return draw(p, p.shape).to(device=device, dtype=p.dtype)
         out = torch.empty(p.shape, dtype=p.dtype, device=device)
-        for i in range(p.shape[0]):
-            out[i] = draw(p, p.shape[1:])
+        # one draw per layer, over every leading layer axis (the hybrid's
+        # periods stack layers that are stacked themselves)
+        n = next(i for i, a in enumerate(p.axes) if a != "layers")
+        flat = out.view(-1, *p.shape[n:])
+        for i in range(flat.shape[0]):
+            flat[i] = draw(p, p.shape[n:])
         return out
 
     return map_schema(one, schema)

@@ -74,7 +74,8 @@ def decode_state_from_numpy(state, device="cuda"):
     leaves through ``np.asarray``, its named tuples kept): an
     ``EncDecState`` as it is, a ``DecodeState``'s stacked layer caches
     (``KVCache``, ``QuantKVCache``, ``MambaState``) cut into the port's
-    per-layer list.  The reference's per-layer ``pos`` leaves, zeros it
+    per-layer list, the hybrid's stacked periods into its per-period
+    dicts.  The reference's per-layer ``pos`` leaves, zeros it
     overwrites every step, are dropped."""
     t = lambda a: tensor_from_numpy(a, device)
     if type(state).__name__ == "EncDecState":
@@ -82,6 +83,16 @@ def decode_state_from_numpy(state, device="cuda"):
             self_kv=KVCache(k=t(state.self_kv.k), v=t(state.self_kv.v)),
             cross_kv={n: t(state.cross_kv[n]) for n in ("k", "v")},
             pos=t(state.pos))
+    if isinstance(state.layers, dict):
+        # the hybrid's: {"kv": KVCache over periods, "mamba": MambaState
+        # over periods and their Mamba layers} → one dict a period
+        kv, ms = state.layers["kv"], state.layers["mamba"]
+        layers = [{"kv": KVCache(k=t(kv.k[p]), v=t(kv.v[p])),
+                   "mamba": [MambaState(h=t(ms.h[p, j]),
+                                        conv=t(ms.conv[p, j]))
+                             for j in range(ms.h.shape[1])]}
+                  for p in range(kv.k.shape[0])]
+        return DecodeState(layers=layers, pos=t(state.pos))
     cls = _CACHES[type(state.layers).__name__]
     stacked = {f: getattr(state.layers, f) for f in cls._fields}
     n_layers = len(stacked[cls._fields[0]])

@@ -11,9 +11,9 @@ gradient once instead of building a full-size zero gradient per layer.
 ``hidden_states(remat=True)`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
 serving runs no remat.  ``loss_fn`` is the reference's masked-mean cross
-entropy; training is ported for the ``dense`` family (the others raise,
-naming the slice that brings them).  In decode the cache position is a
-0-d int32 tensor on the model's device, as the reference's
+entropy; training is ported for the ``dense`` and ``ssm`` families (the
+others raise, naming the slice that brings them).  In decode the cache
+position is a 0-d int32 tensor on the model's device, as the reference's
 ``cache.pos``, and ``decode_step`` writes the whole decode state in
 place: every step reads and writes the same buffers, so the step can be
 captured as a CUDA graph and replayed (``launch/serve.py``), and no
@@ -21,8 +21,8 @@ layer reads anything back from the device.  The ``vlm`` family takes
 precomputed embeddings (its patch frontend is stubbed, as in the
 reference) and M-RoPE positions ``[3, B, T]``; its decode feeds tokens
 through the embedding table.  With ``cfg.kv_dtype == "int8"`` the decode
-state holds ``QuantKVCache`` leaves.  ``hybrid`` raises (``encdec`` is
-``models.encdec``).
+state holds ``QuantKVCache`` leaves.  ``hybrid`` is ``models.hybrid``
+and ``encdec`` ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -74,7 +74,6 @@ def unbind_layers(tree, n: int) -> List[Any]:
 
 # the slice of the port that brings training to each family that has none
 _TRAIN_SLICE = {
-    "ssm": "the ssm training slice (an ssd_chunk backward kernel)",
     "moe": "the vlm/moe/encdec training slice",
     "vlm": "the vlm/moe/encdec training slice",
 }
@@ -93,7 +92,7 @@ class LM:
             raise NotImplementedError(
                 f"the {cfg.family} family ({cfg.name}) is not ported to "
                 "repro_torch's LM (dense, moe, ssm and vlm; encdec is "
-                "models.encdec.EncDec)")
+                "models.encdec.EncDec, hybrid models.hybrid.HybridLM)")
         self.cfg = cfg
         self.is_mamba = cfg.family == "ssm"
         self.is_moe = cfg.moe is not None
@@ -189,7 +188,7 @@ class LM:
         """Causal-LM cross entropy over float32 logits, the mean over the
         positions whose label is not negative (0-d float32)."""
         family = self.cfg.family
-        if family != "dense":
+        if family in _TRAIN_SLICE:
             raise NotImplementedError(
                 f"training the {family} family ({self.cfg.name}) is not "
                 f"ported yet: it comes with {_TRAIN_SLICE[family]}")

@@ -43,7 +43,11 @@ within ``SSD_TOL`` (float32, the sums in another order and the chunk
 decay exp(cum_i - cum_j) of a cumsum that rounds differently; chunks of
 64 or 128 at state width 64 or 128 and head width 64 run the tensor-core
 kernel in three TF32 passes, about 2^-21 of each product, the rest the
-CUDA-core one); two launches bit-identical.  A 2-layer full-width model's card logits against
+CUDA-core one); two launches bit-identical.  The SSD backward kernels within
+``SSD_BWD_TOL`` of each output's own max |value| against autograd
+through the plain version (float32, the sums in another order; the
+group's heads summed in ascending order), two launches bit-identical.
+A 2-layer full-width model's card logits against
 its CPU logits within ``MODEL_TOL`` (bf16 weights and activations: a few
 bf16 rounding steps of logits of magnitude ~1).  The MoE layer on the
 card against the CPU within ``MOE_TOL`` (relative, absolute), the CPU
@@ -76,6 +80,7 @@ pytestmark = pytest.mark.cuda
 NET_ULPS = 0
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
 SSD_TOL = 2e-5
+SSD_BWD_TOL = 1e-4      # of each output's own max |value|
 MODEL_TOL = 5e-2
 MOE_TOL = (2.5e-2, 5e-2)
 
@@ -1369,11 +1374,164 @@ def test_flash_autograd_runs_the_kernels(dev):
 
 
 def test_ssd_chunk_raises_under_grad(dev):
-    x, dt, la, b, c = _ssd_inputs(4, 2, 16, 16, 16, 1, dev)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tssd.ssd_chunk(x.requires_grad_(True), dt, la, b, c)
+    """Under grad the forward refuses, before launching, a shape the
+    backward kernels do not take (jamba-1.5-large's head width 128);
+    without grad the same shape runs the forward kernel."""
+    x, dt, la, b, c = _ssd_inputs(4, 2, 128, 128, 128, 4, dev)
+    before = dict(counts)
+    with pytest.raises(ValueError, match="backward"):
+        tssd.ssd_chunk(x.requires_grad_(True), dt, la, b, c, group=4)
+    assert counts == before
     with torch.no_grad():
-        tssd.ssd_chunk(x, dt, la, b, c)
+        tssd.ssd_chunk(x, dt, la, b, c, group=4)
+    assert counts["ssd_chunk"] == before["ssd_chunk"] + 1
+
+
+def _ssd_grads(M, K, L, P, N, dev, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = lambda *s: torch.randn(s, generator=g, device=dev)
+    return n(M, K, L, P), n(M, K, N, P), n(M, K, L, 1), n(M, K, 1, 1)
+
+
+@pytest.mark.parametrize("M,K,L,P,N,group", [
+    (192, 32, 128, 64, 128, 24),     # mamba2-130m train_4k, B 8
+    (16, 4, 128, 64, 128, 4),        # four B/C rows of 4 heads
+    (6, 3, 16, 16, 16, 3),           # the reduced configs' chunk
+    (4, 2, 100, 32, 64, 1),          # a ragged chunk, per-head B/C
+])
+def test_ssd_chunk_bwd_kernel_matches_plain(M, K, L, P, N, group, dev):
+    """Each output within ``SSD_BWD_TOL`` of its own max |value| against
+    autograd through the plain version; two launches bit-identical."""
+    args = _ssd_inputs(M, K, L, P, N, group, dev)
+    grads = _ssd_grads(M, K, L, P, N, dev)
+    before = counts["ssd_chunk_bwd"]
+    a = tssd.launch_bwd(*args, *grads, group)
+    b = tssd.launch_bwd(*args, *grads, group)
+    assert counts["ssd_chunk_bwd"] == before + 2 * tssd.BWD_LAUNCHES
+    p = tssd_ref.ssd_chunk_bwd(*args, *grads, group=group)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, p):
+        assert torch.equal(x, y) and x.shape == z.shape
+        tol = SSD_BWD_TOL * float(z.abs().max())
+        torch.testing.assert_close(x, z, rtol=0, atol=tol)
+
+
+def test_ssd_chunk_bwd_wrapper_checks_its_inputs(dev):
+    args = _ssd_inputs(4, 2, 16, 8, 16, 2, dev)
+    grads = _ssd_grads(4, 2, 16, 8, 16, dev)
+    with pytest.raises(TypeError):
+        tssd.launch_bwd(args[0].double(), *args[1:], *grads, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.launch_bwd(*args, grads[0].transpose(0, 1).contiguous()
+                        .transpose(0, 1), *grads[1:], 2)
+    with pytest.raises(ValueError, match="shape"):
+        tssd.launch_bwd(*args, *grads[:3], grads[3][:, :1], 2)
+    with pytest.raises(ValueError):
+        tssd.launch_bwd(*args, grads[0].cpu(), *grads[1:], 2)
+    with pytest.raises(ValueError, match="groups"):
+        tssd.launch_bwd(*args, *grads, 3)
+    big = _ssd_inputs(2, 1, 16, 128, 16, 1, dev)
+    with pytest.raises(ValueError, match="head widths"):
+        tssd.launch_bwd(*big, *_ssd_grads(2, 1, 16, 128, 16, dev), 1)
+    # every shape ``route_bwd`` takes fits a block's shared memory, as the
+    # C library counts it; a state past its limit would not
+    lib = tssd._lib_bwd()
+    for L, N, P in ((128, 128, 64), (16, 16, 16), (100, 64, 32),
+                    (16, 128, 64), (tssd.BWD_MAX_L, tssd.BWD_MAX_N,
+                                    tssd.BWD_MAX_P)):
+        assert tssd.route_bwd(L, N, P) == tssd.CUDA_CORES
+        assert lib.ssd_chunk_bwd_smem_bytes(L, N, P) <= tssd._SMEM_BYTES
+    assert lib.ssd_chunk_bwd_smem_bytes(128, 256, 64) > tssd._SMEM_BYTES
+    with pytest.raises(ValueError, match="state widths"):
+        tssd.launch_bwd(*_ssd_inputs(2, 1, 16, 16, 256, 1, dev),
+                        *_ssd_grads(2, 1, 16, 16, 256, dev), 1)
+
+
+def test_ssd_autograd_runs_the_kernels(dev):
+    """``ssd_chunk`` under grad: one forward launch, the backward kernels
+    in backward, the gradients ``launch_bwd`` gives; the whole layer's
+    gradients on the card against the CPU's."""
+    args = _ssd_inputs(8, 4, 64, 32, 64, 4, dev)
+    grads = _ssd_grads(8, 4, 64, 32, 64, dev)
+    ins = [t.clone().requires_grad_(True) for t in args]
+    before = dict(counts)
+    outs = tssd.ssd_chunk(*ins, group=4)
+    torch.autograd.backward(outs, grads)
+    assert counts["ssd_chunk"] == before["ssd_chunk"] + 1
+    assert counts["ssd_chunk_bwd"] == \
+        before["ssd_chunk_bwd"] + tssd.BWD_LAUNCHES
+    want = tssd.launch_bwd(*args, *grads, 4)
+    for t, w in zip(ins, want):
+        assert torch.equal(t.grad, w)
+    g = np.random.default_rng(0)
+    B, T, H, P, G, N = 2, 300, 4, 16, 2, 32
+    cpu = [torch.from_numpy(a) for a in (
+        g.normal(size=(B, T, H, P)).astype(np.float32),
+        g.uniform(0.05, 0.3, size=(B, T, H)).astype(np.float32),
+        -g.uniform(0.5, 2.0, size=(H,)).astype(np.float32),
+        (g.normal(size=(B, T, G, N)) / np.sqrt(N)).astype(np.float32),
+        (g.normal(size=(B, T, G, N)) / np.sqrt(N)).astype(np.float32),
+        g.normal(size=(H,)).astype(np.float32))]
+    gy = torch.from_numpy(g.normal(size=(B, T, H, P)).astype(np.float32))
+    res = []
+    for d in ("cpu", dev):
+        ins = [a.to(d).requires_grad_(True) for a in cpu]
+        res.append(torch.autograd.grad(tssd.ssd(*ins, chunk=128), ins,
+                                       gy.to(d)))
+    for a, b in zip(*res):
+        torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                   atol=SSD_BWD_TOL * float(a.abs().max()))
+
+
+def test_ssd_chunk_p128_forward_matches_plain(dev):
+    """jamba-1.5-large's Mamba widths (L = N = P = 128) on the CUDA-core
+    kernel, X staged 64 columns at a time."""
+    assert tssd.route(128, 128, 128) == tssd.CUDA_CORES
+    args = _ssd_inputs(16, 8, 128, 128, 128, 16, dev)
+    a = tssd.ssd_chunk(*args, group=16)
+    b = tssd.ssd_chunk(*args, group=16)
+    p = tssd_ref.ssd_chunk(*args, group=16)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, p):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def _mamba_run(dev, steps=3, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, adamw_init, make_train_step
+    cfg = get_config("mamba2-130m").reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               dev)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWCfg(lr=1e-3, warmup_steps=2,
+                                           total_steps=10))
+    data = SyntheticLM(cfg.vocab, 64, 2)
+    losses = []
+    for s in range(steps):
+        params, opt, m = step(params, opt, data.batch(s, device=dev))
+        losses.append(m["loss"])
+    return params, opt, losses
+
+
+def test_mamba_train_step_on_card_repeats_bit_for_bit(dev):
+    """Two runs of the reduced mamba2-130m from the same seed: every
+    parameter and moment bit-equal (no atomics in either SSD kernel),
+    both SSD kernels on the path."""
+    from repro_torch.tree import tree_leaves
+    before = dict(counts)
+    pa, oa, la = _mamba_run(dev)
+    n_layers = 2
+    assert counts["ssd_chunk"] - before["ssd_chunk"] == 3 * 2 * n_layers
+    assert counts["ssd_chunk_bwd"] - before["ssd_chunk_bwd"] \
+        == 3 * n_layers * tssd.BWD_LAUNCHES
+    pb, ob, lb = _mamba_run(dev)
+    for x, y in zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))):
+        assert torch.equal(x, y)
+    assert all(bool(torch.isfinite(x)) for x in la)
 
 
 def _tiny_run(dev, steps=3, seed=0):

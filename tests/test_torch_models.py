@@ -2,7 +2,8 @@
 ``repro_torch.launch.serve``) on the CPU against the JAX package, for the
 ``dense`` (qwen3-0.6b, granite-20b, phi3-medium-14b, internlm2-1.8b) and
 ``ssm`` (mamba2-130m) families at their ``reduced()`` sizes (the ``moe``
-family: ``test_torch_moe.py``), with the reference's parameters carried
+family: ``test_torch_moe.py``; the hybrid: ``test_torch_hybrid.py``),
+with the reference's parameters carried
 across by ``models.convert``.  The reference's Mamba forward runs its SSD
 Pallas kernel in interpret mode; its attention runs its jnp reference
 (as its own model tests do on the CPU).
@@ -303,27 +304,32 @@ def test_decode_matches_forward_on_the_port(arch):
 
 
 def test_unported_parts_raise():
-    """Every architecture but jamba builds (the dense and ssm ones of
-    ``ARCHS``, the moe pair, whisper-base's encdec and qwen2-vl-7b's
-    vlm); jamba's config and the ``hybrid`` family raise.  The int8 cache,
-    the flat formulations and remat, unported before, now build and
-    run."""
-    assert set(PORTED) == set(ARCHS) | {
+    """Every architecture builds: the dense and ssm ones of ``ARCHS``, the
+    moe pair, whisper-base's encdec, qwen2-vl-7b's vlm and, since the
+    hybrid slice, jamba-1.5-large's hybrid (its ``reduced()`` config
+    too).  What still raises: an unknown arch, the decoder-only ``LM``
+    given the hybrid family, a hybrid whose period does not divide its
+    layers.  The int8 cache, the flat formulations and remat, unported
+    before, now build and run."""
+    assert set(PORTED) == set(ARCH_IDS) == set(ARCHS) | {
         "qwen3-moe-30b-a3b", "qwen2-moe-a2.7b", "whisper-base",
-        "qwen2-vl-7b"}
-    assert set(ARCH_IDS) - set(PORTED) == {"jamba-1.5-large-398b"}
+        "qwen2-vl-7b", "jamba-1.5-large-398b"}
     for name in PORTED:
         assert get_config(name).name == name
         assert build_model(get_config(name)).cfg.name == name
-    with pytest.raises(NotImplementedError, match="jamba-1.5-large-398b"):
-        get_config("jamba-1.5-large-398b")
+        assert build_model(get_config(name).reduced()).cfg.family == \
+            get_config(name).family
+    assert type(build_model(get_config("jamba-1.5-large-398b"))).__name__ \
+        == "HybridLM"
     with pytest.raises(KeyError):
         get_config("gpt-2")
     base = get_config("qwen3-0.6b").reduced()
+    from repro_torch.models.transformer import LM
     with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(dc.replace(base, family="hybrid"))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        dc.replace(base, family="hybrid").reduced()
+        LM(dc.replace(base, family="hybrid"))
+    with pytest.raises(ValueError, match="attn_period"):
+        build_model(dc.replace(get_config("jamba-1.5-large-398b").reduced(),
+                               n_layers=6))
     assert type(build_model(get_config("whisper-base"))).__name__ == "EncDec"
     assert build_model(get_config("qwen2-vl-7b")).cfg.mrope_sections == \
         (16, 24, 24)

@@ -7,8 +7,13 @@ Tolerances: the intra-chunk outputs within 2e-5 of the interpret-mode
 kernel (float32, sums in another order), the whole layer within the
 reference's own kernel-test bound 2e-4 of its chunked and sequential
 oracles (the chunk decay exp(cum_i - cum_j) amplifies the cumsum's
-rounding), the decode steps within 2e-4 of the scan.
+rounding), the decode steps within 2e-4 of the scan.  Gradients: the
+layer's against ``jax.vjp`` of the reference's within 2e-5 of each one's
+max |value|; the plain backward (``ref.ssd_chunk_bwd``) against the
+backward kernel's formulas, both in float64, within 1e-10 of it; the
+autograd Function's wiring exactly.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,3 +190,184 @@ def test_heads_per_block_fills_the_card(K, groups, heads, sms, want):
     """The slice of a group's heads one block of ``ssd_chunk_sm90``
     takes: fewest waves × (heads + 1), the larger slice on a tie."""
     assert ops.heads_per_block(K, groups, heads, sms) == want
+
+
+# ---------------------------------------------------------------------------
+# gradients: the plain backward, the autograd Function's wiring, the layer
+# ---------------------------------------------------------------------------
+
+def _grad_inputs(seed, M, K, L, P, N, group):
+    """``ssd_chunk``'s inputs and its four outputs' gradients."""
+    x, dt, la, b, c = _chunk_inputs(seed, M, K, L, P, N, group)
+    r = np.random.default_rng(seed + 100)
+    outs = [r.normal(size=s).astype(np.float32) for s in
+            ((M, K, L, P), (M, K, N, P), (M, K, L, 1), (M, K, 1, 1))]
+    return (x, dt, la, b, c), outs
+
+
+def _kernel_math(x, dt, la, b, c, dy, dst, ddec, dtot, group):
+    """The backward as ``csrc/ssd_chunk_bwd.cu`` computes it (its header's
+    formulas: per head dM, dU, dS, T, R, dw; per B/C row the heads' dS
+    and w ⊙ R summed in ascending order, then dC and dB), in numpy."""
+    M, K, L, P = x.shape
+    tri = np.tril(np.ones((L, L), bool))
+    dx, ddt, dla = (np.zeros_like(a) for a in (x, dt, la))
+    db, dc = np.zeros_like(b), np.zeros_like(c)
+    dS_sum = np.zeros(b.shape[:2] + (L, L), x.dtype)
+    wr_sum = np.zeros_like(b)
+    for m in range(M):
+        g = m // group
+        for k in range(K):
+            X, D, B, C = x[m, k], dt[m, k, :, 0], b[g, k], c[g, k]
+            cum = np.cumsum(la[m, k, :, 0])
+            G = np.where(tri, np.exp(np.where(tri, cum[:, None]
+                                              - cum[None, :], 0)), 0)
+            Mm = (C @ B.T) * G
+            e = np.exp(cum[-1] - cum)
+            w = e * D
+            dM = np.where(tri, (dy[m, k] @ X.T) * D[None, :], 0)
+            dU = Mm.T @ dy[m, k]
+            T = dM * Mm
+            R = X @ dst[m, k].T
+            dw = (B * R).sum(1)
+            dx[m, k] = D[:, None] * dU + (w[:, None] * B) @ dst[m, k]
+            ddt[m, k, :, 0] = (X * dU).sum(1) + dw * e
+            dcum = T.sum(1) - T.sum(0) + ddec[m, k, :, 0] * np.exp(cum) \
+                - dw * w
+            dcum[-1] += (dw * w).sum() + dtot[m, k, 0, 0] * np.exp(cum[-1])
+            dla[m, k, :, 0] = np.cumsum(dcum[::-1])[::-1]
+            dS_sum[g, k] += dM * G
+            wr_sum[g, k] += w[:, None] * R
+    for g in range(b.shape[0]):
+        for k in range(K):
+            dc[g, k] = dS_sum[g, k] @ b[g, k]
+            db[g, k] = dS_sum[g, k].T @ c[g, k] + wr_sum[g, k]
+    return dx, ddt, dla, db, dc
+
+
+@pytest.mark.parametrize("M,K,L,P,N,group", [
+    (3, 2, 16, 8, 12, 3),          # one B/C row for three heads
+    (4, 2, 16, 16, 16, 1),         # the reduced configs' chunk, per head
+    (4, 1, 100, 8, 24, 2),         # a ragged chunk, two groups
+])
+def test_plain_backward_is_the_kernels_math(M, K, L, P, N, group):
+    """``ref.ssd_chunk_bwd`` (autograd through ``ref.ssd_chunk``) and the
+    kernel's own formulas, both in float64: within 1e-10 of each output's
+    max |value| (the sums in another order)."""
+    ins, outs = _grad_inputs(11, M, K, L, P, N, group)
+    ins64 = [a.astype(np.float64) for a in ins]
+    outs64 = [a.astype(np.float64) for a in outs]
+    got = ref.ssd_chunk_bwd(*map(T_, ins64), *map(T_, outs64), group=group)
+    want = _kernel_math(*ins64, *outs64, group)
+    for g, w, name in zip(got, want, ("dx", "ddt", "dla", "db", "dc")):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-10 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_autograd_function_wiring(monkeypatch):
+    """``SSDChunk`` on CPU tensors, its launches stood in by the plain
+    versions: the backward gets all four gradients contiguous (zeros for
+    the unused in_decay output), and each input gets its own gradient,
+    as autograd through ``ref.ssd_chunk`` gives it."""
+    (x, dt, la, b, c), (gy, _, _, gtot) = _grad_inputs(12, 6, 2, 16, 8, 16,
+                                                       3)
+    seen = []
+
+    def plain_bwd(*args):
+        *ins, dy, dst, ddec, dtot, group = args
+        seen.append([t.is_contiguous() for t in (dy, dst, ddec, dtot)])
+        seen.append([float(t.abs().max()) for t in (dst, ddec)])
+        return ref.ssd_chunk_bwd(*ins, dy, dst, ddec, dtot, group=group)
+    monkeypatch.setattr(ops, "launch",
+                        lambda *a: ref.ssd_chunk(*a[:5], group=a[5]))
+    monkeypatch.setattr(ops, "launch_bwd", plain_bwd)
+
+    def loss(fn, ins):
+        y, st, dec, tot = fn(*ins)
+        # y through a transposed view: its gradient arrives strided
+        return (y.transpose(2, 3) * T_(gy).transpose(2, 3)).sum() \
+            + (tot * T_(gtot)).sum() + 0.0 * st.sum()
+    ins = [T_(a).requires_grad_(True) for a in (x, dt, la, b, c)]
+    got = torch.autograd.grad(
+        loss(lambda *a: ops.SSDChunk.apply(*a, 3), ins), ins)
+    ins2 = [T_(a).requires_grad_(True) for a in (x, dt, la, b, c)]
+    want = torch.autograd.grad(
+        loss(lambda *a: ref.ssd_chunk(*a, group=3), ins2), ins2)
+    assert seen[0] == [True] * 4
+    assert seen[1] == [0.0, 0.0]      # st's gradient is 0·1, dec unused
+    for g, w, t in zip(got, want, ins):
+        assert g.shape == t.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("L,N,P,ok", [
+    (128, 128, 64, True),       # mamba2-130m's training chunk
+    (16, 16, 16, True),         # the reduced configs'
+    (100, 24, 8, True),         # a ragged chunk
+    (128, 128, 128, False),     # jamba-1.5-large's head width
+    (256, 16, 16, False),       # a chunk past 128
+    (128, 256, 64, False),      # a state past 128: more shared memory
+])
+def test_backward_route_takes_the_training_shapes(L, N, P, ok):
+    if ok:
+        assert ops.route_bwd(L, N, P) == ops.CUDA_CORES
+    else:
+        with pytest.raises(ValueError, match="backward"):
+            ops.route_bwd(L, N, P)
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m")
+    assert ops.route_bwd(cfg.ssd_chunk, cfg.mamba.d_state,
+                         cfg.mamba.headdim) == ops.CUDA_CORES
+
+
+@pytest.mark.parametrize("impl", ["chunked", "kernel"])
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 96, 4, 8, 2, 16, 32),      # G > 1
+    (1, 50, 3, 8, 1, 16, 16),      # ragged T (zero-Δ pad), one group
+    (1, 256, 2, 64, 1, 128, 128),  # mamba2-130m's chunk and widths
+])
+def test_ssd_gradients_match_reference_vjp(B, T, H, P, G, N, chunk, impl):
+    """``ops.ssd``'s gradients in x, dt, A, B, C and D (autograd through
+    the plain chunk function, the carry and the carried-state term)
+    against ``jax.vjp`` of the reference's ``ssd``, as ``impl="chunked"``
+    and through its ``custom_vjp`` with the Pallas kernel in interpret
+    mode: each within 2e-5 of its own max |value| (float32, the sums in
+    another order; measured 2.3e-6)."""
+    a = _mk(13, B, T, H, P, G, N)
+    gy = np.random.default_rng(14).normal(size=(B, T, H, P)).astype(
+        np.float32)
+    kw = dict(impl="kernel", interpret=True) if impl == "kernel" else \
+        dict(impl="chunked")
+    _, vjp = jax.vjp(lambda *v: jssd(*v, chunk=chunk, **kw),
+                     *map(jnp.asarray, a))
+    want = vjp(jnp.asarray(gy))
+    ins = [T_(v).requires_grad_(True) for v in a]
+    out = ops.ssd(*ins, chunk=chunk)
+    got = torch.autograd.grad(out, ins, T_(gy))
+    for g, w, name in zip(got, want, ("x", "dt", "A", "B", "C", "D")):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_p128_forward_matches_reference():
+    """jamba-1.5-large's Mamba widths (P = N = 128, chunks of 128, one
+    group), which the card runs on the CUDA-core kernel: the plain path
+    against the reference's kernel in interpret mode (2e-5) and its
+    sequential oracle (2e-4), as the other shapes above."""
+    from repro_torch.configs import get_config
+    dims = get_config("jamba-1.5-large-398b").mamba
+    assert (dims.headdim, dims.d_state, dims.n_groups) == (128, 128, 1)
+    assert ops.route(128, dims.d_state, dims.headdim) == ops.CUDA_CORES
+    a = _mk(15, 1, 256, 2, dims.headdim, 1, dims.d_state)
+    got = ops.ssd(*map(T_, a), chunk=128).numpy()
+    ja = tuple(map(jnp.asarray, a))
+    want = np.asarray(jssd(*ja, chunk=128, impl="kernel", interpret=True))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, np.asarray(jref.ssd_ref(*ja)),
+                               rtol=2e-4, atol=2e-4)

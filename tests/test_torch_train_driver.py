@@ -3,7 +3,8 @@
 ``tiny`` preset on the CPU, where the loss must drop by 0.2 over 100
 steps, and a run resumed from its checkpoint at step 20 must run the 10
 steps left; and a resumed run's losses equal the straight run's, bit for
-bit (the step-indexed pipeline and a bit-exact restore)."""
+bit (the step-indexed pipeline and a bit-exact restore).  ``main(argv,
+cfg=)`` trains a variant config (the reduced mamba2-130m)."""
 import numpy as np
 import torch
 
@@ -43,3 +44,16 @@ def test_train_driver_resume_is_bit_exact(tmp_path):
     resumed = train.main(args + ["--ckpt-dir", str(d), "--ckpt-every",
                                  "10"])
     assert len(straight) == 30 and resumed == straight[20:]
+
+
+def test_train_driver_takes_a_variant_config():
+    """``main(argv, cfg=)`` trains a config in place of ``--arch``'s: the
+    reduced mamba2-130m on the CPU, through the plain SSD's gradients;
+    the same steps from the same seed give the same losses."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m").reduced()
+    args = ["--steps", "3", "--batch", "2", "--seq", "32", "--log-every",
+            "10", "--device", "cpu"]
+    losses = train.main(args, cfg=cfg)
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert train.main(args, cfg=cfg) == losses

@@ -8,7 +8,13 @@ qwen3-0.6b, with the reference's parameters carried across
 Tolerances (measured on this path):
   * float32 (the reference's parameters cast to float32 on both sides):
     the loss within 1e-5 (measured 1e-6: sums in another order); each
-    gradient leaf within 1e-5 of its own max |grad| (measured 2.2e-6);
+    gradient leaf within 1e-5 of its own max |grad| (measured 2.2e-6),
+    but mamba2-130m's ``A_log`` within ``F32_CANCEL_TOL`` = 4e-5 of its
+    own: its gradient is a sum whose terms cancel to 5e-7 (in_proj's
+    reaches 0.04), and against the same gradient in float64 (the port
+    with every float32 cast made float64) the reference's float32 sum is
+    off by 2.0e-5 of its max and the port's by 1.9e-5 (the two 1.5e-5
+    apart), so no float32 program holds it to 1e-5 of the reference;
   * bfloat16 as shipped: the loss within 2e-3 (measured 3e-4: the
     activations round to bfloat16 at other places); each gradient leaf
     within 2^-4 of its own max |grad| (measured 0.023: bfloat16 gradients
@@ -19,7 +25,10 @@ Tolerances (measured on this path):
     whatever its gradient's size, so where a gradient element lies near
     0 a tiny difference flips the sign of its update; the losses and the
     gradient norms of each step within the tolerances above.
-Remat on and off give the port's gradients bit for bit.
+Remat on and off give the port's gradients bit for bit.  The ssm family
+(mamba2-130m) differentiates through the plain SSD (``ref.ssd_chunk``,
+the carry and the carried-state term) on the CPU, as the reference's
+VJP recomputes through its plain chunked version.
 """
 import jax
 import jax.numpy as jnp
@@ -43,13 +52,14 @@ from repro_torch.models.convert import (opt_state_from_numpy,
                                         params_from_numpy)
 from repro_torch.train import AdamWCfg, make_eval_step, make_train_step
 from repro_torch.train.train_step import value_and_grad
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import leaves_with_path, tree_leaves
 
 torch.set_num_threads(1)
 
 LOSS_TOL = {"f32": 1e-5, "bf16": 2e-3}
 GRAD_TOL = {"f32": 1e-5, "bf16": 2.0 ** -4}
-MODELS = ["tiny", "qwen3-0.6b"]
+F32_CANCEL_TOL = {"['A_log']": 4e-5}   # a leaf whose gradient cancels
+MODELS = ["tiny", "qwen3-0.6b", "mamba2-130m"]
 SEQ, BATCH = 32, 2
 
 
@@ -72,18 +82,21 @@ def _batches(vocab, step):
             SyntheticLM(vocab, SEQ, BATCH).batch(step, device="cpu"))
 
 
-def _leaves_close(want_tree, got_tree, frac, atol=0.0):
+def _leaves_close(want_tree, got_tree, frac, atol=0.0, per_leaf=None):
     """Each leaf within ``frac`` of the reference leaf's max magnitude
-    plus ``atol``."""
+    plus ``atol``; ``per_leaf`` maps the end of a leaf's path to its own
+    ``frac``."""
     w = jax.tree_util.tree_leaves(want_tree)
-    g = tree_leaves(got_tree)
+    g = leaves_with_path(got_tree)
     assert len(w) == len(g)
-    for a, b in zip(w, g):
+    for a, (path, b) in zip(w, g):
         a = np.asarray(a.astype(jnp.float32))
         b = b.float().numpy()
         assert a.shape == b.shape
-        tol = frac * float(np.abs(a).max()) + atol
-        np.testing.assert_allclose(b, a, rtol=0, atol=tol)
+        f = next((v for k, v in (per_leaf or {}).items()
+                  if path.endswith(k)), frac)
+        tol = f * float(np.abs(a).max()) + atol
+        np.testing.assert_allclose(b, a, rtol=0, atol=tol, err_msg=path)
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
@@ -97,7 +110,8 @@ def test_loss_and_gradients_match_reference(name, precision):
     assert abs(float(tl) - float(jl)) <= LOSS_TOL[precision]
     for a, b in zip(jax.tree_util.tree_leaves(jp), tree_leaves(tg)):
         assert b.dtype == tensor_dtype(a)
-    _leaves_close(jg, tg, GRAD_TOL[precision])
+    _leaves_close(jg, tg, GRAD_TOL[precision],
+                  per_leaf=F32_CANCEL_TOL if precision == "f32" else None)
     # the eval step is the loss without remat or gradients
     ev = make_eval_step(tm)(tp, tb)
     assert abs(float(ev) - float(jl)) <= LOSS_TOL[precision]
@@ -164,12 +178,13 @@ def test_compressed_train_step_runs_and_matches_reference():
     _leaves_close(jp, tp, 0.0, atol=4 * float(jmet["lr"]))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen3-moe-30b-a3b",
-                                  "qwen2-vl-7b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "qwen3-moe-30b-a3b", "qwen2-vl-7b",
+                                  "whisper-base"])
 def test_unported_families_raise(arch):
-    """Training is ported for the dense family: the others' ``loss_fn``
-    raises, naming the slice that brings it (a scope limit, no
-    fallback)."""
+    """Training is ported for the dense and ssm families: the others'
+    ``loss_fn`` raises, naming the slice that brings it (a scope limit,
+    no fallback)."""
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
     with pytest.raises(NotImplementedError, match="slice"):
