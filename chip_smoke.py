@@ -17,12 +17,13 @@ Phases, in order (any failure exits non-zero):
    tensor-core kernels (``flash_fwd_sm90``, ``ssd_chunk_sm90``) and every
    kernel of the two backward builds (the flash backward's four:
    ``flash_bwd_dq_sm90``, ``flash_bwd_dkdv_sm90``, ``flash_bwd_dq``,
-   ``flash_bwd_dkdv``; the SSD backward's two: ``ssd_bwd_heads``,
-   ``ssd_bwd_groups``) must be in the report and spill nothing; the
-   tropical kernels' SASS (``cuobjdump --dump-sass``) counts of FADD and
-   FMNMX, which must be equal (one max instruction a term), and the
-   model-zoo builds' SASS, which must hold ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA loads);
+   ``flash_bwd_dkdv``; the SSD backward's five: the tensor-core
+   ``ssd_bwd_ds``, ``ssd_bwd_dx``, ``ssd_bwd_db`` and the CUDA-core
+   ``ssd_bwd_heads``, ``ssd_bwd_groups``) must be in the report and
+   spill nothing; the tropical kernels' SASS (``cuobjdump --dump-sass``)
+   counts of FADD and FMNMX, which must be equal (one max instruction a
+   term), and the model-zoo builds' SASS (the SSD backward's too), which
+   must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads);
 2. an empty kernel's launch (device and per call), the floor of the
    launch-bound simulator kernels; then each kernel against its plain
    PyTorch version on the card, at the main paths' shapes, with the route
@@ -169,17 +170,18 @@ Phases, in order (any failure exits non-zero):
    qwen3-0.6b, mamba2-130m, qwen3-moe-30b-a3b, qwen2-moe-a2.7b,
    whisper-base (the encoder over 1,500 seeded frames, then the decoder)
    and qwen2-vl-7b (seeded embeddings, M-RoPE positions of a prompt that
-   holds a 64 x 64 image) at full width and depth, and of one period of
-   jamba-1.5-large at full width (8 of its 72 layers, 4 of its 16
+   holds a 64 x 64 image) at full width and depth (the MoE pair at 24 of
+   48 and 12 of 24 layers: ``SERVE_DEPTH``), and of one period of
+   jamba-1.5-large at full width (8 of its 72 layers, 8 of its 16
    experts, top-2 kept: ``jamba_period``), on seeded random weights, one
    model's weights on the card at a time, at ``prefill_32k``'s T =
    32,768 with the batch cut from 32 to 1: finite last-position logits,
-   the mixer kernels' launches (one a layer: 28, 24, 48, 24 and 28;
+   the mixer kernels' launches (one a layer: 28, 24, 24, 12 and 28;
    whisper 18, six each for the encoder, the decoder's self-attention and
    its cross-attention; ``ssd_chunk`` for mamba2, ``flash_attention``
    for the others; the jamba period 1 ``flash_attention`` and 7
-   ``ssd_chunk``), ``flash_fwd_sm90``, ``ssd_chunk_sm90`` and (jamba)
-   ``ssd_chunk_kernel`` in the device traces, the device busy share
+   ``ssd_chunk``), ``flash_fwd_sm90`` and ``ssd_chunk_sm90`` (jamba's
+   head width 128 too) in the device traces, the device busy share
    (device time over the unprofiled prefill's wall), the peak memory;
    and a 2-layer full-width model of each served arch (whisper with 2
    encoder layers), of granite-20b (MQA: 48 query heads on one KV head),
@@ -232,17 +234,22 @@ Phases, in order (any failure exits non-zero):
    full-width qwen3-0.6b's train-step gradients on the card against the
    CPU (the ``SyntheticLM`` batch bit-equal, the loss, norm and every
    leaf within ``TRAIN_*_TOL``); the SSD backward kernels
-   (``csrc/ssd_chunk_bwd.cu``: ``ssd_bwd_heads`` then
-   ``ssd_bwd_groups``, no atomics) against autograd through the plain
+   (``csrc/ssd_chunk_bwd.cu``, no atomics; ``ops.route_bwd``: the
+   tensor-core ``ssd_bwd_ds``, ``ssd_bwd_dx``, ``ssd_bwd_db`` at the
+   forward's tensor-core shapes, the CUDA-core ``ssd_bwd_heads`` then
+   ``ssd_bwd_groups`` below them) against autograd through the plain
    version (``ref.ssd_chunk_bwd``, each output within ``SSD_BWD_TOL`` of
-   its own max |value|), two launches bit-identical, at mamba2-130m's
-   training shape (B 8, T 4096: M 192, K 32, L = N = 128, P 64, 24 heads
-   a B/C row; timed beside the bound and the plain version), at four B/C
-   rows of 4 heads and at L = N = P = 16; ``launch.train.main`` for
-   mamba2-130m at full width and depth, T 4096, B 8 (cut from 256), as
-   for qwen3-0.6b: per step 2 x 24 ``ssd_chunk`` and 24 x 2
-   ``ssd_chunk_bwd`` launches, two runs bit-equal, the trace naming
-   ``ssd_bwd_heads`` and ``ssd_bwd_groups``; a 2-layer full-width
+   its own max |value|), two launches bit-identical, with the route and
+   the heads a block: at mamba2-130m's training shape (B 8, T 4096: M
+   192, K 32, L = N = 128, P 64, 24 heads a B/C row) and at
+   jamba-1.5-large's (B 1, T 4096: M 128, K 32, L = N = P = 128, one row
+   of 128 heads, four slices), both timed beside the bound and the plain
+   version, at several slices of a row's heads, at four B/C rows of 4
+   heads and at L = N = P = 16; ``launch.train.main`` for mamba2-130m at
+   full width and depth, T 4096, B 8 (cut from 256), as for qwen3-0.6b:
+   per step 2 x 24 ``ssd_chunk`` and 24 x 3 ``ssd_chunk_bwd`` launches,
+   two runs bit-equal, the trace naming ``ssd_bwd_ds``, ``ssd_bwd_dx``
+   and ``ssd_bwd_db``; a 2-layer full-width
    mamba2-130m's train step on the card against the CPU; the ``tiny``
    preset's loss drop over 100 steps and a checkpoint resume bit-equal
    to a straight run;
@@ -310,6 +317,11 @@ JAMBA_EXPERTS = 8              # of 16: one full-width period fits one card
 MODEL_TOL = 5e-2               # 2-layer bf16 logits, card against CPU
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "qwen3-moe-30b-a3b",
                "qwen2-moe-a2.7b", "whisper-base", "qwen2-vl-7b")
+# the served archs prefilled and served cut in depth (layers), at full
+# width: the MoE pair, the longest of the model zoo's prefill and serve
+# paths (their host work a decode step, eager, profiled and linted, grows
+# with the layers); the whole run had reached 1,014.6 of its 1,200 s
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 24, "qwen2-moe-a2.7b": 12}
 # served with the int8 KV cache (a variant of the arch's config)
 INT8_SERVE_ARCHS = ("qwen3-0.6b",)
 # 2-layer full-width card-against-CPU checks (arch, other config fields):
@@ -2953,8 +2965,8 @@ def mixer_launches(cfg) -> dict:
     symbol each must show in the device trace: one a layer (flash, or the
     SSD kernel for ssm), for encdec one an encoder layer and two (self,
     cross) a decoder layer, for the hybrid one flash and attn_period - 1
-    SSD launches a period (jamba's head width 128 on the CUDA-core
-    ``ssd_chunk_kernel``)."""
+    SSD launches a period (the SSD kernel ``ops.route`` names: jamba's
+    head width 128 on ``ssd_chunk_sm90``)."""
     if cfg.family == "ssm":
         return {"ssd_chunk": (cfg.n_layers, "ssd_chunk_sm90")}
     if cfg.family == "hybrid":
@@ -2970,6 +2982,24 @@ def mixer_launches(cfg) -> dict:
     if cfg.family == "encdec":
         n = cfg.n_enc_layers + 2 * cfg.n_layers
     return {"flash_attention": (n, "flash_fwd_sm90")}
+
+
+def served_cfg(arch):
+    """The config an arch is prefilled and served with: its own, cut to
+    ``SERVE_DEPTH``'s layers where that names it."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
+    return cfg
+
+
+def served_tag(arch):
+    if arch not in SERVE_DEPTH:
+        return arch
+    from repro_torch.configs import get_config
+    return (f"{arch} ({SERVE_DEPTH[arch]} of "
+            f"{get_config(arch).n_layers} layers)")
 
 
 def jamba_period():
@@ -3379,7 +3409,10 @@ def check_flash_bwd(tag, B, Hq, Hkv, Tq, Tk, D, dtype, causal, torch, dev,
 
 BWD_KERNELS = ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90", "flash_bwd_dq",
                "flash_bwd_dkdv")
-SSD_BWD_KERNELS = ("ssd_bwd_heads", "ssd_bwd_groups")
+# the SSD backward's kernels: the tensor-core three, then the CUDA-core
+# pair
+SSD_BWD_SM90 = ("ssd_bwd_ds", "ssd_bwd_dx", "ssd_bwd_db")
+SSD_BWD_KERNELS = SSD_BWD_SM90 + ("ssd_bwd_heads", "ssd_bwd_groups")
 # mamba2-130m at train_4k's T = 4,096, the batch of 256 cut to 8 (one
 # card: the float32 logits alone are 6.6 GB)
 SSM_TRAIN_ARCH = "mamba2-130m"
@@ -3390,12 +3423,20 @@ def check_ssd_bwd(tag, M, K, L, P, N, group, torch, dev, n_time=0):
     """The SSD backward kernels (``csrc/ssd_chunk_bwd.cu``) against
     autograd through the plain version (``ref.ssd_chunk_bwd``) on the
     same inputs and output gradients, each output within ``SSD_BWD_TOL``
-    of its own max |value|, two launches bit-identical; with ``n_time``,
-    their time beside the plain version's and the bound (no PyTorch call
-    computes the SSD backward)."""
+    of its own max |value|, two launches bit-identical; the route and, on
+    the tensor cores, the heads a block; with ``n_time``, their time
+    beside the plain version's and the bound (no PyTorch call computes
+    the SSD backward)."""
     from repro_torch.kernels import counts
     from repro_torch.kernels.ssd_scan import ops, ref
     G = M // group
+    if ops.route_bwd(L, N, P) == ops.TENSOR_CORES:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        hpb = ops.heads_per_block(K, G, group, sms, P // 64)
+        route = (f"{' + '.join(SSD_BWD_SM90)}, {hpb} heads a block, "
+                 f"{-(-group // hpb)} slices a B/C row")
+    else:
+        route = " + ".join(SSD_BWD_KERNELS[len(SSD_BWD_SM90):])
     g = torch.Generator(device=dev).manual_seed(31)
     r = lambda *s: torch.rand(s, generator=g, device=dev)
     n = lambda *s: torch.randn(s, generator=g, device=dev)
@@ -3419,7 +3460,7 @@ def check_ssd_bwd(tag, M, K, L, P, N, group, torch, dev, n_time=0):
         check(rels[-1] <= SSD_BWD_TOL, f"ssd_chunk_bwd {tag}: {name} off by "
               f"{errs[-1]}, {rels[-1]:.3g} of its max |value| (tolerance "
               f"{SSD_BWD_TOL})")
-    line = (f"ssd_chunk_bwd {tag} (ssd_bwd_heads + ssd_bwd_groups): M={M} "
+    line = (f"ssd_chunk_bwd {tag} ({route}): M={M} "
             f"K={K} L={L} P={P} N={N} group={group}  max|err| / max|value| "
             + " ".join(f"{k} {v:.3g}" for k, v in zip(
                 ("dx", "ddt", "dla", "db", "dc"), rels)))
@@ -3464,19 +3505,33 @@ def check_ssd_bwd(tag, M, K, L, P, N, group, torch, dev, n_time=0):
 
 
 def check_ssd_bwd_build():
-    """The SSD backward build's ``ptxas`` report must hold both of
-    ``SSD_BWD_KERNELS`` and no kernel may spill."""
+    """The SSD backward build's ``ptxas`` report must hold each of
+    ``SSD_BWD_KERNELS`` and no kernel may spill; its SASS must hold wgmma
+    (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    from repro_torch.kernels import _build
     report = ptxas_report("ssd_chunk_bwd")
     log("ssd_chunk_bwd ptxas: " + (" | ".join(
         f"{k}: {v.get('registers', '?')} registers, "
         f"{v.get('spills', '?')} bytes spilled"
         for k, v in report.items()) or "no report"))
+    # mangled names carry the name's length: 10ssd_bwd_dsILi128E...,
+    # 13ssd_bwd_headsEPKf...
     missing = [n for n in SSD_BWD_KERNELS
-               if not any(f"{len(n)}{n}E" in k for k in report)]
+               if not any(f"{len(n)}{n}E" in k or f"{len(n)}{n}I" in k
+                          for k in report)]
     check(report and not missing
           and all(v.get("spills") == 0 for v in report.values()),
           f"ssd_chunk_bwd: kernels missing from the ptxas report {missing}, "
           "or a kernel that spills")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass", str(_build.library("ssd_chunk_bwd"))],
+        capture_output=True, text=True, timeout=300).stdout
+    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log("ssd_chunk_bwd SASS: " + "  ".join(f"{k} {v}" for k, v in n.items()))
+    check(n["HGMMA"] > 0 and n["UTMALDG"] > 0,
+          "ssd_chunk_bwd: the built library holds no wgmma (HGMMA) or no "
+          "TMA load (UTMALDG)")
 
 
 def check_bwd_build():
@@ -3516,8 +3571,12 @@ def train_kernels(cfg):
     L = cfg.n_layers
     if cfg.family == "ssm":
         from repro_torch.kernels.ssd_scan import ops
-        return ({"ssd_chunk": 2 * L, "ssd_chunk_bwd": L * ops.BWD_LAUNCHES},
-                "ssd_chunk_sm90", SSD_BWD_KERNELS)
+        shape = (cfg.ssd_chunk, cfg.mamba.d_state, cfg.mamba.headdim)
+        sm90 = ops.route_bwd(*shape) == ops.TENSOR_CORES
+        return ({"ssd_chunk": 2 * L,
+                 "ssd_chunk_bwd": L * ops.bwd_launches(*shape)},
+                "ssd_chunk_sm90",
+                SSD_BWD_SM90 if sm90 else SSD_BWD_KERNELS[len(SSD_BWD_SM90):])
     from repro_torch.kernels.flash_attention import ops
     return ({"flash_attention": 2 * L,
              "flash_attention_bwd": L * ops.BWD_LAUNCHES},
@@ -3532,7 +3591,7 @@ def run_train_full(torch, dev, launches, arch=TRAIN_ARCH,
     (``train_kernels``: for qwen3-0.6b 2 x 28 ``flash_attention`` launches,
     the forward and the remat recompute, and 28 x ``BWD_LAUNCHES``
     ``flash_attention_bwd``; for mamba2-130m 2 x 24 ``ssd_chunk`` and 24 x
-    its ``BWD_LAUNCHES`` ``ssd_chunk_bwd``), the two runs bit-equal in
+    ``ops.bwd_launches`` ``ssd_chunk_bwd``), the two runs bit-equal in
     every parameter and moment; the step wall, tokens/s, peak memory;
     then one more step under the profiler: busy share, device time by
     kernel, the backward kernels' share."""
@@ -3781,6 +3840,14 @@ def main() -> int:
     card = gpu_line()
     log(f"card: {card}  torch {torch.__version__} cuda {torch.version.cuda}")
     results, launches = {}, {}
+    t_lap = [t_start]
+
+    def lap(name):
+        """Log the wall of the phases since the last lap, so that a run
+        near the time limit shows which path to cut."""
+        now = time.perf_counter()
+        log(f"phase wall: {name} {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
     try:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
@@ -3790,6 +3857,7 @@ def main() -> int:
         check_builds()
         check_bwd_build()
         check_ssd_bwd_build()
+        lap("builds and their reports")
 
         check_launch_floor(torch, dev)
         results["cloudlet_finish"] = check_cloudlet_finish(
@@ -3849,8 +3917,10 @@ def main() -> int:
         # jamba-1.5-large's prefill: 128 heads of width 128, one B/C group
         check_ssd("jamba prefill_32k, P=128", 128, prefill_len() // 128,
                   128, 128, 128, torch, dev)
+        lap("kernels against their plain versions")
         check_golden(torch, dev)
         run_golden_chaos()
+        lap("golden scenario and chaos combos")
 
         figs = {"case1b": run_capacity("case1b", 2, torch, dev, launches)}
         run_capacity("case1b+net", 1, torch, dev, launches)
@@ -3858,16 +3928,23 @@ def main() -> int:
         for tag in CHAOS_CASES:
             figs[tag] = run_capacity(tag, 1, torch, dev, launches)
         overhead(figs, CHAOS_CASES)
+        lap("Table 2 cells")
         run_sockshop(launches)
         run_sweep8(launches)
         run_chaos_study(launches)
+        lap("SockShop, sweep8, chaos study")
         run_obs(figs, torch, dev, launches)
+        lap("observability")
         run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
+        lap("fabric SockShop and fleet Alg 2")
         run_simcheck(figs, torch, dev)
+        lap("simcheck")
         for arch in SERVE_ARCHS:
-            run_prefill(arch, torch, dev, launches)
+            run_prefill(served_tag(arch), torch, dev, launches,
+                        cfg=served_cfg(arch))
         run_prefill(JAMBA, torch, dev, launches, cfg=jamba_period())
+        lap("prefill")
         for arch, over in TWO_LAYER_CASES:
             check_two_layer(arch, torch, dev, **over)
         # jamba: attention, then a Mamba layer with the MoE FFN (2 of its
@@ -3875,8 +3952,10 @@ def main() -> int:
         check_two_layer(JAMBA, torch, dev, T=256, attn_period=2,
                         moe=dataclasses.replace(jamba_period().moe,
                                                 n_experts=2))
+        lap("2-layer card against CPU")
         for arch in SERVE_ARCHS:
-            run_serve(arch, torch, dev)
+            run_serve(arch, torch, dev, cfg=served_cfg(arch),
+                      tag=served_tag(arch))
         run_serve(JAMBA, torch, dev, cfg=jamba_period(),
                   tag=f"{JAMBA} (one period, {JAMBA_EXPERTS} experts)")
         from repro_torch.configs import get_config
@@ -3884,6 +3963,7 @@ def main() -> int:
             run_serve(arch, torch, dev, cfg=dataclasses.replace(
                 get_config(arch), kv_dtype="int8"),
                 tag=f"{arch} kv_dtype=int8")
+        lap("serve")
         t_train = time.perf_counter()
         # the training forward (with the rows' log-sum-exp) at train_4k
         check_flash("qwen3-0.6b train_4k forward", TRAIN_BATCH, 16, 8,
@@ -3912,11 +3992,16 @@ def main() -> int:
         run_train_full(torch, dev, launches)
         check_train_two_layer(torch, dev)
         # the SSD backward: mamba2-130m's training shape (B 8, T 4096: one
-        # B/C row for 24 heads a sequence), four rows of 4 heads, and the
-        # reduced configs' chunk of 16
+        # B/C row for 24 heads a sequence) and jamba-1.5-large's (B 1, T
+        # 4096: one row of 128 heads of width 128), several slices of a
+        # row's heads, four rows of 4 heads, and the reduced configs'
+        # chunk of 16 (the CUDA-core pair)
         results["ssd_chunk_bwd"] = check_ssd_bwd(
             "mamba2-130m train_4k", 24 * SSM_TRAIN_BATCH, TRAIN_SEQ // 128,
             128, 64, 128, 24, torch, dev, n_time=5)
+        check_ssd_bwd("jamba train_4k, P=128", 128, TRAIN_SEQ // 128, 128,
+                      128, 128, 128, torch, dev, n_time=5)
+        check_ssd_bwd("several slices", 32, 4, 128, 64, 128, 16, torch, dev)
         check_ssd_bwd("group 4", 16, 8, 128, 64, 128, 4, torch, dev)
         check_ssd_bwd("L=N=P=16", 48, 8, 16, 16, 16, 24, torch, dev)
         run_train_full(torch, dev, launches, arch=SSM_TRAIN_ARCH,

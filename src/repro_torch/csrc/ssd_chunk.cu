@@ -22,16 +22,16 @@
 // the float32 pipes.  Two kernels; the entry point picks one from
 // (L, N, P) by the rule the wrapper's `route` states:
 //
-// `ssd_chunk_sm90` (L 64 or 128, N 64 or 128, P 64):
+// `ssd_chunk_sm90` (L 64 or 128, N 64 or 128, P 64 or 128):
 // - Tensor cores: its three products run by wgmma in TF32, three passes
-//   each (3xTF32).  Every operand is split explicitly into two TF32
-//   values, hi = x rounded to TF32 and lo = (x - hi) rounded to TF32 (the
-//   tensor core would truncate a raw float32), and d += hi·hi + lo·hi +
-//   hi·lo in float32 accumulators leaves about 2^-21 of each product
-//   where one pass leaves 2^-11, which the float32 tolerance needs.  The
-//   B operands sit in shared memory (K-major, 128-byte swizzle) and are
-//   read by the tensor cores through descriptors, so no thread loads an
-//   operand per multiply-add.
+//   each (3xTF32, `tf32x3.cuh`).  Every operand is split explicitly into
+//   two TF32 values, hi = x rounded to TF32 and lo = (x - hi) rounded to
+//   TF32 (the tensor core would truncate a raw float32), and d += hi·hi +
+//   lo·hi + hi·lo in float32 accumulators leaves about 2^-21 of each
+//   product where one pass leaves 2^-11, which the float32 tolerance
+//   needs.  The B operands sit in shared memory (K-major, 128-byte
+//   swizzle) and are read by the tensor cores through descriptors, so no
+//   thread loads an operand per multiply-add.
 // - Grid: one block of two warpgroups per (chunk k, B/C group g, slice of
 //   the group's heads); the wrapper picks the slice from the shape so
 //   that the grid fills the card (`ops.heads_per_block`).
@@ -45,10 +45,14 @@
 // - Per head: one warp scans log a (E = L/32 terms in order on each lane,
 //   then a warp scan of the lane sums) and writes cum, Δ and w·Δ
 //   (w = exp(cum_L - cum)) to shared memory, in_decay and total to device
-//   memory.  X arrives by TMA into a staging buffer while the previous
-//   head computes; all threads then write it transposed, split, as Xᵀ
-//   [p][l] (PTX lets a TF32 operand be K-major only, and both products
-//   with X contract over l).  y = P·X with P_ij = S0_ij ·
+//   memory.  The head's columns pass 64 at a time (one pass at P = 64,
+//   two at jamba-1.5-large's 128: y's and the state's columns are
+//   independent over p, and cum, Δ, w·Δ and S0 do not depend on p, so a
+//   second pass reuses them and the buffers keep their P-64 size).  A
+//   pass's X arrives by TMA into a staging buffer while the previous pass
+//   computes; all threads then write it transposed, split, as Xᵀ [p][l]
+//   (PTX lets a TF32 operand be K-major only, and both products with X
+//   contract over l).  y = P·X with P_ij = S0_ij ·
 //   exp(cum_i - cum_j) · Δ_j, built in registers from S0's accumulator as
 //   the A operand; the mask sets the exponent of j > i to -1e30 before
 //   the exp, as the reference does, so that no lane branches.  state =
@@ -59,10 +63,12 @@
 //   each group of 8 l's permuted (position t holds l = 2t, position t + 4
 //   holds l = 2t + 1): P's accumulator registers are the A fragment as
 //   they stand, and the state's A operand is built in the same order.
-// - Shared memory at L = N = 128, P = 64: B hi and lo 128 KB (kept for
-//   the block), Xᵀ hi and lo 64 KB (rebuilt per head), the X staging
-//   buffer 32 KB (one TMA load in flight), cum, Δ, w·Δ 1.5 KB: 227 KB
-//   with the alignment slack, one block of 8 warps per SM.  Outputs go
+// - Shared memory at L = N = 128, P = 64 or 128: B hi and lo 128 KB
+//   (kept for the block), Xᵀ hi and lo 64 KB (rebuilt per pass), the X
+//   staging buffer 32 KB (one TMA load in flight), cum, Δ, w·Δ 1.5 KB:
+//   227 KB with the alignment slack, one block of 8 warps per SM.  A
+//   head of two passes costs a block twice a one-pass head's time, which
+//   `ops.heads_per_block` counts.  Outputs go
 //   out from the accumulators as float2 stores (32 bytes a row a quad).
 // - What limits it: the tensor work is a small part of its time.  With
 //   two warps per scheduler, the issue of the instructions that build the
@@ -82,16 +88,16 @@
 // C's buffer; B is scaled in place by exp(cum_L - cum)·Δ for the state.
 // X and Δ⊙X are staged 64 columns of the head width at a time, and each
 // slice gives its columns of y and of the state: 200,192 bytes at
-// L = N = 128 for any P from 64 up (jamba-1.5-large's P = 128 included;
-// staged whole, P = 128 would need 265,728).  The mask is applied before exp
+// L = N = 128 for any P from 64 up (staged whole, P = 128 would need
+// 265,728).  The mask is applied before exp
 // (j > i gives 0), and tiles wholly above the diagonal are skipped.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
 #include "ssd_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -244,122 +250,36 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 namespace tc {
 
-using namespace sm90;
+using namespace tf32x3;
+using ssd_tile::load_terms;
+using ssd_tile::warp_cumsum;
 
 constexpr int NT = 256;       // two warpgroups
-constexpr int ROW = 128;      // bytes of one swizzled row: 32 floats
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int PH = 64;        // X's columns a pass: the head width, or half
 
 // the shapes it takes (the wrapper's `route` states the same rule)
 __host__ __device__ constexpr bool takes(int L, int N, int P) {
-  return (L == 64 || L == 128) && (N == 64 || N == 128) && P == 64;
+  return (L == 64 || L == 128) && (N == 64 || N == 128) &&
+         (P == 64 || P == 128);
 }
 
 // shared memory, in bytes from a 1024-aligned base: B hi and lo
-// [N/32][L][32] (128-byte swizzle), Xᵀ hi and lo [L/32][P][32] (the
-// same), X as loaded [L][P], cum, Δ and w·Δ [L], two mbarriers
-template <int L, int N, int P>
+// [N/32][L][32] (128-byte swizzle), Xᵀ hi and lo [L/32][PH][32] (the
+// same), X as loaded [L][PH], cum, Δ and w·Δ [L], two mbarriers; the same
+// at P = 64 and 128 (a head of 128 columns passes in two halves)
+template <int L, int N>
 struct Layout {
   static constexpr int B_BYTES = L * N * 4;
-  static constexpr int XT_BYTES = P * L * 4;
-  static constexpr int X_BYTES = L * P * 4;
+  static constexpr int XT_BYTES = PH * L * 4;
+  static constexpr int X_BYTES = L * PH * 4;
   static constexpr int BHI = 0, BLO = B_BYTES, XTH = 2 * B_BYTES;
   static constexpr int XTL = XTH + XT_BYTES, XS = XTL + XT_BYTES;
   static constexpr int VEC = XS + X_BYTES, BARS = VEC + 3 * L * 4;
   static constexpr int SMEM = 1024 + BARS + 16;   // + alignment slack
 };
 
-__host__ __device__ constexpr long long smem_bytes(int L, int N, int P) {
-  return 1024LL + 4LL * (2 * L * N + 3 * P * L + 3 * L) + 16;
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: cvt.rna.tf32.f32's value for every finite x, in two integer
-// instructions where the cvt takes four
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo within 2^-22 |x|; hi and lo are TF32 values (low 13 bits 0)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d[0 : NC/2] += A·B for one k8 step: A (64 x 8 TF32) from registers in the
-// m64k8 fragment order (a thread of lane l in warp w holds rows
-// 16w + l/4 and +8, columns l%4 and +4), B (8 x NC) from shared memory,
-// K-major with the 128-byte swizzle.
-__device__ __forceinline__ void mma_n64(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void mma_n128(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int NC>
-__device__ __forceinline__ void mma3(float* d, const uint32_t* ah,
-                                     const uint32_t* al, uint64_t dh,
-                                     uint64_t dl) {
-  if constexpr (NC == 64) {
-    mma_n64(d, ah, dh);
-    mma_n64(d, al, dh);
-    mma_n64(d, ah, dl);
-  } else {
-    mma_n128(d, ah, dh);
-    mma_n128(d, al, dh);
-    mma_n128(d, ah, dl);
-  }
-}
-
-// the descriptor of k8 step s of a K-major operand of `rows` rows stored
-// as 128-byte swizzled boxes of 32 K-elements
-__device__ __forceinline__ uint64_t kdesc(uint32_t base, int rows, int s) {
-  return sw128_desc(base + (s / 4) * rows * ROW + (s % 4) * 32, 16, 1024);
+__host__ __device__ constexpr long long smem_bytes(int L, int N) {
+  return 1024LL + 4LL * (2 * L * N + 3 * PH * L + 3 * L) + 16;
 }
 
 // the float index of B(l, n) in B hi or lo
@@ -380,23 +300,22 @@ struct Args {
   int K, group, hpb;
 };
 
-// Xᵀ hi and lo from X [L][P]: each thread writes one 16-byte chunk of each
-// (row p, K positions 4·cg..4·cg+3, which hold l = 8(cg/2) + cg%2 + 0, 2,
-// 4, 6)
-template <int L, int P>
+// Xᵀ hi and lo from X [L][PH]: each thread writes one 16-byte chunk of
+// each (row p, K positions 4·cg..4·cg+3, which hold l = 8(cg/2) + cg%2 +
+// 0, 2, 4, 6)
+template <int L>
 __device__ __forceinline__ void build_xt(const float* xs, uint8_t* xth,
                                          uint8_t* xtl, int tid) {
 #pragma unroll 2
-  for (int q = tid; q < P * L / 4; q += NT) {
-    const int p = q % P, cg = q / P;
+  for (int q = tid; q < PH * L / 4; q += NT) {
+    const int p = q % PH, cg = q / PH;
     const int l0 = 8 * (cg / 2) + cg % 2;
     uint4 hi, lo;
-    split(xs[(l0 + 0) * P + p], hi.x, lo.x);
-    split(xs[(l0 + 2) * P + p], hi.y, lo.y);
-    split(xs[(l0 + 4) * P + p], hi.z, lo.z);
-    split(xs[(l0 + 6) * P + p], hi.w, lo.w);
-    const int off =
-        (cg / 8) * P * ROW + p * ROW + (((cg % 8) ^ (p % 8)) * 16);
+    split(xs[(l0 + 0) * PH + p], hi.x, lo.x);
+    split(xs[(l0 + 2) * PH + p], hi.y, lo.y);
+    split(xs[(l0 + 4) * PH + p], hi.z, lo.z);
+    split(xs[(l0 + 6) * PH + p], hi.w, lo.w);
+    const int off = kop_off(p, cg, PH);
     *reinterpret_cast<uint4*>(xth + off) = hi;
     *reinterpret_cast<uint4*>(xtl + off) = lo;
   }
@@ -410,46 +329,34 @@ __device__ __forceinline__ void mma_steps(float* acc, uint32_t bh,
                                           uint32_t bl, int rows, Frag frag) {
 #pragma unroll
   for (int i = 0; i < NC / 2; ++i) acc[i] = 0.0f;
-#pragma unroll
-  for (int b = 0; b < STEPS; b += 4) {
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) frag(b + u, ah[u], al[u]);
-    pin<NC / 2>(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      mma3<NC>(acc, ah[u], al[u], kdesc(bh, rows, b + u),
-               kdesc(bl, rows, b + u));
-    wgmma_commit_wait();
-    pin<NC / 2>(acc);
-  }
+  steps_rs<NC, 0, STEPS>(acc, bh, bl, rows, frag);
 }
 
-// rows r and r + 8 of a [64][P] accumulator tile, from `out` (row r,
-// column 2t) on, as float2 stores (32 bytes a row a quad)
-template <int P>
+// rows r and r + 8 of a [64][NC] accumulator tile, from `out` (row r,
+// column 2t) on, rows LD floats apart, as float2 stores (32 bytes a row a
+// quad)
+template <int NC, int LD>
 __device__ __forceinline__ void store_tile(const float* acc, float* out) {
 #pragma unroll
-  for (int q = 0; q < P / 8; ++q) {
+  for (int q = 0; q < NC / 8; ++q) {
     *reinterpret_cast<float2*>(out + 8 * q) =
         make_float2(acc[4 * q], acc[4 * q + 1]);
-    *reinterpret_cast<float2*>(out + 8 * P + 8 * q) =
+    *reinterpret_cast<float2*>(out + 8 * LD + 8 * q) =
         make_float2(acc[4 * q + 2], acc[4 * q + 3]);
   }
 }
 
-// y rows i0, i0 + 8 (and their warpgroup's 64) of one head: P·X over the
-// NJ columns the causal mask keeps
+// y rows i0, i0 + 8 (and their warpgroup's 64) of one head's PH columns:
+// P·X over the NJ columns the causal mask keeps; y's rows are P floats
 template <int NJ, int P>
 __device__ __forceinline__ void y_tile(const float* s0, int i0, int t,
                                        const float* cum, const float* dts,
                                        uint32_t xth, uint32_t xtl,
                                        float* yr) {
   const float ca = cum[i0], cb = cum[i0 + 8];
-  float acc[P / 2];
-  mma_steps<P, NJ / 8>(acc, xth, xtl, P, [&](int s, uint32_t* hi,
-                                             uint32_t* lo) {
+  float acc[PH / 2];
+  mma_steps<PH, NJ / 8>(acc, xth, xtl, PH, [&](int s, uint32_t* hi,
+                                               uint32_t* lo) {
     const int j = 8 * s + 2 * t;
     const float2 cj = *reinterpret_cast<const float2*>(cum + j);
     const float2 dj = *reinterpret_cast<const float2*>(dts + j);
@@ -471,11 +378,12 @@ __device__ __forceinline__ void y_tile(const float* s0, int i0, int t,
     split(a1, hi[2], lo[2]);
     split(b1, hi[3], lo[3]);
   });
-  store_tile<P>(acc, yr);
+  store_tile<PH, P>(acc, yr);
 }
 
-// state rows na, na + 8 (and their warpgroup's 64) of one head:
-// (w⊙Δ⊙B)ᵀ·X, the A operand read from B hi + lo
+// state rows na, na + 8 (and their warpgroup's 64) of one head's PH
+// columns: (w⊙Δ⊙B)ᵀ·X, the A operand read from B hi + lo; the state's rows
+// are P floats
 template <int L, int P>
 __device__ __forceinline__ void state_tile(int na, int t, const float* bh,
                                            const float* bl, const float* wdt,
@@ -485,9 +393,9 @@ __device__ __forceinline__ void state_tile(int na, int t, const float* bh,
   // rows of 32 floats and keeps l % 8, so the swizzle, in place
   const int ia0 = b_at<L>(2 * t, na), ib0 = b_at<L>(2 * t, na + 8);
   const int ia1 = b_at<L>(2 * t + 1, na), ib1 = b_at<L>(2 * t + 1, na + 8);
-  float acc[P / 2];
-  mma_steps<P, L / 8>(acc, xth, xtl, P, [&](int s, uint32_t* hi,
-                                            uint32_t* lo) {
+  float acc[PH / 2];
+  mma_steps<PH, L / 8>(acc, xth, xtl, PH, [&](int s, uint32_t* hi,
+                                              uint32_t* lo) {
     const int o = 256 * s;
     const float2 wv = *reinterpret_cast<const float2*>(wdt + 8 * s + 2 * t);
     split((bh[ia0 + o] + bl[ia0 + o]) * wv.x, hi[0], lo[0]);
@@ -495,7 +403,7 @@ __device__ __forceinline__ void state_tile(int na, int t, const float* bh,
     split((bh[ia1 + o] + bl[ia1 + o]) * wv.y, hi[2], lo[2]);
     split((bh[ib1 + o] + bl[ib1 + o]) * wv.y, hi[3], lo[3]);
   });
-  store_tile<P>(acc, sr);
+  store_tile<PH, P>(acc, sr);
 }
 
 __device__ __forceinline__ void sync_block() {
@@ -508,7 +416,8 @@ __device__ __forceinline__ void sync_block() {
 template <int L, int N, int P, int WG>
 __device__ __forceinline__ void run(uint8_t* sm, const CUtensorMap* tm_x,
                                     const CUtensorMap* tm_b, const Args& a) {
-  using S = Layout<L, N, P>;
+  using S = Layout<L, N>;
+  constexpr int HALVES = P / PH;      // X's passes a head
   constexpr int NY = L / 64;          // y row tiles: warpgroup c takes c
   constexpr bool HAS_Y = WG < NY;
   constexpr int NJ = 64 * (WG + 1);   // the S0 columns its rows keep
@@ -558,31 +467,12 @@ __device__ __forceinline__ void run(uint8_t* sm, const CUtensorMap* tm_x,
   // log a and Δ of the first head, for the scan warp
   float pla[E], pdt[E];
   const bool scan = WG == 0 && w == 0;
-  if (scan) {
-    const long long at = ((long long)h0 * a.K + k) * L + E * lane;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      pla[e] = __ldg(a.la + at + e);
-      pdt[e] = __ldg(a.dt + at + e);
-    }
-  }
+  if (scan) load_terms<E>(a.la, a.dt, (long long)h0 * a.K + k, L, lane, pla,
+                          pdt);
 
   // B hi and lo, in place of B
   mbar_wait(bfull, 0);
-  {
-    uint4* hi = reinterpret_cast<uint4*>(sm + S::BHI);
-    uint4* lo = reinterpret_cast<uint4*>(sm + S::BLO);
-    for (int e = tid; e < L * N / 4; e += NT) {
-      const uint4 v = hi[e];
-      uint4 h, l;
-      split(__uint_as_float(v.x), h.x, l.x);
-      split(__uint_as_float(v.y), h.y, l.y);
-      split(__uint_as_float(v.z), h.z, l.z);
-      split(__uint_as_float(v.w), h.w, l.w);
-      hi[e] = h;
-      lo[e] = l;
-    }
-  }
+  split_in_place(sm + S::BHI, sm + S::BLO, L * N, tid, NT);
   fence_proxy_async();
   sync_block();
 
@@ -597,26 +487,16 @@ __device__ __forceinline__ void run(uint8_t* sm, const CUtensorMap* tm_x,
 
   const float* bh = reinterpret_cast<const float*>(sm + S::BHI);
   const float* bl = reinterpret_cast<const float*>(sm + S::BLO);
-  for (int h = h0, it = 0; h < h1; ++h, ++it) {
+  // one pass per (head, half of its columns); `it` counts the passes
+  for (int h = h0, it = 0; h < h1; ++h)
+  for (int half = 0; half < HALVES; ++half, ++it) {
     const long long hk = (long long)h * a.K + k;
-    if (scan) {
-      // cum = cumsum(log a): E terms in order on each lane, then a scan
-      // of the lane sums across the warp
+    if (scan && half == 0) {
+      // cum = cumsum(log a)
       float c[E];
-      c[0] = pla[0];
 #pragma unroll
-      for (int e = 1; e < E; ++e) c[e] = c[e - 1] + pla[e];
-      float inc = c[E - 1];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(FULL, inc, o);
-        if (lane >= o) inc += v;
-      }
-      float ex = __shfl_up_sync(FULL, inc, 1);
-      if (lane == 0) ex = 0.0f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) c[e] += ex;
-      const float last = __shfl_sync(FULL, c[E - 1], 31);
+      for (int e = 0; e < E; ++e) c[e] = pla[e];
+      const float last = warp_cumsum<E>(c, lane);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const int l = E * lane + e;
@@ -626,36 +506,33 @@ __device__ __forceinline__ void run(uint8_t* sm, const CUtensorMap* tm_x,
         a.dec[hk * L + l] = expf(c[e]);
       }
       if (lane == 0) a.tot[hk] = expf(last);
-      if (h + 1 < h1) {
-        const long long at = (hk + a.K) * L + E * lane;
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          pla[e] = __ldg(a.la + at + e);
-          pdt[e] = __ldg(a.dt + at + e);
-        }
-      }
+      if (h + 1 < h1) load_terms<E>(a.la, a.dt, hk + a.K, L, lane, pla, pdt);
     }
     mbar_wait(xfull, it & 1);
-    build_xt<L, P>(reinterpret_cast<const float*>(sm + S::XS), sm + S::XTH,
-                   sm + S::XTL, tid);
+    build_xt<L>(reinterpret_cast<const float*>(sm + S::XS), sm + S::XTH,
+                sm + S::XTL, tid);
     fence_proxy_async();
     sync_block();
-    if (tid == 0 && h + 1 < h1) {     // the staging buffer is free
+    if (tid == 0 && (half + 1 < HALVES || h + 1 < h1)) {
+      // the staging buffer is free: the next pass's columns
+      const bool same = half + 1 < HALVES;
       mbar_expect_tx(xfull, S::X_BYTES);
-      tma_load(xs, tm_x, 0, 0, (int)(hk + a.K), xfull);
+      tma_load(xs, tm_x, same ? PH * (half + 1) : 0, 0,
+               (int)(same ? hk : hk + a.K), xfull);
     }
+    const int p0 = PH * half;
     if constexpr (HAS_Y)
       y_tile<NJ, P>(s0, i0, t, cum, dts, xth, xtl,
-                    a.y + (hk * L + i0) * P + 2 * t);
+                    a.y + (hk * L + i0) * P + p0 + 2 * t);
     // state row tiles, dealt to the warpgroups after the y tiles
 #pragma unroll
     for (int tt = 0; tt < N / 64; ++tt)
       if ((tt + NY) % 2 == WG) {
         const int na = 64 * tt + 16 * w + lane / 4;
         state_tile<L, P>(na, t, bh, bl, wdt, xth, xtl,
-                         a.st + (hk * N + na) * P + 2 * t);
+                         a.st + (hk * N + na) * P + p0 + 2 * t);
       }
-    sync_block();   // Xᵀ, cum, Δ and w·Δ are free
+    sync_block();   // Xᵀ is free (cum, Δ and w·Δ after the last half)
   }
 }
 
@@ -676,13 +553,13 @@ ssd_chunk_sm90(const __grid_constant__ CUtensorMap tm_x,
 template <int L, int N, int P>
 int launch(const float* x, const float* b, const Args& a, int M,
            cudaStream_t stream) {
-  using S = Layout<L, N, P>;
-  static_assert(S::SMEM == smem_bytes(L, N, P), "layout");
+  using S = Layout<L, N>;
+  static_assert(S::SMEM == smem_bytes(L, N), "layout");
   static_assert(S::SMEM <= 232448, "one Hopper block's shared memory");
   CUtensorMap mx, mb;
   const uint64_t mk = (uint64_t)M * a.K, gk = (uint64_t)(M / a.group) * a.K;
   if (!tensor_map_3d(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, P, L, mk,
-                     P, L, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+                     PH, L, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !tensor_map_3d(&mb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, N, L, gk,
                      32, L, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
@@ -695,12 +572,13 @@ int launch(const float* x, const float* b, const Args& a, int M,
   return (int)cudaGetLastError();
 }
 
+template <int P>
 int launch_shape(int L, int N, const float* x, const float* b,
                  const Args& a, int M, cudaStream_t s) {
-  if (L == 128 && N == 128) return launch<128, 128, 64>(x, b, a, M, s);
-  if (L == 128 && N == 64) return launch<128, 64, 64>(x, b, a, M, s);
-  if (L == 64 && N == 128) return launch<64, 128, 64>(x, b, a, M, s);
-  if (L == 64 && N == 64) return launch<64, 64, 64>(x, b, a, M, s);
+  if (L == 128 && N == 128) return launch<128, 128, P>(x, b, a, M, s);
+  if (L == 128 && N == 64) return launch<128, 64, P>(x, b, a, M, s);
+  if (L == 64 && N == 128) return launch<64, 128, P>(x, b, a, M, s);
+  if (L == 64 && N == 64) return launch<64, 64, P>(x, b, a, M, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -714,7 +592,7 @@ extern "C" int ssd_chunk_route(int L, int N, int P) {
 
 // the dynamic shared memory of the kernel the entry point runs
 extern "C" long long ssd_chunk_smem_bytes(int L, int N, int P) {
-  if (tc::takes(L, N, P)) return tc::smem_bytes(L, N, P);
+  if (tc::takes(L, N, P)) return tc::smem_bytes(L, N);
   return smem_floats(L, N, P) * (long long)sizeof(float);
 }
 
@@ -741,7 +619,8 @@ extern "C" int ssd_chunk_launch(const float* x, const float* dt,
     if (hpb < 1 || hpb > group || (long long)M * K > INT_MAX)
       return (int)cudaErrorInvalidValue;
     const tc::Args a{c, dt, la, y, st, dec, tot, K, group, hpb};
-    return tc::launch_shape(L, N, x, b, a, M, s);
+    return P == 64 ? tc::launch_shape<64>(L, N, x, b, a, M, s)
+                   : tc::launch_shape<128>(L, N, x, b, a, M, s);
   }
   const long long bytes = ssd_chunk_smem_bytes(L, N, P);
   cudaError_t err = cudaFuncSetAttribute(

@@ -6,21 +6,26 @@ as the reference keeps them outside its Pallas kernel.
 
 The C entry point picks the kernel from the chunk length L, the state
 width N and the head width P, by the rule ``route`` states: L 64 or 128,
-N 64 or 128 and P 64 (Mamba-2's head width; mamba2-130m's prefill is
-L = N = 128) go to the tensor-core kernel ``ssd_chunk_sm90`` (3xTF32
-wgmma, C·Bᵀ once per chunk and B/C group), every other shape (ragged or
-short chunks, other widths, jamba-1.5-large's P = 128) to the CUDA-core
-``ssd_chunk_kernel``.  One launch a call; a failed build or launch
-raises, and nothing retries the other kernel.
+N 64 or 128 and P 64 or 128 (mamba2-130m's prefill is L = N = 128, P =
+64; jamba-1.5-large's P = 128 passes in two halves of 64 columns) go to
+the tensor-core kernel ``ssd_chunk_sm90`` (3xTF32 wgmma, C·Bᵀ once per
+chunk and B/C group), every other shape (ragged or short chunks, other
+widths) to the CUDA-core ``ssd_chunk_kernel``.  One launch a call; a
+failed build or launch raises, and nothing retries the other kernel.
 
 Gradients: on the card, when grad mode is on and an input requires a
 gradient, ``ssd_chunk`` runs through ``SSDChunk`` (an
 ``autograd.Function``): its forward is the same launch, its backward the
-two kernels of ``csrc/ssd_chunk_bwd.cu`` (``launch_bwd``, counted as
-``ssd_chunk_bwd``, ``BWD_LAUNCHES`` a call, no atomics), which take
-chunks, state widths up to 128 and head widths up to 64 (``route_bwd``;
-the shapes beyond raise when the forward is called under grad).  The reference has
-no backward kernel: its VJP recomputes through its plain version.  On
+kernels of ``csrc/ssd_chunk_bwd.cu`` (``launch_bwd``, counted as
+``ssd_chunk_bwd``, ``bwd_launches`` a call, no atomics), by the rule
+``route_bwd`` states: the forward's tensor-core shapes go to three
+tensor-core kernels (``ssd_bwd_ds``, ``ssd_bwd_dx``, ``ssd_bwd_db``: a
+slice of a B/C row's heads a block, Σ_h dS_h on chip, no per-head
+partial through memory), chunks up to 128, state widths up to 128 and
+head widths up to 64 otherwise to the CUDA-core pair (``ssd_bwd_heads``,
+``ssd_bwd_groups``); other shapes raise when the forward is called
+under grad.  The reference has no backward kernel: its VJP recomputes
+through its plain version.  On
 the CPU gradients come from autograd through ``ref.ssd_chunk``.  The
 carry over chunks and the carried-state term stay plain PyTorch under
 autograd on both devices, as the reference keeps them outside its
@@ -40,11 +45,11 @@ CUDA_CORES = 0      # ``ssd_chunk_kernel``
 TENSOR_CORES = 1    # ``ssd_chunk_sm90``
 SM90_CHUNKS = (64, 128)
 SM90_STATES = (64, 128)
-SM90_HEAD_DIMS = (64,)
-BWD_LAUNCHES = 2    # ``ssd_bwd_heads``, then ``ssd_bwd_groups``
-BWD_MAX_L = 128     # the backward's chunk, state- and head-width limits
-BWD_MAX_N = 128
-BWD_MAX_P = 64
+SM90_HEAD_DIMS = (64, 128)
+SM90_HALF = 64      # the tensor-core kernels take a head 64 columns a pass
+BWD_MAX_L = 128     # the CUDA-core backward's limits: chunk,
+BWD_MAX_N = 128     # state width
+BWD_MAX_P = 64      # and head width
 
 
 def route(L: int, N: int, P: int) -> int:
@@ -56,34 +61,48 @@ def route(L: int, N: int, P: int) -> int:
 
 
 def route_bwd(L: int, N: int, P: int) -> int:
-    """The backward kernels a shape takes: the CUDA-core pair of
-    ``csrc/ssd_chunk_bwd.cu`` for chunks of 1 to ``BWD_MAX_L``, state
-    widths up to ``BWD_MAX_N`` and head widths up to ``BWD_MAX_P`` (at
-    all three limits both kernels' shared memory fits a block, as the C
-    library's ``ssd_chunk_bwd_smem_bytes`` states); any other shape
-    raises, with its reason."""
+    """The backward kernels a shape takes: the forward's tensor-core
+    shapes (``route``) the three tensor-core kernels of
+    ``csrc/ssd_chunk_bwd.cu``; else the CUDA-core pair for chunks of 1
+    to ``BWD_MAX_L``, state widths up to ``BWD_MAX_N`` and head widths up
+    to ``BWD_MAX_P`` (on either route every kernel's shared memory fits a
+    block, as the C library's ``ssd_chunk_bwd_smem_bytes`` states); any
+    other shape raises, with its reason."""
+    if route(L, N, P) == TENSOR_CORES:
+        return TENSOR_CORES
     if not (1 <= L <= BWD_MAX_L and 1 <= N <= BWD_MAX_N
             and 1 <= P <= BWD_MAX_P):
         raise ValueError(
-            f"the ssd_chunk backward takes chunks of 1 to {BWD_MAX_L}, "
-            f"state widths up to {BWD_MAX_N} and head widths up to "
-            f"{BWD_MAX_P}, got L={L}, N={N}, P={P}")
+            f"the ssd_chunk backward takes chunks of 64 or 128 at state "
+            f"widths 64 or 128 and head widths 64 or 128, else chunks of 1 "
+            f"to {BWD_MAX_L}, state widths up to {BWD_MAX_N} and head "
+            f"widths up to {BWD_MAX_P}, got L={L}, N={N}, P={P}")
     return CUDA_CORES
 
 
-def heads_per_block(K: int, groups: int, heads: int, sms: int) -> int:
-    """The heads of one B/C group that one block of ``ssd_chunk_sm90``
-    takes, for K chunks, ``groups`` groups of ``heads`` heads and a card
-    of ``sms`` SMs (one block per SM).  A block pays about one head's
-    time for its B/C load and C·Bᵀ, then one per head, and the grid runs
-    in waves of ``sms`` blocks: the rule takes the slice with the fewest
-    waves × (heads + 1), the larger slice on a tie.  mamba2-130m's
+def bwd_launches(L: int, N: int, P: int) -> int:
+    """The kernel launches of one backward call: three on the tensor
+    cores (``ssd_bwd_ds``, ``ssd_bwd_dx``, ``ssd_bwd_db``), two on the
+    CUDA cores (``ssd_bwd_heads``, ``ssd_bwd_groups``)."""
+    return 3 if route_bwd(L, N, P) == TENSOR_CORES else 2
+
+
+def heads_per_block(K: int, groups: int, heads: int, sms: int,
+                    halves: int = 1) -> int:
+    """The heads of one B/C group that one block of a tensor-core kernel
+    (``ssd_chunk_sm90``, ``ssd_bwd_ds``, ``ssd_bwd_dx``) takes, for K
+    chunks, ``groups`` groups of ``heads`` heads, a card of ``sms`` SMs
+    (one block per SM) and heads of ``halves`` passes of 64 columns (2 at
+    head width 128).  A block pays about one pass's time for its B/C load
+    and C·Bᵀ, then ``halves`` a head, and the grid runs in waves of
+    ``sms`` blocks: the rule takes the slice with the fewest waves ×
+    (heads × halves + 1), the larger slice on a tie.  mamba2-130m's
     prefill (K = 256, one group of 24) keeps 24 heads a block (256
     blocks, two waves); K = 32 takes 6 (128 blocks, one wave)."""
     best, pick = None, heads
     for hpb in range(heads, 0, -1):
         blocks = K * groups * -(-heads // hpb)
-        cost = -(-blocks // sms) * (hpb + 1)
+        cost = -(-blocks // sms) * (hpb * halves + 1)
         if best is None or cost < best:
             best, pick = cost, hpb
     return pick
@@ -107,11 +126,13 @@ def _lib_bwd():
     lib = _build.load("ssd_chunk_bwd")
     fn = lib.ssd_chunk_bwd_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ssd_chunk_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.ssd_chunk_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_chunk_bwd_route.argtypes = [ctypes.c_int] * 3
+        lib.ssd_chunk_bwd_route.restype = ctypes.c_int
     return lib
 
 
@@ -193,8 +214,7 @@ def launch(x, dt, la, b, c, group: int):
                          f"than {_SMEM_BYTES} bytes of shared memory")
     hpb = 1
     if route(L, N, P) == TENSOR_CORES:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        hpb = heads_per_block(K, M // group, group, sms)
+        hpb = _heads_per_block(dev, K, M // group, group, P)
     f32 = dict(dtype=torch.float32, device=dev)
     y = torch.empty((M, K, L, P), **f32)
     st = torch.empty((M, K, N, P), **f32)
@@ -211,12 +231,20 @@ def launch(x, dt, la, b, c, group: int):
     return y, st, dec, tot
 
 
+def _heads_per_block(dev, K, groups, heads, P):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return heads_per_block(K, groups, heads, sms, P // SM90_HALF)
+
+
 def launch_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int):
-    """dx, ddt, dla, db, dc of ``ssd_chunk`` on the card (the two kernels
-    of ``csrc/ssd_chunk_bwd.cu``), for the gradients dy [M,K,L,P], dstate
-    [M,K,N,P], ddec [M,K,L,1] and dtot [M,K,1,1] of its outputs; db and
-    dc [M / group, K, L, N] summed over the group's heads in ascending
-    order."""
+    """dx, ddt, dla, db, dc of ``ssd_chunk`` on the card (``route_bwd``'s
+    kernels of ``csrc/ssd_chunk_bwd.cu``), for the gradients dy
+    [M,K,L,P], dstate [M,K,N,P], ddec [M,K,L,1] and dtot [M,K,1,1] of its
+    outputs; db and dc [M / group, K, L, N] summed over the group's
+    heads: on the tensor cores Σ dS in ascending head order within a
+    slice of ``heads_per_block`` heads, then over the slices in
+    ascending order, and Σ w ⊙ R over all the heads in ascending order;
+    on the CUDA cores both in ascending head order."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the ssd_chunk backward runs on cuda, not {dev}")
@@ -228,7 +256,7 @@ def launch_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int):
     if group < 1 or M % group or M > 65535:
         raise ValueError(f"ssd_chunk takes M <= 65535 rows in groups of "
                          f"{group}, got {tuple(x.shape)}")
-    route_bwd(L, N, P)
+    kind = route_bwd(L, N, P)
     G = M // group
     for t, name, shape in ((x, "x", (M, K, L, P)), (dt, "dt", (M, K, L, 1)),
                            (la, "la", (M, K, L, 1)), (b, "b", (G, K, L, N)),
@@ -244,9 +272,16 @@ def launch_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int):
     dla = torch.empty((M, K, L, 1), **f32)
     db = torch.empty((G, K, L, N), **f32)
     dc = torch.empty((G, K, L, N), **f32)
-    # each head's dS and w ⊙ R, which the second kernel sums per group
-    ds = torch.empty((M, K, L, L), **f32)
-    wr = torch.empty((M, K, L, N), **f32)
+    if kind == TENSOR_CORES:
+        # each slice's Σ dS and each head's Σ_j T_ij - Σ_j T_ji
+        hpb = _heads_per_block(dev, K, G, group, P)
+        s1 = torch.empty((-(-group // hpb), G, K, L, L), **f32)
+        s2 = torch.empty((M, K, L), **f32)
+    else:
+        # each head's dS and w ⊙ R, which the second kernel sums per group
+        hpb = 1
+        s1 = torch.empty((M, K, L, L), **f32)
+        s2 = torch.empty((M, K, L, N), **f32)
     lib = _lib_bwd()
     if lib.ssd_chunk_bwd_smem_bytes(L, N, P) > _SMEM_BYTES:
         raise ValueError(f"the ssd_chunk backward holds L={L}, N={N}, "
@@ -254,11 +289,12 @@ def launch_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int):
                          f"shared memory")
     err = lib.ssd_chunk_bwd_launch(
         *(t.data_ptr() for t in (x, dt, la, b, c, dy, dstate, ddec, dtot,
-                                 dx, ddt, dla, db, dc, ds, wr)),
-        M, K, L, P, N, group, torch.cuda.current_stream(dev).cuda_stream)
+                                 dx, ddt, dla, db, dc, s1, s2)),
+        M, K, L, P, N, group, hpb,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bwd launch failed: CUDA error {err}")
-    for _ in range(BWD_LAUNCHES):
+    for _ in range(bwd_launches(L, N, P)):
         launched("ssd_chunk_bwd")
     return dx, ddt, dla, db, dc
 

@@ -41,12 +41,13 @@ width 64 and 128 runs the tensor-core kernel, the rest the CUDA-core
 one), ``ssd_chunk``
 within ``SSD_TOL`` (float32, the sums in another order and the chunk
 decay exp(cum_i - cum_j) of a cumsum that rounds differently; chunks of
-64 or 128 at state width 64 or 128 and head width 64 run the tensor-core
-kernel in three TF32 passes, about 2^-21 of each product, the rest the
-CUDA-core one); two launches bit-identical.  The SSD backward kernels within
-``SSD_BWD_TOL`` of each output's own max |value| against autograd
-through the plain version (float32, the sums in another order; the
-group's heads summed in ascending order), two launches bit-identical.
+64 or 128 at state width 64 or 128 and head width 64 or 128 run the
+tensor-core kernel in three TF32 passes, about 2^-21 of each product, the
+rest the CUDA-core one); two launches bit-identical.  The SSD backward
+kernels within ``SSD_BWD_TOL`` of each output's own max |value| against
+autograd through the plain version (float32, the sums in another order;
+the group's heads summed in ascending order, on the tensor cores within
+a slice and then over the slices), two launches bit-identical.
 A 2-layer full-width model's card logits against
 its CPU logits within ``MODEL_TOL`` (bf16 weights and activations: a few
 bf16 rounding steps of logits of magnitude ~1).  The MoE layer on the
@@ -1069,6 +1070,8 @@ def _ssd_inputs(M, K, L, P, N, group, dev, seed=0):
     (24, 4, 64, 64, 128, 24),              # tensor cores, L = 64
     (8, 3, 128, 64, 64, 4),                # tensor cores, N = 64
     (24, 256, 128, 64, 128, 24),           # mamba2-130m's prefill_32k
+    (128, 8, 128, 128, 128, 128),          # tensor cores, jamba's P = 128
+    (8, 3, 64, 128, 64, 4),                # tensor cores, P = 128 at 64
 ])
 def test_ssd_chunk_kernel_matches_plain(M, K, L, P, N, group, dev):
     args = _ssd_inputs(M, K, L, P, N, group, dev)
@@ -1375,9 +1378,9 @@ def test_flash_autograd_runs_the_kernels(dev):
 
 def test_ssd_chunk_raises_under_grad(dev):
     """Under grad the forward refuses, before launching, a shape the
-    backward kernels do not take (jamba-1.5-large's head width 128);
+    backward kernels do not take (a ragged chunk at head width 128);
     without grad the same shape runs the forward kernel."""
-    x, dt, la, b, c = _ssd_inputs(4, 2, 128, 128, 128, 4, dev)
+    x, dt, la, b, c = _ssd_inputs(4, 2, 100, 128, 128, 4, dev)
     before = dict(counts)
     with pytest.raises(ValueError, match="backward"):
         tssd.ssd_chunk(x.requires_grad_(True), dt, la, b, c, group=4)
@@ -1396,18 +1399,27 @@ def _ssd_grads(M, K, L, P, N, dev, seed=1):
 @pytest.mark.parametrize("M,K,L,P,N,group", [
     (192, 32, 128, 64, 128, 24),     # mamba2-130m train_4k, B 8
     (16, 4, 128, 64, 128, 4),        # four B/C rows of 4 heads
+    (128, 8, 128, 128, 128, 128),    # jamba's widths, P = 128: 4 slices
+    (24, 4, 64, 64, 64, 24),         # L = N = 64
+    (48, 8, 64, 64, 64, 24),         # several slices of a B/C row
     (6, 3, 16, 16, 16, 3),           # the reduced configs' chunk
     (4, 2, 100, 32, 64, 1),          # a ragged chunk, per-head B/C
 ])
 def test_ssd_chunk_bwd_kernel_matches_plain(M, K, L, P, N, group, dev):
     """Each output within ``SSD_BWD_TOL`` of its own max |value| against
-    autograd through the plain version; two launches bit-identical."""
+    autograd through the plain version; two launches bit-identical; the
+    tensor-core shapes at one slice of a B/C row's heads a block or at
+    several (``heads_per_block``)."""
     args = _ssd_inputs(M, K, L, P, N, group, dev)
     grads = _ssd_grads(M, K, L, P, N, dev)
+    if (L, N, P) == (64, 64, 64) and M == 48:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert tssd.heads_per_block(K, M // group, group, sms) < group
     before = counts["ssd_chunk_bwd"]
     a = tssd.launch_bwd(*args, *grads, group)
     b = tssd.launch_bwd(*args, *grads, group)
-    assert counts["ssd_chunk_bwd"] == before + 2 * tssd.BWD_LAUNCHES
+    assert counts["ssd_chunk_bwd"] == before + 2 * tssd.bwd_launches(L, N,
+                                                                      P)
     p = tssd_ref.ssd_chunk_bwd(*args, *grads, group=group)
     torch.cuda.synchronize()
     for x, y, z in zip(a, b, p):
@@ -1430,16 +1442,25 @@ def test_ssd_chunk_bwd_wrapper_checks_its_inputs(dev):
         tssd.launch_bwd(*args, grads[0].cpu(), *grads[1:], 2)
     with pytest.raises(ValueError, match="groups"):
         tssd.launch_bwd(*args, *grads, 3)
-    big = _ssd_inputs(2, 1, 16, 128, 16, 1, dev)
-    with pytest.raises(ValueError, match="head widths"):
-        tssd.launch_bwd(*big, *_ssd_grads(2, 1, 16, 128, 16, dev), 1)
+    # head width 128 launches at a tensor-core shape, 256 raises, as 128
+    # does at a chunk the tensor cores do not take
+    wide = _ssd_inputs(2, 1, 64, 128, 64, 1, dev)
+    tssd.launch_bwd(*wide, *_ssd_grads(2, 1, 64, 128, 64, dev), 1)
+    for L, P in ((64, 256), (16, 128)):
+        big = _ssd_inputs(2, 1, L, P, 64, 1, dev)
+        with pytest.raises(ValueError, match="head widths"):
+            tssd.launch_bwd(*big, *_ssd_grads(2, 1, L, P, 64, dev), 1)
     # every shape ``route_bwd`` takes fits a block's shared memory, as the
-    # C library counts it; a state past its limit would not
+    # C library counts it, and the library's route agrees; a state past
+    # its limit would not fit
     lib = tssd._lib_bwd()
-    for L, N, P in ((128, 128, 64), (16, 16, 16), (100, 64, 32),
-                    (16, 128, 64), (tssd.BWD_MAX_L, tssd.BWD_MAX_N,
-                                    tssd.BWD_MAX_P)):
-        assert tssd.route_bwd(L, N, P) == tssd.CUDA_CORES
+    for L, N, P in ((128, 128, 64), (128, 128, 128), (64, 64, 64),
+                    (128, 64, 128), (64, 128, 128), (16, 16, 16),
+                    (100, 64, 32), (16, 128, 64), (128, 128, 32),
+                    (tssd.BWD_MAX_L, tssd.BWD_MAX_N, tssd.BWD_MAX_P)):
+        kind = tssd.route_bwd(L, N, P)
+        assert lib.ssd_chunk_bwd_route(L, N, P) == (
+            1 if kind == tssd.TENSOR_CORES else 0)
         assert lib.ssd_chunk_bwd_smem_bytes(L, N, P) <= tssd._SMEM_BYTES
     assert lib.ssd_chunk_bwd_smem_bytes(128, 256, 64) > tssd._SMEM_BYTES
     with pytest.raises(ValueError, match="state widths"):
@@ -1459,7 +1480,7 @@ def test_ssd_autograd_runs_the_kernels(dev):
     torch.autograd.backward(outs, grads)
     assert counts["ssd_chunk"] == before["ssd_chunk"] + 1
     assert counts["ssd_chunk_bwd"] == \
-        before["ssd_chunk_bwd"] + tssd.BWD_LAUNCHES
+        before["ssd_chunk_bwd"] + tssd.bwd_launches(64, 64, 32)
     want = tssd.launch_bwd(*args, *grads, 4)
     for t, w in zip(ins, want):
         assert torch.equal(t.grad, w)
@@ -1484,17 +1505,20 @@ def test_ssd_autograd_runs_the_kernels(dev):
 
 
 def test_ssd_chunk_p128_forward_matches_plain(dev):
-    """jamba-1.5-large's Mamba widths (L = N = P = 128) on the CUDA-core
-    kernel, X staged 64 columns at a time."""
-    assert tssd.route(128, 128, 128) == tssd.CUDA_CORES
-    args = _ssd_inputs(16, 8, 128, 128, 128, 16, dev)
-    a = tssd.ssd_chunk(*args, group=16)
-    b = tssd.ssd_chunk(*args, group=16)
-    p = tssd_ref.ssd_chunk(*args, group=16)
-    torch.cuda.synchronize()
-    for x, y, z in zip(a, b, p):
-        assert torch.equal(x, y)
-        torch.testing.assert_close(x, z, rtol=SSD_TOL, atol=SSD_TOL)
+    """Head width 128 on both kernels: jamba-1.5-large's Mamba widths (L =
+    N = P = 128) on the tensor-core kernel, in two passes of 64 columns,
+    and a ragged chunk on the CUDA-core kernel, X staged 64 columns at a
+    time."""
+    for L, want in ((128, tssd.TENSOR_CORES), (100, tssd.CUDA_CORES)):
+        assert tssd.route(L, 128, 128) == want
+        args = _ssd_inputs(16, 8, L, 128, 128, 16, dev)
+        a = tssd.ssd_chunk(*args, group=16)
+        b = tssd.ssd_chunk(*args, group=16)
+        p = tssd_ref.ssd_chunk(*args, group=16)
+        torch.cuda.synchronize()
+        for x, y, z in zip(a, b, p):
+            assert torch.equal(x, y)
+            torch.testing.assert_close(x, z, rtol=SSD_TOL, atol=SSD_TOL)
 
 
 def _mamba_run(dev, steps=3, seed=0):
@@ -1521,13 +1545,16 @@ def test_mamba_train_step_on_card_repeats_bit_for_bit(dev):
     """Two runs of the reduced mamba2-130m from the same seed: every
     parameter and moment bit-equal (no atomics in either SSD kernel),
     both SSD kernels on the path."""
+    from repro_torch.configs import get_config
     from repro_torch.tree import tree_leaves
+    red = get_config("mamba2-130m").reduced()
     before = dict(counts)
     pa, oa, la = _mamba_run(dev)
     n_layers = 2
     assert counts["ssd_chunk"] - before["ssd_chunk"] == 3 * 2 * n_layers
     assert counts["ssd_chunk_bwd"] - before["ssd_chunk_bwd"] \
-        == 3 * n_layers * tssd.BWD_LAUNCHES
+        == 3 * n_layers * tssd.bwd_launches(red.ssd_chunk, red.mamba.d_state,
+                                            red.mamba.headdim)
     pb, ob, lb = _mamba_run(dev)
     for x, y in zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))):
         assert torch.equal(x, y)

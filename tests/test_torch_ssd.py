@@ -10,7 +10,8 @@ oracles (the chunk decay exp(cum_i - cum_j) amplifies the cumsum's
 rounding), the decode steps within 2e-4 of the scan.  Gradients: the
 layer's against ``jax.vjp`` of the reference's within 2e-5 of each one's
 max |value|; the plain backward (``ref.ssd_chunk_bwd``) against the
-backward kernel's formulas, both in float64, within 1e-10 of it; the
+backward kernels' formulas and order of sums (the CUDA-core pair's and
+the tensor-core kernels'), both in float64, within 1e-10 of it; the
 autograd Function's wiring exactly.
 """
 import jax
@@ -154,15 +155,19 @@ def test_wrapper_refuses_other_devices():
     (64, 128, 64, ops.TENSOR_CORES),      # ssd()'s default chunk of 64
     (128, 64, 64, ops.TENSOR_CORES),
     (64, 64, 64, ops.TENSOR_CORES),
+    (128, 128, 128, ops.TENSOR_CORES),    # jamba-1.5-large's head width
+    (64, 64, 128, ops.TENSOR_CORES),
     (16, 128, 64, ops.CUDA_CORES),        # reduced configs' chunk of 16
     (100, 64, 32, ops.CUDA_CORES),        # a ragged chunk
+    (100, 128, 128, ops.CUDA_CORES),      # a ragged chunk at width 128
     (128, 128, 32, ops.CUDA_CORES),       # another head width
+    (128, 128, 256, ops.CUDA_CORES),      # a head width past 128
     (128, 16, 64, ops.CUDA_CORES),        # a small state
     (128, 256, 64, ops.CUDA_CORES),       # a state past 128
 ])
 def test_route_sends_mamba2_chunks_to_the_tensor_cores(L, N, P, want):
-    """Chunks of 64 or 128 at state width 64 or 128 and head width 64
-    take ``ssd_chunk_sm90``; every other shape the CUDA-core
+    """Chunks of 64 or 128 at state width 64 or 128 and head width 64 or
+    128 take ``ssd_chunk_sm90``; every other shape the CUDA-core
     ``ssd_chunk_kernel``.  The C entry point applies the same rule."""
     assert ops.route(L, N, P) == want
 
@@ -178,18 +183,24 @@ def test_route_takes_mamba2_130m_but_not_its_reduced_chunk():
                      red.mamba.headdim) == ops.CUDA_CORES
 
 
-@pytest.mark.parametrize("K,groups,heads,sms,want", [
-    (256, 1, 24, 132, 24),     # mamba2-130m prefill_32k: 256 blocks
-    (32, 1, 24, 132, 6),       # T = 4096: 128 blocks in one wave
-    (8, 2, 24, 132, 3),        # two groups: 128 blocks
-    (1, 4, 24, 132, 1),        # a batch of four, one chunk each
-    (1024, 1, 24, 132, 24),
-    (3, 1, 1, 132, 1),
+@pytest.mark.parametrize("K,groups,heads,sms,halves,want", [
+    (256, 1, 24, 132, 1, 24),     # mamba2-130m prefill_32k: 256 blocks
+    (32, 1, 24, 132, 1, 6),       # T = 4096: 128 blocks in one wave
+    (8, 2, 24, 132, 1, 3),        # two groups: 128 blocks
+    (1, 4, 24, 132, 1, 1),        # a batch of four, one chunk each
+    (1024, 1, 24, 132, 1, 24),
+    (3, 1, 1, 132, 1, 1),
+    (32, 8, 24, 132, 1, 24),      # mamba2-130m train_4k, B 8: 256 blocks
+    (256, 1, 128, 132, 2, 128),   # jamba prefill_32k: heads of 2 passes
+    (32, 1, 128, 132, 2, 32),     # jamba train_4k, B 1: four slices
+    (4, 2, 16, 132, 1, 1),        # few chunks: a head a block
 ])
-def test_heads_per_block_fills_the_card(K, groups, heads, sms, want):
-    """The slice of a group's heads one block of ``ssd_chunk_sm90``
-    takes: fewest waves × (heads + 1), the larger slice on a tie."""
-    assert ops.heads_per_block(K, groups, heads, sms) == want
+def test_heads_per_block_fills_the_card(K, groups, heads, sms, halves,
+                                        want):
+    """The slice of a group's heads one block of a tensor-core kernel
+    (``ssd_chunk_sm90``, ``ssd_bwd_ds``, ``ssd_bwd_dx``) takes: fewest
+    waves × (heads × halves + 1), the larger slice on a tie."""
+    assert ops.heads_per_block(K, groups, heads, sms, halves) == want
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +254,100 @@ def _kernel_math(x, dt, la, b, c, dy, dst, ddec, dtot, group):
             dc[g, k] = dS_sum[g, k] @ b[g, k]
             db[g, k] = dS_sum[g, k].T @ c[g, k] + wr_sum[g, k]
     return dx, ddt, dla, db, dc
+
+
+def _kernel_math_sm90(x, dt, la, b, c, dy, dst, ddec, dtot, group, hpb):
+    """The backward as the tensor-core kernels of ``csrc/ssd_chunk_bwd.cu``
+    compute it, in their order of sums, in numpy.  ``ssd_bwd_ds``: per
+    slice of ``hpb`` heads of a B/C row, dM over the head width in halves
+    of 64 columns, Σ dS over the slice's heads in ascending order, T's
+    row sums less its column sums.  ``ssd_bwd_dx``: per head, 32 columns
+    of the head width a pass, V = B·dstate, dw += Σ_p X ⊙ V, Z = e ⊙ V +
+    Mᵀ·dy, dX = Δ ⊙ Z, dΔ += Σ_p X ⊙ Z; dcum and its reverse cumsum.
+    ``ssd_bwd_db``: the slices' Σ dS in ascending order, dC = (Σ dS)·B,
+    dB = (Σ dS)ᵀ·C, then each head's (w ⊙ X)·dstateᵀ added in ascending
+    head order."""
+    M, K, L, P = x.shape
+    G = b.shape[0]
+    tri = np.tril(np.ones((L, L), bool))
+    dx, ddt, dla = (np.zeros_like(a) for a in (x, dt, la))
+    db, dc = np.zeros_like(b), np.zeros_like(c)
+    for g in range(G):
+        heads = range(g * group, (g + 1) * group)
+        slices = [heads[i:i + hpb] for i in range(0, group, hpb)]
+        for k in range(K):
+            B, C = b[g, k], c[g, k]
+            S = C @ B.T
+            parts = []
+            for sl in slices:
+                part = np.zeros((L, L), x.dtype)
+                for m in sl:
+                    X, D = x[m, k], dt[m, k, :, 0]
+                    cum = np.cumsum(la[m, k, :, 0])
+                    G_ = np.where(tri, np.exp(np.where(tri, cum[:, None]
+                                                       - cum[None, :], 0)),
+                                  0)
+                    dM = np.zeros((L, L), x.dtype)
+                    for p0 in range(0, P, 64):
+                        dM += dy[m, k][:, p0:p0 + 64] @ X[:, p0:p0 + 64].T
+                    dS = np.where(tri, dM * D[None, :] * G_, 0)
+                    part += dS
+                    T = dS * S
+                    e = np.exp(cum[-1] - cum)
+                    w = e * D
+                    Mt = (S * G_).T
+                    dw = np.zeros(L, x.dtype)
+                    dd = np.zeros(L, x.dtype)
+                    for p0 in range(0, P, 32):
+                        cols = slice(p0, p0 + 32)
+                        V = B @ dst[m, k][:, cols]
+                        dw += (X[:, cols] * V).sum(1)
+                        Z = e[:, None] * V + Mt @ dy[m, k][:, cols]
+                        dx[m, k][:, cols] = D[:, None] * Z
+                        dd += (X[:, cols] * Z).sum(1)
+                    ddt[m, k, :, 0] = dd
+                    dcum = T.sum(1) - T.sum(0) + ddec[m, k, :, 0] \
+                        * np.exp(cum) - dw * w
+                    dcum[-1] += (dw * w).sum() + dtot[m, k, 0, 0] \
+                        * np.exp(cum[-1])
+                    dla[m, k, :, 0] = np.cumsum(dcum[::-1])[::-1]
+                parts.append(part)
+            dS_sum = parts[0].copy()
+            for part in parts[1:]:
+                dS_sum += part
+            dc[g, k] = dS_sum @ B
+            acc = dS_sum.T @ C
+            for m in heads:
+                cum = np.cumsum(la[m, k, :, 0])
+                w = np.exp(cum[-1] - cum) * dt[m, k, :, 0]
+                acc += (w[:, None] * x[m, k]) @ dst[m, k].T
+            db[g, k] = acc
+    return dx, ddt, dla, db, dc
+
+
+@pytest.mark.parametrize("M,K,L,P,N,group,hpb", [
+    (4, 2, 64, 64, 64, 4, 4),      # one slice, P 64
+    (6, 1, 64, 128, 64, 6, 2),     # P 128 in halves, three slices
+    (8, 1, 128, 64, 128, 4, 3),    # two rows, two uneven slices a row
+])
+def test_plain_backward_is_the_tensor_core_order(M, K, L, P, N, group,
+                                                 hpb):
+    """``ref.ssd_chunk_bwd`` against the tensor-core kernels' formulas in
+    their order (``_kernel_math_sm90``: heads in slices, Σ dS in ascending
+    head order within a slice and then in ascending slice order, the head
+    width in passes of 64 and 32 columns), both in float64: within 1e-10
+    of each output's max |value|."""
+    assert ops.route_bwd(L, N, P) == ops.TENSOR_CORES
+    ins, outs = _grad_inputs(16, M, K, L, P, N, group)
+    ins64 = [a.astype(np.float64) for a in ins]
+    outs64 = [a.astype(np.float64) for a in outs]
+    got = ref.ssd_chunk_bwd(*map(T_, ins64), *map(T_, outs64), group=group)
+    want = _kernel_math_sm90(*ins64, *outs64, group, hpb)
+    for g, w, name in zip(got, want, ("dx", "ddt", "dla", "db", "dc")):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-10 * np.abs(w).max(),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("M,K,L,P,N,group", [
@@ -302,24 +407,34 @@ def test_autograd_function_wiring(monkeypatch):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("L,N,P,ok", [
-    (128, 128, 64, True),       # mamba2-130m's training chunk
-    (16, 16, 16, True),         # the reduced configs'
-    (100, 24, 8, True),         # a ragged chunk
-    (128, 128, 128, False),     # jamba-1.5-large's head width
-    (256, 16, 16, False),       # a chunk past 128
-    (128, 256, 64, False),      # a state past 128: more shared memory
+@pytest.mark.parametrize("L,N,P,want", [
+    (128, 128, 64, ops.TENSOR_CORES),   # mamba2-130m's training chunk
+    (64, 64, 64, ops.TENSOR_CORES),
+    (128, 128, 128, ops.TENSOR_CORES),  # jamba-1.5-large's head width
+    (64, 128, 128, ops.TENSOR_CORES),
+    (16, 16, 16, ops.CUDA_CORES),       # the reduced configs'
+    (100, 24, 8, ops.CUDA_CORES),       # a ragged chunk
+    (128, 128, 32, ops.CUDA_CORES),     # a narrow head
+    (100, 64, 128, None),               # a ragged chunk at width 128
+    (256, 16, 16, None),                # a chunk past 128
+    (128, 256, 64, None),               # a state past 128: more shared memory
 ])
-def test_backward_route_takes_the_training_shapes(L, N, P, ok):
-    if ok:
-        assert ops.route_bwd(L, N, P) == ops.CUDA_CORES
-    else:
+def test_backward_route_takes_the_training_shapes(L, N, P, want):
+    """The forward's tensor-core shapes take the tensor-core backward,
+    the narrower ones up to 128 / 128 / 64 the CUDA-core pair; the rest
+    raise, and take three or two launches a call."""
+    if want is None:
         with pytest.raises(ValueError, match="backward"):
             ops.route_bwd(L, N, P)
+    else:
+        assert ops.route_bwd(L, N, P) == want
+        assert ops.bwd_launches(L, N, P) == (
+            3 if want == ops.TENSOR_CORES else 2)
     from repro_torch.configs import get_config
-    cfg = get_config("mamba2-130m")
-    assert ops.route_bwd(cfg.ssd_chunk, cfg.mamba.d_state,
-                         cfg.mamba.headdim) == ops.CUDA_CORES
+    for arch in ("mamba2-130m", "jamba-1.5-large-398b"):
+        cfg = get_config(arch)
+        assert ops.route_bwd(cfg.ssd_chunk, cfg.mamba.d_state,
+                             cfg.mamba.headdim) == ops.TENSOR_CORES
 
 
 @pytest.mark.parametrize("impl", ["chunked", "kernel"])
@@ -328,6 +443,7 @@ def test_backward_route_takes_the_training_shapes(L, N, P, ok):
     (2, 96, 4, 8, 2, 16, 32),      # G > 1
     (1, 50, 3, 8, 1, 16, 16),      # ragged T (zero-Δ pad), one group
     (1, 256, 2, 64, 1, 128, 128),  # mamba2-130m's chunk and widths
+    (1, 256, 2, 128, 1, 128, 128),  # jamba-1.5-large's chunk and widths
 ])
 def test_ssd_gradients_match_reference_vjp(B, T, H, P, G, N, chunk, impl):
     """``ops.ssd``'s gradients in x, dt, A, B, C and D (autograd through
@@ -357,13 +473,14 @@ def test_ssd_gradients_match_reference_vjp(B, T, H, P, G, N, chunk, impl):
 
 def test_p128_forward_matches_reference():
     """jamba-1.5-large's Mamba widths (P = N = 128, chunks of 128, one
-    group), which the card runs on the CUDA-core kernel: the plain path
-    against the reference's kernel in interpret mode (2e-5) and its
-    sequential oracle (2e-4), as the other shapes above."""
+    group), which the card runs on the tensor-core kernel in two halves
+    of 64 columns: the plain path against the reference's kernel in
+    interpret mode (2e-5) and its sequential oracle (2e-4), as the other
+    shapes above."""
     from repro_torch.configs import get_config
     dims = get_config("jamba-1.5-large-398b").mamba
     assert (dims.headdim, dims.d_state, dims.n_groups) == (128, 128, 1)
-    assert ops.route(128, dims.d_state, dims.headdim) == ops.CUDA_CORES
+    assert ops.route(128, dims.d_state, dims.headdim) == ops.TENSOR_CORES
     a = _mk(15, 1, 256, 2, dims.headdim, 1, dims.d_state)
     got = ops.ssd(*map(T_, a), chunk=128).numpy()
     ja = tuple(map(jnp.asarray, a))
