@@ -170,13 +170,14 @@ Phases, in order (any failure exits non-zero):
    qwen3-0.6b, mamba2-130m, qwen3-moe-30b-a3b, qwen2-moe-a2.7b,
    whisper-base (the encoder over 1,500 seeded frames, then the decoder)
    and qwen2-vl-7b (seeded embeddings, M-RoPE positions of a prompt that
-   holds a 64 x 64 image) at full width and depth (the MoE pair at 24 of
-   48 and 12 of 24 layers: ``SERVE_DEPTH``), and of one period of
-   jamba-1.5-large at full width (8 of its 72 layers, 8 of its 16
-   experts, top-2 kept: ``jamba_period``), on seeded random weights, one
+   holds a 64 x 64 image) at full width and depth (the MoE pair at 12 of
+   48 and 6 of 24 layers, qwen2-vl-7b at 14 of 28: ``SERVE_DEPTH``), and
+   of one period of jamba-1.5-large at full width (8 of its 72 layers, 4
+   of its 16 experts, top-2 kept: ``jamba_period``), on seeded random
+   weights, one
    model's weights on the card at a time, at ``prefill_32k``'s T =
    32,768 with the batch cut from 32 to 1: finite last-position logits,
-   the mixer kernels' launches (one a layer: 28, 24, 24, 12 and 28;
+   the mixer kernels' launches (one a layer: 28, 24, 12, 6 and 14;
    whisper 18, six each for the encoder, the decoder's self-attention and
    its cross-attention; ``ssd_chunk`` for mamba2, ``flash_attention``
    for the others; the jamba period 1 ``flash_attention`` and 7
@@ -252,7 +253,23 @@ Phases, in order (any failure exits non-zero):
    and ``ssd_bwd_db``; a 2-layer full-width
    mamba2-130m's train step on the card against the CPU; the ``tiny``
    preset's loss drop over 100 steps and a checkpoint resume bit-equal
-   to a straight run;
+   to a straight run; then the moe, vlm, encdec and hybrid families: a
+   2-layer full-width train step of whisper-base (2 encoder layers),
+   qwen2-vl-7b, qwen2-moe-a2.7b, qwen3-moe-30b-a3b and the jamba period
+   (attention + SwiGLU, Mamba + MoE with 2 experts, T 256) on the card
+   against the CPU (``TRAIN_TWO_LAYER``; the MoE gradients with the CPU's
+   expert choices given to the card, the card's own routing for the
+   loss, the norm and the share of choices alike), and each family at
+   full width, T 4096 (``TRAIN_FAMILIES``: whisper-base at full depth, B
+   8, on ``batch_for``'s bf16 frames; qwen2-vl-7b at 16 of 28 layers on
+   its bf16 embeds and M-RoPE positions; qwen2-moe-a2.7b at 8 of 24
+   layers and the jamba period with 5 of 16 experts through
+   ``launch.train.main``), each as qwen3-0.6b's run: the launches a step
+   ``train_kernels`` predicts, two runs bit-equal (through
+   ``train_digest`` where the state does not fit twice), step wall,
+   tok/s, peak memory, a profiled step (and whisper's cross-attention
+   backward in it).  The CPU halves of every 2-layer check run in a
+   child process (``CPU_SIDE_FLAG``) beside phases 2-10;
 14. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
@@ -279,6 +296,7 @@ import sys
 NUMPY_BASELINE = ("AVX2 FMA3 AVX512F AVX512CD AVX512_SKX AVX512_CLX "
                   "AVX512_CNL AVX512_ICL AVX512_SPR")
 GOLDEN_CHAOS_FLAG = "--golden-chaos"
+CPU_SIDE_FLAG = "--cpu-side"
 if GOLDEN_CHAOS_FLAG not in sys.argv:
     os.environ["NPY_DISABLE_CPU_FEATURES"] = NUMPY_BASELINE
 
@@ -313,24 +331,30 @@ SSD_TOL = 2e-5                 # float32, sums in another order
 # order, the group's heads summed in ascending order)
 SSD_BWD_TOL = 1e-4
 JAMBA = "jamba-1.5-large-398b"
-JAMBA_EXPERTS = 8              # of 16: one full-width period fits one card
+JAMBA_EXPERTS = 4              # of 16 (8 once; cut for the run's time)
 MODEL_TOL = 5e-2               # 2-layer bf16 logits, card against CPU
 SERVE_ARCHS = ("qwen3-0.6b", "mamba2-130m", "qwen3-moe-30b-a3b",
                "qwen2-moe-a2.7b", "whisper-base", "qwen2-vl-7b")
 # the served archs prefilled and served cut in depth (layers), at full
 # width: the MoE pair, the longest of the model zoo's prefill and serve
 # paths (their host work a decode step, eager, profiled and linted, grows
-# with the layers); the whole run had reached 1,014.6 of its 1,200 s
-SERVE_DEPTH = {"qwen3-moe-30b-a3b": 24, "qwen2-moe-a2.7b": 12}
+# with the layers), cut to half depth when the whole run had reached
+# 1,014.6 of its 1,200 s, then to a quarter and qwen2-vl-7b to half when
+# phase 13 took on the moe, vlm, encdec and hybrid families' training
+SERVE_DEPTH = {"qwen3-moe-30b-a3b": 12, "qwen2-moe-a2.7b": 6,
+               "qwen2-vl-7b": 14}
 # served with the int8 KV cache (a variant of the arch's config)
 INT8_SERVE_ARCHS = ("qwen3-0.6b",)
 # 2-layer full-width card-against-CPU checks (arch, other config fields):
 # the served archs (whisper with 2 encoder layers over its 1,500 frames),
 # granite-20b's MQA (48 query heads on one KV head in flash_fwd_sm90) and
 # phi3-medium-14b's flat formulation (K/V repeated to its 40 heads)
+# and jamba: attention, then a Mamba layer with the MoE FFN (2 of its
+# experts); T = 256 spans two chunks, so the carry crosses one
 TWO_LAYER_CASES = tuple((a, dict(n_enc_layers=2) if a == "whisper-base"
                          else {}) for a in SERVE_ARCHS) + (
-    ("granite-20b", {}), ("phi3-medium-14b", dict(attn_impl="flat")))
+    ("granite-20b", {}), ("phi3-medium-14b", dict(attn_impl="flat")),
+    (JAMBA, dict(T=256, attn_period=2, n_experts=2)))
 GOLDEN = dict(completed=157, spawned=794, finished=789,
               resp_digest=1306795296637)
 GOLDEN_FABRIC = dict(completed=163, spawned=830, finished=822,
@@ -1647,18 +1671,38 @@ def check_golden(torch, dev):
               f"pins {pins}")
 
 
-def run_golden_chaos():
+class GoldenChaos:
     """``check_golden_chaos`` in a child process on numpy's own code paths
-    (see ``GOLDEN_CHAOS_FLAG``), its output relayed; fails if it does."""
-    env = {k: v for k, v in os.environ.items()
-           if k != "NPY_DISABLE_CPU_FEATURES"}
-    out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          GOLDEN_CHAOS_FLAG], env=env, capture_output=True,
-                         text=True, timeout=600)
-    for line in out.stdout.splitlines():
-        log(line)
-    check(out.returncode == 0, "golden chaos phase failed:\n"
-          + out.stderr[-3000:])
+    (see ``GOLDEN_CHAOS_FLAG``): ``start()`` spawns it while the kernels
+    build (it waits on the simulator libraries' build locks; its card
+    work is small), ``result()`` relays its output and fails if it does,
+    ``stop()`` ends it."""
+
+    def __init__(self):
+        self.proc = None
+
+    def start(self):
+        env = {k: v for k, v in os.environ.items()
+               if k != "NPY_DISABLE_CPU_FEATURES"}
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), GOLDEN_CHAOS_FLAG],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def result(self):
+        out, err = self.proc.communicate(timeout=600)
+        for line in out.splitlines():
+            log(line)
+        check(self.proc.returncode == 0, "golden chaos phase failed:\n"
+              + err[-3000:])
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+GOLDEN_CHAOS_RUN = GoldenChaos()
 
 
 def check_golden_chaos(torch, dev):
@@ -1961,7 +2005,7 @@ def _device_us_by_name(prof) -> dict:
     return by_name
 
 
-def traced(fn, symbols, torch, tries=3):
+def traced(fn, symbols, torch, tries=3, keep=None):
     """``fn()`` under torch.profiler (CPU and CUDA activities), again up
     to ``tries`` times while the device trace lacks one of ``symbols``.
     Each session first runs 64 short ``torch.cuda._sleep`` kernels and
@@ -1971,7 +2015,7 @@ def traced(fn, symbols, torch, tries=3):
     one flash launch, some twenty kernels in, was missing from every try
     without the warm-up).  Returns the device microseconds by kernel name,
     the warm-up's ``spin_kernel`` left out, and the traced call's
-    wall."""
+    wall; the profile itself goes into ``keep``, where given."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
@@ -1987,6 +2031,8 @@ def traced(fn, symbols, torch, tries=3):
                    if "spin_kernel" not in k}
         if all(any(s in k for k in by_name) for s in symbols):
             break
+    if keep is not None:
+        keep.append(prof)
     return by_name, wall
 
 
@@ -3004,9 +3050,9 @@ def served_tag(arch):
 
 def jamba_period():
     """jamba-1.5-large at full width, cut to one period (8 of its 72
-    layers) and ``JAMBA_EXPERTS`` of its 16 experts (top-2 kept): 51.6 GB
-    of bf16 weights, which one card holds beside a 32,768-token prefill
-    (16 experts would be 90 GB)."""
+    layers) and ``JAMBA_EXPERTS`` of its 16 experts (top-2 kept): 32.4
+    GB of bf16 weights at 4 experts (51.6 at 8, which one card also
+    holds beside a 32,768-token prefill; 16 experts would be 90 GB)."""
     from repro_torch.configs import get_config
     cfg = get_config(JAMBA)
     return dataclasses.replace(
@@ -3086,18 +3132,20 @@ def run_prefill(arch, torch, dev, launches, cfg=None):
 
 class routing_record:
     """Within the block, each call of the LM's or the hybrid's
-    ``moe_apply`` appends its tokens' top-K expert sets (sorted, on the
-    host) to ``self.sets``."""
+    ``moe_apply`` appends its tokens' top-K experts (in the router's
+    order, on the host) to ``self.chosen`` and their sets (sorted) to
+    ``self.sets``."""
 
     def __enter__(self):
         from repro_torch.models import hybrid, transformer
         from repro_torch.models.moe import route
-        self.sets, self.mods = [], (transformer, hybrid)
+        self.sets, self.chosen, self.mods = [], [], (transformer, hybrid)
         self.inner = transformer.moe_apply
 
         def recorded(p, x, cfg):
-            top_e = route(p, x.reshape(-1, x.shape[-1]), cfg)[1]
-            self.sets.append(top_e.sort(dim=-1).values.cpu())
+            top_e = route(p, x.reshape(-1, x.shape[-1]), cfg)[1].cpu()
+            self.chosen.append(top_e)
+            self.sets.append(top_e.sort(dim=-1).values)
             return self.inner(p, x, cfg)
         for mod in self.mods:
             mod.moe_apply = recorded
@@ -3106,6 +3154,35 @@ class routing_record:
     def __exit__(self, *exc):
         for mod in self.mods:
             mod.moe_apply = self.inner
+
+
+class given_routing:
+    """Within the block the MoE layers route, call by call, to the
+    experts of ``chosen`` (one ``[n, K]`` tensor a call, in call order:
+    another run's ``routing_record.chosen``), each weighted by this run's
+    own router probability, as ``moe.route`` weights its choices."""
+
+    def __init__(self, chosen):
+        self.chosen, self.calls = chosen, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.inner = moe, moe.route
+
+        def given(p, xf, cfg):
+            top_e = self.chosen[self.calls].to(xf.device)
+            self.calls += 1
+            probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+            top_p = torch.gather(probs, 1, top_e)
+            if cfg.norm_topk:
+                top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+            return top_p, top_e
+        moe.route = given
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.inner
 
 
 def routing_agreement(a, b):
@@ -3119,37 +3196,191 @@ def routing_agreement(a, b):
     return same, total
 
 
-def check_two_layer(arch, torch, dev, T=300, **over):
-    """A 2-layer model at the architecture's full width (``over``: other
-    fields of its config): the card's prefill logits (through the
-    kernels) against the CPU's; for the moe family also the share of
+# The CPU halves of the 2-layer checks (prefill logits, train steps) run
+# in a child process (``CPU_SIDE_FLAG``) from the end of the builds on,
+# beside the simulator's phases, on CPU_SIDE_THREADS of the host's cores
+# at the lowest priority;
+# the checks then take its results from files.  Its first act draws every
+# check's weights on the card and copies them to the host (the 2-layer
+# weights are drawn on the card: the CPU's generator takes seconds a GB),
+# so it holds no card memory by the time the big training runs start.
+CPU_SIDE_THREADS = 6
+# the files it may hold at once: it waits for the checks to take some
+# before it writes past this many bytes
+CPU_SIDE_BYTES = 24 << 30
+
+
+def cpu_jobs():
+    """The CPU halves in the order the checks take them: (kind, arch,
+    keyword arguments with their defaults filled in)."""
+    jobs = [("prefill", a, dict(kw, T=kw.get("T", 300)))
+            for a, kw in TWO_LAYER_CASES]
+    train = ((TRAIN_ARCH, {}), (SSM_TRAIN_ARCH, {})) + TRAIN_TWO_LAYER
+    jobs += [("train", a, dict(kw, T=kw.get("T", 256), B=kw.get("B", 2)))
+             for a, kw in train]
+    return jobs
+
+
+def _job_file(out_dir, kind, arch, kw):
+    import hashlib
+    key = repr((kind, arch, sorted(kw.items())))
+    return os.path.join(out_dir, hashlib.sha1(key.encode()).hexdigest()[:16]
+                        + ".pt")
+
+
+class CpuSide:
+    """The child process of the CPU halves: ``start()`` spawns it,
+    ``result(kind, arch, **kw)`` waits for one job's file and takes it
+    (the file is removed), ``stop()`` ends the child and removes its
+    directory."""
+
+    def __init__(self):
+        self.proc = self.dir = None
+
+    def start(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        self.log = open(os.path.join(self.dir, "child.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), CPU_SIDE_FLAG,
+             self.dir], stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self, kind, arch, **kw):
+        import torch
+        path = _job_file(self.dir, kind, arch, kw)
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                with open(os.path.join(self.dir, "child.log")) as f:
+                    tail = f.read()[-3000:]
+                check(False, "the CPU-side process ended (exit code "
+                      f"{self.proc.returncode}) without {kind} {arch} "
+                      f"{kw}:\n" + tail)
+            time.sleep(0.2)
+        out = torch.load(path, weights_only=False)
+        os.remove(path)
+        return out
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        if self.proc is not None:
+            self.proc.wait()
+            self.log.close()
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+        self.proc = self.dir = None
+
+
+CPU_SIDE = CpuSide()
+
+
+def cpu_side_main(out_dir) -> int:
+    """The child process: every job of ``cpu_jobs`` in order, each result
+    saved (through a temporary name) for ``CpuSide.result``."""
+    import gc
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_to
+    from repro_torch.tree import tree_leaves
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    os.nice(19)
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    dev = torch.device("cuda")
+    try:
+        weights = []
+        for kind, arch, kw in cpu_jobs():
+            cfg = two_layer_cfg(arch, **{k: v for k, v in kw.items()
+                                         if k not in ("T", "B")})
+            weights.append(tree_to(two_layer_params(
+                build_model(cfg), 2 if kind == "prefill" else 4, torch,
+                dev), "cpu"))
+            torch.cuda.empty_cache()
+        for (kind, arch, kw), i in zip(cpu_jobs(), range(len(weights))):
+            t0 = time.perf_counter()
+            fn = two_layer_cpu if kind == "prefill" else train_two_layer_cpu
+            params, weights[i] = weights[i], None
+            res = fn(arch, params, torch, **kw)
+            res["seconds"] = time.perf_counter() - t0
+            del params
+            size = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(res.get("grads", {})))
+            while sum(os.path.getsize(os.path.join(out_dir, f))
+                      for f in os.listdir(out_dir) if f.endswith(".pt")) \
+                    + size > CPU_SIDE_BYTES:
+                time.sleep(0.5)
+            path = _job_file(out_dir, kind, arch, kw)
+            torch.save(res, path + ".part")
+            os.replace(path + ".part", path)
+            del res
+            gc.collect()
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def two_layer_cfg(arch, n_experts=None, **over):
+    """``arch``'s config cut to 2 layers, with ``over``'s fields and its
+    MoE layers cut to ``n_experts`` experts, where given."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, **over)
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts))
+    return cfg
+
+
+def two_layer_params(model, seed, torch, dev):
+    """The 2-layer checks' weights: drawn on the card (the CPU's
+    generator takes seconds a GB) from ``seed``; both sides of a check
+    draw them alike."""
+    return model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+
+
+def two_layer_cpu(arch, params, torch, T=300, **kw):
+    """The CPU side of ``check_two_layer`` (``cpu_side_main`` runs it) on
+    the check's weights copied to the CPU: the prefill logits and the
+    routing records."""
+    from repro_torch.launch.serve import prefill_step
+    from repro_torch.models import build_model
+    cfg = two_layer_cfg(arch, **kw)
+    model = build_model(cfg)
+    batch = prefill_batch(cfg, T, torch, torch.device("cpu"), 3)
+    with routing_record() as rec:
+        want = prefill_step(model, params, batch)
+    return {"want": want, "sets": rec.sets}
+
+
+def check_two_layer(arch, torch, dev, T=300, **kw):
+    """A 2-layer model at the architecture's full width (``kw``: other
+    fields of its config, ``n_experts``): the card's prefill logits
+    (through the kernels) against the CPU's (``two_layer_cpu``, computed
+    by the CPU-side process); for the moe family also the share of
     routing choices the two make alike; at ``attn_impl="flat"`` the card's
     logits bit-equal to the same model's ``"grouped"`` logits on the card
     (the kernel's arithmetic for one query head does not depend on
     Hkv)."""
     import gc
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import prefill_step
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_to
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, **over)
+    cfg = two_layer_cfg(arch, **kw)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    # drawn on the card (the CPU's generator takes seconds a GB), copied
-    on_card = model.init_params(torch.Generator(device=dev).manual_seed(2),
-                                dev)
-    params = tree_to(on_card, "cpu")
-    batch = prefill_batch(cfg, T, torch, torch.device("cpu"), 3)
-    with routing_record() as cpu_rec:
-        want = prefill_step(model, params, batch)
-    del params
-    batch = tree_to(batch, dev)
+    on_card = two_layer_params(model, 2, torch, dev)
+    batch = tree_to(prefill_batch(cfg, T, torch, torch.device("cpu"), 3),
+                    dev)
     with routing_record() as card_rec:
         got = prefill_step(model, on_card, batch)
+    cpu = CPU_SIDE.result("prefill", arch, T=T, **kw)
+    want = cpu["want"]
     err = float((got.cpu() - want).abs().max())
     routed = ""
     if cfg.moe is not None:
-        same, total = routing_agreement(card_rec.sets, cpu_rec.sets)
+        same, total = routing_agreement(card_rec.sets, cpu["sets"])
         routed = (f"; routing choices alike on card and CPU {same} of "
                   f"{total} ({same / total:.5f})")
     if cfg.attn_impl != "grouped":
@@ -3160,13 +3391,12 @@ def check_two_layer(arch, torch, dev, T=300, **over):
               f"by {float((got - grouped).abs().max())}")
         routed += (f"; attn_impl {cfg.attn_impl!r} bit-equal to 'grouped' "
                    "on the card")
-    what = "".join(f" {k}={getattr(v, 'n_experts', v)}"
-                   + (" experts" if k == "moe" else "")
-                   for k, v in over.items())
+    what = "".join(f" {k}={v}" for k, v in kw.items())
     log(f"{arch} 2-layer{what} full width, T={T}: card logits against CPU "
         f"logits max|err| {err:.4g} (|logits| max "
         f"{float(want.abs().max()):.3f}, tolerance {MODEL_TOL}){routed}  "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"(card {time.perf_counter() - t0:.1f} s, CPU "
+        f"{cpu['seconds']:.1f} s in the CPU-side process)")
     check(err <= MODEL_TOL, f"{arch} 2-layer: card logits differ from the "
           f"CPU's by {err}{routed}")
     del on_card, got, batch
@@ -3311,7 +3541,7 @@ def run_serve(arch, torch, dev, cfg=None, tag=None):
 BWD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -7)}
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_SEQ, TRAIN_BATCH = 4096, 2       # train_4k's T; its batch 256 cut to 2
-TRAIN_STEPS = 4                        # step 0 warms up; 1-3 are timed
+TRAIN_STEPS = 3                        # step 0 warms up; 1-2 are timed
 # 2-layer full-width train step, card against CPU (bf16 weights: the
 # activations and the bf16 gradients round at other places): the loss
 # within TRAIN_LOSS_TOL, the global norm within TRAIN_NORM_RTOL of its
@@ -3417,6 +3647,46 @@ SSD_BWD_KERNELS = SSD_BWD_SM90 + ("ssd_bwd_heads", "ssd_bwd_groups")
 # card: the float32 logits alone are 6.6 GB)
 SSM_TRAIN_ARCH = "mamba2-130m"
 SSM_TRAIN_BATCH = 8
+# the moe, vlm, encdec and hybrid families at train_4k's T = 4,096, full
+# width, cut to one card (PERF.md §4): (arch, batch, config fields
+# replaced, the batches: "main" is launch.train.main's SyntheticLM tokens,
+# "batch_for" data.batch_for's (bf16 frames, bf16 embeds and [3, B, T]
+# positions) through make_train_step, as the driver would feed them).
+# A step holds 12 bytes a parameter (a bf16 weight and gradient, two
+# float32 moments: the update writes in place, as launch.train's does)
+# beside the float32 logits, their log-softmax and gradient, and the
+# float32 unembedding and its gradient.  whisper-base: its batch of 256
+# cut to 8 (the float32 logits [8, 4096, 51865] are 6.8 GB); the deepest
+# cuts that fit, from measured peaks on an H100 80GB (14 layers of
+# qwen2-vl-7b 59.37 GiB, 6 of qwen2-moe-a2.7b 56.89, the jamba period at 4
+# experts 61.04 and 5 experts 70.04; 18 layers of qwen2-vl-7b did not
+# fit): qwen2-vl-7b 16 of 28 layers (4.82 B parameters), qwen2-moe-a2.7b 8
+# of 24 (5.18 B), the jamba period cut to attention + SwiGLU, Mamba + MoE
+# with 5 of its 16 experts, top-2 kept (5.27 B; a period of 8 layers
+# holds 6.6 B parameters without its experts, 79 GB of state)
+JAMBA_TRAIN_EXPERTS = 5
+TRAIN_FAMILIES = (
+    ("whisper-base", 8, {}, "batch_for"),
+    ("qwen2-vl-7b", 1, dict(n_layers=16), "batch_for"),
+    ("qwen2-moe-a2.7b", 1, dict(n_layers=8), "main"),
+    (JAMBA, 1, dict(n_layers=2, attn_period=2), "main"),
+)
+# 2-layer full-width train steps of the families, card against CPU (arch,
+# keyword arguments of check_train_two_layer): whisper with 2 encoder
+# layers over its 1,500 frames; qwen3-moe-30b-a3b for its qk-norm,
+# norm_topk and GQA group 8, which no full run reaches; jamba at period 2
+# with 2 experts (top-2: its routing cannot differ), T 256 (two chunks:
+# the SSD carry crosses one in both directions)
+TRAIN_TWO_LAYER = (
+    ("whisper-base", dict(n_enc_layers=2)),
+    ("qwen2-vl-7b", dict(B=1)),
+    ("qwen2-moe-a2.7b", dict(B=1)),
+    ("qwen3-moe-30b-a3b", dict(B=1)),
+    (JAMBA, dict(B=1, attn_period=2, n_experts=2)),
+)
+# above this many bytes of parameters and moments, two runs' states are
+# compared through ``train_digest`` (the state does not fit twice)
+EXACT_STATE_BYTES = 24 << 30
 
 
 def check_ssd_bwd(tag, M, K, L, P, N, group, torch, dev, n_time=0):
@@ -3564,51 +3834,163 @@ def check_bwd_build():
 
 
 def train_kernels(cfg):
-    """The mixer's kernels of a train step: each one's launches a step
+    """The mixers' kernels of a train step: each one's launches a step
     (the forward twice, for the remat recompute; the backward's launches
-    once a layer), and the device-trace symbols of its forward and of its
-    backward's passes."""
+    once a call), the device-trace symbols of the forwards and of the
+    backwards' passes.  Flash runs once an attention layer (encdec: once
+    an encoder layer and twice, self and cross, a decoder layer), the SSD
+    kernel once a Mamba layer (hybrid: attn_period - 1 a period)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
     L = cfg.n_layers
-    if cfg.family == "ssm":
-        from repro_torch.kernels.ssd_scan import ops
+    n_attn = {"ssm": 0, "hybrid": L // max(cfg.attn_period, 1),
+              "encdec": cfg.n_enc_layers + 2 * L}.get(cfg.family, L)
+    n_ssd = {"ssm": L, "hybrid": L - n_attn}.get(cfg.family, 0)
+    want, fwd, bwd = {}, (), ()
+    if n_attn:
+        want.update(flash_attention=2 * n_attn,
+                    flash_attention_bwd=n_attn * fops.BWD_LAUNCHES)
+        fwd += ("flash_fwd",)
+        bwd += ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")
+    if n_ssd:
         shape = (cfg.ssd_chunk, cfg.mamba.d_state, cfg.mamba.headdim)
-        sm90 = ops.route_bwd(*shape) == ops.TENSOR_CORES
-        return ({"ssd_chunk": 2 * L,
-                 "ssd_chunk_bwd": L * ops.bwd_launches(*shape)},
-                "ssd_chunk_sm90",
-                SSD_BWD_SM90 if sm90 else SSD_BWD_KERNELS[len(SSD_BWD_SM90):])
-    from repro_torch.kernels.flash_attention import ops
-    return ({"flash_attention": 2 * L,
-             "flash_attention_bwd": L * ops.BWD_LAUNCHES},
-            "flash_fwd", ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"))
+        sm90 = sops.route_bwd(*shape) == sops.TENSOR_CORES
+        want.update(ssd_chunk=2 * n_ssd,
+                    ssd_chunk_bwd=n_ssd * sops.bwd_launches(*shape))
+        fwd += ("ssd_chunk_sm90",)
+        bwd += (SSD_BWD_SM90 if sm90
+                else SSD_BWD_KERNELS[len(SSD_BWD_SM90):])
+    return want, fwd, bwd
+
+
+def train_cfg(arch, over=None):
+    """``arch``'s config with the fields of ``over`` replaced; the jamba
+    period's MoE cut to ``JAMBA_TRAIN_EXPERTS`` experts."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), **(over or {}))
+    if arch == JAMBA:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=JAMBA_TRAIN_EXPERTS))
+    return cfg
+
+
+def train_tag(arch, cfg):
+    """The run's name with its cuts."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cuts = []
+    if cfg.n_layers != full.n_layers:
+        cuts.append(f"{cfg.n_layers} of {full.n_layers} layers")
+    if cfg.attn_period != full.attn_period:
+        cuts.append(f"attn_period {cfg.attn_period}")
+    if cfg.moe is not None and cfg.moe.n_experts != full.moe.n_experts:
+        cuts.append(f"{cfg.moe.n_experts} of {full.moe.n_experts} "
+                    "experts")
+    return arch + (f" ({', '.join(cuts)})" if cuts else "")
+
+
+def train_digest(tree, torch):
+    """The bits of every leaf of ``tree`` as int64 sums, one a chunk of
+    2^24 elements, each element's bits (as an integer of its width) times
+    an odd multiplier of its position, wrapping: one element that differs
+    changes its chunk's sum.  Two runs whose parameters and moments do
+    not fit twice on the card compare through it."""
+    from repro_torch.tree import tree_leaves
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for leaf in tree_leaves(tree):
+        bits = leaf.detach().reshape(-1)
+        bits = bits.view(ints[bits.element_size()])
+        sums = []
+        for a in range(0, bits.numel(), 1 << 24):
+            c = bits[a:a + (1 << 24)].long()
+            pos = torch.arange(a, a + c.numel(), dtype=torch.int64,
+                               device=c.device)
+            sums.append((c * ((pos * -7046029254386353131) | 1)).sum())
+        out.append(torch.stack(sums))
+    return out
+
+
+def batch_for_run(cfg, steps, batch_size, dev, on_step, torch):
+    """``launch.train.main``'s loop for a config its token batches cannot
+    train (encdec's frames) or that trains on ``data.batch_for``'s inputs
+    (vlm's embeds and M-RoPE positions): the driver's optimizer config,
+    seed and in-place update, ``batch_for``'s batch each step.  Returns
+    the losses."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import batch_for
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, adamw_init, make_train_step
+    shape = dataclasses.replace(
+        next(s for s in SHAPES if s.name == "train_4k"),
+        seq_len=TRAIN_SEQ, global_batch=batch_size)
+    model = build_model(cfg)
+    step_fn = make_train_step(model, AdamWCfg(
+        lr=1e-3, warmup_steps=max(steps // 20, 5), total_steps=steps),
+        donate=True)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    opt = adamw_init(params)
+    losses = []
+    for step in range(steps):
+        params, opt, metrics = step_fn(params, opt, batch_for(
+            cfg, shape, step, device=dev))
+        losses.append(float(metrics["loss"]))
+        on_step(step, params, opt, metrics)
+    return losses
+
+
+def cross_bwd_ms(prof, cfg):
+    """Device ms of whisper's cross-attention backward in a train step's
+    profile: the backward reaches each decoder layer's cross-attention
+    before its self-attention, so the flash backward's kernels come in
+    that order, two a call (dq, dk/dv), decoder layers first (None where
+    the trace holds another count)."""
+    from torch.autograd import DeviceType
+    ev = sorted((e for e in prof.events() if e.device_type != DeviceType.CPU
+                 and "flash_bwd" in e.name),
+                key=lambda e: e.time_range.start)
+    n = 2 * (cfg.n_enc_layers + 2 * cfg.n_layers)
+    if len(ev) != n:
+        return None
+    return sum(e.time_range.elapsed_us() for i, e in
+               enumerate(ev[:4 * cfg.n_layers]) if i % 4 < 2) / 1e3
 
 
 def run_train_full(torch, dev, launches, arch=TRAIN_ARCH,
-                   batch_size=TRAIN_BATCH):
-    """``launch.train.main`` for ``arch`` at full width and depth, T =
-    4096, B = ``batch_size``, twice from the same seed: finite losses and
-    gradient norms, per step the mixer kernels' launches
-    (``train_kernels``: for qwen3-0.6b 2 x 28 ``flash_attention`` launches,
-    the forward and the remat recompute, and 28 x ``BWD_LAUNCHES``
-    ``flash_attention_bwd``; for mamba2-130m 2 x 24 ``ssd_chunk`` and 24 x
-    ``ops.bwd_launches`` ``ssd_chunk_bwd``), the two runs bit-equal in
-    every parameter and moment; the step wall, tokens/s, peak memory;
-    then one more step under the profiler: busy share, device time by
-    kernel, the backward kernels' share."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import SyntheticLM
+                   batch_size=TRAIN_BATCH, over=None, batches="main"):
+    """``arch`` at full width (its config with ``over``'s fields: the cut
+    in depth or experts), T = 4096, B = ``batch_size``, trained twice from
+    the same seed through ``launch.train.main`` (``batches="main"``) or
+    the driver's loop on ``data.batch_for``'s batches (``"batch_for"``):
+    finite losses and gradient norms, per step the mixer kernels'
+    launches (``train_kernels``: for qwen3-0.6b 2 x 28 ``flash_attention``
+    launches, the forward and the remat recompute, and 28 x
+    ``BWD_LAUNCHES`` ``flash_attention_bwd``; for mamba2-130m 2 x 24
+    ``ssd_chunk`` and 24 x ``ops.bwd_launches`` ``ssd_chunk_bwd``), the
+    two runs bit-equal in every parameter and moment (through
+    ``train_digest`` where the state passes ``EXACT_STATE_BYTES``); the
+    step wall, tokens/s, peak memory; then one more step under the
+    profiler: busy share, device time by kernel, the backward kernels'
+    share (for the encdec family also its cross-attention's backward)."""
+    from repro_torch.data import SyntheticLM, batch_for
+    from repro_torch.configs import SHAPES
     from repro_torch.kernels import counts, reset_counts
     from repro_torch.launch import train
     from repro_torch.models import build_model
+    from repro_torch.models.common import n_params as n_params_of
     from repro_torch.train import AdamWCfg, make_train_step
     from repro_torch.tree import tree_leaves
-    cfg = get_config(arch)
-    L = cfg.n_layers
-    want, fwd_name, bwd_names = train_kernels(cfg)
+    t_path = time.perf_counter()
+    cfg = train_cfg(arch, over)
+    tag = train_tag(arch, cfg)
+    want, fwd_names, bwd_names = train_kernels(cfg)
+    n_params = n_params_of(build_model(cfg).schema())
+    exact = 10 * n_params <= EXACT_STATE_BYTES
     argv = ["--arch", arch, "--seq", str(TRAIN_SEQ), "--batch",
             str(batch_size), "--steps", str(TRAIN_STEPS), "--log-every",
             "1"]
-    runs = []
+    runs, parts = [], []
     for r in range(2):
         state, walls, per_step = {}, [], []
         torch.cuda.synchronize()
@@ -3625,132 +4007,219 @@ def run_train_full(torch, dev, launches, arch=TRAIN_ARCH,
             seen[0] = dict(counts)
             state.update(params=params, opt=opt, metrics=metrics)
             check(bool(torch.isfinite(metrics["grad_norm"])),
-                  f"{arch} train step {step}: grad norm not finite")
+                  f"{tag} train step {step}: grad norm not finite")
             t_last[0] = time.perf_counter()
-        losses = train.main(argv, on_step=on_step)
+        if batches == "main":
+            losses = train.main(argv, on_step=on_step, cfg=cfg)
+        else:
+            losses = batch_for_run(cfg, TRAIN_STEPS, batch_size, dev,
+                                   on_step, torch)
         for k in want:
             launches[k] = launches.get(k, 0) + counts[k]
         check(len(losses) == TRAIN_STEPS and all(
             math.isfinite(x) for x in losses),
-            f"{arch} training: losses {losses}")
+            f"{tag} training: losses {losses}")
         for s, n in enumerate(per_step):
-            check(n == want, f"{arch} train step {s}: launches {n}, "
+            check(n == want, f"{tag} train step {s}: launches {n}, "
                   f"not {want}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        runs.append((losses, state, walls, peak))
-    (la, sa, walls, peak), (lb, sb, _, _) = runs
-    same = all(torch.equal(x, y) for x, y in zip(
-        tree_leaves((sa["params"], sa["opt"])),
-        tree_leaves((sb["params"], sb["opt"]))))
-    check(same and la == lb, f"{arch} training: two runs from one "
+        st = (state["params"], state["opt"])
+        runs.append((losses, st if exact else train_digest(st, torch),
+                     walls, peak))
+        parts.append(time.perf_counter() - t_path - sum(parts))
+        if r == 0:
+            state.clear()
+            del st
+            torch.cuda.empty_cache()
+    (la, ka, walls, peak), (lb, kb, _, _) = runs
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(ka),
+                                                  tree_leaves(kb)))
+    check(same and la == lb, f"{tag} training: two runs from one "
           "seed differ")
+    how = ("in every parameter and moment" if exact else
+           "in every parameter and moment's train_digest")
     step_s = sum(walls[1:]) / len(walls[1:])
     tok_s = TRAIN_SEQ * batch_size / step_s
-    log(f"{arch} training, full width and depth ({L} layers), "
+    log(f"{tag} training, full width, {n_params / 1e9:.3f} B parameters, "
         f"T={TRAIN_SEQ} B={batch_size}, remat, AdamW: losses "
         f"{[round(x, 4) for x in la]}  step wall {step_s:.3f} s (steps 1-"
         f"{TRAIN_STEPS - 1}; step 0 {walls[0]:.3f} s)  {tok_s:.0f} tok/s  "
         f"peak memory {peak:.2f} GiB  per step {want}  two runs bit-equal "
-        "in every parameter and moment")
-    del sb, runs
-    # one more step under the profiler, from run A's state
+        f"{how}")
+    # one more step under the profiler, from run B's state; its busy
+    # share divides by run B's last (unprofiled) step's wall
+    wall = runs[1][2][-1]
     model = build_model(cfg)
     step_fn = make_train_step(model, AdamWCfg(
-        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS))
-    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, batch_size)
-    batch = data.batch(TRAIN_STEPS, device=dev)
-    params, opt = sa["params"], sa["opt"]
-    del sa
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params, opt, m = step_fn(params, opt, batch)
-    float(m["loss"])
-    wall = time.perf_counter() - t0
-    box = [params, opt]
+        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS), donate=True)
+    if batches == "main":
+        batch = SyntheticLM(cfg.vocab, TRAIN_SEQ, batch_size).batch(
+            TRAIN_STEPS, device=dev)
+    else:
+        shape = dataclasses.replace(
+            next(s for s in SHAPES if s.name == "train_4k"),
+            seq_len=TRAIN_SEQ, global_batch=batch_size)
+        batch = batch_for(cfg, shape, TRAIN_STEPS, device=dev)
+    box = [state.pop("params"), state.pop("opt")]
+    state.clear()
+    profs = []
 
     def one_step():
         box[0], box[1], m = step_fn(box[0], box[1], batch)
         float(m["loss"])
-    by_name, _ = traced(one_step, (fwd_name,) + tuple(bwd_names), torch)
+    by_name, _ = traced(one_step, fwd_names + tuple(bwd_names), torch,
+                        keep=profs)
     busy = sum(by_name.values()) / 1e6
-    check(busy > 0, f"{arch} training: the profiler recorded no "
+    check(busy > 0, f"{tag} training: the profiler recorded no "
           "device time")
-    fwd = sum(v for k, v in by_name.items() if fwd_name in k) / 1e6
+    fwd = {n: sum(v for k, v in by_name.items() if n in k) / 1e6
+           for n in fwd_names}
     passes = {n: sum(v for k, v in by_name.items() if n in k) / 1e6
               for n in bwd_names}
     bwd = sum(passes.values())
-    check(all(passes.values()) and fwd > 0, f"{arch} training: the "
-          f"device trace lacks {', '.join(bwd_names)} or {fwd_name} "
-          f"({passes}, {fwd_name} {fwd})")
+    del ka, kb, runs
+    check(all(passes.values()) and all(fwd.values()), f"{tag} training: "
+          f"the device trace lacks {', '.join(bwd_names)} or "
+          f"{', '.join(fwd_names)} ({passes}, {fwd})")
+    cross = ""
+    if cfg.family == "encdec":
+        ms = cross_bwd_ms(profs[-1], cfg)
+        cross = ("; the cross-attention's backward (Tq 4096 over Tk "
+                 f"{cfg.n_frames}) {'not measured' if ms is None else f'{ms / cfg.n_layers:.4f} ms a layer'}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{arch} train step device time {busy:.3f} s; busy share "
+    log(f"{tag} train step device time {busy:.3f} s; busy share "
         f"{busy / wall:.3f} of the unprofiled {wall:.3f} s wall; the "
         f"backward kernels {bwd:.3f} s ({bwd / busy:.3f} of the device "
         "time: " + ", ".join(f"{k} {v:.3f} s" for k, v in passes.items())
-        + f"), the forward kernel {fwd_name} {fwd:.3f} s "
-        f"({fwd / busy:.3f}); top kernels: "
-        + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top))
-    del params, opt, m, box
+        + "), the forward kernels " + ", ".join(
+            f"{k} {v:.3f} s ({v / busy:.3f})" for k, v in fwd.items())
+        + cross + "; top kernels: "
+        + "; ".join(f"{k[:60]} {v / 1e6:.3f} s" for k, v in top)
+        + f"  (the path {time.perf_counter() - t_path:.1f} s: runs "
+        f"{parts[0]:.1f} + {parts[1]:.1f} s, the profiled step "
+        f"{time.perf_counter() - t_path - sum(parts):.1f} s)")
+    del box, batch, profs
     torch.cuda.empty_cache()
     return dict(step_s=step_s, tok_s=tok_s, peak_gib=peak, busy=busy / wall,
                 bwd_share=bwd / busy)
 
 
-def check_train_two_layer(torch, dev, arch=TRAIN_ARCH):
-    """One train step's gradients of a 2-layer ``arch`` at full width, the
-    card (through the mixer's kernels in both directions: flash for
-    qwen3-0.6b, the SSD kernels for mamba2-130m) against the CPU (the
-    plain versions), same weights and batch: the batch from
-    ``SyntheticLM`` on the card bit-equal to the CPU's; the loss, the
-    global gradient norm and every gradient leaf within their
-    tolerances."""
+def train_two_layer_batch(cfg, T, B, torch, device):
+    """The 2-layer train step's batch on ``device``: ``data.batch_for``'s
+    for the vlm and encdec families, ``SyntheticLM``'s tokens else."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import SyntheticLM, batch_for
+    if cfg.family in ("vlm", "encdec"):
+        shape = dataclasses.replace(
+            next(s for s in SHAPES if s.name == "train_4k"), seq_len=T,
+            global_batch=B)
+        return batch_for(cfg, shape, 3, seed=5, device=device)
+    return SyntheticLM(cfg.vocab, T, B, seed=5).batch(3, device=device)
+
+
+def train_two_layer_cpu(arch, params, torch, T=256, B=2, **kw):
+    """The CPU side of ``check_train_two_layer`` (``cpu_side_main`` runs
+    it) on the check's weights copied to the CPU: the batch, the loss,
+    the global gradient norm, the gradients and the routing records of
+    one step through the plain versions."""
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import clip_by_global_norm
+    from repro_torch.train.train_step import value_and_grad
+    cfg = two_layer_cfg(arch, **kw)
+    model = build_model(cfg)
+    batch = train_two_layer_batch(cfg, T, B, torch, "cpu")
+    with routing_record() as rec:
+        loss, grads = value_and_grad(model, params, batch)
+    return {"batch": batch, "loss": float(loss),
+            "norm": float(clip_by_global_norm(grads, 1.0)[1]),
+            "grads": grads, "sets": rec.sets, "chosen": rec.chosen}
+
+
+def check_train_two_layer(torch, dev, arch=TRAIN_ARCH, T=256, B=2, **kw):
+    """One train step's gradients of a 2-layer ``arch`` at full width
+    (``kw``: other fields of its config, ``n_experts``), the card (through
+    the mixers' kernels in both directions) against the CPU (the plain
+    versions; ``train_two_layer_cpu``, computed by the CPU-side process),
+    same weights and batch: the batch (``SyntheticLM``'s tokens, or
+    ``data.batch_for``'s for the vlm and encdec families) from the card
+    bit-equal to the CPU's; the loss, the global gradient norm and every
+    gradient leaf within their tolerances.  Where the model routes to
+    experts, a bf16 choice at a near-tie may go the other way on the
+    other device, and such a token's share then moves the gradients of
+    its experts and, through its changed activations, of every leaf below
+    (at qwen3-moe-30b-a3b's size 45 of 4,096 choices moved leaves by up to
+    0.21 of their max |grad| where their experts' tokens agreed).  So the
+    card's own routing gives the loss, the norm and the share of choices
+    alike, and the gradients are held on a second card step whose MoE
+    layers take the CPU's choices (``given_routing``)."""
     import gc
-    from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import counts
     from repro_torch.models import build_model
-    from repro_torch.models.common import tree_to
     from repro_torch.train.optimizer import clip_by_global_norm
     from repro_torch.train.train_step import value_and_grad
     from repro_torch.tree import leaves_with_path
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = two_layer_cfg(arch, **kw)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init_params(torch.Generator().manual_seed(4), "cpu")
-    data = SyntheticLM(cfg.vocab, 256, 2, seed=5)
-    batch = data.batch(3, device="cpu")
-    on_card = data.batch(3, device=dev)
-    check(all(torch.equal(batch[k], on_card[k].cpu()) for k in batch),
-          "SyntheticLM: the card's batch differs from the CPU's")
-    loss_c, g_c = value_and_grad(model, params, batch)
-    norm_c = clip_by_global_norm(g_c, 1.0)[1]
+    on_card = two_layer_params(model, 4, torch, dev)
+    card_batch = train_two_layer_batch(cfg, T, B, torch, dev)
     before = dict(counts)
-    loss_d, g_d = value_and_grad(model, tree_to(params, dev), on_card)
+    with routing_record() as card_rec:
+        loss_d, g_d = value_and_grad(model, on_card, card_batch)
     norm_d = clip_by_global_norm(g_d, 1.0)[1]
     # one step's launches (the counts are restored: not the main path)
-    got = {k: counts[k] - before[k] for k in train_kernels(cfg)[0]}
+    want = train_kernels(cfg)[0]
+    got = {k: counts[k] - before[k] for k in want}
+    check(got == want, f"{arch} 2-layer train step: launches {got}, not "
+          f"{want}")
+    cpu = CPU_SIDE.result("train", arch, T=T, B=B, **kw)
+    what = "batch_for" if cfg.family in ("vlm", "encdec") else "SyntheticLM"
+    check(all(torch.equal(cpu["batch"][k], card_batch[k].cpu())
+              for k in cpu["batch"]),
+          f"{what}: the card's batch differs from the CPU's")
+    routed = ""
+    if cfg.moe is not None:
+        # the forward's records (the remat recompute records again)
+        n_moe = len(cpu["sets"]) // 2
+        same, total = routing_agreement(card_rec.sets[:n_moe],
+                                        cpu["sets"][:n_moe])
+        del g_d
+        with given_routing(cpu["chosen"]) as given:
+            loss_g, g_d = value_and_grad(model, on_card, card_batch)
+        check(given.calls == len(cpu["chosen"]), f"{arch} 2-layer: "
+              f"{given.calls} MoE calls, the CPU's run made "
+              f"{len(cpu['chosen'])}")
+        routed = (f"; routing choices alike on card and CPU {same} of "
+                  f"{total} ({same / total:.5f}); the gradients with the "
+                  f"CPU's choices (loss off by "
+                  f"{abs(float(loss_g) - cpu['loss']):.3g})")
     counts.update(before)
-    check(got == train_kernels(cfg)[0], f"{arch} 2-layer train step: "
-          f"launches {got}, not {train_kernels(cfg)[0]}")
-    loss_err = abs(float(loss_d) - float(loss_c))
-    norm_err = abs(float(norm_d) - float(norm_c)) / float(norm_c)
-    worst = (0.0, "")
-    for (path, a), (_, b) in zip(leaves_with_path(g_c),
+    t_card = time.perf_counter() - t0
+    loss_err = abs(float(loss_d) - cpu["loss"])
+    norm_err = abs(float(norm_d) - cpu["norm"]) / cpu["norm"]
+    errs = []
+    for (path, a), (_, b) in zip(leaves_with_path(cpu["grads"]),
                                  leaves_with_path(g_d)):
-        rel = float((b.cpu().float() - a.float()).abs().max()) / max(
-            float(a.float().abs().max()), 1e-30)
-        worst = max(worst, (rel, path))
-    log(f"{arch} 2-layer full width, T=256 B=2: SyntheticLM batch on "
-        f"the card bit-equal to the CPU's; loss {float(loss_c):.5f} (card "
-        f"off by {loss_err:.3g}, tolerance {TRAIN_LOSS_TOL}), grad norm "
-        f"{float(norm_c):.5f} (relative error {norm_err:.3g}, tolerance "
-        f"{TRAIN_NORM_RTOL}), worst gradient leaf {worst[1]} off by "
-        f"{worst[0]:.3g} of its max |grad| (tolerance {TRAIN_GRAD_TOL})  "
-        f"({time.perf_counter() - t0:.1f} s)")
+        # compared on the card: the CPU's leaf copied over
+        a = a.to(dev).float()
+        scale = max(float(a.abs().max()), 1e-30)
+        errs.append((float((b.float() - a).abs().max()) / scale, path))
+        del a
+    errs.sort(reverse=True)
+    tag = f"{arch} 2-layer" + "".join(f" {k}={v}" for k, v in kw.items())
+    log(f"{tag} full width, T={T} B={B}: {what} batch on the card "
+        f"bit-equal to the CPU's; loss {cpu['loss']:.5f} (card off by "
+        f"{loss_err:.3g}, tolerance {TRAIN_LOSS_TOL}), grad norm "
+        f"{cpu['norm']:.5f} (relative error {norm_err:.3g}, tolerance "
+        f"{TRAIN_NORM_RTOL}){routed}, worst gradient leaves "
+        + ", ".join(f"{p} off by {e:.3g}" for e, p in errs[:3])
+        + f" of their max |grad| (tolerance {TRAIN_GRAD_TOL})  (card "
+        f"{t_card:.1f} s, CPU {cpu['seconds']:.1f} s in the CPU-side "
+        "process)")
     check(loss_err <= TRAIN_LOSS_TOL and norm_err <= TRAIN_NORM_RTOL
-          and worst[0] <= TRAIN_GRAD_TOL,
+          and errs[0][0] <= TRAIN_GRAD_TOL,
           f"{arch} 2-layer train step: the card differs from the CPU")
-    del params, g_c, g_d
+    del on_card, g_d, card_batch, cpu
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3851,12 +4320,14 @@ def main() -> int:
     try:
         from repro_torch.kernels import _build
         t0 = time.perf_counter()
+        GOLDEN_CHAOS_RUN.start()
         _build.build(_build_names())
         log(f"kernels built in {time.perf_counter() - t0:.1f} s "
             f"({', '.join(_build_names())})")
         check_builds()
         check_bwd_build()
         check_ssd_bwd_build()
+        CPU_SIDE.start()
         lap("builds and their reports")
 
         check_launch_floor(torch, dev)
@@ -3919,7 +4390,7 @@ def main() -> int:
                   128, 128, 128, torch, dev)
         lap("kernels against their plain versions")
         check_golden(torch, dev)
-        run_golden_chaos()
+        GOLDEN_CHAOS_RUN.result()
         lap("golden scenario and chaos combos")
 
         figs = {"case1b": run_capacity("case1b", 2, torch, dev, launches)}
@@ -3945,13 +4416,8 @@ def main() -> int:
                         cfg=served_cfg(arch))
         run_prefill(JAMBA, torch, dev, launches, cfg=jamba_period())
         lap("prefill")
-        for arch, over in TWO_LAYER_CASES:
-            check_two_layer(arch, torch, dev, **over)
-        # jamba: attention, then a Mamba layer with the MoE FFN (2 of its
-        # experts); T = 256 spans two chunks, so the carry crosses one
-        check_two_layer(JAMBA, torch, dev, T=256, attn_period=2,
-                        moe=dataclasses.replace(jamba_period().moe,
-                                                n_experts=2))
+        for arch, kw in TWO_LAYER_CASES:
+            check_two_layer(arch, torch, dev, **kw)
         lap("2-layer card against CPU")
         for arch in SERVE_ARCHS:
             run_serve(arch, torch, dev, cfg=served_cfg(arch),
@@ -4008,11 +4474,26 @@ def main() -> int:
                        batch_size=SSM_TRAIN_BATCH)
         check_train_two_layer(torch, dev, arch=SSM_TRAIN_ARCH)
         run_train_tiny(torch, dev)
+        lap("training: dense and ssm")
+        # the moe, vlm, encdec and hybrid families (ROADMAP 15(d3)): the
+        # 2-layer steps first (the CPU-side process is done with the
+        # card's memory once their results are in), then the full runs
+        for arch, kw in TRAIN_TWO_LAYER:
+            check_train_two_layer(torch, dev, arch=arch, **kw)
+        lap("training: 2-layer steps of the families, card against CPU")
+        for arch, batch_size, over, batches in TRAIN_FAMILIES:
+            run_train_full(torch, dev, launches, arch=arch,
+                           batch_size=batch_size, over=over,
+                           batches=batches)
+        lap("training: moe, vlm, encdec, hybrid")
         log(f"training phases {time.perf_counter() - t_train:.1f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        CPU_SIDE.stop()
+        GOLDEN_CHAOS_RUN.stop()
     src = {
         "cloudlet_finish": ("src/repro_torch/csrc/cloudlet_finish.cu",
                             "src/repro/kernels/cloudlet_step/kernel.py:102"),
@@ -4060,7 +4541,7 @@ def _build_names():
 
 
 def golden_chaos_main() -> int:
-    """The child process of ``run_golden_chaos``."""
+    """The child process of ``GoldenChaos``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4074,5 +4555,8 @@ def golden_chaos_main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(golden_chaos_main() if GOLDEN_CHAOS_FLAG in sys.argv
-             else main())
+    if GOLDEN_CHAOS_FLAG in sys.argv:
+        sys.exit(golden_chaos_main())
+    if CPU_SIDE_FLAG in sys.argv:
+        sys.exit(cpu_side_main(sys.argv[sys.argv.index(CPU_SIDE_FLAG) + 1]))
+    sys.exit(main())

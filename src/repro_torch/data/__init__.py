@@ -1,1 +1,1 @@
-from .synthetic import SyntheticLM  # noqa: F401
+from .synthetic import SyntheticLM, batch_for  # noqa: F401

@@ -12,8 +12,11 @@ C library's ``powf`` as the reference's op-by-op ``pow`` calls it
 by an ulp on a quarter of the draws, which moves about 800 tokens a
 million at V = 151,936).  The batch is generated on ``device``.
 
-``batch_for``'s vlm and encdec inputs (bfloat16 normal draws) are not
-ported yet.
+``batch_for`` is the reference's batch of a config at a shape: the
+tokens and labels, for the vlm family bfloat16 ``embeds`` and M-RoPE
+``positions`` in place of the tokens, for the encdec family bfloat16
+``frames`` beside them; the bfloat16 draws are ``random.normal_bf16``,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -53,3 +56,32 @@ class SyntheticLM:
         labels = torch.roll(tokens, -1, dims=1)
         labels[:, -1] = -1
         return {"tokens": tokens, "labels": labels}
+
+
+def batch_for(cfg, shape, step: int = 0, seed: int = 0,
+              device="cuda") -> dict:
+    """The reference's batch for ``cfg`` at ``shape`` (its ``seq_len`` and
+    ``global_batch``) and ``step``, on ``device``: ``SyntheticLM``'s
+    tokens and labels; for the vlm family ``embeds`` ``[B, T, d]``
+    (bfloat16 normals under ``fold_in(PRNGKey(seed + 1), step)``), int32
+    ``positions`` ``[3, B, T]`` (0..T-1 in every row) and the labels; for
+    the encdec family also ``frames`` ``[B, n_frames, d]`` (bfloat16
+    normals under ``fold_in(PRNGKey(seed + 2), step)``)."""
+    device = resolve_device(device)
+    B, T = shape.global_batch, shape.seq_len
+    ds = SyntheticLM(vocab=max(cfg.vocab, 2), seq_len=T, global_batch=B,
+                     seed=seed)
+    batch = ds.batch(step, device=device)
+    if cfg.family == "vlm":
+        key = random.fold_in(random.PRNGKey(seed + 1), step)
+        batch = {
+            "embeds": random.normal_bf16(key, (B, T, cfg.d_model), device),
+            "positions": torch.arange(T, dtype=torch.int32, device=device)
+            .expand(3, B, T),
+            "labels": batch["labels"],
+        }
+    elif cfg.family == "encdec":
+        key = random.fold_in(random.PRNGKey(seed + 2), step)
+        batch["frames"] = random.normal_bf16(
+            key, (B, cfg.n_frames, cfg.d_model), device)
+    return batch

@@ -7,14 +7,18 @@ thanks to the step-indexed pipeline.
   python -m repro_torch.launch.train --arch qwen3-0.6b --seq 4096 --batch 2
   python -m repro_torch.launch.train --arch mamba2-130m --seq 4096 --batch 8
 
-On the card (the default) the forward runs the flash kernel and the
-backward ``csrc/flash_attention_bwd.cu``, or for the ssm family the SSD
-kernel and its backward ``csrc/ssd_chunk_bwd.cu``; ``--device cpu`` runs
-the plain versions.  Training is ported for the dense family (the
-presets, qwen3-0.6b, internlm2-1.8b, ...) and the ssm family
-(mamba2-130m); the others raise, naming the slice that brings them.  Parameters
-come from the port's own ``init_params`` (a ``torch.Generator`` seeded
-with ``--seed``); the batches are the reference's bits.
+On the card (the default) the attention layers run the flash kernel and
+its backward (``csrc/flash_attention_bwd.cu``), the Mamba layers the SSD
+kernel and its backward (``csrc/ssd_chunk_bwd.cu``); ``--device cpu``
+runs the plain versions.  Every family the reference's driver trains
+trains here, on ``SyntheticLM``'s tokens: dense, ssm, moe, vlm (tokens
+through its embedding table, as the reference's driver feeds it) and
+hybrid.  The encdec family needs frames, which the reference's driver
+does not give (its ``loss_fn`` would fail on the batch): it raises here,
+and whisper-base trains through ``make_train_step`` on
+``data.batch_for``'s batches.  Parameters come from the port's own
+``init_params`` (a ``torch.Generator`` seeded with ``--seed``); the
+batches are the reference's bits.
 """
 from __future__ import annotations
 
@@ -57,11 +61,18 @@ def main(argv=None, on_step=None, cfg=None):
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch) if args.arch else PRESETS[args.preset]
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the encdec family trains on frames, which this "
+            "driver's token batches do not hold; train it through "
+            "train.make_train_step on data.batch_for's batches")
     model = build_model(cfg)
     opt_cfg = AdamWCfg(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                        total_steps=args.steps)
+    # each step's state replaces the last: the update writes in place
     step_fn = make_train_step(model, opt_cfg,
-                              compress_grads=args.compress_grads)
+                              compress_grads=args.compress_grads,
+                              donate=True)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed)
 

@@ -208,3 +208,14 @@ def sinusoid_positions(t: int, d: int) -> np.ndarray:
 def unembed(x: torch.Tensor, emb_or_head: torch.Tensor) -> torch.Tensor:
     """Logits in f32."""
     return x.float() @ emb_or_head.float()
+
+
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's training loss: the cross entropy of float32
+    ``logits`` [B, T, V] against ``labels`` [B, T], the mean over the
+    positions whose label is not negative (0-d float32)."""
+    mask = (labels >= 0).float()
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          labels.clamp_min(0).reshape(-1).long(),
+                          reduction="none").reshape(labels.shape)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -4,9 +4,16 @@ reference's ``repro.models.encdec``).
 The encoder takes precomputed frame embeddings, adds sinusoidal
 positions and runs non-causal self-attention blocks (no RoPE).  The
 decoder is a causal LM (RoPE at ``rope_theta``) with cross-attention
-into the encoder output, both through the flash kernel in prefill.
-Parameters are stacked over layers in the reference's layout, so
+into the encoder output, both through the flash kernel, forward and
+backward (the cross-attention non-causal, Tq ≠ Tk).  Parameters are
+stacked over layers in the reference's layout, so
 ``models.convert.params_from_numpy`` carries its tree unchanged.
+``encode`` and ``decode_train`` unbind the stacked leaves once, as
+``transformer.LM`` does, and with ``remat=True`` recompute each block in
+the backward (the reference's ``jax.checkpoint`` of each encoder and
+decoder block); ``loss_fn`` is the reference's masked-mean cross entropy
+over the tied unembedding, on a batch of ``tokens``, ``labels`` and
+``frames`` (``data.batch_for``).
 
 Decode runs one token against a stacked self-attention ``KVCache`` and
 the stacked cross K/V ``[n_layers, B, n_kv, n_frames, Dh]`` of
@@ -19,13 +26,14 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
 from .attention import KVCache, attn_apply, attn_decode, attn_schema
-from .common import (P, apply_mlp, initialize, mlp_schema, rmsnorm,
-                     sinusoid_positions, unembed)
-from .transformer import _layer, _stack_schema
+from .common import (P, apply_mlp, initialize, masked_nll, mlp_schema,
+                     rmsnorm, sinusoid_positions, unembed)
+from .transformer import _layer, _stack_schema, unbind_layers
 
 
 class EncDecState(NamedTuple):
@@ -91,22 +99,30 @@ class EncDec:
                           head_dim=cfg.head_dim, **kw)
 
     # ---------------- encoder ------------------------------------------
-    def encode(self, params, frames):
+    def _enc_block(self, lp, x):
+        x = x + self._attn(lp["attn"], rmsnorm(x, lp["norm1"]), causal=False)
+        return x + apply_mlp(lp["mlp"], rmsnorm(x, lp["norm2"]))
+
+    def encode(self, params, frames, remat=False):
         """frames [B, F, d] → encoder output [B, F, d] (non-causal)."""
         cfg = self.cfg
         T = frames.shape[1]
         pos = torch.from_numpy(sinusoid_positions(T, cfg.d_model))
         x = frames.to(torch.bfloat16) + \
             pos.to(device=frames.device, dtype=torch.bfloat16)[None]
-        for i in range(cfg.n_enc_layers):
-            lp = _layer(params["enc_layers"], i)
-            x = x + self._attn(lp["attn"], rmsnorm(x, lp["norm1"]),
-                               causal=False)
-            x = x + apply_mlp(lp["mlp"], rmsnorm(x, lp["norm2"]))
+        for lp in unbind_layers(params["enc_layers"], cfg.n_enc_layers):
+            x = _run(self._enc_block, remat, lp, x)
         return rmsnorm(x, params["enc_norm"])
 
     # ---------------- decoder ------------------------------------------
-    def decode_train(self, params, tokens, enc_out):
+    def _dec_block(self, lp, x, positions, enc_out):
+        x = x + self._attn(lp["self_attn"], rmsnorm(x, lp["norm1"]),
+                           positions=positions, rope_theta=self.cfg.rope_theta)
+        x = x + self._attn(lp["cross_attn"], rmsnorm(x, lp["norm2"]),
+                           kv=enc_out)
+        return x + apply_mlp(lp["mlp"], rmsnorm(x, lp["norm3"]))
+
+    def decode_train(self, params, tokens, enc_out, remat=False):
         """tokens [B, T] and the encoder output → final-norm decoder hidden
         states [B, T, d]."""
         cfg = self.cfg
@@ -114,24 +130,21 @@ class EncDec:
         B, T = tokens.shape
         positions = torch.arange(T, dtype=torch.int32,
                                  device=x.device).expand(B, T)
-        for i in range(cfg.n_layers):
-            lp = _layer(params["dec_layers"], i)
-            x = x + self._attn(lp["self_attn"], rmsnorm(x, lp["norm1"]),
-                               positions=positions,
-                               rope_theta=cfg.rope_theta)
-            x = x + self._attn(lp["cross_attn"], rmsnorm(x, lp["norm2"]),
-                               kv=enc_out)
-            x = x + apply_mlp(lp["mlp"], rmsnorm(x, lp["norm3"]))
+        for lp in unbind_layers(params["dec_layers"], cfg.n_layers):
+            x = _run(self._dec_block, remat, lp, x, positions, enc_out)
         return rmsnorm(x, params["dec_norm"])
 
     def logits(self, params, hidden):
         return unembed(hidden, params["embed"].T)
 
     def loss_fn(self, params, batch, remat=True):
-        raise NotImplementedError(
-            f"training the encdec family ({self.cfg.name}) is not ported "
-            "yet: it comes with the vlm/moe/encdec training slice (the "
-            "flash backward's cross-attention, bfloat16 frames)")
+        """Cross entropy of the decoder's float32 logits over the tied
+        embedding, the mean over the positions whose label is not
+        negative (0-d float32); the batch holds ``frames``, ``tokens`` and
+        ``labels``."""
+        enc_out = self.encode(params, batch["frames"], remat=remat)
+        h = self.decode_train(params, batch["tokens"], enc_out, remat=remat)
+        return masked_nll(self.logits(params, h), batch["labels"])
 
     # ---------------- serving ------------------------------------------
     def init_decode_state(self, batch: int, seq: int,
@@ -177,3 +190,11 @@ class EncDec:
         h = rmsnorm(x, params["dec_norm"])
         state.pos.add_(1)
         return self.logits(params, h), state
+
+
+def _run(block, remat: bool, *args):
+    """``block(*args)``, recomputed in the backward under ``remat``."""
+    if remat:
+        return checkpoint(block, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(*args)

@@ -9,17 +9,18 @@ layers, their norms, the FFN norms, the dense FFNs and the MoE layers
 stacked once more.  A Python loop over the periods and their layers
 takes the place of the reference's ``lax.scan`` and unrolled period;
 ``hidden_states(remat=True)`` recomputes each period in the backward, as
-the reference's ``jax.checkpoint`` of its period.  Prefill runs the
-flash kernel for the attention layer and the SSD kernel for the Mamba
-layers (jamba-1.5-large's head width 128 on the CUDA-core
-``ssd_chunk_kernel``).
+the reference's ``jax.checkpoint`` of its period.  The attention layer
+runs the flash kernel and the Mamba layers the SSD kernel, forward and
+backward (jamba-1.5-large's head width 128 on the tensor-core
+``ssd_chunk_sm90`` and ``ssd_bwd_ds``/``_dx``/``_db``, the carry over
+chunks in PyTorch).  ``loss_fn`` is the reference's masked-mean cross
+entropy over the untied head.
 
 The decode state is a ``DecodeState`` whose ``layers`` hold one dict a
 period, ``{"kv": KVCache, "mamba": [MambaState, ...]}``, and ``pos`` a
 0-d int32 tensor on the device, the reference's ``cache.pos``.
 ``decode_step`` writes all of it in place and reads nothing back to the
-host, so ``launch/serve.py`` can capture it as a CUDA graph.  Training
-the hybrid waits for its MoE layers' slice: ``loss_fn`` raises.
+host, so ``launch/serve.py`` can capture it as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -31,13 +32,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
 from .attention import KVCache, attn_apply, attn_decode, attn_schema
-from .common import (P, apply_mlp, initialize, mlp_schema, rmsnorm,
-                     unembed)
+from .common import (P, apply_mlp, initialize, masked_nll, mlp_schema,
+                     rmsnorm, unembed)
 from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
                      mamba_state_zeros)
 from .moe import moe_apply, moe_schema
-from .transformer import (_TRAIN_SLICE, DecodeState, _layer, _stack_schema,
-                          unbind_layers)
+from .transformer import DecodeState, _layer, _stack_schema, unbind_layers
 
 
 class HybridLM:
@@ -136,9 +136,10 @@ class HybridLM:
         return unembed(hidden, params["head"])
 
     def loss_fn(self, params, batch, remat=True):
-        raise NotImplementedError(
-            f"training the hybrid family ({self.cfg.name}) is not ported "
-            f"yet: its MoE layers train with {_TRAIN_SLICE['moe']}")
+        """Causal-LM cross entropy over float32 logits, the mean over the
+        positions whose label is not negative (0-d float32)."""
+        h = self.hidden_states(params, tokens=batch["tokens"], remat=remat)
+        return masked_nll(self.logits(params, h), batch["labels"])
 
     # ---------------- decode -------------------------------------------
     def init_decode_state(self, batch: int, seq: int,

@@ -21,6 +21,18 @@ capturable as a CUDA graph (no host read, no data-dependent shape):
   That is the order of the reference's serial scatter on the CPU (slots
   ascend with the expert id), and it is the same on every run on the
   card, where an atomic ``index_add_`` is not.
+
+The backward is the same on every run too.  The dispatch gather
+(``gather_tokens``) differentiates into a fold of each token's K slot
+gradients in ascending expert id, in the input's type (the order of the
+reference's scatter-add of the gather's transpose; autograd's
+``index_add_`` would add a token's K rows atomically, in any order).  A
+dropped assignment gets no gradient, in the gather and in the combine.
+The combine's own gathers need nothing: a kept slot is read by one
+assignment only, so their ``index_add_`` backward puts one row into
+zeros, and every dropped assignment adds an exact zero to row 0; the
+router weights' gather and the sort behind ``route`` scatter each value
+to its own place.
 """
 from __future__ import annotations
 
@@ -105,6 +117,56 @@ def dispatch(top_e: torch.Tensor, cap: int, n_experts: int):
     return order, keep, slot, tok_of_slot[:-1], live[:-1]
 
 
+def assignment_slots(order: torch.Tensor, slot: torch.Tensor,
+                     top_e: torch.Tensor, dropped_slot: int):
+    """Each token's K assignments in ascending expert id: ``by_e`` (their
+    positions in ``top_e``'s rows), ``rows`` (each one's slot, 0 where
+    dropped) and ``dropped`` ([n, K] each).  ``slot`` is ``dispatch``'s,
+    in sorted order; its inverse through ``order`` is each assignment's
+    slot."""
+    n_tok, K = top_e.shape
+    slot_of = torch.empty_like(slot).scatter_(0, order, slot)
+    by_e = torch.argsort(top_e, dim=-1)
+    slot_of = torch.gather(slot_of.reshape(n_tok, K), 1, by_e)
+    dropped = slot_of == dropped_slot
+    return by_e, torch.where(dropped, 0, slot_of), dropped
+
+
+def fold_slots(g: torch.Tensor, rows: torch.Tensor,
+               dropped: torch.Tensor) -> torch.Tensor:
+    """``[n, d]``: for each token, its kept assignments' rows of ``g``
+    (``[E*cap, d]``) added to zero one after another in ``rows``' order
+    (ascending expert id), in ``g``'s type."""
+    out = g.new_zeros((rows.shape[0], g.shape[1]))
+    for k in range(rows.shape[1]):
+        out = out + torch.where(dropped[:, k, None], 0.0,
+                                g.index_select(0, rows[:, k]))
+    return out
+
+
+class _GatherTokens(torch.autograd.Function):
+    """``xf[tok_of_slot]`` with the empty slots zero; the backward is
+    ``fold_slots`` of the slots' gradients."""
+
+    @staticmethod
+    def forward(ctx, xf, tok_of_slot, live, rows, dropped):
+        ctx.save_for_backward(rows, dropped)
+        xe = xf.index_select(0, tok_of_slot)
+        return xe.masked_fill_(~live[:, None], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, dropped = ctx.saved_tensors
+        return fold_slots(g, rows, dropped), None, None, None, None
+
+
+def gather_tokens(xf, tok_of_slot, live, rows, dropped) -> torch.Tensor:
+    """The dispatch gather ``[E*cap, d]`` of ``xf`` ``[n, d]`` (empty
+    slots zero), whose backward folds each token's slot gradients in
+    ascending expert id (``rows``, ``dropped``: ``assignment_slots``)."""
+    return _GatherTokens.apply(xf, tok_of_slot, live, rows, dropped)
+
+
 def moe_apply(p, x: torch.Tensor, cfg: MoECfg) -> torch.Tensor:
     """x [B, T, d] → [B, T, d]."""
     B, T, d = x.shape
@@ -115,22 +177,15 @@ def moe_apply(p, x: torch.Tensor, cfg: MoECfg) -> torch.Tensor:
 
     cap = capacity(n_tok, cfg)
     order, _, slot, tok_of_slot, live = dispatch(top_e, cap, E)
-    xe = xf.index_select(0, tok_of_slot)
-    xe.masked_fill_(~live[:, None], 0)
+    by_e, rows, dropped = assignment_slots(order, slot, top_e, E * cap)
+    xe = gather_tokens(xf, tok_of_slot, live, rows, dropped)
     xe = xe.reshape(E, cap, d)
 
     h = F.silu(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
     ye = torch.bmm(h, p["down"]).reshape(E * cap, d)
 
-    # each assignment's slot (the sort's inverse), each token's K in
-    # ascending expert id, folded into zero
-    slot_of = torch.empty_like(slot).scatter_(0, order, slot)
-    slot_of = slot_of.reshape(n_tok, K)
-    by_e = torch.argsort(top_e, dim=-1)
-    slot_of = torch.gather(slot_of, 1, by_e)
+    # each token's K assignments in ascending expert id, folded into zero
     w = torch.gather(top_p, 1, by_e)
-    dropped = slot_of == E * cap
-    rows = torch.where(dropped, 0, slot_of)
     out = torch.zeros((n_tok, d), dtype=torch.float32, device=x.device)
     for k in range(K):
         c = ye.index_select(0, rows[:, k]).float() * w[:, k, None]

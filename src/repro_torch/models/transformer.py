@@ -11,8 +11,9 @@ gradient once instead of building a full-size zero gradient per layer.
 ``hidden_states(remat=True)`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
 serving runs no remat.  ``loss_fn`` is the reference's masked-mean cross
-entropy; training is ported for the ``dense`` and ``ssm`` families (the
-others raise, naming the slice that brings them).  In decode the cache
+entropy over the batch's ``tokens``, or for the ``vlm`` family its
+``embeds`` and ``positions`` where the batch brings them (the reference's
+``launch/train.py`` gives the vlm family tokens only).  In decode the cache
 position is a 0-d int32 tensor on the model's device, as the reference's
 ``cache.pos``, and ``decode_step`` writes the whole decode state in
 place: every step reads and writes the same buffers, so the step can be
@@ -29,15 +30,14 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
 from .attention import (KVCache, QuantKVCache, attn_apply, attn_decode,
                         attn_schema)
-from .common import (P, apply_mlp, initialize, map_schema, mlp_schema,
-                     rmsnorm, unembed)
+from .common import (P, apply_mlp, initialize, map_schema, masked_nll,
+                     mlp_schema, rmsnorm, unembed)
 from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
                      mamba_state_zeros)
 from .moe import moe_apply, moe_schema
@@ -70,13 +70,6 @@ def unbind_layers(tree, n: int) -> List[Any]:
         return {k: pick(v, i) for k, v in t.items()}
     parts = cut(tree)
     return [pick(parts, i) for i in range(n)]
-
-
-# the slice of the port that brings training to each family that has none
-_TRAIN_SLICE = {
-    "moe": "the vlm/moe/encdec training slice",
-    "vlm": "the vlm/moe/encdec training slice",
-}
 
 
 class DecodeState(NamedTuple):
@@ -186,20 +179,12 @@ class LM:
 
     def loss_fn(self, params, batch, remat=True):
         """Causal-LM cross entropy over float32 logits, the mean over the
-        positions whose label is not negative (0-d float32)."""
-        family = self.cfg.family
-        if family in _TRAIN_SLICE:
-            raise NotImplementedError(
-                f"training the {family} family ({self.cfg.name}) is not "
-                f"ported yet: it comes with {_TRAIN_SLICE[family]}")
-        h = self.hidden_states(params, tokens=batch["tokens"], remat=remat)
-        logits = self.logits(params, h)                     # f32 [B, T, V]
-        labels = batch["labels"]
-        mask = (labels >= 0).float()
-        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                              labels.clamp_min(0).reshape(-1).long(),
-                              reduction="none").reshape(labels.shape)
-        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        positions whose label is not negative (0-d float32).  The batch
+        holds ``tokens`` or ``embeds`` (with ``positions`` where given)."""
+        h = self.hidden_states(params, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"),
+                               positions=batch.get("positions"), remat=remat)
+        return masked_nll(self.logits(params, h), batch["labels"])
 
     # ---------------- decode -------------------------------------------
     def init_decode_state(self, batch: int, seq: int,

@@ -1,15 +1,15 @@
 """Threefry-2x32 counter-based random numbers, bit for bit with the
 non-partitionable derivation of ``jax.random`` (``jax_threefry_partitionable
 = False``): ``PRNGKey``, ``split``, ``fold_in``, ``random_bits``, ``uniform``,
-``normal`` and ``randint``; ``split``, ``uniform`` and the bits also in
-the partitionable derivation (JAX's default, which the synthetic data
-pipeline's reference draws under).
+``normal`` and ``randint``; ``split``, ``uniform``, the bits and the
+bfloat16 ``normal_bf16`` also in the partitionable derivation (JAX's
+default, which the synthetic data pipeline's reference draws under).
 
 Keys are derived on the host: the simulation's key schedule is a pure
 function of the seed and the tick (it never reads simulation data), so
 deriving keys there costs the device nothing and never synchronises it.
-Only the bulk bits behind ``uniform``/``normal``/``randint`` are generated
-on the caller's ``device``.  A bulk draw takes its key in one of two
+Only the bulk bits behind ``uniform``/``normal``/``normal_bf16``/
+``randint`` are generated on the caller's ``device``.  A bulk draw takes its key in one of two
 forms: a host key (an int64 CPU tensor ``[2]`` holding two uint32 words,
 which ``split``/``fold_in`` also take), whose words enter the launches as
 constants; or a ``TableKey``, a stream of a ``KeyTable`` read on the device
@@ -533,6 +533,43 @@ def normal(key: torch.Tensor, shape: Sequence[int],
     """``jax.random.normal`` (float32): ``sqrt(2)·erf_inv(u)``."""
     u = uniform(key, shape, _NORMAL_LO, 1.0, device)
     return erf_inv(u) * _SQRT2
+
+
+_BF16_NORMAL_LO = -0.99609375     # nextafter(-1, 0) in bfloat16
+_BF16_SQRT2 = 1.4140625           # sqrt(2) in bfloat16
+_BF16_NORMALS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _bf16_normal_table(device) -> torch.Tensor:
+    """``normal_bf16``'s value for each of the 256 random bytes, as the
+    reference computes it: the byte's top 7 bits as a bfloat16 mantissa
+    in [1, 2), minus 1, times ``1 - lo`` (2 in bfloat16) plus ``lo``, each
+    step rounded to bfloat16, then ``max(lo, ·)``; XLA's float32
+    ``erf_inv`` of that, rounded to bfloat16; times sqrt(2) rounded to
+    bfloat16.  Built on the host, once per device."""
+    device = torch.device(device)
+    table = _BF16_NORMALS.get(device)
+    if table is None:
+        byte = torch.arange(256, dtype=torch.int64)
+        m = ((byte >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1
+        lo = torch.tensor(_BF16_NORMAL_LO, dtype=torch.bfloat16)
+        span = torch.tensor(1.0, dtype=torch.bfloat16) - lo
+        u = torch.maximum(lo, m * span + lo)
+        e = erf_inv(u.float()).to(torch.bfloat16)
+        table = (e.float() * _BF16_SQRT2).to(torch.bfloat16).to(device)
+        _BF16_NORMALS[device] = table
+    return table
+
+
+def normal_bf16(key: torch.Tensor, shape: Sequence[int],
+                device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, jnp.bfloat16)`` under the
+    partitionable threefry (JAX's default): ``random_bits`` at 8 bits
+    (the low byte of the partitionable draw's word) mapped through the
+    bfloat16 chain of ``_bf16_normal_table``; 128 distinct values in
+    [-2.890625, 2.515625]."""
+    byte = random_bits_partitionable(key, shape, device) & 0xFF
+    return _bf16_normal_table(byte.device)[byte]
 
 
 def normal_fma(key: torch.Tensor, shape: Sequence[int], std: torch.Tensor,

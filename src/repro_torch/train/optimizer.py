@@ -27,7 +27,8 @@ wherever LLVM keeps the loops' order; for some multi-dimensional shapes
 (a minor extent of 4 or 8, small final reductions) its vectoriser
 re-associates a reduction loop, and a leaf's sum moves by a few ulp
 (``tests/test_torch_train_opt.py`` lists shapes of both kinds).  On the
-card the sums are ``torch.sum``'s (float32, deterministic).
+card the sums are ``torch.sum``'s over chunks of ``CHUNK`` elements, added
+in order (float32, deterministic).
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ from ..random import _sqrt32
 from ..tree import tree_leaves, tree_map, tree_unzip
 
 # the elementwise update runs over flat chunks of this many elements, so
-# its float64 temporaries (``fma32``) stay small beside a large leaf
-CHUNK = 1 << 24
+# its float64 temporaries (``fma32``: a few GB at 2^26) stay bounded
+# beside a large leaf; larger chunks mean fewer launches a step
+CHUNK = 1 << 26
 
 
 def _f32(x: float) -> float:
@@ -125,26 +127,45 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
-    sq = leaf.float() * leaf.float()
-    if sq.device.type == "cpu":
-        return xla_sum(sq)
-    return torch.sum(sq)
+    if leaf.device.type == "cpu":
+        return xla_sum(leaf.float() * leaf.float())
+    # on the card chunk by chunk (``CHUNK`` elements, summed in order): a
+    # float32 copy of a stacked expert leaf would be gigabytes
+    flat = leaf.reshape(-1)
+    s = None
+    for a in range(0, flat.numel(), CHUNK):
+        c = flat[a:a + CHUNK].float()
+        s = torch.sum(c * c) if s is None else s + torch.sum(c * c)
+    return s
+
+
+def global_norm(grads) -> torch.Tensor:
+    """The gradients' global norm (0-d float32), the leaves' sums of
+    squares added in tree order."""
+    sq = None
+    for leaf in tree_leaves(grads):
+        s = _sum_squares(leaf)
+        sq = s if sq is None else sq + s
+    return _sqrt32(sq)
+
+
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    # a tensor numerator: ``number / tensor`` is a reciprocal and a
+    # multiply in PyTorch, two roundings
+    num = torch.full((), _f32(max_norm), device=gnorm.device)
+    return torch.clamp_max(num / torch.clamp_min(gnorm, _f32(1e-9)), 1.0)
+
+
+def _clip(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.float() * scale).to(g.dtype)
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """Scale every leaf by min(1, max_norm / |grads|) (float32 math, the
     leaf's type kept); returns (clipped tree, global norm)."""
-    sq = None
-    for leaf in tree_leaves(grads):
-        s = _sum_squares(leaf)
-        sq = s if sq is None else sq + s
-    gnorm = _sqrt32(sq)
-    # a tensor numerator: ``number / tensor`` is a reciprocal and a
-    # multiply in PyTorch, two roundings
-    num = torch.full((), _f32(max_norm), device=gnorm.device)
-    scale = torch.clamp_max(num / torch.clamp_min(gnorm, _f32(1e-9)), 1.0)
-    clipped = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
-    return clipped, gnorm
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
+    return tree_map(lambda g: _clip(g, scale), grads), gnorm
 
 
 def _update_chunk(p, g, mu, nu, cfg, lr, bc1, bc2):
@@ -157,10 +178,18 @@ def _update_chunk(p, g, mu, nu, cfg, lr, bc1, bc2):
     return fma32(t, -lr, pf).to(p.dtype), mu_n, nu_n
 
 
-def adamw_update(params, grads, state: AdamWState, cfg: AdamWCfg):
+def adamw_update(params, grads, state: AdamWState, cfg: AdamWCfg,
+                 donate: bool = False):
     """One AdamW step: returns (params, state, {"lr", "grad_norm"}), the
-    metrics as 0-d float32 tensors on the device (no host read)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    metrics as 0-d float32 tensors on the device (no host read).  The
+    gradients are clipped chunk by chunk inside the update (the bits of
+    ``clip_by_global_norm``'s leaves, without a clipped copy of the
+    tree).  ``donate``: the new parameters and moments are written into
+    the given ones' storage (the caller's ``params`` and ``state`` are
+    consumed, as buffers donated to a jitted step), so the step holds one
+    copy of the state, not two."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state.step + 1
     lr = lr_schedule(step, cfg)
     s = step.float()
@@ -169,12 +198,16 @@ def adamw_update(params, grads, state: AdamWState, cfg: AdamWCfg):
     bc2 = 1.0 - pow32(one * _f32(cfg.b2), s)
 
     def upd(p, g, mu, nu):
-        out = torch.empty_like(p)
-        mu_o, nu_o = torch.empty_like(mu), torch.empty_like(nu)
+        if donate:
+            out, mu_o, nu_o = p, mu, nu
+        else:
+            out = torch.empty_like(p)
+            mu_o, nu_o = torch.empty_like(mu), torch.empty_like(nu)
         flat = [t.reshape(-1) for t in (p, g, mu, nu, out, mu_o, nu_o)]
         for a in range(0, p.numel(), CHUNK):
             pc, gc, mc, nc, oc, mo, no = (t[a:a + CHUNK] for t in flat)
-            r = _update_chunk(pc, gc, mc, nc, cfg, lr, bc1, bc2)
+            r = _update_chunk(pc, _clip(gc, scale), mc, nc, cfg, lr, bc1,
+                              bc2)
             oc.copy_(r[0])
             mo.copy_(r[1])
             no.copy_(r[2])

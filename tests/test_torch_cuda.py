@@ -55,7 +55,12 @@ card against the CPU within ``MOE_TOL`` (relative, absolute), the CPU
 tests' bf16 hidden-state tolerance: the experts' bf16 products rounded
 after sums in another order; the routing equal, two calls bit-identical.
 The int8 cache's ``_quant`` on the card bit-equal to the CPU's (one
-multiply, one IEEE division, round half to even on both).
+multiply, one IEEE division, round half to even on both).  Training of
+the moe, vlm, encdec and hybrid families on their reduced configs: two
+runs from one seed bit-equal in every parameter and moment, a float32
+step on the card within ``FAMILY_F32_TOL`` of the CPU's with the same
+routing, and the MoE dispatch gather's backward bit-equal to the same
+fold on the CPU.
 """
 import numpy as np
 import pytest
@@ -1601,3 +1606,149 @@ def test_train_step_on_card_repeats_bit_for_bit(dev):
     for x, y in zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))):
         assert torch.equal(x, y)
     assert all(bool(torch.isfinite(x)) for x in la)
+
+
+# ---------------------------------------------------------------------------
+# training of the moe, vlm, encdec and hybrid families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["qwen2-moe-a2.7b", "qwen2-vl-7b", "whisper-base",
+                "jamba-1.5-large-398b"]
+# float32 train step, card against CPU: the loss within 1e-5 and each
+# gradient leaf within 1e-4 of its own max |grad| (the CUDA-core flash
+# and SSD kernels and cuBLAS sum in another order than the CPU)
+FAMILY_F32_TOL = (1e-5, 1e-4)
+
+
+def _family_batch(cfg, step, dev, T=32, B=2):
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data import batch_for
+    return batch_for(cfg, ShapeCfg("t", T, B, "train"), step, device=dev)
+
+
+def _family_kernels(cfg):
+    """A step's flash and SSD launches: each attention layer's forward
+    twice (remat) and its backward, each Mamba layer's likewise."""
+    L = cfg.n_layers
+    n_attn = (L // cfg.attn_period if cfg.family == "hybrid"
+              else cfg.n_enc_layers + 2 * L if cfg.family == "encdec"
+              else L)
+    want = {"flash_attention": 2 * n_attn,
+            "flash_attention_bwd": n_attn * tflash.BWD_LAUNCHES}
+    if cfg.family == "hybrid":
+        n_ssd = L - n_attn
+        want.update(ssd_chunk=2 * n_ssd, ssd_chunk_bwd=n_ssd * (
+            tssd.bwd_launches(cfg.ssd_chunk, cfg.mamba.d_state,
+                              cfg.mamba.headdim)))
+    return want
+
+
+def _family_run(arch, dev, steps=3):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, adamw_init, make_train_step
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWCfg(lr=1e-3, warmup_steps=2,
+                                           total_steps=10), donate=True)
+    losses = []
+    for s in range(steps):
+        params, opt, m = step(params, opt, _family_batch(cfg, s, dev))
+        losses.append(m["loss"])
+    return cfg, params, opt, losses
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_card_repeats_bit_for_bit(arch, dev):
+    """Two runs of the reduced config from the same seed on
+    ``data.batch_for``'s batches: every parameter and moment bit-equal
+    (the MoE backward folds each token's slots in expert order; no
+    atomics in the flash and SSD backwards), the mixers' kernels on the
+    path each step."""
+    from repro_torch.tree import tree_leaves
+    before = dict(counts)
+    cfg, pa, oa, la = _family_run(arch, dev)
+    want = _family_kernels(cfg)
+    assert {k: counts[k] - before[k] for k in want} == \
+        {k: 3 * v for k, v in want.items()}
+    _, pb, ob, lb = _family_run(arch, dev)
+    for x, y in zip(tree_leaves((pa, oa)), tree_leaves((pb, ob))):
+        assert torch.equal(x, y)
+    assert all(bool(torch.isfinite(x)) for x in la)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_card_matches_cpu(arch, dev, monkeypatch):
+    """One float32 train step's loss and gradients of the reduced config,
+    card (the kernels both ways) against CPU (the plain versions), on the
+    same weights and batch (``batch_for``'s, bit-equal on both devices):
+    within ``FAMILY_F32_TOL``; the MoE layers route alike in every
+    choice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, hybrid, transformer
+    from repro_torch.models.common import tree_to
+    from repro_torch.models.moe import route
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = tree_map(lambda p: p.float(), model.init_params(
+        torch.Generator().manual_seed(1), "cpu"))
+    batch = _family_batch(cfg, 2, "cpu")
+    card_batch = _family_batch(cfg, 2, dev)
+    for k in batch:
+        assert torch.equal(batch[k], card_batch[k].cpu()), k
+    sets = []
+    inner = transformer.moe_apply
+
+    def recorded(p, x, c):
+        sets.append(route(p, x.reshape(-1, x.shape[-1]), c)[1].cpu())
+        return inner(p, x, c)
+    for mod in (transformer, hybrid):
+        monkeypatch.setattr(mod, "moe_apply", recorded)
+    lc, gc = value_and_grad(model, params, batch)
+    n = len(sets)
+    ld, gd = value_and_grad(model, tree_to(params, dev), card_batch)
+    for a, b in zip(sets[:n], sets[n:]):
+        assert torch.equal(a, b)
+    assert abs(float(ld) - float(lc)) <= FAMILY_F32_TOL[0]
+    for (path, a), (_, b) in zip(leaves_with_path(gc),
+                                 leaves_with_path(gd)):
+        torch.testing.assert_close(
+            b.cpu(), a, rtol=0,
+            atol=FAMILY_F32_TOL[1] * float(a.abs().max()), msg=path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_moe_gather_backward_on_card_is_the_cpu_fold(dtype, dev):
+    """The dispatch gather's backward (each token's slot gradients folded
+    in ascending expert id) on the card: bit-equal to its plain version,
+    the same fold on a CPU copy, and to itself on a second call; a
+    routing with dropped assignments."""
+    from repro_torch.models import moe as tmoe
+    r = np.random.default_rng(3)
+    n_tok, E, K, d = 600, 16, 4, 64
+    top_e = torch.from_numpy(np.argsort(
+        -(r.normal(size=(n_tok, E)) - np.arange(E) * 0.2), axis=1,
+        kind="stable")[:, :K].copy())
+    cap = tmoe.capacity(n_tok, tmoe.MoECfg(E, K, 8, capacity_factor=0.8))
+    order, _, slot, tos, live = tmoe.dispatch(top_e, cap, E)
+    _, rows, dropped = tmoe.assignment_slots(order, slot, top_e, E * cap)
+    assert bool(dropped.any())
+    x = torch.from_numpy(r.normal(size=(n_tok, d))).to(dtype)
+    g = torch.from_numpy(r.normal(size=(E * cap, d))).to(dtype)
+
+    def grad(device):
+        xs = x.to(device).requires_grad_(True)
+        t = [a.to(device) for a in (tos, live, rows, dropped)]
+        xe = tmoe.gather_tokens(xs, *t)
+        return torch.autograd.grad(xe, xs, g.to(device))[0]
+    want = grad("cpu")
+    a, b = grad(dev), grad(dev)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)

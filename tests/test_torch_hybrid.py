@@ -295,14 +295,21 @@ def test_decode_matches_forward_on_the_port_f32():
 
 
 def test_remat_gives_the_same_hidden_states_and_loss_raises():
+    """Remat recomputes each period in the backward and changes no value:
+    the hidden states and the loss (under grad, as training takes it)
+    equal the plain forward's bit for bit."""
     cfg = get_config(ARCH).reduced()
     m = build_model(cfg)
     params = m.init_params(torch.Generator().manual_seed(0), "cpu")
     tok = torch.from_numpy(_tokens(cfg.vocab, 1, 20)).long()
     assert torch.equal(m.hidden_states(params, tokens=tok, remat=True),
                        m.hidden_states(params, tokens=tok))
-    with pytest.raises(NotImplementedError, match="slice"):
-        m.loss_fn(params, {"tokens": tok, "labels": tok})
+    batch = {"tokens": tok, "labels": tok}
+    with torch.enable_grad():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        remat = m.loss_fn(ps, batch, remat=True)
+    assert remat.requires_grad and remat.shape == ()
+    assert torch.equal(remat.detach(), m.loss_fn(params, batch, remat=False))
 
 
 def test_serve_main_runs_the_reduced_hybrid_on_cpu():

@@ -177,16 +177,3 @@ def test_compressed_train_step_runs_and_matches_reference():
                                float(jmet["grad_norm"]), rtol=1e-2)
     _leaves_close(jp, tp, 0.0, atol=4 * float(jmet["lr"]))
 
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "qwen3-moe-30b-a3b", "qwen2-vl-7b",
-                                  "whisper-base"])
-def test_unported_families_raise(arch):
-    """Training is ported for the dense and ssm families: the others'
-    ``loss_fn`` raises, naming the slice that brings it (a scope limit,
-    no fallback)."""
-    cfg = get_config(arch).reduced()
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="slice"):
-        model.loss_fn({}, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                           "labels": torch.zeros((1, 4), dtype=torch.long)})
