@@ -261,17 +261,39 @@ Phases, in order (any failure exits non-zero):
    expert choices given to the card, the card's own routing for the
    loss, the norm and the share of choices alike), and each family at
    full width, T 4096 (``TRAIN_FAMILIES``: whisper-base at full depth, B
-   8, on ``batch_for``'s bf16 frames; qwen2-vl-7b at 16 of 28 layers on
-   its bf16 embeds and M-RoPE positions; qwen2-moe-a2.7b at 8 of 24
-   layers and the jamba period with 5 of 16 experts through
+   8, on ``batch_for``'s bf16 frames; qwen2-vl-7b at 8 of 28 layers on
+   its bf16 embeds and M-RoPE positions; qwen2-moe-a2.7b at 4 of 24
+   layers and the jamba period with 3 of 16 experts through
    ``launch.train.main``), each as qwen3-0.6b's run: the launches a step
    ``train_kernels`` predicts, two runs bit-equal (through
    ``train_digest`` where the state does not fit twice), step wall,
    tok/s, peak memory, a profiled step (and whisper's cross-attention
    backward in it).  The CPU halves of every 2-layer check run in a
    child process (``CPU_SIDE_FLAG``) beside phases 2-10;
-14. one JSON line with each kernel's launches, times and bound; then the
+14. the distribution layer ("dist"): qwen3-0.6b's full-width train
+   state saved with ``CheckpointManager``, loaded on the host, placed by
+   ``ckpt.elastic.reshard_tree`` on a (1, 1) ("data", "model") mesh and
+   rescaled by ``simulate_failure_and_rescale`` onto (1, 1, 1) ("pod",
+   "data", "model") over a world-size-1 NCCL group (``FileStore``, no
+   network): every leaf bit-equal, placed as the resolver says, one
+   ``train_4k`` step from the rescaled local tensors bit-equal to the step
+   from the state never resharded; the GB moved and each stage's wall;
+15. the dry run (``launch.dryrun``), computed by a child process
+   (``DRYRUN_FLAG``) started with the builds, beside phases 2-10 (no card
+   work: fake shards over a fake process group of 256 or 512 ranks):
+   qwen3-0.6b's train_4k, prefill_32k and decode_32k cells on 16×16 and
+   its train_4k on 2×16×16 must be ``ok``, their argument bytes equal to
+   the resolver's (``resolver_bytes``), the 2×16×16 batch split 32 ways
+   and the extrapolated FLOPs equal to the direct count; each cell's
+   roofline row under the H100 constants; jamba-1.5-large's train_4k at
+   full depth recorded (its state per device), not gated;
+16. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
+
+Phase 9 ends with ``examples/torch_llm_serving_sim.py`` on the card
+(``run_twin``): both arms at ``TWIN_CLIENTS`` clients over
+``TWIN_DURATION`` s, one ``cloudlet_finish`` launch a tick (counted on the
+kernels line), requests completed, the HS arm scaling out.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
 before each main-path run and read just after.  Launches made to compare
@@ -297,6 +319,7 @@ NUMPY_BASELINE = ("AVX2 FMA3 AVX512F AVX512CD AVX512_SKX AVX512_CLX "
                   "AVX512_CNL AVX512_ICL AVX512_SPR")
 GOLDEN_CHAOS_FLAG = "--golden-chaos"
 CPU_SIDE_FLAG = "--cpu-side"
+DRYRUN_FLAG = "--dryrun"
 if GOLDEN_CHAOS_FLAG not in sys.argv:
     os.environ["NPY_DISABLE_CPU_FEATURES"] = NUMPY_BASELINE
 
@@ -308,6 +331,7 @@ import shutil
 import subprocess
 import time
 import traceback
+import types
 
 import numpy as np
 
@@ -3663,12 +3687,14 @@ SSM_TRAIN_BATCH = 8
 # fit): qwen2-vl-7b 16 of 28 layers (4.82 B parameters), qwen2-moe-a2.7b 8
 # of 24 (5.18 B), the jamba period cut to attention + SwiGLU, Mamba + MoE
 # with 5 of its 16 experts, top-2 kept (5.27 B; a period of 8 layers
-# holds 6.6 B parameters without its experts, 79 GB of state)
-JAMBA_TRAIN_EXPERTS = 5
+# holds 6.6 B parameters without its experts, 79 GB of state).  Since the
+# dist phase and the dry run joined the run, half those cuts for time:
+# qwen2-vl-7b 8 layers, qwen2-moe-a2.7b 4, the jamba period 3 experts
+JAMBA_TRAIN_EXPERTS = 3
 TRAIN_FAMILIES = (
     ("whisper-base", 8, {}, "batch_for"),
-    ("qwen2-vl-7b", 1, dict(n_layers=16), "batch_for"),
-    ("qwen2-moe-a2.7b", 1, dict(n_layers=8), "main"),
+    ("qwen2-vl-7b", 1, dict(n_layers=8), "batch_for"),
+    ("qwen2-moe-a2.7b", 1, dict(n_layers=4), "main"),
     (JAMBA, 1, dict(n_layers=2, attn_period=2), "main"),
 )
 # 2-layer full-width train steps of the families, card against CPU (arch,
@@ -4275,6 +4301,364 @@ def run_train_tiny(torch, dev):
     check(same, "tiny preset: a resumed run differs from a straight one")
 
 
+# ---------------------------------------------------------------------------
+# The distribution layer (ROADMAP 15(e), 15(f)): elastic reshard on the card,
+# the fake-mesh dry run in a child process, the LLM serving twin
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "qwen3-0.6b"
+# the dry run's gated cells (arch, shape, multi-pod) and the cell it only
+# records: jamba-1.5-large's full state per device at full depth
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
+                ("qwen3-0.6b", "prefill_32k", False),
+                ("qwen3-0.6b", "decode_32k", False),
+                ("qwen3-0.6b", "train_4k", True))
+DRYRUN_RECORDED = ((JAMBA, "train_4k", False),)
+TWIN_ARCH = "qwen3-0.6b"
+TWIN_CLIENTS = 1000            # enough load for the HS arm to scale out
+TWIN_DURATION = 120.0
+
+
+def _bits_equal(a, b, torch) -> bool:
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+
+
+def run_dist(torch, dev):
+    """Phase 14: qwen3-0.6b's full-width train state (parameters and AdamW
+    moments after one step) saved with ``CheckpointManager`` and loaded on
+    the host, placed on a (1, 1) ("data", "model") mesh by
+    ``reshard_tree``, then rescaled by ``simulate_failure_and_rescale``
+    onto (1, 1, 1) ("pod", "data", "model"), over a world-size-1 NCCL
+    group started through a ``FileStore`` (no network).  Every leaf's
+    ``full_tensor()`` bit-equal to the saved leaf, its placements the
+    resolver's, and one ``train_4k`` step (B ``TRAIN_BATCH``) from the
+    rescaled state's local tensors bit-equal, in every parameter and
+    moment, to the step from the state that was never resharded."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.ckpt.elastic import (reshard_tree,
+                                          simulate_failure_and_rescale)
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import batch_for
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import opt_logical
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWCfg, adamw_init, make_train_step
+    from repro_torch.tree import leaves_with_path, tree_leaves, tree_map
+    tag = f"dist ({DIST_ARCH})"
+    t_phase = time.perf_counter()
+    cfg = get_config(DIST_ARCH)
+    model = build_model(cfg)
+    shape = dataclasses.replace(
+        next(s for s in SHAPES if s.name == "train_4k"),
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    step_fn = make_train_step(model, AdamWCfg())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(0), dev)
+        params, opt, _ = step_fn(params, adamw_init(params),
+                                 batch_for(cfg, shape, 0, device=dev))
+        state = {"params": params, "opt": opt}
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), keep=1)
+        mgr.save(state, step=1, blocking=True)
+        t_save = time.perf_counter() - t0
+        like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                        state)
+        t0 = time.perf_counter()
+        host, step = mgr.restore_latest(like)
+        t_load = time.perf_counter() - t0
+        check(step == 1, f"{tag}: restored step {step}")
+        axes = model.param_logical_axes()
+        logical = {"params": axes, "opt": opt_logical(axes)}
+        t0 = time.perf_counter()
+        m1 = make_mesh((1, 1), ("data", "model"))
+        placed = reshard_tree(host, m1, logical)
+        torch.cuda.synchronize()
+        t_place = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m2 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        placed = simulate_failure_and_rescale(placed, m1, m2, logical)
+        torch.cuda.synchronize()
+        t_rescale = time.perf_counter() - t0
+        del host
+        saved = dict(leaves_with_path(state))
+        # the resolver's placements of each leaf on the new mesh (wrapped:
+        # a tuple would be walked as a container)
+        want = dict(leaves_with_path(tree_map(
+            lambda t, ax: types.SimpleNamespace(p=shd.placements(
+                m2, shd.resolve(m2, t.shape, ax, shd.PARAM_RULES))),
+            state, logical)))
+        n = 0
+        for path, t in leaves_with_path(placed):
+            check(t.device.type == dev.type, f"{tag}: {path} on {t.device}")
+            check(_bits_equal(t.full_tensor(), saved[path], torch),
+                  f"{tag}: {path} differs after two reshards")
+            check(tuple(t.placements) == want[path].p,
+                  f"{tag}: {path} placed {t.placements}, the resolver "
+                  f"{want[path].p}")
+            n += 1
+        # a kernel's card path takes plain tensors: a DTensor raises
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        from repro_torch.kernels.flash_attention import attention
+        x = distribute_tensor(torch.zeros((1, 1, 16, 64), device=dev,
+                                          dtype=torch.bfloat16), m2,
+                              [Replicate()] * 3)
+        try:
+            attention(x, x, x)
+            refused = ""
+        except TypeError as e:
+            refused = str(e)
+        check("DTensor" in refused, f"{tag}: the flash kernel's entry took "
+              "a DTensor")
+        local = tree_map(lambda t: t.to_local(), placed)
+        batch = batch_for(cfg, shape, 1, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = step_fn(state["params"], state["opt"], batch)
+        got = step_fn(local["params"], local["opt"], batch)
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+        m = 0
+        for a, b in zip(tree_leaves((got[0], got[1])),
+                        tree_leaves((want[0], want[1]))):
+            check(_bits_equal(a, b, torch), f"{tag}: the resumed step "
+                  "differs from the step that was never resharded")
+            m += 1
+        check(float(got[2]["loss"]) == float(want[2]["loss"]),
+              f"{tag}: resumed loss differs")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gb = nbytes / 1e9
+    log(f"{tag}: state {gb:.3f} GB ({n} leaves: parameters and AdamW "
+        f"moments); saved {t_save:.2f} s, loaded on the host "
+        f"{t_load:.2f} s, placed on (1, 1) {t_place:.2f} s ({gb:.3f} GB "
+        f"host to card), rescaled to (1, 1, 1) {t_rescale:.2f} s "
+        f"({gb:.3f} GB card to host, {gb:.3f} GB host to card); every "
+        f"leaf bit-equal and placed as the resolver says; a DTensor "
+        f"refused by the flash kernel's entry ({refused}); the resumed "
+        f"step bit-equal in all {m} parameters and moments (two steps "
+        f"{t_steps:.2f} s); phase wall {time.perf_counter() - t_phase:.1f}"
+        f" s  ({gpu_line()})")
+
+
+def resolver_bytes(arch, shape_name, multi_pod) -> int:
+    """The dry-run cell's argument bytes per device by the resolver alone
+    (``AbstractMesh``, shard shapes of the abstract arguments), apart
+    from the DTensors the dry run builds."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(arch)
+    shape = next(s for s in SHAPES if s.name == shape_name)
+    model = build_model(cfg)
+    mesh = shd.AbstractMesh((2, 16, 16), ("pod", "data", "model")) \
+        if multi_pod else shd.AbstractMesh((16, 16), ("data", "model"))
+    ap, ax = model.abstract_params(), model.param_logical_axes()
+    trees = [(ap, ax, shd.PARAM_RULES)]
+    if shape.kind == "decode":
+        B = shape.global_batch
+        trees += [(model.init_decode_state(B, shape.seq_len, device="meta"),
+                   specs.decode_state_logical(model, cfg),
+                   specs.STATE_RULES),
+                  (specs._meta((B, 1), torch.int32), ("batch", None),
+                   shd.ACT_RULES)]
+    else:
+        inp = specs.input_specs(cfg, shape)
+        if shape.kind == "prefill":
+            inp.pop("labels")
+        trees.append((inp, specs.batch_logical(cfg, inp), shd.ACT_RULES))
+        if shape.kind == "train":
+            trees.append((specs.abstract_opt_state(ap),
+                          specs.opt_logical(ax), shd.PARAM_RULES))
+
+    def one(a, axes, rules):
+        spec = shd.resolve(mesh, a.shape, axes, rules)
+        return math.prod(shd.shard_shape(mesh, a.shape, spec)) \
+            * a.element_size()
+    return sum(sum(tree_leaves(tree_map(lambda a, x: one(a, x, r), t, l)))
+               for t, l, r in trees)
+
+
+class DryRun:
+    """The child process of the dry run (``DRYRUN_FLAG``): ``start()``
+    spawns it, ``result()`` waits for its records, ``stop()`` ends it and
+    removes its directory."""
+
+    def __init__(self):
+        self.proc = self.dir = None
+
+    def start(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.log = open(os.path.join(self.dir, "child.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), DRYRUN_FLAG,
+             self.dir], stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self):
+        t0 = time.perf_counter()
+        code = self.proc.wait()
+        with open(os.path.join(self.dir, "child.log")) as f:
+            tail = f.read()[-3000:]
+        path = os.path.join(self.dir, "records.json")
+        check(code == 0 and os.path.exists(path),
+              f"the dry-run process ended with exit code {code}:\n{tail}")
+        log(f"dry run: waited {time.perf_counter() - t0:.1f} s for the "
+            "child")
+        with open(path) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        if self.proc is not None:
+            self.proc.wait()
+            self.log.close()
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+        self.proc = self.dir = None
+
+
+DRYRUN = DryRun()
+
+
+def dryrun_main(out_dir) -> int:
+    """The dry-run child: every cell of ``DRYRUN_CELLS`` and
+    ``DRYRUN_RECORDED`` on its fake world (no card work: it runs beside
+    the card phases at the lowest priority, one thread)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    os.nice(19)
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    recs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS + DRYRUN_RECORDED:
+        t0 = time.perf_counter()
+        rec = dryrun.dryrun_cell(arch, shape, multi_pod, force=True)
+        rec["child_wall_s"] = round(time.perf_counter() - t0, 1)
+        print(dryrun.show(rec), flush=True)
+        recs.append(rec)
+    tmp = os.path.join(out_dir, "records.tmp")
+    with open(tmp, "w") as f:
+        json.dump(recs, f)
+    os.replace(tmp, os.path.join(out_dir, "records.json"))
+    return 0
+
+
+def check_dryrun():
+    """Phase 15: the dry-run child's records.  The qwen3-0.6b cells must
+    be ``ok``, their ``argument_bytes`` equal to ``resolver_bytes``, the
+    2×16×16 train batch split 32 ways and (single pod) the extrapolated
+    FLOPs equal to the direct count; each cell's roofline row under the
+    H100 constants.  jamba-1.5-large's full-depth record is printed, not
+    gated."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, roofline
+    recs = DRYRUN.result()
+    card = gpu_line()
+    log(f"dry run constants (roofline.py, H100 SXM5 datasheet, not "
+        f"measured): PEAK_FLOPS {roofline.PEAK_FLOPS:.3e} FLOP/s, HBM_BW "
+        f"{roofline.HBM_BW:.3e} B/s, LINK_BW {roofline.LINK_BW:.3e} B/s; "
+        f"counts are eager DTensor counts per device on a fake world, "
+        f"not XLA's")
+    gated = {(a, s, mp) for a, s, mp in DRYRUN_CELLS}
+    for rec in recs:
+        key = (rec["arch"], rec["shape"], rec["mesh"] == "2x16x16")
+        tag = f"dry run {key[0]} {key[1]} {rec['mesh']}"
+        log(f"{tag}: {dryrun.show(rec)} (child {rec.get('child_wall_s')} "
+            f"s on the host, {card})")
+        mem = rec.get("memory", {})
+        if mem:
+            gib = {k: v / 2**30 for k, v in mem.items()}
+            log(f"{tag}: per device argument "
+                f"{gib['argument_bytes']:.3f} GiB, output "
+                f"{gib.get('output_bytes', 0):.3f} GiB, temp "
+                f"{gib.get('temp_bytes', 0):.3f} GiB; collectives "
+                f"{json.dumps(rec.get('collectives', {}))}")
+        if key not in gated:
+            continue
+        check(rec["status"] == "ok", f"{tag}: {rec['status']} at "
+              f"{rec.get('op')}: {rec.get('error', '')[:500]}")
+        want = resolver_bytes(*key)
+        check(mem["argument_bytes"] == want, f"{tag}: argument bytes "
+              f"{mem['argument_bytes']} against the resolver's {want}")
+        if key[2] and rec["shape"].startswith("train"):
+            tok = rec["batch_shards"]["tokens"]
+            check(tok["global"][0] == 32 * tok["local"][0],
+                  f"{tag}: the batch splits {tok} (want 32 ways)")
+        if not key[2]:
+            ext, direct = rec["cost_extrapolated"], rec["cost_direct"]
+            check(ext["flops"] == direct["flops"], f"{tag}: extrapolated "
+                  f"FLOPs {ext['flops']} against the direct {direct['flops']}")
+            shape = next(s for s in SHAPES if s.name == rec["shape"])
+            row = roofline.roofline_of(rec, get_config(rec["arch"]), shape)
+            log(f"{tag} roofline: compute {row['t_compute_s']:.6f} s, "
+                f"memory {row['t_memory_s']:.6f} s, collective "
+                f"{row['t_collective_s']:.6f} s (dominant "
+                f"{row['dominant']}), model FLOPs / counted "
+                f"{row['useful_ratio']:.4f}, roofline fraction "
+                f"{row['roofline_fraction']:.4f}")
+
+
+def run_twin(torch, dev, launches):
+    """Phase 9b: ``examples/torch_llm_serving_sim.py`` on the card (its
+    stage costs from the H100 roofline constants), both arms at
+    ``TWIN_CLIENTS`` clients over ``TWIN_DURATION`` s: each completes
+    requests with one ``cloudlet_finish`` launch a tick, and the HS arm
+    scales out."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import torch_llm_serving_sim as twin
+    from repro_torch.core import summarize
+    from repro_torch.kernels import counts, reset_counts
+    costs = twin.stage_costs_ms(TWIN_ARCH)
+    log(f"serving twin ({TWIN_ARCH}): stage costs ms/request "
+        + ", ".join(f"{k}={v:.3f}" for k, v in costs.items()))
+    for label, sim in twin.make_sims(TWIN_ARCH, TWIN_CLIENTS,
+                                     TWIN_DURATION, device=dev):
+        tag = f"serving twin {label}"
+        new_cell()
+        T = sim.params.n_ticks
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts["cloudlet_finish"]
+        check(n == T, f"{tag}: cloudlet_finish launched {n} times in {T} "
+              "ticks")
+        launches["cloudlet_finish"] = launches.get("cloudlet_finish", 0) + n
+        rep = summarize(sim, res)
+        check(rep.completed_requests > 0, f"{tag}: no request completed")
+        if "HS" in label:
+            check(rep.scale_out > 0, f"{tag}: the HS arm did not scale out")
+        log(f"{tag}: {TWIN_CLIENTS} clients over {TWIN_DURATION:.0f} s "
+            f"({T} ticks): completed {rep.completed_requests}, avg "
+            f"{rep.avg_response_ms:.1f} ms, p95 {rep.p95_response_ms:.1f} "
+            f"ms, replicas +{rep.scale_out}/-{rep.scale_in}; "
+            f"cloudlet_finish launches {n}; wall {wall:.2f} s  "
+            f"({gpu_line()})")
+
+
 CHAOS_CASES = ("case1b+faults", "case1b+chaos2", "case1b+net+chaos2")
 
 
@@ -4328,6 +4712,7 @@ def main() -> int:
         check_bwd_build()
         check_ssd_bwd_build()
         CPU_SIDE.start()
+        DRYRUN.start()
         lap("builds and their reports")
 
         check_launch_floor(torch, dev)
@@ -4408,7 +4793,8 @@ def main() -> int:
         lap("observability")
         run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
-        lap("fabric SockShop and fleet Alg 2")
+        run_twin(torch, dev, launches)
+        lap("fabric SockShop, fleet Alg 2, serving twin")
         run_simcheck(figs, torch, dev)
         lap("simcheck")
         for arch in SERVE_ARCHS:
@@ -4487,6 +4873,10 @@ def main() -> int:
                            batches=batches)
         lap("training: moe, vlm, encdec, hybrid")
         log(f"training phases {time.perf_counter() - t_train:.1f} s")
+        run_dist(torch, dev)
+        lap("dist: elastic reshard")
+        check_dryrun()
+        lap("dry run (its child's records)")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4494,6 +4884,7 @@ def main() -> int:
     finally:
         CPU_SIDE.stop()
         GOLDEN_CHAOS_RUN.stop()
+        DRYRUN.stop()
     src = {
         "cloudlet_finish": ("src/repro_torch/csrc/cloudlet_finish.cu",
                             "src/repro/kernels/cloudlet_step/kernel.py:102"),
@@ -4557,6 +4948,8 @@ def golden_chaos_main() -> int:
 if __name__ == "__main__":
     if GOLDEN_CHAOS_FLAG in sys.argv:
         sys.exit(golden_chaos_main())
+    if DRYRUN_FLAG in sys.argv:
+        sys.exit(dryrun_main(sys.argv[sys.argv.index(DRYRUN_FLAG) + 1]))
     if CPU_SIDE_FLAG in sys.argv:
         sys.exit(cpu_side_main(sys.argv[sys.argv.index(CPU_SIDE_FLAG) + 1]))
     sys.exit(main())

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import SHAPES, ArchConfig, ShapeCfg  # noqa: F401
+from .base import SHAPES, ArchConfig, ShapeCfg, shape_applies  # noqa: F401
 
 ARCH_IDS = (
     "qwen3-0.6b", "granite-20b", "phi3-medium-14b", "internlm2-1.8b",

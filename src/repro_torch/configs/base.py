@@ -37,8 +37,9 @@ class ArchConfig:
     #   flat          : K/V repeated to Hq heads (the reference's head-
     #                   sharding formulation), the kernel at Hkv = Hq
     #   flat_seqshard : flat plus the reference's query-sequence sharding
-    #                   constraint, which one device has no use for: on
-    #                   the port it computes what flat computes
+    #                   constraint: a DTensor query is laid out as
+    #                   ("data", None, "model", None); on one device it
+    #                   computes what flat computes
     attn_impl: str = "grouped"
     # decode KV cache precision: "bf16" | "int8" (per-position f32 scales)
     kv_dtype: str = "bf16"
@@ -91,3 +92,12 @@ SHAPES = (
     ShapeCfg("decode_32k", 32_768, 128, "decode"),
     ShapeCfg("long_500k", 524_288, 1, "decode"),
 )
+
+
+def shape_applies(cfg: ArchConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    """Whether the (arch × shape) cell applies, and why not: ``long_500k``
+    only for sub-quadratic architectures, as the reference rules."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention (skip for " \
+                      "pure full-attention archs)"
+    return True, ""

@@ -1,3 +1,4 @@
-"""Distribution helpers of the port: int8 gradient compression with error
-feedback (``compression``); the sharding resolver waits for the port's
-multi-device slice."""
+"""Distribution helpers of the port: the logical-axis sharding rules over
+DTensor (``sharding``), which make checkpoints elastic
+(``ckpt.elastic``) and the dry run mesh-agnostic (``launch.specs``), and
+int8 gradient compression with error feedback (``compression``)."""

@@ -7,9 +7,13 @@ the launches go to the tally instead: a CUDA graph's capture records its
 launches there, and each replay adds them with ``add_counts``, so that
 ``counts`` still counts the kernel's launches on the card.
 ``reset_counts()`` zeroes them.  ``KERNELS`` names the CUDA sources
-(``csrc/<name>.cu``).
+(``csrc/<name>.cu``).  A wrapper's card path takes plain tensors:
+``reject_dtensor`` raises, naming the entry, where a DTensor reaches it
+(the CPU path's plain versions take DTensors: the dry run's).
 """
 import contextlib
+
+from ..dist.sharding import is_dtensor
 
 KERNELS = ("cloudlet_finish", "tropical", "link_share", "flash_attention",
            "ssd_chunk", "flash_attention_bwd", "ssd_chunk_bwd")
@@ -45,3 +49,11 @@ def add_counts(t: dict) -> None:
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+def reject_dtensor(entry: str, *ts) -> None:
+    """Raise if a DTensor reaches ``entry``'s kernel: nothing unwraps one
+    to its local shard on the card."""
+    if any(is_dtensor(t) for t in ts):
+        raise TypeError(f"{entry} launches its kernel on plain tensors; "
+                        "it was given a DTensor")

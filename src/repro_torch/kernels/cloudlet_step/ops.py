@@ -25,7 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build, launched
+from .. import _build, launched, reject_dtensor
 from . import ref
 
 _ARGTYPES = (
@@ -129,6 +129,8 @@ def cloudlet_finish_pool(cl, rate, time, dt, req_finish, req_crit, req_out,
             req_out, n_inst=n_inst)
     if dev.type != "cuda":
         raise ValueError(f"cloudlet_finish runs on cuda or cpu, not {dev}")
+    reject_dtensor("kernels.cloudlet_step.ops.cloudlet_finish_pool", ints,
+                   flts, rate, time, dt, req_finish, req_crit, req_out)
     B, C, NI = ints.shape
     NF = flts.shape[2]
     R = req_finish.shape[1]

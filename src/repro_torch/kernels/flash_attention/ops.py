@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from .. import _build, launched
+from .. import _build, launched, reject_dtensor
 from . import ref
 
 HEAD_DIMS = (16, 32, 64, 128)      # the kernels' compiled head widths
@@ -142,6 +142,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu, not {dev}")
+    reject_dtensor("kernels.flash_attention.ops.launch", q, k, v)
     if q.dtype not in _DTYPES:
         raise TypeError(f"attention takes float32 or bfloat16, not "
                         f"{q.dtype}")
@@ -191,6 +192,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the attention backward runs on cuda, not {dev}")
+    reject_dtensor("kernels.flash_attention.ops.launch_bwd", q, k, v, out,
+                   dout, lse)
     if q.dtype not in _DTYPES:
         raise TypeError(f"attention takes float32 or bfloat16, not "
                         f"{q.dtype}")

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ...dist.sharding import reshape
+
 MASKED_ROW_BLOCK = 128
 
 
@@ -34,13 +36,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     assert Hq % Hkv == 0, (Hq, Hkv)
     g = Hq // Hkv
     scale = (D ** -0.5) if scale is None else scale
-    qf = q.float().reshape(B, Hkv, g, Tq, D)
+    qf = reshape(q.float(), B, Hkv, g, Tq, D)
     kf, vf = k.float(), v.float()
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
     if not causal:
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgqk,bhkd->bhgqd", w, vf)
-        return out.reshape(B, Hq, Tq, D).to(q.dtype)
+        return reshape(out, B, Hq, Tq, D).to(q.dtype)
     qi = torch.arange(Tq, device=q.device)[:, None]
     kj = torch.arange(Tk, device=q.device)[None, :]
     mask = kj <= qi + (Tk - Tq)                              # [Tq, Tk]
@@ -51,11 +53,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.exp(logits - m)
     den = torch.where(live[:, None], w.sum(dim=-1, keepdim=True), 1.0)
     out = torch.einsum("bhgqk,bhkd->bhgqd", w / den, vf)
-    if not bool(live.all()):
+    if Tq > Tk and not bool(live.all()):     # Tq <= Tk: every row lives
         dead = vf.sum(dim=2)[:, :, None, None, :] \
             / float(masked_row_denominator(Tk))
         out = torch.where(live[:, None], out, dead)
-    return out.reshape(B, Hq, Tq, D).to(q.dtype)
+    return reshape(out, B, Hq, Tq, D).to(q.dtype)
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

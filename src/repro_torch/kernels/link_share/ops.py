@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from .. import _build, launched
+from .. import _build, launched, reject_dtensor
 from . import ref
 
 # One block holds the port tables in shared memory (227 KB a block on
@@ -94,6 +94,8 @@ def link_share(src: torch.Tensor, dst: torch.Tensor, active: torch.Tensor,
         return ref.link_share_batched(src, dst, active, cap_e, cap_i, iters)
     if dev.type != "cuda":
         raise ValueError(f"link_share runs on cuda or cpu, not {dev}")
+    reject_dtensor("kernels.link_share.ops.link_share", src, dst, active,
+                   cap_e, cap_i)
     (B, C), H = src.shape, cap_e.shape[1]
     _check(src, "src", torch.int32, (B, C), dev)
     _check(dst, "dst", torch.int32, (B, C), dev)

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from .. import _build, launched
+from .. import _build, launched, reject_dtensor
 from . import ref
 
 _SMEM_BYTES = 232_448          # what one Hopper block may hold
@@ -194,6 +194,7 @@ def launch(x, dt, la, b, c, group: int):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_chunk runs on cuda or cpu, not {dev}")
+    reject_dtensor("kernels.ssd_scan.ops.launch", x, dt, la, b, c)
     if x.dim() != 4 or b.dim() != 4:
         raise ValueError(f"x and b must be 4-d, got {tuple(x.shape)} and "
                          f"{tuple(b.shape)}")
@@ -248,6 +249,8 @@ def launch_bwd(x, dt, la, b, c, dy, dstate, ddec, dtot, group: int):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the ssd_chunk backward runs on cuda, not {dev}")
+    reject_dtensor("kernels.ssd_scan.ops.launch_bwd", x, dt, la, b, c, dy,
+                   dstate, ddec, dtot)
     if x.dim() != 4 or b.dim() != 4:
         raise ValueError(f"x and b must be 4-d, got {tuple(x.shape)} and "
                          f"{tuple(b.shape)}")

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .. import _build, launched
+from .. import _build, launched, reject_dtensor
 from . import ref
 from .ref import squarings
 
@@ -60,6 +60,7 @@ def _on_card(name: str, *ts: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    reject_dtensor(f"kernels.tropical.ops.{name}", *ts)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"{name} takes float32 operands")
     if not all(t.is_contiguous() for t in ts):

@@ -6,10 +6,14 @@ Full-sequence attention (prefill) runs the flash kernel, self-attention
 or cross-attention (``kv=``: K/V from a source sequence, Tq ≠ Tk).  The
 ``attn_impl`` formulations: ``grouped`` (the kernel reads KV head
 h // group in place), ``flat`` (K/V repeated to Hq heads, the kernel at
-Hkv = Hq) and ``flat_seqshard`` (on one device what ``flat`` computes;
-the reference's query-sequence sharding constraint has no counterpart
-until the port shards).  Decode reads the cache through float32 einsums
-and writes it in place at slot ``pos``.
+Hkv = Hq) and ``flat_seqshard`` (``flat`` with the reference's
+query-sequence constraint: a DTensor query is redistributed to the spec
+("data", None, "model", None) on its own mesh, a mesh axis the spec does
+not name replicating; a plain tensor is left as it is, as
+``with_sharding_constraint`` leaves an array on one device).  Decode
+reads the cache through float32 einsums and writes it in place at slot
+``pos``.  A DTensor's attention output and projection are laid out by
+their logical axes (``dist.sharding.constrain``, ``common.residual``).
 """
 from __future__ import annotations
 
@@ -18,8 +22,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..dist.sharding import constrain, is_dtensor, placements, reshape
 from ..kernels.flash_attention import attention as flash_attention
-from .common import P, apply_mrope, apply_rope, rmsnorm
+from .common import P, apply_mrope, apply_rope, residual, rmsnorm
 
 
 def attn_schema(d: int, n_heads: int, n_kv: int, head_dim: int,
@@ -85,9 +90,9 @@ def _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
     B, T, _ = x.shape
     src = x if kv is None else kv
     Tk = src.shape[1]
-    q = _mm(x, p["wq"]).reshape(B, T, n_heads, head_dim)
-    k = _mm(src, p["wk"]).reshape(B, Tk, n_kv, head_dim)
-    v = _mm(src, p["wv"]).reshape(B, Tk, n_kv, head_dim)
+    q = reshape(_mm(x, p["wq"]), B, T, n_heads, head_dim)
+    k = reshape(_mm(src, p["wk"]), B, Tk, n_kv, head_dim)
+    v = reshape(_mm(src, p["wv"]), B, Tk, n_kv, head_dim)
     if qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -101,6 +106,20 @@ def _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
         if kv is None:
             k = rope(k)
     return q, k, v
+
+
+# context parallelism: the query sequence over the model axis, the batch
+# over data (the reference writes this spec out literally)
+SEQSHARD_SPEC = ("data", None, "model", None)
+
+
+def _seqshard(qt: torch.Tensor) -> torch.Tensor:
+    """``qt`` [B, H, T, D] laid out as ``SEQSHARD_SPEC`` when it is a
+    DTensor; a plain tensor unchanged."""
+    if not is_dtensor(qt):
+        return qt
+    mesh = qt.device_mesh
+    return qt.redistribute(mesh, placements(mesh, SEQSHARD_SPEC))
 
 
 def attn_apply(p, x, *, n_heads, n_kv, head_dim, qk_norm=False,
@@ -125,9 +144,31 @@ def attn_apply(p, x, *, n_heads, n_kv, head_dim, qk_norm=False,
         g = n_heads // n_kv
         kt = kt.repeat_interleave(g, dim=1)
         vt = vt.repeat_interleave(g, dim=1)
+    if attn_impl == "flat_seqshard":
+        qt = _seqshard(qt)
     out = flash_attention(qt, kt, vt, causal=causal)
-    out = out.transpose(1, 2).reshape(B, T, n_heads * head_dim)
-    return out @ p["wo"]
+    # a DTensor output back to its logical layout: the attention may
+    # leave its rows sharded, which the flattening of [B, T] in the
+    # output projection cannot take
+    out = constrain(out, ("batch", "heads", "seq", None))
+    out = reshape(out.transpose(1, 2), B, T, n_heads * head_dim)
+    return residual(out @ p["wo"])
+
+
+def _write_slot(buf: torch.Tensor, pos: torch.Tensor, val: torch.Tensor):
+    """``buf[:, :, pos] = val`` in place (dim 2 is the cache's time axis).
+    A DTensor cache is written as a select over the whole axis: DTensor
+    has no rule that writes one slot of a sharded axis in place (its
+    ``index_copy_`` there leaves the placements and the local shard
+    disagreeing), and XLA partitions a dynamic-update-slice on a sharded
+    dim the same way."""
+    if not is_dtensor(buf):
+        buf.index_copy_(2, pos.view(1).long(), val)
+        return
+    S = buf.shape[2]
+    hit = (torch.arange(S, device=buf.device) == pos) \
+        .view((1, 1, S) + (1,) * (buf.dim() - 3))
+    buf.copy_(torch.where(hit, val, buf))
 
 
 def attn_decode(p, x, cache, pos: torch.Tensor, *, n_heads, n_kv,
@@ -147,30 +188,28 @@ def attn_decode(p, x, cache, pos: torch.Tensor, *, n_heads, n_kv,
         positions = positions[None].expand(3, B, 1)
     q, k, v = _project(p, x, n_heads, n_kv, head_dim, qk_norm, positions,
                        mrope_sections, rope_theta)
-    slot = pos.view(1).long()
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # [B, Hkv, 1, Dh]
     if isinstance(cache, QuantKVCache):
         kq, ks = _quant(kt)
         vq, vs = _quant(vt)
-        cache.k.index_copy_(2, slot, kq)
-        cache.v.index_copy_(2, slot, vq)
-        cache.k_scale.index_copy_(2, slot, ks)
-        cache.v_scale.index_copy_(2, slot, vs)
+        for buf, val in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                         (cache.v_scale, vs)):
+            _write_slot(buf, pos, val)
         k_read = cache.k.float() * cache.k_scale[..., None]
         v_read = cache.v.float() * cache.v_scale[..., None]
     else:
-        cache.k.index_copy_(2, slot, kt.to(cache.k.dtype))
-        cache.v.index_copy_(2, slot, vt.to(cache.v.dtype))
+        _write_slot(cache.k, pos, kt.to(cache.k.dtype))
+        _write_slot(cache.v, pos, vt.to(cache.v.dtype))
         k_read = cache.k.float()
         v_read = cache.v.float()
     g = n_heads // n_kv
-    qg = q.transpose(1, 2).reshape(B, n_kv, g, 1, head_dim).float()
+    qg = reshape(q.transpose(1, 2), B, n_kv, g, 1, head_dim).float()
     logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k_read) \
         * head_dim ** -0.5
     valid = torch.arange(S, device=x.device) <= pos
     logits = torch.where(valid, logits, float("-inf"))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v_read)
-    out = out.reshape(B, n_heads, 1, head_dim).transpose(1, 2) \
-        .reshape(B, 1, n_heads * head_dim).to(x.dtype)
-    return out @ p["wo"], cache
+    out = reshape(reshape(out, B, n_heads, 1, head_dim).transpose(1, 2),
+                  B, 1, n_heads * head_dim).to(x.dtype)
+    return residual(out @ p["wo"]), cache

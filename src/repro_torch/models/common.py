@@ -2,7 +2,10 @@
 
 Every parameter is declared once as a :class:`P` (shape, logical axes,
 init, dtype) inside a nested-dict schema; ``initialize(schema, gen)``
-materialises it on the generator's device.  The layers are pure functions
+materialises it on the generator's device, ``abstract(schema)`` gives
+meta tensors of each leaf's shape and type (the dry run's stand-ins, no
+allocation), and ``logical_axes(schema)`` the logical-axis tree that
+``dist.sharding`` resolves against a mesh.  The layers are pure functions
 over parameter dicts with float32 math and bfloat16 storage, as the
 reference's ``repro.models.common`` computes them.
 """
@@ -15,6 +18,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+
+from ..dist.sharding import constrain, is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +42,18 @@ def map_schema(f: Callable[[P], Any], schema) -> Any:
     if isinstance(schema, P):
         return f(schema)
     return {k: map_schema(f, v) for k, v in schema.items()}
+
+
+def abstract(schema, device="meta") -> Any:
+    """A tensor of each leaf's shape and type on ``device`` (``meta``: no
+    storage), the counterpart of the reference's ``ShapeDtypeStruct``s."""
+    return map_schema(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                            device=device), schema)
+
+
+def logical_axes(schema) -> Any:
+    """The logical-axis tuple of every leaf, in the schema's structure."""
+    return map_schema(lambda p: p.axes, schema)
 
 
 def tree_to(tree, device) -> Any:
@@ -119,8 +137,18 @@ def mlp_schema(d: int, f: int, dtype=torch.bfloat16):
     }
 
 
+def residual(t: torch.Tensor) -> torch.Tensor:
+    """A block's output [B, T, d] (or [N, d]) on its way into the residual
+    stream.  A DTensor is laid out by its logical axes, batch split and
+    embed whole: the row-split output projection leaves partial sums,
+    reduced here once (the reference's XLA partitioner reduces them where
+    it plans to), so no nonlinear op after it meets a partial sum."""
+    axes = ("batch", "seq", "embed") if t.dim() == 3 else ("batch", "embed")
+    return constrain(t, axes)
+
+
 def apply_mlp(p, x):
-    return swiglu(x, p["gate"], p["up"], p["down"])
+    return residual(swiglu(x, p["gate"], p["up"], p["down"]))
 
 
 def rope_freqs(head_dim: int, theta: float = 1e6) -> np.ndarray:
@@ -138,7 +166,8 @@ def _rope_inv(head_dim: int, theta: float, device) -> torch.Tensor:
     if inv is None:
         inv = torch.tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
                            device=device)
-        _ROPE_INV[key] = inv
+        if not is_fake(inv):    # a fake mode's tensor dies with the mode
+            _ROPE_INV[key] = inv
     return inv
 
 
@@ -172,7 +201,8 @@ def _mrope_sel(sections, head_dim: int, device) -> torch.Tensor:
             off += s
         assert off == head_dim // 2, (sections, head_dim)
         sel = torch.from_numpy(host).to(device)
-        _MROPE_SEL[key] = sel
+        if not is_fake(sel):
+            _MROPE_SEL[key] = sel
     return sel
 
 
@@ -203,6 +233,31 @@ def sinusoid_positions(t: int, d: int) -> np.ndarray:
     out[:, 0::2] = np.sin(ang)
     out[:, 1::2] = np.cos(ang)
     return out
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` [V, d] at ``tokens`` [B, T].  A DTensor table
+    is gathered whole on every device (an all-gather of a vocab-split
+    table), and each device looks up the rows of its own tokens: DTensor's
+    rules for an index gather or an embedding over a split table and
+    tokens split over two mesh dims differ between torch releases, and
+    some refuse.  The rows take the tokens' placements; the table's
+    gradient is a partial sum over the mesh dims that split the tokens."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    grad = [Partial() if p.is_shard() else Replicate()
+            for p in tokens.placements]
+    rows = whole.to_local(grad_placements=grad)[tokens.to_local()]
+    shape = tuple(tokens.shape) + tuple(table.shape[1:])
+    return residual(DTensor.from_local(
+        rows, mesh, tokens.placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride()))
 
 
 def unembed(x: torch.Tensor, emb_or_head: torch.Tensor) -> torch.Tensor:

@@ -30,9 +30,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
+from ..dist.sharding import reshape
 from .attention import KVCache, attn_apply, attn_decode, attn_schema
-from .common import (P, apply_mlp, initialize, masked_nll, mlp_schema,
-                     rmsnorm, sinusoid_positions, unembed)
+from .common import (P, abstract, apply_mlp, embed, initialize, logical_axes,
+                     masked_nll, mlp_schema, rmsnorm, sinusoid_positions,
+                     unembed)
 from .transformer import _layer, _stack_schema, unbind_layers
 
 
@@ -88,6 +90,13 @@ class EncDec:
                           dtype=f32),
         }
 
+    def abstract_params(self, device="meta"):
+        """Meta tensors of every parameter's shape and type."""
+        return abstract(self.schema(), device)
+
+    def param_logical_axes(self):
+        return logical_axes(self.schema())
+
     def init_params(self, generator: torch.Generator, device="cuda"):
         """Random parameters from ``generator``, on ``device`` (the card
         unless the caller asks for the CPU)."""
@@ -126,7 +135,7 @@ class EncDec:
         """tokens [B, T] and the encoder output → final-norm decoder hidden
         states [B, T, d]."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = embed(params["embed"], tokens)
         B, T = tokens.shape
         positions = torch.arange(T, dtype=torch.int32,
                                  device=x.device).expand(B, T)
@@ -164,7 +173,7 @@ class EncDec:
         cache and ``pos`` are updated in place."""
         cfg = self.cfg
         H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-        x = params["embed"][tokens]
+        x = embed(params["embed"], tokens)
         B = x.shape[0]
         g = H // Hkv
         for i in range(cfg.n_layers):
@@ -175,16 +184,17 @@ class EncDec:
                                 head_dim=Dh, rope_theta=cfg.rope_theta)[0]
             # cross attention against the stored encoder K/V, in float32
             hq = rmsnorm(x, lp["norm2"])
-            q = (hq @ lp["cross_attn"]["wq"]).reshape(B, 1, H, Dh) \
+            q = reshape(hq @ lp["cross_attn"]["wq"], B, 1, H, Dh) \
                 .transpose(1, 2)
-            qg = q.reshape(B, Hkv, g, 1, Dh).float()
+            qg = reshape(q, B, Hkv, g, 1, Dh).float()
             logits = torch.einsum("bkgqd,bksd->bkgqs", qg,
                                   state.cross_kv["k"][i].float()) \
                 * Dh ** -0.5
             w = torch.softmax(logits, dim=-1)
             c = torch.einsum("bkgqs,bksd->bkgqd", w,
                              state.cross_kv["v"][i].float())
-            c = c.reshape(B, H, 1, Dh).transpose(1, 2).reshape(B, 1, H * Dh)
+            c = reshape(reshape(c, B, H, 1, Dh).transpose(1, 2),
+                        B, 1, H * Dh)
             x = x + c.to(x.dtype) @ lp["cross_attn"]["wo"]
             x = x + apply_mlp(lp["mlp"], rmsnorm(x, lp["norm3"]))
         h = rmsnorm(x, params["dec_norm"])

@@ -32,8 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device
 from .attention import KVCache, attn_apply, attn_decode, attn_schema
-from .common import (P, apply_mlp, initialize, masked_nll, mlp_schema,
-                     rmsnorm, unembed)
+from .common import (P, abstract, apply_mlp, embed, initialize, logical_axes,
+                     masked_nll, mlp_schema, rmsnorm, unembed)
 from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
                      mamba_state_zeros)
 from .moe import moe_apply, moe_schema
@@ -83,6 +83,13 @@ class HybridLM:
             "head": P((cfg.d_model, cfg.vocab), ("embed", "vocab")),
         }
 
+    def abstract_params(self, device="meta"):
+        """Meta tensors of every parameter's shape and type."""
+        return abstract(self.schema(), device)
+
+    def param_logical_axes(self):
+        return logical_axes(self.schema())
+
     def init_params(self, generator: torch.Generator, device="cuda"):
         """Random parameters from ``generator``, on ``device`` (the card
         unless the caller asks for the CPU)."""
@@ -118,7 +125,7 @@ class HybridLM:
         """Full-sequence forward: tokens [B, T] (or embeds [B, T, d]) →
         final-norm hidden states [B, T, d]; positions default to
         0..T-1."""
-        x = params["embed"][tokens] if embeds is None else embeds
+        x = embed(params["embed"], tokens) if embeds is None else embeds
         B, T = x.shape[:2]
         if positions is None:
             positions = torch.arange(T, dtype=torch.int32,
@@ -162,7 +169,7 @@ class HybridLM:
         """tokens [B, 1] → (logits [B, 1, V], state).  The state (KV
         caches, Mamba states, ``pos``) is updated in place and returned."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = embed(params["embed"], tokens)
         for p, ls in enumerate(state.layers):
             pp = _layer(params["periods"], p)
             hn = rmsnorm(x, pp["attn_norm"])

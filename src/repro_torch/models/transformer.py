@@ -36,8 +36,8 @@ from ..configs.base import ArchConfig
 from ..core.types import resolve_device
 from .attention import (KVCache, QuantKVCache, attn_apply, attn_decode,
                         attn_schema)
-from .common import (P, apply_mlp, initialize, map_schema, masked_nll,
-                     mlp_schema, rmsnorm, unembed)
+from .common import (P, abstract, apply_mlp, embed, initialize, logical_axes,
+                     map_schema, masked_nll, mlp_schema, rmsnorm, unembed)
 from .mamba2 import (mamba_apply, mamba_decode, mamba_schema,
                      mamba_state_zeros)
 from .moe import moe_apply, moe_schema
@@ -122,6 +122,13 @@ class LM:
             s["head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
         return s
 
+    def abstract_params(self, device="meta"):
+        """Meta tensors of every parameter's shape and type."""
+        return abstract(self.schema(), device)
+
+    def param_logical_axes(self):
+        return logical_axes(self.schema())
+
     def init_params(self, generator: torch.Generator, device="cuda"):
         """Random parameters from ``generator``, on ``device`` (the card
         unless the caller asks for the CPU)."""
@@ -153,7 +160,7 @@ class LM:
         states [B, T, d].  Positions default to 0..T-1, as ``[3, B, T]``
         under M-RoPE."""
         if embeds is None:
-            x = params["embed"][tokens]
+            x = embed(params["embed"], tokens)
         else:
             x = embeds.to(params["embed"].dtype)
         B, T = x.shape[:2]
@@ -212,7 +219,7 @@ class LM:
         """tokens [B, 1] → (logits [B, 1, V], state).  The state (KV
         caches, Mamba states, ``pos``) is updated in place and returned."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = embed(params["embed"], tokens)
         for i, ls in enumerate(state.layers):
             lp = _layer(params["layers"], i)
             hn = rmsnorm(x, lp["mixer_norm"])

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from .random import fma32 as _fma32_any
 
@@ -85,9 +86,9 @@ def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     float64 sum rounds the exact result once, and rounding that to float32
     is exact unless it landed on a float32 midpoint (its low 29 bits
     ``1 << 28``); those few elements are redone rounded to odd (one host
-    check, free on the CPU).  On the card ``random.fma32`` (no host
-    read)."""
-    if a.device.type != "cpu":
+    check, free on the CPU).  On the card, and on a tensor without data
+    (a fake tensor of the dry run), ``random.fma32`` (no host read)."""
+    if a.device.type != "cpu" or is_fake(a):
         return _fma32_any(a, b, c)
     w = lambda v: v.double() if isinstance(v, torch.Tensor) \
         else float(np.float32(v))
@@ -146,7 +147,8 @@ def _table(name: str, values, dtype, device) -> torch.Tensor:
     t = _TABLES.get(key)
     if t is None:
         t = torch.tensor(values, dtype=dtype, device=device)
-        _TABLES[key] = t
+        if not is_fake(t):      # a fake mode's tensor dies with the mode
+            _TABLES[key] = t
     return t
 
 
@@ -168,8 +170,9 @@ def pow32(x: torch.Tensor, y) -> torch.Tensor:
     z = ((ix - top) & 0xFFFFFFFF).to(torch.int32).view(torch.float32) \
         .double()
     k = torch.where(top >= 2 ** 31, top - 2 ** 32, top) >> 23
-    r = fma64(z, invc[i], -1.0)
-    y0 = logc[i] + k.double()
+    # gathers: indexing by a 0-d tensor would read the index back
+    r = fma64(z, torch.take(invc, i), -1.0)
+    y0 = torch.take(logc, i) + k.double()
     A = _POW_A
     r2 = r * r
     p1 = fma64(A[0], r, A[1])
@@ -185,7 +188,8 @@ def pow32(x: torch.Tensor, y) -> torch.Tensor:
     kd = ylogx + _EXP2_SHIFT
     ki = kd.view(torch.int64)
     r = ylogx - (kd - _EXP2_SHIFT)
-    s = (tab[ki & 31] + ((ki & 0x1FFFF) << 47)).view(torch.float64)
+    s = (torch.take(tab, ki & 31) + ((ki & 0x1FFFF) << 47)) \
+        .view(torch.float64)
     C = _EXP2_C
     zc = fma64(C[0], r, C[1])
     r2 = r * r

@@ -29,6 +29,16 @@ re-associates a reduction loop, and a leaf's sum moves by a few ulp
 (``tests/test_torch_train_opt.py`` lists shapes of both kinds).  On the
 card the sums are ``torch.sum``'s over chunks of ``CHUNK`` elements, added
 in order (float32, deterministic).
+
+DTensor leaves (a state placed on a mesh by ``ckpt.elastic`` or the dry
+run's ``launch.specs``): the moments take their parameter's placements
+(ZeRO-1, as the reference's moments follow the parameter sharding), each
+gradient is first laid out as its parameter (a partial sum reduced), and
+the update runs on each leaf's local shard: it is elementwise, so every
+shard gets the bits the unsharded update gives its elements.  A leaf's sum
+of squares is its local shard's, chunk by chunk as on the card, summed
+over the mesh dims that shard it (an all-reduce); the norm's bits then
+depend on the layout.  Plain tensors keep the paths above.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..dist.sharding import is_dtensor
 from ..numerics import cos32, fma32, pow32
 from ..random import _sqrt32
 from ..tree import tree_leaves, tree_map, tree_unzip
@@ -72,15 +83,30 @@ class AdamWCfg:
     clip_norm: float = 1.0
 
 
+def _wrap_like(p, local: torch.Tensor):
+    """``local`` as a DTensor laid out as ``p`` (a shard of the same global
+    shape; no communication)."""
+    return type(p).from_local(local, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
+def _zeros_f32(p):
+    if is_dtensor(p):
+        loc = p.to_local()
+        return _wrap_like(p, torch.zeros(loc.shape, dtype=torch.float32,
+                                         device=loc.device))
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params) -> AdamWState:
-    """Zero moments (float32) beside every parameter, step 0 on the
-    parameters' device."""
+    """Zero moments (float32) beside every parameter, laid out as it, step
+    0 on the parameters' device."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+                      mu=tree_map(_zeros_f32, params),
+                      nu=tree_map(_zeros_f32, params))
 
 
 def _rcp(c: float) -> float:
@@ -126,17 +152,38 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
         .reshape(())
 
 
-def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
-    if leaf.device.type == "cpu":
-        return xla_sum(leaf.float() * leaf.float())
-    # on the card chunk by chunk (``CHUNK`` elements, summed in order): a
-    # float32 copy of a stacked expert leaf would be gigabytes
+def _chunked_sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    # chunk by chunk (``CHUNK`` elements, summed in order): a float32 copy
+    # of a stacked expert leaf would be gigabytes
     flat = leaf.reshape(-1)
     s = None
     for a in range(0, flat.numel(), CHUNK):
         c = flat[a:a + CHUNK].float()
         s = torch.sum(c * c) if s is None else s + torch.sum(c * c)
     return s
+
+
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(leaf):
+        return _dist_sum_squares(leaf)
+    if leaf.device.type == "cpu":
+        return xla_sum(leaf.float() * leaf.float())
+    return _chunked_sum_squares(leaf)
+
+
+def _dist_sum_squares(leaf) -> torch.Tensor:
+    """A DTensor leaf's sum of squares (a plain 0-d tensor on every
+    rank): its local shard's, all-reduced over the mesh dims that shard
+    it (a partial leaf is reduced first)."""
+    from torch.distributed.tensor import Partial, Replicate
+    if any(p.is_partial() for p in leaf.placements):
+        leaf = leaf.redistribute(leaf.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in leaf.placements))
+    local = _chunked_sum_squares(leaf.to_local())
+    part = tuple(Partial() if p.is_shard() else Replicate()
+                 for p in leaf.placements)
+    return type(leaf).from_local(local, leaf.device_mesh, part,
+                                 run_check=False).full_tensor()
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -178,6 +225,18 @@ def _update_chunk(p, g, mu, nu, cfg, lr, bc1, bc2):
     return fma32(t, -lr, pf).to(p.dtype), mu_n, nu_n
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _layout_as(g, p):
+    """A DTensor gradient laid out as its parameter (a partial sum reduced
+    or scattered); anything else as it is."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def adamw_update(params, grads, state: AdamWState, cfg: AdamWCfg,
                  donate: bool = False):
     """One AdamW step: returns (params, state, {"lr", "grad_norm"}), the
@@ -188,16 +247,21 @@ def adamw_update(params, grads, state: AdamWState, cfg: AdamWCfg,
     the given ones' storage (the caller's ``params`` and ``state`` are
     consumed, as buffers donated to a jitted step), so the step holds one
     copy of the state, not two."""
+    grads = tree_map(_layout_as, grads, params)
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state.step + 1
-    lr = lr_schedule(step, cfg)
-    s = step.float()
+    lr = lr_schedule(_local(step), cfg)
+    s = _local(step).float()
     one = torch.ones((), dtype=torch.float32, device=s.device)
     bc1 = 1.0 - pow32(one * _f32(cfg.b1), s)
     bc2 = 1.0 - pow32(one * _f32(cfg.b2), s)
 
     def upd(p, g, mu, nu):
+        if is_dtensor(p):
+            out = upd(p.to_local(), g.to_local(), mu.to_local(),
+                      nu.to_local())
+            return tuple(_wrap_like(t, o) for t, o in zip((p, mu, nu), out))
         if donate:
             out, mu_o, nu_o = p, mu, nu
         else:

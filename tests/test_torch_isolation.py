@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, import PyYAML only lazily, run with both
-of them unimportable, and never fall back to the CPU unasked."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+examples written for the port (``examples/torch_*.py``) import neither
+JAX nor the JAX package, import PyYAML only lazily, run with both of them
+unimportable, and never fall back to the CPU unasked."""
 import ast
 import dataclasses
 import os
@@ -22,8 +23,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
+    assert ROOT / "examples" / "torch_llm_serving_sim.py" in files
     return files
 
 
