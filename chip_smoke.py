@@ -47,7 +47,12 @@ Phases, in order (any failure exits non-zero):
    point (``cloudlet_finish`` at 8 x SockShop's pool and 4 x case2b's, the
    cooperative grid striding over the points' tiles; ``link_share`` at 8
    x SockShop's fabric and 2 x case2b+net's), each point bit-equal to its
-   unbatched launch and to the plain version on a CPU copy;
+   unbatched launch and to the plain version on a CPU copy; the
+   reference's unpooled APIs (``kernels.cloudlet_step.cloudlet_step`` and
+   ``cloudlet_finish``) at case1b's shape, one ``cloudlet_finish.cu``
+   launch a call (one call of each counted on the kernels line), every
+   output bit-equal to the plain version on a CPU copy, timed beside the
+   pooled call and the stacking copy of their columns;
    ``flash_attention`` at qwen3-0.6b's prefill heads
    (B=1, Hq=16, Hkv=8, D=128, bfloat16: the tensor-core kernel) at
    T=4096 and at the prefill's own T=32,768, at the moe family's
@@ -163,7 +168,9 @@ Phases, in order (any failure exits non-zero):
    error word read once after the loop), its ms per tick beside the
    unchecked run's; and SockShop 100 clients HS over 600 s on two fresh
    ``Simulation``s, the second replaying the first's capture (capture
-   time 0.000 s), both equal to ``SOCKSHOP_PINS``.  Each cell starts
+   time 0.000 s), both equal to ``SOCKSHOP_PINS``.  The
+   ``shardability`` section's report on the card must equal the CPU's,
+   every op and site included (``check_shardability``).  Each cell starts
    with the capture cache cleared (``Simulation.clear_captures``), so its
    peak memory is its own;
 11. the model zoo's prefill program (``serve.prefill_step``) of
@@ -285,15 +292,27 @@ Phases, in order (any failure exits non-zero):
    its train_4k on 2×16×16 must be ``ok``, their argument bytes equal to
    the resolver's (``resolver_bytes``), the 2×16×16 batch split 32 ways
    and the extrapolated FLOPs equal to the direct count; each cell's
-   roofline row under the H100 constants; jamba-1.5-large's train_4k at
-   full depth recorded (its state per device), not gated;
+   roofline row under the H100 constants; mamba2-130m's train_4k on
+   2×16×16 (24 heads the "model" axis does not divide) gated as those;
+   the cells that stopped at an op eager DTensor had no rule for,
+   repaired (``DRYRUN_REPAIRED``, reduced configs on a fake world of 8,
+   mesh (2, 4)): the reduced qwen3-moe-30b-a3b prefill (the expert
+   counts' scatter-add) and qwen2-moe-a2.7b train step (the combine's
+   backward, an ``index_add``), mamba2-130m's and jamba's prefill (the Mamba
+   conv's ``constant_pad_nd`` on torch 2.11), flat phi3-medium-14b's
+   prefill (the attention's product over sharded batch and heads), each
+   ``ok``; jamba-1.5-large's train_4k at full depth recorded (its state
+   per device), not gated;
 16. one JSON line with each kernel's launches, times and bound; then the
    card's ``nvidia-smi`` name and power limit; then the result line.
 
 Phase 9 ends with ``examples/torch_llm_serving_sim.py`` on the card
 (``run_twin``): both arms at ``TWIN_CLIENTS`` clients over
 ``TWIN_DURATION`` s, one ``cloudlet_finish`` launch a tick (counted on the
-kernels line), requests completed, the HS arm scaling out.
+kernels line), requests completed, the HS arm scaling out; then the nine
+other twins of ``examples/`` (``run_twins``), each once at its smallest
+setting (``TWINS``), each passing its verdict (its ``main`` returns 0),
+their kernel launches counted on the kernels line.
 
 Kernel launches are counted by the wrappers; the counts are zeroed just
 before each main-path run and read just after.  Launches made to compare
@@ -1051,6 +1070,73 @@ def _finish_bytes(cl, fin, C, I):
     req = cl.ints[:, L.i("req")].cpu()
     n_req = int(req[fin & (req >= 0)].unique().numel())
     return C * (8 * 4 + 3 * 4 + 1) + (I + 1) * 5 * 4 + n_req * 3 * 4 * 2
+
+
+def check_unpooled(torch, dev, launches):
+    """The reference's unpooled APIs at case1b's shape: ``cloudlet_finish``
+    and ``cloudlet_step`` over ``[C]`` columns each launch
+    ``cloudlet_finish.cu`` once (one call of each as an entry point,
+    counted in ``launches``); every output bit-equal to its plain version
+    run on a CPU copy; the time a call beside the pooled call's and the
+    stacking copy's (the columns into ``[C, 4]`` and ``[C, 3]`` blocks)."""
+    from repro_torch.kernels import counts, reset_counts
+    from repro_torch.kernels.cloudlet_step import (cloudlet_finish,
+                                                   cloudlet_step, ops, ref)
+    C, I, R = 8000, 1000, 1016008
+    cl, rate, t0, dt, req = finish_inputs(C, I, R, 11, torch, dev)
+    dt_dev = torch.tensor(np.float32(dt), device=dev)
+    L = cl.layout
+    cols = (cl.ints[:, L.i("status")], cl.flts[:, L.f("rem")],
+            cl.ints[:, L.i("inst")], cl.ints[:, L.i("req")],
+            cl.flts[:, L.f("arrival")], cl.flts[:, L.f("start")],
+            cl.ints[:, L.i("depth")])
+    host = lambda xs: [x.cpu() for x in xs]
+    fresh = lambda d=dev: tuple(x.clone().to(d) for x in req)
+    saved = dict(counts)
+    reset_counts()
+    fin = cloudlet_finish(*cols, rate, t0, dt_dev, *fresh(), n_inst=I)
+    n_fin = counts["cloudlet_finish"]
+    reset_counts()
+    step = cloudlet_step(cols[0], cols[1], cols[2], rate, t0, dt_dev, I)
+    n_step = counts["cloudlet_finish"]
+    torch.cuda.synchronize()
+    check(n_fin == 1 and n_step == 1, f"unpooled APIs: cloudlet_finish "
+          f"launched {n_fin} and {n_step} times, not once a call")
+    launches["cloudlet_finish"] = launches.get("cloudlet_finish", 0) + 2
+    p_fin = ref.cloudlet_finish(*host(cols), rate.cpu(), t0.cpu(), dt,
+                                *fresh("cpu"), n_inst=I)
+    p_step = ref.cloudlet_step(*host(cols[:3]), rate.cpu(), t0.cpu(), dt,
+                               I)
+    for f, a, b in zip(p_fin._fields, fin, p_fin):
+        check(torch.equal(a.cpu(), b), f"unpooled cloudlet_finish: {f} "
+              "differs from the plain version")
+    for f, a, b in zip(("new_rem", "fin", "tfin", "consumed", "used"),
+                       step, p_step):
+        check(torch.equal(a.cpu(), b), f"unpooled cloudlet_step: {f} "
+              "differs from the plain version")
+    check(bool((p_step[4] > 0).any()), "unpooled cloudlet_step: no "
+          "instance used MI/s")
+    work = fresh()      # timing only: the kernel updates these in place
+    f_ev, f_dev = cuda_ms(lambda: cloudlet_finish(
+        *cols, rate, t0, dt_dev, *work, n_inst=I), 200, torch)
+    s_ev, s_dev = cuda_ms(lambda: cloudlet_step(
+        cols[0], cols[1], cols[2], rate, t0, dt_dev, I), 200, torch)
+    k_ev, k_dev = cuda_ms(lambda: ops.cloudlet_finish_pool(
+        cl, rate, t0, dt_dev, *work, I), 200, torch)
+    c_ev, c_dev = cuda_ms(lambda: (
+        torch.stack([cols[0], cols[2], cols[3], cols[6]], dim=1),
+        torch.stack([cols[1], cols[4], cols[5]], dim=1)), 200, torch)
+    counts.update(saved)
+    share = (c_dev / f_dev) if c_dev and f_dev else None
+    log(f"unpooled APIs at case1b (C={C} I={I} R={R}): cloudlet_finish "
+        f"{_ms(f_dev)} ms device / {f_ev:.4f} ms per call, cloudlet_step "
+        f"{_ms(s_dev)} / {s_ev:.4f}, the pooled call {_ms(k_dev)} / "
+        f"{k_ev:.4f}, the stacking copy {_ms(c_dev)} / {c_ev:.4f} ("
+        + ("not measured" if share is None else f"{share:.3f}")
+        + " of cloudlet_finish's device time); one launch a call, every "
+        f"output bit-equal to the plain version on the CPU  ({gpu_line()})")
+    return dict(finish_ms=f_dev, finish_call_ms=f_ev, step_ms=s_dev,
+                step_call_ms=s_ev, pool_ms=k_dev, copy_ms=c_dev)
 
 
 def check_cloudlet_finish_batched(tag, B, C, I, R, torch, dev):
@@ -2835,7 +2921,7 @@ SIMCHECK_CASES = (("case1b", ("uniform", "none", False, False)),
 
 
 def run_simcheck(figs, torch, dev):
-    """The simcheck phase (see the module docstring, phase 10): the four
+    """The simcheck phase (see the module docstring, phase 10): the five
     sections of ``python -m repro_torch.analysis`` on the card, the lint
     and the layout replay at full size, case1b in checked mode, and two
     SockShop runs on fresh ``Simulation``s sharing one capture."""
@@ -2853,11 +2939,29 @@ def run_simcheck(figs, torch, dev):
     sen = rep.sentinel
     log(f"simcheck sentinel: captures warm {sen.warm.captures} counting "
         f"{sen.counting.captures}, kernel builds warm {sen.warm.builds} "
-        f"counting {sen.counting.builds}; the four sections in "
+        f"counting {sen.counting.builds}; the five sections in "
         f"{time.perf_counter() - t0:.1f} s")
     check(rep.ok, f"simcheck on the card: {rep.problems[:5]}")
     check(sen.counting.captures == 0 and sen.counting.builds == 0,
           "simcheck: the sentinel's counting pass captured or built")
+    # the shardability audit: the card's report is the CPU's (the kernel
+    # wrappers count as their plain versions' ops on both), every op and
+    # site included
+    t0 = time.perf_counter()
+    on_card, _ = simcheck.check_shardability(device=dev)
+    t_card = time.perf_counter() - t0
+    on_cpu, _ = simcheck.check_shardability(device="cpu")
+    for combo, r in on_card.items():
+        c = on_cpu[combo]
+        if r.to_json() != c.to_json() or r.entries != c.entries:
+            check(False, f"shardability {combo}: the card's report differs "
+                  f"from the CPU's: {r.summary()} against {c.summary()}; "
+                  "ops (phase, op, site) on one side only: "
+                  + shard_diff(*combo.split("+"), dev))
+        log(f"simcheck shardability {r.summary()}, equal to the CPU's")
+    log(f"simcheck shardability: the four golden combos on the card in "
+        f"{t_card:.1f} s, clean against the committed baseline "
+        f"({gpu_line()})")
     for tag, combo in SIMCHECK_CASES:
         new_cell()
         sim, _ = capacity.build_tagged(tag, device=dev)
@@ -2914,6 +3018,18 @@ def run_simcheck(figs, torch, dev):
     new_cell()
     log(f"simcheck phase: {time.perf_counter() - t_phase:.1f} s "
         f"({gpu_line()})")
+
+
+def shard_diff(network, faults, dev) -> str:
+    """The ops of the shardability audit's tick recorded on one device
+    only, (phase, op, site) with their counts, card then CPU."""
+    import collections
+    from repro_torch.analysis import shardability
+    key = lambda o: (o.phase, o.name, o.site)
+    got = {d: collections.Counter(map(key, shardability.record_tick(
+        shardability._audit_sim(network, faults, d)))) for d in (dev, "cpu")}
+    return (f"card {dict(got[dev] - got['cpu'])}, "
+            f"CPU {dict(got['cpu'] - got[dev])}")
 
 
 FLEET = dict(services=1024, max_calls=4, apis=4, windows=8, seed=23)
@@ -4312,8 +4428,19 @@ DIST_ARCH = "qwen3-0.6b"
 DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", False),
                 ("qwen3-0.6b", "prefill_32k", False),
                 ("qwen3-0.6b", "decode_32k", False),
-                ("qwen3-0.6b", "train_4k", True))
+                ("qwen3-0.6b", "train_4k", True),
+                # 24 heads the 16-way "model" axis does not divide
+                ("mamba2-130m", "train_4k", True))
 DRYRUN_RECORDED = ((JAMBA, "train_4k", False),)
+# the cells that stopped at an op eager DTensor had no rule for, at their
+# reduced configs on a fake world of 8, mesh (2, 4): (arch, kind,
+# reduced()'s overrides)
+DRYRUN_REPAIRED = (("qwen3-moe-30b-a3b", "prefill", {}),
+                   ("qwen2-moe-a2.7b", "train", {}),
+                   ("mamba2-130m", "prefill", {}),
+                   (JAMBA, "prefill", {}),
+                   ("phi3-medium-14b", "prefill", {"attn_impl": "flat"}))
+DRYRUN_SMALL = (64, 8)      # T, B of the reduced cells (the CPU tests')
 TWIN_ARCH = "qwen3-0.6b"
 TWIN_CLIENTS = 1000            # enough load for the HS arm to scale out
 TWIN_DURATION = 120.0
@@ -4549,8 +4676,24 @@ def dryrun_main(out_dir) -> int:
         return 2
     os.nice(19)
     torch.set_num_threads(1)
+    from repro_torch.configs import ShapeCfg, get_config
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
     recs = []
+    T, B = DRYRUN_SMALL
+    with fake_world(8):
+        mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+        for arch, kind, over in DRYRUN_REPAIRED:
+            t0 = time.perf_counter()
+            rec = dict(arch=arch, shape=f"{kind}_small", mesh="2x4",
+                       reduced=over, repaired=True)
+            rec.update(dryrun.cell_record(
+                get_config(arch).reduced(**over),
+                ShapeCfg(f"{kind}_small", T, B, kind), mesh,
+                extrapolate=False))
+            rec["child_wall_s"] = round(time.perf_counter() - t0, 1)
+            print(dryrun.show(rec), flush=True)
+            recs.append(rec)
     for arch, shape, multi_pod in DRYRUN_CELLS + DRYRUN_RECORDED:
         t0 = time.perf_counter()
         rec = dryrun.dryrun_cell(arch, shape, multi_pod, force=True)
@@ -4586,6 +4729,14 @@ def check_dryrun():
         tag = f"dry run {key[0]} {key[1]} {rec['mesh']}"
         log(f"{tag}: {dryrun.show(rec)} (child {rec.get('child_wall_s')} "
             f"s on the host, {card})")
+        if rec.get("repaired"):
+            tag += f" reduced{rec['reduced'] or ''}"
+            check(rec["status"] == "ok", f"{tag}: {rec['status']} at "
+                  f"{rec.get('op')}: {rec.get('error', '')[:500]}")
+            log(f"{tag}: ok, per device flops {rec['cost']['flops']:.4e}, "
+                f"bytes {rec['cost']['bytes_accessed']:.4e}, collectives "
+                f"{json.dumps(rec.get('collectives', {}))}")
+            continue
         mem = rec.get("memory", {})
         if mem:
             gib = {k: v / 2**30 for k, v in mem.items()}
@@ -4659,6 +4810,65 @@ def run_twin(torch, dev, launches):
             f"({gpu_line()})")
 
 
+# the nine other twins of examples/ at their smallest settings (the CPU
+# tests' ``tests/test_torch_examples.py``: the simulator's runs give the
+# CPU's bits on the card, so each verdict holds as it does there): flags,
+# and the module constants cut where a twin has no size flag
+TWINS = (
+    ("quickstart", [], {"N_TICKS": 100}),
+    ("sockshop_sim", [], {"DURATION_S": 5.0, "LOADS": (100,)}),
+    ("autoscale_study", ["--loads", "100", "--duration", "16"], {}),
+    ("network_saturation", ["--loads", "10,20", "--duration", "5"], {}),
+    ("chaos_study", ["--radii", "2", "--clients", "60", "--duration", "20"],
+     {}),
+    ("hetero_study", ["--clients", "40", "--duration", "20"], {}),
+    ("slo_study", ["--duration", "10", "--clients", "30"], {}),
+    ("telemetry_study", ["--duration", "10", "--points", "2"], {}),
+    ("train_lm", ["--steps", "20", "--batch", "4", "--seq", "32", "--lr",
+                  "1e-2", "--log-every", "100"], {}),
+)
+
+
+def run_twins(torch, dev, launches):
+    """Phase 9c: each twin of ``TWINS`` once on the card: its ``main``
+    returns 0 (its verdict holds); the kernels it launches are counted."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import counts, reset_counts
+    t_all = time.perf_counter()
+    for name, flags, consts in TWINS:
+        new_cell()
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", os.path.join(HERE, "examples",
+                                          f"torch_{name}.py"))
+        twin = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(twin)
+        for k, v in consts.items():
+            setattr(twin, k, v)
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = twin.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k: v for k, v in counts.items() if v}
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        tail = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+        check(code == 0, f"twin {name} {' '.join(flags)}: verdict failed:\n"
+              + "\n".join(tail[-12:]))
+        log(f"twin {name} {' '.join(flags)} "
+            + " ".join(f"{k}={v}" for k, v in consts.items())
+            + f": verdict held in {wall:.2f} s, launches {n}; "
+            f"{tail[-1][:160]}")
+    new_cell()
+    log(f"twins of examples/: {time.perf_counter() - t_all:.1f} s in all "
+        f"({gpu_line()})")
+
+
 CHAOS_CASES = ("case1b+faults", "case1b+chaos2", "case1b+net+chaos2")
 
 
@@ -4720,6 +4930,7 @@ def main() -> int:
             "case1b", 8000, 1000, 1016008, torch, dev)
         check_cloudlet_finish("case2b", 262144, 50000, 1072, torch, dev)
         check_cloudlet_finish("skewed", 8192, 60, 3000, torch, dev, skew=3)
+        check_unpooled(torch, dev, launches)
         check_tropical_product("sockshop", 60, 13, torch, dev)
         results["tropical_matmul"] = check_tropical_product(
             "fleet", 8, 1024, torch, dev)
@@ -4794,7 +5005,8 @@ def main() -> int:
         run_fabric_sweep(run_sockshop_fabric(launches))
         run_fleet_alg2(torch, dev, launches)
         run_twin(torch, dev, launches)
-        lap("fabric SockShop, fleet Alg 2, serving twin")
+        run_twins(torch, dev, launches)
+        lap("fabric SockShop, fleet Alg 2, the twins of examples/")
         run_simcheck(figs, torch, dev)
         lap("simcheck")
         for arch in SERVE_ARCHS:

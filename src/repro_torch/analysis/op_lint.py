@@ -87,11 +87,41 @@ def declare_wide(*fns: Callable) -> None:
         _DECLARED_WIDE[fn.__code__] = f"{fn.__module__}.{fn.__qualname__}"
 
 
+class Shape(tuple):
+    """A tensor argument's shape in :attr:`Op.args` (a plain tuple there
+    is a list of numbers, such as reduced dims)."""
+
+
+def describe(x):
+    """An operation argument as :attr:`Op.args` keeps it: a tensor as its
+    :class:`Shape`, a list as a tuple of its items' descriptions, a number,
+    bool, string or None as itself, anything else (a dtype, a device) as
+    its string."""
+    if isinstance(x, torch.Tensor):
+        return Shape(x.shape)
+    if isinstance(x, (list, tuple)):
+        return tuple(describe(v) for v in x)
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    return str(x)
+
+
+def describe_args(func, args, kwargs) -> Tuple[Tuple[str, object], ...]:
+    """``(name, description)`` of each argument of an aten call, named by
+    the operation's schema (``dim``, ``index``, ``indices``, ...)."""
+    names = [a.name for a in func._schema.arguments]
+    out = [(n, describe(v)) for n, v in zip(names, args)]
+    return tuple(out + [(n, describe(v)) for n, v in kwargs.items()])
+
+
 @dataclasses.dataclass(frozen=True)
 class Op:
     """One dispatched operation: its aten name (``"add.Tensor"``), the
     port's frame that issued it (``"scheduler.py:142 dispatch"``), the
-    grouping ``tick_ops_by_site`` counts by, and what the rules need."""
+    grouping ``tick_ops_by_site`` counts by, and what the rules need.  A
+    recorder made with ``detail=True`` also keeps its arguments
+    (:func:`describe_args`) and its outputs' shapes, which the
+    shardability audit classifies by."""
 
     name: str
     site: str
@@ -101,6 +131,8 @@ class Op:
     sync: bool
     transfer: Optional[str]
     checked: bool
+    args: Tuple[Tuple[str, object], ...] = ()
+    outs: Tuple[Shape, ...] = ()
 
     @property
     def packet(self) -> str:
@@ -172,9 +204,10 @@ def _sync(packet: str, args, kwargs) -> bool:
 class OpRecorder(TorchDispatchMode):
     """Records every operation dispatched inside it as an :class:`Op`."""
 
-    def __init__(self):
+    def __init__(self, detail: bool = False):
         super().__init__()
         self.ops: List[Op] = []
+        self.detail = detail
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -197,9 +230,11 @@ class OpRecorder(TorchDispatchMode):
                              for t in ins + outs if t.dtype in WIDE_DTYPES}))
         checked = any(f.f_code.co_filename.endswith("annotate.py")
                       for f in frames)
-        self.ops.append(Op(name, site, group, wide, declared,
-                           _sync(packet, args, kwargs),
-                           _transfer(packet, ins, outs), checked))
+        self.ops.append(Op(
+            name, site, group, wide, declared, _sync(packet, args, kwargs),
+            _transfer(packet, ins, outs), checked,
+            describe_args(func, args, kwargs) if self.detail else (),
+            tuple(Shape(t.shape) for t in outs) if self.detail else ()))
         return out
 
 

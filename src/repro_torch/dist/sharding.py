@@ -215,6 +215,57 @@ def constrain(t, axes, rules=None):
     return t.redistribute(mesh, placements(mesh, spec))
 
 
+def replicate_like(t, ref):
+    """``t``, a plain tensor, as a DTensor replicated on ``ref``'s mesh
+    where ``ref`` is a DTensor (an op that writes into ``t`` in place then
+    has a DTensor to write into); else ``t`` unchanged."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def on_shards(fn, ts, shape, dims=(0, 1), placed=None):
+    """``fn`` of the local shards of the DTensors ``ts``, as a DTensor of
+    global ``shape``; else None (a plain tensor among ``ts``, or a layout
+    this cannot keep).  Every tensor is pinned first to ``ts[0]``'s
+    placements, or to ``placed[i]`` where given (one tuple of placements
+    per tensor: tensors of other ranks name their own dims), which may
+    shard only ``dims`` of ``ts[0]``, evenly, and no partial sum; the
+    output takes ``ts[0]``'s.  Eager DTensor runs an einsum as a batched
+    product over the flattened batch dims, which torch 2.11 refuses where
+    two of them are sharded ("flatten multiple dimensions"); XLA's
+    partitioner runs a product batched over sharded dims on each shard,
+    and so does this, with no communication (pinning a replicated tensor
+    to a shard is a local slice)."""
+    if not all(is_dtensor(t) for t in ts):
+        return None
+    from torch.distributed.tensor import DTensor
+    mesh, pl = ts[0].device_mesh, tuple(ts[0].placements)
+    placed = placed or (pl,) * len(ts)
+    for p in pl:
+        if p.is_partial() or (p.is_shard() and p.dim not in dims):
+            return None
+    for t, tpl in zip(ts, placed):
+        if t.device_mesh != mesh:
+            return None
+        ways: dict = {}
+        for p, n in zip(tpl, mesh.shape):
+            if p.is_shard():
+                ways[p.dim] = ways.get(p.dim, 1) * n
+        if any(t.shape[d] % w for d, w in ways.items()):
+            return None
+    local = [(t if tuple(t.placements) == tuple(tpl)
+              else t.redistribute(mesh, tpl)).to_local()
+             for t, tpl in zip(ts, placed)]
+    out = fn(*local).contiguous()
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=tuple(shape), stride=stride)
+
+
 def _fit_reshape(t, new: tuple):
     """A DTensor reshaped to ``new``, the dims the view changes replicated
     first where DTensor cannot split them as they are laid out."""
@@ -266,3 +317,108 @@ class _Reshape(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _fit_reshape(g, ctx.old), None
+
+
+# --------------------------------------------------------------- op rules
+#
+# Eager DTensor refuses an op it has no sharding strategy for, where XLA's
+# partitioner plans every op.  The port's model code reaches two such ops
+# and keeps them (their plain-tensor bits are the reference's): the MoE
+# dispatch's expert counts, a ``scatter_add_`` of ones, the backward of
+# the MoE combine's row gather, an ``index_add``, and the Mamba conv's
+# ``F.pad`` (``constant_pad_nd``, whose torch 2.11 rule fails on a sharded
+# input).  ``register_rules`` gives DTensor a strategy for each; plain
+# tensors never reach them.
+
+_REGISTERED = []
+
+
+def _scatter_add_rules(self, dim, index, src):
+    """Placements (output, then self, dim, index, src) under which a
+    scatter-add is exact on every mesh dim: all replicated; every operand
+    sharded alike on a dim other than ``dim`` where their sizes agree (each
+    rank scatters its own rows); ``index`` and ``src`` sharded on ``dim``
+    (each rank adds its share of the updates), the output a partial sum
+    whose ``self`` enters as a partial sum too, so it is counted once."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    nd = len(self.shape)
+    dim = dim % nd if nd else 0
+    rules = [([Replicate()], [Replicate(), None, Replicate(), Replicate()])]
+    if len(index.shape) == nd:
+        for d in range(nd):
+            if d != dim and self.shape[d] == index.shape[d] \
+                    == src.shape[d]:
+                rules.append(([Shard(d)], [Shard(d), None, Shard(d),
+                                           Shard(d)]))
+    if tuple(index.shape) == tuple(src.shape):
+        rules.append(([Partial()], [Partial(), None, Shard(dim),
+                                    Shard(dim)]))
+    return rules
+
+
+def _index_add_rules(self, dim, index, source, alpha=1):
+    """``index_add``'s placements (output, then self, dim, index, source,
+    alpha), as a scatter-add's: all replicated; self, source and output
+    sharded alike off ``dim`` where their sizes agree; ``index`` and
+    ``source`` split along the rows they add (``index``'s dim 0,
+    ``source``'s ``dim``), the output a partial sum whose ``self`` enters
+    as a partial sum too."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    nd = len(self.shape)
+    dim = dim % nd if nd else 0
+    rules = [([Replicate()], [Replicate(), None, Replicate(), Replicate(),
+                              None])]
+    for d in range(nd):
+        if d != dim and len(source.shape) == nd \
+                and self.shape[d] == source.shape[d]:
+            rules.append(([Shard(d)], [Shard(d), None, Replicate(),
+                                       Shard(d), None]))
+    rules.append(([Partial()], [Partial(), None, Shard(0), Shard(dim),
+                                None]))
+    return rules
+
+
+def _constant_pad_rules(self, pad, value=0):
+    """``F.pad``'s placements: all replicated, or the input and output
+    sharded alike on a dim the pad leaves as it is (``pad`` lists the last
+    dims' (before, after) widths, the last dim first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    nd = len(self.shape)
+    padded = {nd - 1 - i // 2 for i, w in enumerate(pad) if w}
+    return [([Replicate()], [Replicate(), None, None])] + [
+        ([Shard(d)], [Shard(d), None, None]) for d in range(nd)
+        if d not in padded]
+
+
+def _has_rule(op) -> bool:
+    """Whether the installed DTensor has a working sharding strategy of
+    its own for ``op``: torch 2.13 keeps ``constant_pad_nd``'s among its
+    single-dim strategies; torch 2.11 has an older one, which fails in
+    DTensor's redistribution planner on a sharded input (an IndexError in
+    ``generate_greedy_transform_infos``, seen on the card), and no other."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return op in getattr(prop, "op_single_dim_strategy_funcs", {})
+
+
+def register_rules() -> None:
+    """Give DTensor the port's strategies (once a process): scatter-add
+    and ``index_add``, in place or not, always (the built-in scatter-add,
+    where there is one, has no partial-sum case; neither release has an
+    ``index_add`` one, and torch 2.11's decomposition of it, the backward
+    of the MoE combine's row gather, mismatches the rows of its index and
+    source), ``constant_pad_nd`` only where the installed torch has no
+    working one (``_has_rule``).  ``launch.mesh.make_mesh`` calls it, so
+    every DTensor the port makes sees them."""
+    if _REGISTERED:
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    aten = torch.ops.aten
+    register_sharding([aten.scatter_add.default,
+                       aten.scatter_add_.default])(_scatter_add_rules)
+    register_sharding([aten.index_add.default,
+                       aten.index_add_.default])(_index_add_rules)
+    if not _has_rule(aten.constant_pad_nd.default):
+        register_sharding(aten.constant_pad_nd.default)(_constant_pad_rules)
+        _REGISTERED.append("constant_pad_nd")
+    _REGISTERED.append("scatter_add")

@@ -1,6 +1,9 @@
-"""Engine-facing wrapper of the fused cloudlet tick: the CUDA kernel
+"""Wrappers of the fused cloudlet tick: the CUDA kernel
 ``csrc/cloudlet_finish.cu`` on a CUDA tensor, the plain version of
 ``ref.py`` on a CPU tensor, an error on anything else.
+``cloudlet_finish_pool`` is the engine's entry (the stacked pool's
+blocks); ``cloudlet_finish`` and ``cloudlet_step`` are the reference's
+unpooled APIs over ``[C]`` columns, one launch each on the card.
 
 The wrapper takes the tick's batch axis: a pool of ``[B, C]`` lanes (one
 row per point of a sweep), per-point ``time`` and ``dt`` ``[B]`` and
@@ -21,6 +24,7 @@ may use it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -167,3 +171,70 @@ def cloudlet_finish_pool(cl, rate, time, dt, req_finish, req_crit, req_out,
                          consumed=consumed, inst_acc=inst_acc,
                          req_finish=req_finish, req_crit=req_crit,
                          req_out=req_out)
+
+
+class _Columns:
+    """Where ``_Block``'s stacked columns lie: the names
+    ``cloudlet_finish_pool`` reads through ``layout.i`` / ``layout.f``."""
+
+    INTS = ("status", "inst", "req", "depth")
+    FLTS = ("rem", "arrival", "start")
+
+    def i(self, name: str) -> int:
+        return self.INTS.index(name)
+
+    def f(self, name: str) -> int:
+        return self.FLTS.index(name)
+
+
+class _Block(NamedTuple):
+    """The unpooled columns stacked into a pool's two blocks."""
+
+    ints: torch.Tensor     # [C, 4] int32
+    flts: torch.Tensor     # [C, 3] float32
+    layout: _Columns
+
+
+def _scalar(v, dev) -> torch.Tensor:
+    """A number as a 0-d float32 tensor on ``dev`` (a tensor as it is)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=dev)
+
+
+def cloudlet_finish(status, rem, inst, req, arrival, start, depth, rate,
+                    time, dt, req_finish, req_crit, req_out,
+                    n_inst: int) -> ref.FinishOut:
+    """One-pass execution tick and every finish reduction over ``[C]``
+    columns (the reference's unpooled ``ops.cloudlet_finish``; contract in
+    ``ref.py``).  On a CUDA tensor the columns are stacked into a
+    temporary ``[C, 4]`` int32 and ``[C, 3]`` float32 block (one copy of
+    the seven columns) and the kernel runs once, updating the request
+    arrays in place; on a CPU tensor the plain version runs."""
+    dev = rem.device
+    if dev.type == "cpu":
+        return ref.cloudlet_finish(status, rem, inst, req, arrival, start,
+                                   depth, rate, _scalar(time, dev), dt,
+                                   req_finish, req_crit, req_out,
+                                   n_inst=n_inst)
+    if dev.type != "cuda":
+        raise ValueError(f"cloudlet_finish runs on cuda or cpu, not {dev}")
+    cl = _Block(torch.stack([status, inst, req, depth], dim=1),
+                torch.stack([rem, arrival, start], dim=1), _Columns())
+    return cloudlet_finish_pool(cl, rate, _scalar(time, dev), dt,
+                                req_finish, req_crit, req_out, n_inst)
+
+
+def cloudlet_step(status, rem, inst, rate, time, dt, n_inst: int):
+    """The legacy five-output tick over ``[C]`` columns (the reference's
+    ``ops.cloudlet_step``, served on the TPU by ``cloudlet_step_pallas``):
+    ``(new_rem, fin, tfin, consumed, used [n_inst])``: :func:`cloudlet_finish`
+    with inert request lanes (``ref.inert_lanes``), ``inst_acc[:n_inst,
+    0]`` kept, as ``cloudlet_step_pallas`` does; one kernel launch on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    req, arrival, start, depth, *reqs = ref.inert_lanes(rem, inst)
+    out = cloudlet_finish(status, rem, inst, req, arrival, start, depth,
+                          rate, time, dt, *reqs, n_inst=n_inst)
+    return (out.new_rem, out.fin, out.tfin, out.consumed,
+            out.inst_acc[:n_inst, ref.ACC_USED])

@@ -10,6 +10,9 @@ as ``repro.kernels.cloudlet_step.ref.cloudlet_finish`` defines them:
   sojourn, exec and wait sums), row ``I`` the overflow row;
 * per request: ``max(finish)``, ``max(depth+1)`` and ``outstanding -= fin``.
 
+``cloudlet_step`` is the legacy five-output tick, the same pass with inert
+request lanes.
+
 Out-of-range instance and request ids are dropped, as the reference's
 ``mode="drop"``.  Float sums run in lane order (a serial scatter), which
 is the reference's order on the CPU.  The CPU path and the tests use this
@@ -102,6 +105,32 @@ def cloudlet_finish(status, rem, inst, req, arrival, start, depth, rate,
     return FinishOut(new_rem=new_rem, fin=fin, tfin=tfin, consumed=consumed,
                      inst_acc=inst_acc, req_finish=req_finish,
                      req_crit=req_crit, req_out=req_out)
+
+
+def inert_lanes(rem, inst):
+    """The request-side inputs of :func:`cloudlet_finish` that make its
+    request lanes inert (the legacy five-output tick's): no request,
+    arrival and start 0, depth 0, one-row request arrays."""
+    dev = rem.device
+    zf = torch.zeros_like(rem)
+    return (torch.full_like(inst, -1), zf, zf, torch.zeros_like(inst),
+            torch.zeros(1, dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def cloudlet_step(status, rem, inst, rate, time, dt, n_inst: int):
+    """The legacy five-output tick (the reference's ``ref.cloudlet_step``):
+    ``(new_rem, fin, tfin, consumed, used)``, ``used`` ``[n_inst]`` the
+    MI/s each instance's executing lanes consumed, summed in lane order.
+    It is :func:`cloudlet_finish` with inert request lanes, as the
+    reference's ``cloudlet_step_pallas`` computes it, keeping
+    ``inst_acc[:n_inst, 0]``."""
+    req, arrival, start, depth, *reqs = inert_lanes(rem, inst)
+    out = cloudlet_finish(status, rem, inst, req, arrival, start, depth,
+                          rate, time, dt, *reqs, n_inst=n_inst)
+    return (out.new_rem, out.fin, out.tfin, out.consumed,
+            out.inst_acc[:n_inst, ACC_USED])
 
 
 def cloudlet_finish_batched(status, rem, inst, req, arrival, start, depth,

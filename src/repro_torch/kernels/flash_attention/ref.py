@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ...dist.sharding import reshape
+from ...dist.sharding import is_dtensor, on_shards, reshape
 
 MASKED_ROW_BLOCK = 128
 
@@ -31,6 +31,12 @@ def masked_row_denominator(tk: int) -> int:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, scale: float | None = None
               ) -> torch.Tensor:
+    if is_dtensor(q):
+        # batch and heads sharded alike: each shard's heads on its own
+        out = on_shards(lambda *t: attention(*t, causal=causal, scale=scale),
+                        (q, k, v), q.shape)
+        if out is not None:
+            return out
     B, Hq, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape
     assert Hq % Hkv == 0, (Hq, Hkv)

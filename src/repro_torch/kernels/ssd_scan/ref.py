@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ...dist.sharding import on_shards
+
 
 def _expand_groups(bc: torch.Tensor, h: int) -> torch.Tensor:
     """[B, T, G, N] → [B, T, H, N] by repeating each group H/G times."""
@@ -151,7 +153,10 @@ def ssd_decode_step(h, x_t, dt_t, A, b_t, c_t, D=None):
     h_new = (a_t[..., None, None] * h
              + (dt_t[..., None].float() * bh)[..., :, None]
              * x_t.float()[..., None, :])
-    y = torch.einsum("bhn,bhnp->bhp", ch, h_new)
+    y = on_shards(lambda hn, c: torch.einsum("bhn,bhnp->bhp", c, hn),
+                  (h_new, ch), x_t.shape)
+    if y is None:
+        y = torch.einsum("bhn,bhnp->bhp", ch, h_new)
     if D is not None:
         y = y + D.float()[None, :, None] * x_t.float()
     return h_new, y.to(x_t.dtype)

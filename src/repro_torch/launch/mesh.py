@@ -27,8 +27,12 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 def make_mesh(shape, axes, device_type: str = "cuda"):
     """Any mesh over the ranks of the current process group (the elastic
-    checks build smaller ones)."""
+    checks build smaller ones).  DTensor gets the port's op rules first
+    (``dist.sharding.register_rules``)."""
     from torch.distributed.device_mesh import init_device_mesh
+
+    from ..dist.sharding import register_rules
+    register_rules()
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 

@@ -2,13 +2,15 @@
 and the O(1) decode state."""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import is_dtensor, on_shards, reshape
 from ..kernels.ssd_scan import ssd, ssd_decode_step
-from .common import P, rmsnorm
+from .common import P, residual, rmsnorm
 
 
 class MambaDims(NamedTuple):
@@ -70,6 +72,29 @@ def _causal_conv(xbc, w, b):
     return F.silu(out + b[None, None, :])
 
 
+def _ssd(x, dt, A, Bm, Cm, D, chunk):
+    """``ssd``; a DTensor layer runs on each shard of its batch and heads
+    (``dist.sharding.on_shards``: the scan is independent per batch row
+    and head, B/C shared by a group's heads), which torch 2.11's DTensor
+    cannot flatten when both are sharded."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        G = Bm.shape[2]
+        heads = [p.is_shard(2) for p in x.placements]
+        n = [m for m, h in zip(x.device_mesh.shape, heads) if h]
+        if G == 1 or G % math.prod(n) == 0:
+            vec = tuple(Shard(0) if h else Replicate() for h in heads)
+            bc = tuple(Replicate() if h and G == 1 else p
+                       for p, h in zip(x.placements, heads))
+            y = on_shards(lambda *t: ssd(*t, chunk=chunk),
+                          (x, dt, A, Bm, Cm, D), x.shape, dims=(0, 2),
+                          placed=(x.placements, x.placements, vec, bc, bc,
+                                  vec))
+            if y is not None:
+                return y
+    return ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+
+
 def mamba_apply(p, x, dims: MambaDims, chunk: int = 128):
     """Prefill forward. x [B, T, d] → [B, T, d]."""
     B, T, _ = x.shape
@@ -77,15 +102,15 @@ def mamba_apply(p, x, dims: MambaDims, chunk: int = 128):
                        dims.n_heads, dims.headdim)
     z, xbc, dt = _split_proj(x @ p["in_proj"], dims)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :di].reshape(B, T, H, Pd)
-    Bm = xbc[..., di:di + G * N].reshape(B, T, G, N)
-    Cm = xbc[..., di + G * N:].reshape(B, T, G, N)
+    xs = reshape(xbc[..., :di], B, T, H, Pd)
+    Bm = reshape(xbc[..., di:di + G * N], B, T, G, N)
+    Cm = reshape(xbc[..., di + G * N:], B, T, G, N)
     dtv = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y = ssd(xs, dtv, A, Bm, Cm, p["D"], chunk=chunk)
-    y = y.reshape(B, T, di)
+    y = _ssd(xs, dtv, A, Bm, Cm, p["D"], chunk)
+    y = reshape(y, B, T, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"])
-    return y @ p["out_proj"]
+    return residual(y @ p["out_proj"])
 
 
 class MambaState(NamedTuple):
@@ -115,14 +140,14 @@ def mamba_decode(p, x, state: MambaState, dims: MambaDims):
     conv_out = torch.einsum("bkc,kc->bc", window.float(),
                             p["conv_w"].float())
     xbc_t = F.silu(conv_out + p["conv_b"].float()).to(x.dtype)
-    xs = xbc_t[:, :di].reshape(B, H, Pd)
-    Bm = xbc_t[:, di:di + G * N].reshape(B, G, N)
-    Cm = xbc_t[:, di + G * N:].reshape(B, G, N)
+    xs = reshape(xbc_t[:, :di], B, H, Pd)
+    Bm = reshape(xbc_t[:, di:di + G * N], B, G, N)
+    Cm = reshape(xbc_t[:, di + G * N:], B, G, N)
     dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     h_new, y = ssd_decode_step(state.h, xs, dtv, A, Bm, Cm, p["D"])
-    y = y.reshape(B, 1, di)
+    y = reshape(y, B, 1, di)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"])
     state.h.copy_(h_new)
     state.conv.copy_(window[:, 1:])
-    return y @ p["out_proj"], state
+    return residual(y @ p["out_proj"]), state

@@ -42,6 +42,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import replicate_like
 from .common import P, apply_mlp, mlp_schema
 
 
@@ -102,18 +103,20 @@ def dispatch(top_e: torch.Tensor, cap: int, n_experts: int):
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
-        0, se, torch.ones_like(se))
+    counts = replicate_like(torch.zeros(E, dtype=torch.int64, device=dev),
+                            se).scatter_add_(0, se, torch.ones_like(se))
     offsets = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(n_tok * K, device=dev) - offsets[se]
     keep = pos_in_e < cap
     slot = torch.where(keep, se * cap + pos_in_e, E * cap)
     # slot E*cap is the reference's sentinel row: every dropped assignment
     # writes there, and the row is thrown away
-    tok_of_slot = torch.zeros(E * cap + 1, dtype=torch.int64,
-                              device=dev).scatter_(0, slot, order // K)
-    live = torch.zeros(E * cap + 1, dtype=torch.bool, device=dev).scatter_(
-        0, slot, keep)
+    tok_of_slot = replicate_like(
+        torch.zeros(E * cap + 1, dtype=torch.int64, device=dev),
+        slot).scatter_(0, slot, order // K)
+    live = replicate_like(
+        torch.zeros(E * cap + 1, dtype=torch.bool, device=dev),
+        slot).scatter_(0, slot, keep)
     return order, keep, slot, tok_of_slot[:-1], live[:-1]
 
 

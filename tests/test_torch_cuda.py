@@ -176,6 +176,50 @@ def test_cloudlet_finish_kernel_matches_plain(C, I, R, skew, dt, dev):
     assert bool((got.inst_acc[:, 1] > 0).any())
 
 
+@pytest.mark.parametrize("C,I,R,skew", FINISH_SHAPES[:4])
+def test_unpooled_apis_match_plain(C, I, R, skew, dev):
+    """The reference's unpooled APIs over ``[C]`` columns: each call one
+    ``cloudlet_finish.cu`` launch, every output bit-equal to its plain
+    version run on a CPU copy (``cloudlet_step``: inert request lanes,
+    ``inst_acc[:n_inst, 0]`` kept)."""
+    from repro_torch.kernels.cloudlet_step import (cloudlet_finish,
+                                                   cloudlet_step)
+    cl, rate, req = _pool_inputs(C, I, R, C + 1, dev, skew)
+    L = cl.layout
+    col = lambda n: (cl.ints[:, L.i(n)] if n in L.i_fields
+                     else cl.flts[:, L.f(n)])
+    names = ("status", "rem", "inst", "req", "arrival", "start", "depth")
+    time = torch.tensor(np.float32(12.5), device=dev)
+    before = counts["cloudlet_finish"]
+    got = cloudlet_finish(*[col(n) for n in names], rate, time, 0.1,
+                          *[x.clone() for x in req], n_inst=I)
+    step = cloudlet_step(col("status"), col("rem"), col("inst"), rate, time,
+                         0.1, I)
+    assert counts["cloudlet_finish"] == before + 2
+    want = _plain_on("cpu", cl, rate, time, 0.1, req, I)
+    want_step = tfinish.cloudlet_step(col("status").cpu(), col("rem").cpu(),
+                                      col("inst").cpu(), rate.cpu(),
+                                      time.cpu(), 0.1, I)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, got, want):
+        assert _same(g, w), name
+    for name, g, w in zip(("new_rem", "fin", "tfin", "consumed", "used"),
+                          step, want_step):
+        assert _same(g, w), name
+
+
+def test_shardability_report_on_card_is_the_cpus(dev):
+    """The shardability audit of the golden combos on the card equals the
+    CPU's, every op and site included: a kernel wrapper counts as its
+    plain version's ops on both."""
+    from repro_torch.analysis import shardability
+    for net, fl in (("uniform", "none"), ("fabric", "chaos")):
+        a = shardability.audit_combo(net, fl, device=dev)
+        b = shardability.audit_combo(net, fl, device="cpu")
+        assert a.to_json() == b.to_json()
+        assert a.entries == b.entries
+
+
 def test_cloudlet_finish_routes(dev):
     """One block up to 1,024 lanes, a cluster of up to 8 blocks up to
     16,384, a cooperative grid of 4,096-lane tiles above (while the card

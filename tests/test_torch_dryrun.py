@@ -171,27 +171,179 @@ def test_extrapolation_equals_the_direct_count(mesh):
 
 def test_seqshard_cuts_the_attention_flops(mesh):
     """phi3's flat attention against flat_seqshard at the prefill: the
-    query rows split over "model" cut each device's attention FLOPs."""
+    query rows split over "model" cut each device's attention FLOPs.  As
+    phi3's 40 heads on the 16-way "model" axis, the reduced model's 6
+    heads do not divide the 4-way axis, so flat attention keeps every
+    head on each device (heads that do divide split there already, each
+    shard's heads on their own: ``dist.sharding.on_shards``)."""
     shape = _shape("prefill")
     flops = {}
     for impl in ("flat", "flat_seqshard"):
-        cfg = get_config("phi3-medium-14b").reduced(attn_impl=impl)
+        cfg = get_config("phi3-medium-14b").reduced(attn_impl=impl,
+                                                     n_heads=6)
         rec = dryrun.cell_record(cfg, shape, mesh, extrapolate=False)
         assert rec["status"] == "ok", rec.get("error")
         flops[impl] = rec["cost"]["flops"]
     assert flops["flat_seqshard"] < flops["flat"], flops
 
 
-def test_an_op_without_a_sharding_rule_is_an_error_record(mesh):
-    """The moe family's dispatch reaches ``scatter_add_``, which DTensor
-    has no rule for: the cell is recorded as an error, not run on a
-    replicated fallback."""
+def test_an_op_without_a_sharding_rule_is_an_error_record(mesh,
+                                                         monkeypatch):
+    """An op that DTensor has no sharding rule for (``renorm``, which no
+    model of the port reaches, planted in the MoE router here) makes the
+    cell an error record that names it, not a run on a replicated
+    fallback."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import moe
+    prop = DTensor._op_dispatcher.sharding_propagator
+    assert not any(isinstance(v, dict) and torch.ops.aten.renorm.default
+                   in v for v in vars(prop).values())
+    route = moe.route
+
+    def planted(p, xf, cfg):
+        torch.renorm(xf.float(), 2, 0, 1.0)
+        return route(p, xf, cfg)
+
+    monkeypatch.setattr(moe, "route", planted)
     cfg = get_config("qwen3-moe-30b-a3b").reduced()
     rec = dryrun.cell_record(cfg, _shape("prefill"), mesh,
                              extrapolate=False)
     assert rec["status"] == "error"
-    assert "scatter_add" in rec["op"], rec
+    assert "renorm" in rec["op"], rec
     assert rec["memory"]["argument_bytes"] > 0
+
+
+# ------------------------------------------------------------ repairs
+
+@pytest.mark.parametrize("arch,kind", [("qwen3-moe-30b-a3b", "prefill"),
+                                       ("qwen2-moe-a2.7b", "train")])
+def test_moe_cell_runs_on_the_scatter_add_rule(mesh, arch, kind):
+    """The MoE dispatch's expert counts (a ``scatter_add_`` of ones into a
+    replicated table) and, in training, the combine's backward (an
+    ``index_add``) run on the port's registered strategies: the reduced
+    cells are ``ok``."""
+    cfg = get_config(arch).reduced()
+    rec = dryrun.cell_record(cfg, _shape(kind), mesh, extrapolate=False)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cost"]["flops"] > 0
+
+
+def test_mamba2_train_on_two_pods_is_ok():
+    """mamba2-130m train_4k on 2×16×16 (24 heads, which the 16-way "model"
+    axis does not divide) at full width, cut to one layer (each layer
+    makes the same reshapes): the Mamba reshapes go through
+    ``sharding.reshape`` and the SSD runs on each batch shard."""
+    from repro_torch.launch.mesh import make_production_mesh
+    shape = next(s for s in SHAPES if s.name == "train_4k")
+    cfg = dryrun._variant(get_config("mamba2-130m"), 1)
+    with fake_world(512):
+        mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+        rec = dryrun.cell_record(cfg, shape, mesh, extrapolate=False)
+    assert rec["status"] == "ok", rec.get("error")
+    tok = rec["batch_shards"]["tokens"]
+    assert tok["global"][0] == 32 * tok["local"][0]
+
+
+@pytest.mark.parametrize("op", ["scatter_add", "index_add"])
+def test_add_rules_cover_replicated_and_partial(mesh, op):
+    """The registered scatter-add and ``index_add`` strategies: all
+    replicated, and the index and the added rows sharded along those rows
+    with the output (and ``self``) a partial sum, exact on each rank's
+    shard (the fake group moves nothing, so rank 0's local values are its
+    own partial)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    idx = torch.tensor([0, 2, 2, 1, 3, 0, 1, 1])
+    src = torch.arange(8, dtype=torch.float32)
+    base = torch.full((4,), 10.0)
+    add = ((lambda t, i, v: t.scatter_add(0, i, v)) if op == "scatter_add"
+           else (lambda t, i, v: t.index_add(0, i, v)))
+    add_ = ((lambda t, i, v: t.scatter_add_(0, i, v)) if op == "scatter_add"
+            else (lambda t, i, v: t.index_add_(0, i, v)))
+    rep = (Replicate(), Replicate())
+    out = add(DTensor.from_local(base.clone(), mesh, rep),
+              DTensor.from_local(idx, mesh, rep),
+              DTensor.from_local(src, mesh, rep))
+    assert tuple(out.placements) == rep
+    assert torch.equal(out.to_local(), add(base, idx, src))
+    sh = (Replicate(), Shard(0))      # 4 ranks on "model": 2 each
+    mine = DTensor.from_local(base.clone(), mesh, (Replicate(), Partial()))
+    out = add_(mine, DTensor.from_local(idx[:2], mesh, sh),
+               DTensor.from_local(src[:2], mesh, sh))
+    assert tuple(out.placements) == (Replicate(), Partial())
+    assert torch.equal(out.to_local(), add(base, idx[:2], src[:2]))
+
+
+def test_repairs_keep_the_plain_path_bits():
+    """``moe_apply`` and ``mamba_apply`` (prefill and decode) on plain
+    tensors: the repairs act on DTensors only, so each output is
+    bit-equal to the plain ops written out as before them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ssd, ssd_decode_step
+    from repro_torch.models import build_model, mamba2, moe
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.transformer import _layer
+    g = torch.Generator().manual_seed(3)
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    p = build_model(cfg).init_params(g, device="cpu")
+    lp = _layer(p["layers"], 0)["moe"]
+    x = torch.randn(2, 24, cfg.d_model, generator=g).to(torch.bfloat16)
+    out = moe.moe_apply(lp, x, cfg.moe)
+    # the dispatch's tables as plain ops
+    xf = x.reshape(-1, cfg.d_model)
+    _, top_e = moe.route(lp, xf, cfg.moe)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.zeros(cfg.moe.n_experts, dtype=torch.int64).scatter_add_(
+        0, se, torch.ones_like(se))
+    cap = moe.capacity(xf.shape[0], cfg.moe)
+    got = moe.dispatch(top_e, cap, cfg.moe.n_experts)
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(se.numel()) - offsets[se]
+    assert torch.equal(got[0], order)
+    assert torch.equal(got[1], pos < cap)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert torch.equal(out, moe.moe_apply(lp, x, cfg.moe))
+
+    cfg = get_config("mamba2-130m").reduced()
+    p = build_model(cfg).init_params(g, device="cpu")
+    mp = _layer(p["layers"], 0)["mamba"]
+    dims = cfg.mamba
+    x = torch.randn(2, 32, cfg.d_model, generator=g).to(torch.bfloat16)
+    B, T, _ = x.shape
+    di, G, N, H, Pd = (dims.d_inner, dims.n_groups, dims.d_state,
+                       dims.n_heads, dims.headdim)
+    z, xbc, dt = mamba2._split_proj(x @ mp["in_proj"], dims)
+    xbc = mamba2._causal_conv(xbc, mp["conv_w"], mp["conv_b"])
+    y = ssd(xbc[..., :di].reshape(B, T, H, Pd),
+            F.softplus(dt.float() + mp["dt_bias"]), -torch.exp(mp["A_log"]),
+            xbc[..., di:di + G * N].reshape(B, T, G, N),
+            xbc[..., di + G * N:].reshape(B, T, G, N), mp["D"],
+            chunk=cfg.ssd_chunk)
+    y = rmsnorm(y.reshape(B, T, di) * F.silu(z.float()).to(y.dtype),
+                mp["norm"])
+    want = y @ mp["out_proj"]
+    got = mamba2.mamba_apply(mp, x, dims, chunk=cfg.ssd_chunk)
+    assert torch.equal(got, want)
+    st = mamba2.mamba_state_zeros(B, dims, "cpu")
+    st2 = mamba2.mamba_state_zeros(B, dims, "cpu")
+    out1, _ = mamba2.mamba_decode(mp, x[:, :1], st, dims)
+    z, xbc, dt = mamba2._split_proj(x[:, :1] @ mp["in_proj"], dims)
+    window = torch.cat([st2.conv, xbc], dim=1)
+    xbc_t = F.silu(torch.einsum("bkc,kc->bc", window.float(),
+                                mp["conv_w"].float())
+                   + mp["conv_b"].float()).to(x.dtype)
+    h_new, y = ssd_decode_step(
+        st2.h, xbc_t[:, :di].reshape(B, H, Pd),
+        F.softplus(dt[:, 0].float() + mp["dt_bias"]),
+        -torch.exp(mp["A_log"]), xbc_t[:, di:di + G * N].reshape(B, G, N),
+        xbc_t[:, di + G * N:].reshape(B, G, N), mp["D"])
+    y = rmsnorm(y.reshape(B, 1, di) * F.silu(z.float()).to(y.dtype),
+                mp["norm"])
+    assert torch.equal(out1, y @ mp["out_proj"])
+    assert torch.equal(st.h, h_new)
 
 
 def test_kernel_entries_refuse_dtensors(mesh):

@@ -26,7 +26,11 @@ def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
         + sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
-    assert ROOT / "examples" / "torch_llm_serving_sim.py" in files
+    for twin in ("llm_serving_sim", "quickstart", "sockshop_sim",
+                 "autoscale_study", "network_saturation", "chaos_study",
+                 "hetero_study", "slo_study", "telemetry_study",
+                 "train_lm"):
+        assert ROOT / "examples" / f"torch_{twin}.py" in files
     return files
 
 

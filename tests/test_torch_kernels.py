@@ -242,6 +242,89 @@ def test_pool_wrapper_reads_columns_through_the_layout():
         np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
 
 
+# ---------------------------------------------------------------- unpooled
+
+STEP_NAMES = ("new_rem", "fin", "tfin", "consumed", "used")
+
+
+def _close_rem(name, g, w, rate, dt):
+    """``new_rem`` within half an ULP of ``rate·dt`` (a fused or a rounded
+    product, ROADMAP's FMA rule); every other output bit-equal."""
+    g, w = np.asarray(g), np.asarray(w)
+    if name != "new_rem":
+        np.testing.assert_array_equal(g, w, err_msg=name)
+        return
+    prog = (rate * np.float32(dt)).astype(np.float32)
+    assert (np.abs(g.astype(np.float64) - w)
+            <= np.spacing(np.abs(prog)) / 2).all()
+
+
+@pytest.mark.parametrize("dt", [0.25, 0.1])
+@pytest.mark.parametrize("C,I,R,bc", FINISH_SHAPES)
+def test_unpooled_cloudlet_finish_matches_reference(C, I, R, bc, dt):
+    """``ops.cloudlet_finish`` over ``[C]`` columns on the CPU: the jitted
+    reference's ``ref.cloudlet_finish`` bit for bit (its compiled program
+    fuses ``rem - rate·dt`` as the port does), the Pallas kernel in
+    interpret mode with ``new_rem`` within half an ULP of ``rate·dt``."""
+    from repro_torch.kernels.cloudlet_step import cloudlet_finish
+    args = _finish_args(C, I, R, C + 3 * I)
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    got = cloudlet_finish(*t[:8], 12.5, dt, *t[8:], n_inst=I)
+    want = jax.jit(lambda tm, d, *a: jref_finish(*a[:8], tm, d, *a[8:],
+                                                 n_inst=I))(
+        jnp.float32(12.5), jnp.float32(dt), *args)
+    for name, g, w in zip(NAMES, got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+    pallas = cloudlet_finish_pallas(*[jnp.asarray(a) for a in args[:8]],
+                                    12.5, dt,
+                                    *[jnp.asarray(a) for a in args[8:]],
+                                    n_inst=I, bc=bc, interpret=True)
+    for name, g, w in zip(NAMES, got, pallas):
+        _close_rem(name, g.numpy(), w, args[7], dt)
+
+
+@pytest.mark.parametrize("dt", [0.25, 0.1])
+@pytest.mark.parametrize("C,I,R,bc", FINISH_SHAPES)
+def test_unpooled_cloudlet_step_matches_reference(C, I, R, bc, dt):
+    """``ops.cloudlet_step`` (and ``ref.cloudlet_step``) on the CPU against
+    the reference's jitted ``ref.cloudlet_step`` and its legacy
+    ``cloudlet_step_pallas`` in interpret mode: ints and bools exact,
+    floats bit-equal but ``new_rem`` (half an ULP of ``rate·dt``)."""
+    from repro.kernels.cloudlet_step import cloudlet_step_ref as jref_step
+    from repro.kernels.cloudlet_step.kernel import cloudlet_step_pallas
+
+    from repro_torch.kernels.cloudlet_step import (cloudlet_step,
+                                                   cloudlet_step_ref)
+    status, rem, inst, _, _, _, _, rate = _finish_args(C, I, R, C + I)[:8]
+    cols = [torch.from_numpy(a) for a in (status, rem, inst)]
+    before = dict(counts)
+    got = cloudlet_step(*cols, torch.from_numpy(rate), 12.5, dt, I)
+    assert counts == before          # the CPU path launches no kernel
+    plain = cloudlet_step_ref(*cols, torch.from_numpy(rate),
+                              torch.tensor(np.float32(12.5)), dt, I)
+    jit = jax.jit(lambda tm, d, *a: jref_step(*a, tm, d, I))(
+        jnp.float32(12.5), jnp.float32(dt), status, rem, inst, rate)
+    pallas = cloudlet_step_pallas(status, rem, inst, rate, 12.5, dt,
+                                  n_inst=I, bc=bc, interpret=True)
+    for name, g, p, j, k in zip(STEP_NAMES, got, plain, jit, pallas):
+        np.testing.assert_array_equal(g.numpy(), p.numpy(), err_msg=name)
+        assert g.dtype == {"fin": torch.bool}.get(name, torch.float32)
+        _close_rem(name, g.numpy(), j, rate, dt)
+        _close_rem(name, g.numpy(), k, rate, dt)
+
+
+def test_unpooled_apis_refuse_other_devices():
+    from repro_torch.kernels.cloudlet_step import (cloudlet_finish,
+                                                   cloudlet_step)
+    x = torch.zeros(4, device="meta")
+    xi = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cloudlet_step(xi, x, xi, x, 0.0, 0.1, 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        cloudlet_finish(xi, x, xi, xi, x, x, xi, x, 0.0, 0.1, x, xi, xi, 2)
+
+
 def _trop_rand(rng, shape, density=0.7):
     x = rng.normal(size=shape).astype(np.float32) * 3.0
     return np.where(rng.random(size=shape) < density, x,

@@ -134,7 +134,7 @@ def test_cli_exit_codes(capsys):
     assert "[simcheck] streams: clean" in out and "[simcheck] OK" in out
     for combo, digest in GOLDEN_STREAM_DIGESTS.items():
         assert f"stream topology {combo}: {digest}" in out
-    for sec in ("intervals", "shardability", "streams,intervals", "bogus"):
+    for sec in ("intervals", "streams,intervals", "bogus"):
         assert cli(["--only", sec, "--device", "cpu"]) == 2
     assert "not ported" in capsys.readouterr().err
 
